@@ -1,0 +1,155 @@
+"""Layered typed configuration (the PyTorch port's copy).
+
+The option system of `blaze_tpu/config.py`, cut to the keys this package
+reads.  Every key keeps its `auron.*` (or `io.*`) name and default, so one
+set of overrides drives both packages; `auron.torch.device` is the port's
+own.  A key of the JAX package that is not defined here has no effect on
+the port: TPU concerns such as `auron.tpu.kernels.pallas` and its VMEM
+budget are not carried over (see `kernels/lane.py`).
+
+A host engine or test harness supplies key->string overrides through the
+single `conf` session; operators read typed values through the module-level
+`ConfigOption` objects.  An environment variable `BLAZE_TPU_<KEY>` (dots as
+underscores, upper case) applies where no override is set.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+
+@dataclass(frozen=True)
+class ConfigOption:
+    """Typed config key with its default and doc."""
+
+    key: str
+    default: Any
+    parse: Callable[[str], Any]
+    doc: str = ""
+
+    def get(self, session: Optional["ConfSession"] = None) -> Any:
+        return (session or conf).get(self)
+
+    @property
+    def env_key(self) -> str:
+        return "BLAZE_TPU_" + self.key.upper().replace(".", "_")
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+def int_conf(key: str, default: int, doc: str = "") -> ConfigOption:
+    return ConfigOption(key, default, int, doc)
+
+
+def float_conf(key: str, default: float, doc: str = "") -> ConfigOption:
+    return ConfigOption(key, default, float, doc)
+
+
+def bool_conf(key: str, default: bool, doc: str = "") -> ConfigOption:
+    return ConfigOption(key, default, _parse_bool, doc)
+
+
+def str_conf(key: str, default: str, doc: str = "") -> ConfigOption:
+    return ConfigOption(key, default, str, doc)
+
+
+class ConfSession:
+    """Mutable override store; thread-safe; env `BLAZE_TPU_<KEY>` wins lowest."""
+
+    def __init__(self, overrides: Optional[Dict[str, str]] = None):
+        self._lock = threading.Lock()
+        self._overrides: Dict[str, str] = dict(overrides or {})
+
+    def set(self, key: str, value: Any) -> None:
+        with self._lock:
+            self._overrides[key] = str(value)
+
+    def unset(self, key: str) -> None:
+        with self._lock:
+            self._overrides.pop(key, None)
+
+    def get(self, opt: ConfigOption) -> Any:
+        with self._lock:
+            if opt.key in self._overrides:
+                return opt.parse(self._overrides[opt.key])
+        if opt.env_key in os.environ:
+            return opt.parse(os.environ[opt.env_key])
+        return opt.default
+
+    def is_set(self, opt: ConfigOption) -> bool:
+        with self._lock:
+            if opt.key in self._overrides:
+                return True
+        return opt.env_key in os.environ
+
+
+#: Global session.
+conf = ConfSession()
+
+
+# ---------------------------------------------------------------------------
+# Options, under the JAX package's names and defaults.
+# ---------------------------------------------------------------------------
+
+BATCH_SIZE = int_conf(
+    "auron.batch.size", 32768,
+    "Rows per batch: the scan's slice size, the coalescing target and the "
+    "row count of each emitted aggregate or shuffle batch.")
+BATCH_BUCKETING_ENABLE = bool_conf(
+    "auron.tpu.batch.bucketing", True,
+    "Quantize batch capacities onto the geometric bucket ladder "
+    "(batch.bucket_capacity), so batch shapes, and the row indices inside "
+    "the hash aggregation step, equal the JAX package's; off, capacities "
+    "round to the 128-row lane.")
+BATCH_BUCKET_MIN = int_conf(
+    "auron.tpu.batch.bucket.min", 128,
+    "Smallest rung of the capacity bucket ladder (rounded up to 128 rows).")
+BATCH_BUCKET_GROWTH = float_conf(
+    "auron.tpu.batch.bucket.growth", 2.0,
+    "Geometric growth factor between bucket-ladder rungs; 2.0 gives the "
+    "128*2^k ladder.")
+ON_DEVICE_AGG_CAPACITY = int_conf(
+    "auron.tpu.agg.table.capacity", 1 << 18,
+    "Slots of the open-addressing hash aggregation table (rounded up to a "
+    "power of two); a partial aggregation that overflows it passes rows "
+    "through, a final one grows the table (plan/fused.py).")
+FUSED_STAGE_ENABLE = bool_conf(
+    "auron.tpu.fused.stage.enable", True,
+    "Rewrite eligible scan->filter->partial-agg subtrees into fused "
+    "aggregation operators (plan/fused.py fuse_plan).")
+FUSED_STAGE_CAPACITY = int_conf(
+    "auron.tpu.fused.stage.capacity", 1 << 24,
+    "Max dense group-table slots (product of key ranges) for which the "
+    "fuser keeps the discovered key ranges.")
+SCAN_EAGER_FILE_BYTES = int_conf(
+    "auron.tpu.scan.eagerFileBytes", 128 << 20,
+    "Local parquet files up to this size decode eagerly per file; larger "
+    "files stream through iter_batches for bounded memory.")
+SHUFFLE_FILE_CODEC = str_conf(
+    "auron.tpu.shuffle.localFileCodec", "raw",
+    "Frame codec for rows written to local shuffle .data files (frames "
+    "stay self-describing, so any reader handles any mix).")
+SPILL_COMPRESSION_CODEC = str_conf(
+    "auron.spill.compression.codec", "zstd",
+    "Codec for shuffle IPC frames when io.compression.codec is unset.")
+IO_COMPRESSION_CODEC = str_conf(
+    "io.compression.codec", "lz4",
+    "Shuffle IPC frame codec: lz4 | zstd | raw.  Unset, "
+    "auron.spill.compression.codec applies.")
+SHUFFLE_COMPRESSION_TARGET_BUF_SIZE = int_conf(
+    "auron.shuffle.compression.target.buf.size", 4194304,
+    "Target frame size for compressed shuffle IPC blocks.")
+SHUFFLE_CHECKSUM_ENABLE = bool_conf(
+    "auron.tpu.shuffle.checksum", True,
+    "CRC32C checksum on every shuffle IPC frame (4 bytes/frame, verified "
+    "on read); a mismatch raises ShuffleChecksumError.")
+TORCH_DEVICE = str_conf(
+    "auron.torch.device", "cuda",
+    "Device the PyTorch port runs on: `cuda` (the default; raises when no "
+    "card is visible) or `cpu`, where every kernel wrapper runs its plain "
+    "PyTorch version.")

@@ -1,0 +1,220 @@
+"""TPC-DS q01's inner two-stage query as TaskDefinitions (copies of
+`stage1_td`, `stage2_td`, `date_sk_range` and the two schemas of the
+repository's `bench.py`), with a driver that runs every map task and then
+every reduce task through the port's runtime, and a pyarrow oracle.
+
+  map    parquet_scan (4 columns) -> filter (sr_returned_date_sk in
+         [lo, hi]) -> partial hash_agg sum(sr_return_amt) by
+         (sr_customer_sk, sr_store_sk) -> shuffle_writer (Spark murmur3
+         pmod over both keys into n_reduces partitions)
+  reduce ipc_reader -> final hash_agg
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.parquet as pq
+
+SHUFFLE_RESOURCE = "bench_q01_shuffle"
+
+#: operator counters `run_q01` sums per stage: the fused aggregation's
+#: input batches by device type, its partial-skip switches and its table
+#: doublings
+STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "partial_skipped",
+                  "table_grown")
+
+SR_SCHEMA_D = {"fields": [
+    {"name": "sr_returned_date_sk", "type": {"id": "int64"},
+     "nullable": True},
+    {"name": "sr_customer_sk", "type": {"id": "int64"}, "nullable": True},
+    {"name": "sr_store_sk", "type": {"id": "int64"}, "nullable": True},
+    {"name": "sr_return_amt", "type": {"id": "float64"}, "nullable": True},
+    {"name": "sr_ticket_number", "type": {"id": "int64"}, "nullable": True},
+]}
+PARTIAL_SCHEMA_D = {"fields": [
+    {"name": "ctr_customer_sk", "type": {"id": "int64"}, "nullable": True},
+    {"name": "ctr_store_sk", "type": {"id": "int64"}, "nullable": True},
+    {"name": "ctr_total_return.sum", "type": {"id": "float64"},
+     "nullable": True},
+]}
+
+
+def write_dataset(root: str, sr: pa.Table, dd: pa.Table,
+                  n_files: int) -> Tuple[List[str], str]:
+    """store_returns split into `n_files` parquet files of 65,536-row row
+    groups, plus date_dim, as the repository's bench writes them."""
+    os.makedirs(root, exist_ok=True)
+    sr_paths = [os.path.join(root, f"store_returns_{i}.parquet")
+                for i in range(n_files)]
+    per = -(-sr.num_rows // n_files)
+    for i, p in enumerate(sr_paths):
+        pq.write_table(sr.slice(i * per, per), p, row_group_size=1 << 16)
+    dd_path = os.path.join(root, "date_dim.parquet")
+    pq.write_table(dd, dd_path)
+    return sr_paths, dd_path
+
+
+def file_groups(paths: Sequence[str], n_groups: int) -> List[List[str]]:
+    """FilePartition packing: files round-robin into map partitions."""
+    groups: List[List[str]] = [[] for _ in range(n_groups)]
+    for i, p in enumerate(paths):
+        groups[i % n_groups].append(p)
+    return groups
+
+
+def date_sk_range(dd_path: str) -> Tuple[int, int]:
+    """The d_year=2000 date-key range (what Spark's dynamic partition
+    pruning would push into the fact-table scan)."""
+    dd = pq.read_table(dd_path, columns=["d_date_sk", "d_year"])
+    keys = dd.filter(pc.equal(dd["d_year"], 2000))["d_date_sk"]
+    return int(pc.min(keys).as_py()), int(pc.max(keys).as_py())
+
+
+def _col(name):
+    return {"kind": "column", "name": name}
+
+
+def _lit(v):
+    return {"kind": "literal", "value": v, "type": {"id": "int64"}}
+
+
+def stage1_td(sr_paths, lo, hi, map_id, tmpdir, n_maps, n_reduces) -> Dict:
+    # the wire carries ONE file group per task: this task's group stays,
+    # siblings blank out
+    groups = [g if i == map_id else []
+              for i, g in enumerate(file_groups(sr_paths, n_maps))]
+    plan = {
+        "kind": "shuffle_writer",
+        "partitioning": {"kind": "hash",
+                         "exprs": [{"kind": "column", "index": 0},
+                                   {"kind": "column", "index": 1}],
+                         "num_partitions": n_reduces},
+        "data_file": os.path.join(tmpdir, f"shuffle_{map_id}.data"),
+        "index_file": os.path.join(tmpdir, f"shuffle_{map_id}.index"),
+        "input": {
+            "kind": "hash_agg",
+            "groupings": [{"expr": _col("sr_customer_sk"),
+                           "name": "ctr_customer_sk"},
+                          {"expr": _col("sr_store_sk"),
+                           "name": "ctr_store_sk"}],
+            "aggs": [{"fn": "sum", "mode": "partial",
+                      "name": "ctr_total_return",
+                      "args": [_col("sr_return_amt")]}],
+            "input": {
+                "kind": "filter",
+                "predicates": [
+                    {"kind": "binary", "op": ">=",
+                     "l": _col("sr_returned_date_sk"), "r": _lit(lo)},
+                    {"kind": "binary", "op": "<=",
+                     "l": _col("sr_returned_date_sk"), "r": _lit(hi)}],
+                "input": {"kind": "parquet_scan", "schema": SR_SCHEMA_D,
+                          "projection": ["sr_returned_date_sk",
+                                         "sr_customer_sk", "sr_store_sk",
+                                         "sr_return_amt"],
+                          "file_groups": groups}}}}
+    return {"stage_id": 1, "partition_id": map_id,
+            "num_partitions": n_maps, "plan": plan}
+
+
+def stage2_td(reduce_id, n_reduces) -> Dict:
+    plan = {
+        "kind": "hash_agg",
+        "groupings": [{"expr": {"kind": "column", "index": 0},
+                       "name": "ctr_customer_sk"},
+                      {"expr": {"kind": "column", "index": 1},
+                       "name": "ctr_store_sk"}],
+        "aggs": [{"fn": "sum", "mode": "final", "name": "ctr_total_return",
+                  "args": [{"kind": "column", "index": 2}]}],
+        "input": {"kind": "ipc_reader", "resource_id": SHUFFLE_RESOURCE,
+                  "schema": PARTIAL_SCHEMA_D,
+                  "num_partitions": n_reduces}}
+    return {"stage_id": 2, "partition_id": reduce_id,
+            "num_partitions": n_reduces, "plan": plan}
+
+
+def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
+    """Every map task, then every reduce task, one after another, as
+    TaskDefinition bytes through the port's runtime.  Returns the reduce
+    outputs (one list of batches per reduce partition), the shuffle files
+    with their offsets, the STAGE_COUNTERS summed over each stage's tasks
+    and the host wall seconds of each stage, each ending in a device
+    synchronisation."""
+    import torch
+
+    from blaze_tpu_torch.bridge.resource import put_resource, remove_resource
+    from blaze_tpu_torch.bridge.runtime import NativeExecutionRuntime
+    from blaze_tpu_torch.plan.proto_serde import task_definition_to_bytes
+    from blaze_tpu_torch.shuffle import FileSegmentBlock, read_index_file
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    counters = {"map": {}, "reduce": {}}
+
+    def count(stage, node):
+        for k in STAGE_COUNTERS:
+            counters[stage][k] = (counters[stage].get(k, 0)
+                                  + node.values.get(k, 0))
+        for c in node.children:
+            count(stage, c)
+
+    t0 = time.perf_counter()
+    for m in range(n_maps):
+        rt = NativeExecutionRuntime(task_definition_to_bytes(
+            stage1_td(sr_paths, lo, hi, m, tmpdir, n_maps, n_reduces)))
+        try:
+            for _ in rt.batches():
+                pass
+        finally:
+            count("map", rt.finalize())
+    sync()
+    t1 = time.perf_counter()
+    outputs = []
+    for m in range(n_maps):
+        data = os.path.join(tmpdir, f"shuffle_{m}.data")
+        index = os.path.join(tmpdir, f"shuffle_{m}.index")
+        outputs.append((data, index, read_index_file(
+            index, expected_partitions=n_reduces, data_file=data)))
+
+    def blocks_for(reduce_id):
+        return [FileSegmentBlock(d, offs[reduce_id],
+                                 offs[reduce_id + 1] - offs[reduce_id],
+                                 stage_id=1, map_id=m)
+                for m, (d, _i, offs) in enumerate(outputs)
+                if offs[reduce_id + 1] > offs[reduce_id]]
+
+    put_resource(SHUFFLE_RESOURCE, blocks_for)
+    reduce_outputs = []
+    try:
+        for r in range(n_reduces):
+            rt = NativeExecutionRuntime(
+                task_definition_to_bytes(stage2_td(r, n_reduces)))
+            try:
+                reduce_outputs.append(list(rt.batches()))
+            finally:
+                count("reduce", rt.finalize())
+        sync()
+    finally:
+        remove_resource(SHUFFLE_RESOURCE)
+    t2 = time.perf_counter()
+    return {"reduce_outputs": reduce_outputs, "shuffle": outputs,
+            "counters": counters, "map_s": t1 - t0, "reduce_s": t2 - t1}
+
+
+def oracle(sr_paths, lo, hi) -> pa.Table:
+    """The same query as a pyarrow group-by: (customer, store, sum)."""
+    t = pq.read_table(list(sr_paths), columns=[
+        "sr_returned_date_sk", "sr_customer_sk", "sr_store_sk",
+        "sr_return_amt"])
+    d = t["sr_returned_date_sk"]
+    t = t.filter(pc.and_(pc.greater_equal(d, lo), pc.less_equal(d, hi)))
+    g = t.group_by(["sr_customer_sk", "sr_store_sk"]).aggregate(
+        [("sr_return_amt", "sum")])
+    return g.rename_columns(["ctr_customer_sk", "ctr_store_sk",
+                             "ctr_total_return"])

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels under `csrc/`.
+
+Each source is compiled by `nvcc` for `sm_90a` into its own shared library
+with a plain C interface, loaded with `ctypes` (no PyTorch headers, so a
+build takes seconds).  Builds happen at first use, never at import, into
+`build/kernels/` at the root of the checkout; the library name carries a
+digest of its source, so an edited source is rebuilt.  `build_all` starts
+one `nvcc` per source, all at once.  A missing toolchain or a failed build
+raises: there is no fallback to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+#: kernel library name -> its source file under csrc/
+SOURCES = {
+    "hash_update": "hash_update.cu",
+    "radix": "radix.cu",
+}
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): the "
+                       "CUDA kernels of blaze_tpu_torch cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every (or each named) kernel library that is not built yet,
+    one nvcc process per source, all started together.  Returns
+    {name: {"seconds": wall time, "log": compiler stderr}}; raises
+    RuntimeError naming the source when any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, out, time.perf_counter())
+    report: Dict[str, dict] = {}
+    failures = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        _stdout, stderr = proc.communicate()
+        report[name] = {"seconds": time.perf_counter() - t0, "log": stderr}
+        if proc.returncode != 0:
+            failures.append(f"{SOURCES[name]} (nvcc rc={proc.returncode}):\n"
+                            f"{stderr}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, building it first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaGetLastError() returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

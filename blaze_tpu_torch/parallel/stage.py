@@ -1,0 +1,186 @@
+"""Device open-addressing group table (port of the hash-aggregation core of
+blaze_tpu/parallel/stage.py, `HashAggCarry` .. `_identity`).
+
+`hash_agg_step` inserts one batch: keys hash with xxhash64 (seed 42) to a
+slot, `kernels/hash_update.placement` places rows by linear probing, and
+the shared tail replays the key scatters through the claimed slots and
+accumulates through the placed slots.  The step is atomic: when any row
+fails to place within `probe_rounds`, the original carry comes back
+unchanged with the overflow count, so the caller can grow (exact modes) or
+degrade to pass-through (partial mode) losslessly.
+
+The port keeps the JAX package's functional contract: a step never writes
+into the carry it was given (the new carry holds fresh tensors), so a
+caller may retry a batch against the old carry.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from blaze_tpu_torch.schema import dtype_of
+
+
+class HashAggCarry(NamedTuple):
+    """The group table: S slots (a power of two)."""
+
+    keys: Tuple[torch.Tensor, ...]        # stored key data, each (S,)
+    key_valid: Tuple[torch.Tensor, ...]
+    accs: Tuple[torch.Tensor, ...]
+    acc_valid: Tuple[torch.Tensor, ...]
+    used: torch.Tensor                    # (S,) bool
+
+
+def _identity(dtype: torch.dtype, minimum: bool):
+    """Identity of max (minimum=True) or min (minimum=False) over dtype."""
+    if dtype.is_floating_point:
+        return float("-inf") if minimum else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if minimum else info.max
+
+
+def init_accumulators(kinds: Sequence[str], acc_dtypes: Sequence,
+                      num_slots: int, device: torch.device):
+    """Identity-initialized accumulator columns."""
+    accs, avalid = [], []
+    for kind, dt in zip(kinds, acc_dtypes):
+        if kind == "count":
+            accs.append(torch.zeros(num_slots, dtype=torch.int64,
+                                    device=device))
+            avalid.append(torch.ones(num_slots, dtype=torch.bool,
+                                     device=device))
+            continue
+        if kind == "min":
+            accs.append(torch.full((num_slots,), _identity(dt, False),
+                                   dtype=dt, device=device))
+        elif kind == "max":
+            accs.append(torch.full((num_slots,), _identity(dt, True),
+                                   dtype=dt, device=device))
+        else:
+            accs.append(torch.zeros(num_slots, dtype=dt, device=device))
+        avalid.append(torch.zeros(num_slots, dtype=torch.bool,
+                                  device=device))
+    return tuple(accs), tuple(avalid)
+
+
+def init_hash_carry(key_dtypes: Sequence, acc_kinds: Sequence[str],
+                    acc_dtypes: Sequence, num_slots: int,
+                    device: torch.device) -> HashAggCarry:
+    keys = tuple(torch.zeros(num_slots, dtype=dt, device=device)
+                 for dt in key_dtypes)
+    kvalid = tuple(torch.zeros(num_slots, dtype=torch.bool, device=device)
+                   for _ in key_dtypes)
+    accs, avalid = init_accumulators(acc_kinds, acc_dtypes, num_slots,
+                                     device)
+    return HashAggCarry(keys, kvalid, accs, avalid,
+                        torch.zeros(num_slots, dtype=torch.bool,
+                                    device=device))
+
+
+def _norm_float(d: torch.Tensor) -> torch.Tensor:
+    """-0.0 -> 0.0 and every NaN -> one canonical bit pattern, before
+    hashing (Spark's NormalizeFloatingNumbers), so equal keys hash alike
+    and compare equal bit for bit."""
+    d = torch.where(d == 0, d.abs(), d)
+    return torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+
+
+def hash_agg_step(carry: HashAggCarry,
+                  key_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
+                                            Optional[torch.Tensor]]],
+                  mask: torch.Tensor, probe_rounds: int = 16):
+    """Insert one batch into the table.  Returns (new_carry, overflow,
+    num_groups): overflow is a host int (the unplaced masked rows; > 0
+    returns the original carry); num_groups a 0-d tensor."""
+    from blaze_tpu_torch.kernels import hash_update as HU
+    from blaze_tpu_torch.kernels.hashing import hash_columns
+    S = carry.used.shape[0]
+    key_cols = [(_norm_float(d), v) if d.is_floating_point() else (d, v)
+                for d, v in key_cols]
+    cols = [(d, v, dtype_of(d).id.value) for d, v in key_cols]
+    h = hash_columns(cols, seed=42, algo="xxhash64") & (S - 1)
+    placed, wslot = HU.place_rows(h, key_cols, mask, carry, probe_rounds)
+    overflow = int((mask & (placed == S)).sum())
+    if overflow:
+        return carry, overflow, carry.used.sum()
+    new = _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot)
+    return new, 0, new.used.sum()
+
+
+def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot):
+    """Key scatters through the newly claimed slots, then the accumulation
+    through the placed slots: one code path behind every placement."""
+    S = carry.used.shape[0]
+    claimed = torch.nonzero(wslot < S).squeeze(1)
+    slots = wslot.index_select(0, claimed).long()
+    tkeys, tkvalid = [], []
+    for tk, tv, (kd, kv) in zip(carry.keys, carry.key_valid, key_cols):
+        tk = tk.clone()
+        tv = tv.clone()
+        tk[slots] = kd.index_select(0, claimed)
+        tv[slots] = kv.index_select(0, claimed)
+        tkeys.append(tk)
+        tkvalid.append(tv)
+    used = carry.used.clone()
+    used[slots] = True
+    accs, avalid = scatter_accumulate(placed, agg_specs, mask, carry.accs,
+                                      carry.acc_valid)
+    return HashAggCarry(tuple(tkeys), tuple(tkvalid), tuple(accs),
+                        tuple(avalid), used)
+
+
+def scatter_accumulate(g: torch.Tensor,
+                       agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
+                                                 Optional[torch.Tensor]]],
+                       mask: torch.Tensor, accs: Sequence[torch.Tensor],
+                       avalid: Sequence[torch.Tensor]):
+    """Rows scatter into slot `g`; out-of-range slots (the sentinel S) drop.
+    Dropped rows are routed to slot 0 with the operation's identity (0 for
+    sums and counts, the max/min identity for min/max), which leaves every
+    accumulator bit unchanged."""
+    new_accs, new_avalid = [], []
+    for (kind, vd, vv), a, av in zip(agg_specs, accs, avalid):
+        S = a.shape[0]
+        live = g < S
+        gi = torch.where(live, g, 0).long()
+        cv = (vv if vv is not None else torch.ones_like(mask)) & mask & live
+        if kind == "count":
+            a = a.clone().index_add_(0, gi, cv.to(a.dtype))
+            new_accs.append(a)
+            new_avalid.append(av)
+            continue
+        if kind == "sum":
+            upd = torch.where(cv, vd.to(a.dtype), torch.zeros_like(a[:1]))
+            a = a.clone().index_add_(0, gi, upd)
+        elif kind in ("min", "max"):
+            ident = _identity(a.dtype, kind == "max")
+            upd = torch.where(cv, vd.to(a.dtype),
+                              torch.full_like(a[:1], ident))
+            a = a.clone().scatter_reduce_(0, gi, upd,
+                                          "amin" if kind == "min" else "amax",
+                                          include_self=True)
+        else:
+            raise ValueError(f"unsupported agg kind {kind}")
+        hit = torch.zeros(S, dtype=torch.int32, device=a.device)
+        hit.index_add_(0, gi, cv.to(torch.int32))
+        new_accs.append(a)
+        new_avalid.append(av | (hit > 0))
+    return new_accs, new_avalid
+
+
+def rehash_carry(old: HashAggCarry, kinds: Sequence[str], new_slots: int,
+                 probe_rounds: int = 16):
+    """Re-insert an existing table into a larger one (the grow path).
+    `kinds` are the original accumulator kinds; stored accumulators merge
+    with merge semantics (count -> sum of counts)."""
+    key_dtypes = [k.dtype for k in old.keys]
+    acc_dtypes = [a.dtype for a in old.accs]
+    fresh = init_hash_carry(key_dtypes, kinds, acc_dtypes, new_slots,
+                            old.used.device)
+    specs = [("sum" if k == "count" else k, a, av)
+             for k, a, av in zip(kinds, old.accs, old.acc_valid)]
+    return hash_agg_step(fresh, list(zip(old.keys, old.key_valid)), specs,
+                         old.used, probe_rounds)

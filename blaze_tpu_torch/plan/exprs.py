@@ -1,0 +1,38 @@
+"""Expression decoding: IR dicts -> PhysicalExpr trees (port of the part of
+blaze_tpu/plan/exprs.py this slice uses: column, literal and binary).
+
+Constant folding of all-literal subtrees (the JAX package's exprs/fold.py)
+is not carried over: it changes no result, and this slice's filters
+compare columns with literals.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from blaze_tpu_torch.exprs import BinaryExpr, BoundReference, Literal, \
+    PhysicalExpr
+from blaze_tpu_torch.plan.types import type_from_dict
+from blaze_tpu_torch.schema import Schema
+
+
+def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
+                   ) -> PhysicalExpr:
+    """Decode one expression node and its children."""
+    k = d["kind"]
+    if k == "column":
+        idx = d.get("index")
+        if idx is None:
+            if schema is None:
+                raise ValueError("named column ref requires an input schema")
+            idx = schema.index_of(d["name"])
+        return BoundReference(idx, d.get("name", ""))
+    if k == "literal":
+        return Literal(d.get("value"), type_from_dict(d["type"]))
+    if k == "binary":
+        return BinaryExpr(d["op"], expr_from_dict(d["l"], schema),
+                          expr_from_dict(d["r"], schema))
+    raise NotImplementedError(
+        f"expression kind {k!r} belongs to a later slice of the PyTorch port "
+        f"(ROADMAP Queue 1 item 3); this slice decodes column, literal and "
+        f"binary")

@@ -1,0 +1,98 @@
+"""Physical planner: plan IR dicts -> operator trees (port of the part of
+blaze_tpu/plan/planner.py this slice uses).
+
+Node kinds: parquet_scan, filter, project, hash_agg, sort_agg,
+shuffle_writer, ipc_reader.  Every other kind raises NotImplementedError
+naming the slice it belongs to.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional
+
+from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
+from blaze_tpu_torch.ops.base import ExecutionPlan
+from blaze_tpu_torch.ops.basic import FilterExec, ProjectExec
+from blaze_tpu_torch.ops.scan import ParquetScanExec
+from blaze_tpu_torch.plan.exprs import expr_from_dict
+from blaze_tpu_torch.plan.types import schema_from_dict
+from blaze_tpu_torch.schema import Schema
+from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
+                                     Partitioning, ShuffleWriterExec,
+                                     SinglePartitioning)
+
+
+def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
+    """Decode one plan node (and recursively its children)."""
+    k = d["kind"]
+
+    if k == "parquet_scan":
+        if d.get("predicate") or d.get("partition_schema"):
+            raise NotImplementedError(
+                "parquet predicate pruning and partition columns belong to "
+                "a later slice of the PyTorch port (ROADMAP Queue 1 item 4)")
+        return ParquetScanExec(schema_from_dict(d["schema"]),
+                               d["file_groups"],
+                               projection=d.get("projection"))
+    if k == "ipc_reader":
+        return IpcReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
+                             d.get("num_partitions", 1))
+
+    if k not in ("filter", "project", "hash_agg", "sort_agg",
+                 "shuffle_writer"):
+        raise NotImplementedError(
+            f"plan node kind {k!r} belongs to a later slice of the PyTorch "
+            f"port (ROADMAP Queue 1 item 3)")
+    child = create_plan(d["input"])
+    in_schema = child.schema
+
+    if k == "filter":
+        return FilterExec(child, [expr_from_dict(p, in_schema)
+                                  for p in d["predicates"]])
+    if k == "project":
+        return ProjectExec(child, [expr_from_dict(e, in_schema)
+                                   for e in d["exprs"]], d["names"])
+    if k in ("hash_agg", "sort_agg"):
+        groups = [(expr_from_dict(g["expr"], in_schema), g["name"])
+                  for g in d.get("groupings", [])]
+        aggs = []
+        for a in d.get("aggs", []):
+            children = [expr_from_dict(c, in_schema)
+                        for c in a.get("args", [])]
+            aggs.append((make_agg(a["fn"], children),
+                         AggMode(a.get("mode", "partial")), a["name"]))
+        mode = (AggExecMode.HASH_AGG if k == "hash_agg"
+                else AggExecMode.SORT_AGG)
+        return AggExec(child, groups, aggs, mode)
+    part = partitioning_from_dict(d["partitioning"], in_schema)
+    return ShuffleWriterExec(child, part, d["data_file"], d["index_file"])
+
+
+def partitioning_from_dict(d: Dict[str, Any],
+                           schema: Optional[Schema]) -> Partitioning:
+    k = d["kind"]
+    if k == "hash":
+        return HashPartitioning([expr_from_dict(e, schema)
+                                 for e in d["exprs"]], d["num_partitions"])
+    if k == "single":
+        return SinglePartitioning()
+    raise NotImplementedError(
+        f"{k!r} partitioning belongs to a later slice of the PyTorch port "
+        f"(ROADMAP Queue 1 item 3)")
+
+
+def decode_task_definition(data) -> Dict[str, Any]:
+    """Accepts a dict (already decoded), a JSON string/bytes, or raw
+    protobuf `TaskDefinition` bytes."""
+    if isinstance(data, (bytes, bytearray)):
+        data = bytes(data)
+        if data.lstrip()[:1] in (b"{", b"["):  # JSON IR
+            data = data.decode("utf-8")
+        else:
+            from blaze_tpu_torch.plan.proto_serde import \
+                task_definition_from_bytes
+            return task_definition_from_bytes(data)
+    if isinstance(data, str):
+        data = json.loads(data)
+    return data

@@ -1,0 +1,431 @@
+"""Protobuf plan serde: the `TaskDefinition` wire boundary (port of the part
+of blaze_tpu/plan/proto_serde.py this slice uses).
+
+Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
+`create_plan` reads, with the same dict vocabulary as the JAX package, so
+the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
+ipc_reader, filter, projection, agg (hash_agg/sort_agg), shuffle_writer;
+expressions: column, bound_reference, literal, binary; partitionings:
+single and hash.  Every other variant raises NotImplementedError.
+
+`ScalarValue` follows the reference encoding: a one-batch Arrow IPC stream
+whose column 0 row 0 is the value.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Any, Dict, List, Tuple
+
+import pyarrow as pa
+
+from blaze_tpu_torch.plan.proto import auron_pb2 as pb
+
+_LATER = ("belongs to a later slice of the PyTorch port (ROADMAP Queue 1 "
+          "item 3)")
+
+# ---------------------------------------------------------------------------
+# ArrowType <-> type dicts ({"id": ...} of plan/types.py)
+# ---------------------------------------------------------------------------
+
+_SIMPLE_DECODE = {
+    "NONE": "null", "BOOL": "bool", "INT8": "int8", "INT16": "int16",
+    "INT32": "int32", "INT64": "int64", "FLOAT32": "float32",
+    "FLOAT64": "float64", "UTF8": "utf8", "LARGE_UTF8": "utf8",
+    "BINARY": "binary", "LARGE_BINARY": "binary", "DATE32": "date32",
+}
+
+_SIMPLE_ENCODE = {
+    "null": "NONE", "bool": "BOOL", "int8": "INT8", "int16": "INT16",
+    "int32": "INT32", "int64": "INT64", "float32": "FLOAT32",
+    "float64": "FLOAT64", "utf8": "UTF8", "binary": "BINARY",
+    "date32": "DATE32",
+}
+
+
+def type_from_proto(at: pb.ArrowType) -> Dict[str, Any]:
+    kind = at.WhichOneof("arrow_type_enum")
+    if kind is None:
+        raise ValueError("ArrowType with no variant set")
+    if kind in _SIMPLE_DECODE:
+        return {"id": _SIMPLE_DECODE[kind]}
+    if kind == "TIMESTAMP":
+        return {"id": "timestamp_us"}
+    if kind == "DECIMAL":
+        return {"id": "decimal", "precision": int(at.DECIMAL.whole),
+                "scale": int(at.DECIMAL.fractional)}
+    raise NotImplementedError(f"ArrowType {kind!r} {_LATER}")
+
+
+def type_to_proto(t: Dict[str, Any]) -> pb.ArrowType:
+    out = pb.ArrowType()
+    tid = t["id"]
+    if tid in _SIMPLE_ENCODE:
+        getattr(out, _SIMPLE_ENCODE[tid]).SetInParent()
+        return out
+    if tid == "timestamp_us":
+        out.TIMESTAMP.time_unit = pb.Microsecond
+        return out
+    if tid == "decimal":
+        out.DECIMAL.whole = t.get("precision", 0)
+        out.DECIMAL.fractional = t.get("scale", 0)
+        return out
+    raise NotImplementedError(f"type {tid!r} {_LATER}")
+
+
+def field_from_proto(f: pb.Field) -> Dict[str, Any]:
+    return {"name": f.name, "type": type_from_proto(f.arrow_type),
+            "nullable": f.nullable}
+
+
+def field_to_proto(fd: Dict[str, Any]) -> pb.Field:
+    f = pb.Field(name=fd["name"], nullable=fd.get("nullable", True))
+    f.arrow_type.CopyFrom(type_to_proto(fd["type"]))
+    return f
+
+
+def schema_from_proto(s: pb.Schema) -> Dict[str, Any]:
+    return {"fields": [field_from_proto(f) for f in s.columns]}
+
+
+def schema_to_proto(sd: Dict[str, Any]) -> pb.Schema:
+    s = pb.Schema()
+    for f in sd["fields"]:
+        s.columns.append(field_to_proto(f))
+    return s
+
+
+# ---------------------------------------------------------------------------
+# ScalarValue: one-batch Arrow IPC stream, column 0 row 0
+# ---------------------------------------------------------------------------
+
+def scalar_from_proto(sv: pb.ScalarValue) -> Tuple[Any, Dict[str, Any]]:
+    from blaze_tpu_torch.plan.types import type_to_dict
+    from blaze_tpu_torch.schema import DataType
+    with pa.ipc.open_stream(io.BytesIO(sv.ipc_bytes)) as r:
+        rb = next(iter(r))
+    col = rb.column(0)
+    val = col[0].as_py() if col[0].is_valid else None
+    return val, type_to_dict(DataType.from_arrow(col.type))
+
+
+def scalar_to_proto(value: Any, type_dict: Dict[str, Any]) -> pb.ScalarValue:
+    from blaze_tpu_torch.plan.types import type_from_dict
+    t = type_from_dict(type_dict).to_arrow()
+    rb = pa.record_batch([pa.array([value], type=t)], names=["c0"])
+    sink = io.BytesIO()
+    with pa.ipc.new_stream(sink, rb.schema) as w:
+        w.write_batch(rb)
+    return pb.ScalarValue(ipc_bytes=sink.getvalue())
+
+
+# ---------------------------------------------------------------------------
+# expressions
+# ---------------------------------------------------------------------------
+
+_BINOP_DECODE = {
+    "And": "and", "Or": "or", "Eq": "==", "NotEq": "!=", "LtEq": "<=",
+    "Lt": "<", "Gt": ">", "GtEq": ">=", "Plus": "+", "Minus": "-",
+    "Multiply": "*", "Divide": "/", "Modulo": "%",
+    "IsNotDistinctFrom": "<=>",
+}
+_BINOP_ENCODE = {v: k for k, v in _BINOP_DECODE.items()}
+
+_AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
+                  pb.COUNT: "count"}
+_AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
+
+#: acc-column counts per agg kind (ops/agg/functions.py acc_fields)
+_ACC_FIELD_COUNT = {"sum": 1, "count": 1, "min": 1, "max": 1}
+
+
+def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
+    kind = e.WhichOneof("ExprType")
+    if kind is None:
+        raise ValueError("PhysicalExprNode with no variant set")
+    if kind == "column":
+        if e.column.name:
+            return {"kind": "column", "name": e.column.name}
+        return {"kind": "column", "index": int(e.column.index)}
+    if kind == "bound_reference":
+        return {"kind": "column", "index": int(e.bound_reference.index)}
+    if kind == "literal":
+        val, t = scalar_from_proto(e.literal)
+        return {"kind": "literal", "value": val, "type": t}
+    if kind == "binary_expr":
+        op = _BINOP_DECODE.get(e.binary_expr.op)
+        if op is None:
+            raise NotImplementedError(
+                f"binary op {e.binary_expr.op!r} {_LATER}")
+        return {"kind": "binary", "op": op,
+                "l": expr_from_proto(e.binary_expr.l),
+                "r": expr_from_proto(e.binary_expr.r)}
+    raise NotImplementedError(f"expression {kind!r} {_LATER}")
+
+
+def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
+    e = pb.PhysicalExprNode()
+    k = d["kind"]
+    if k == "column":
+        if d.get("name"):
+            e.column.name = d["name"]
+            if d.get("index") is not None:
+                e.column.index = d["index"]
+        else:
+            e.bound_reference.index = d["index"]
+            e.bound_reference.nullable = True
+        return e
+    if k == "literal":
+        e.literal.CopyFrom(scalar_to_proto(d.get("value"), d["type"]))
+        return e
+    if k == "binary":
+        e.binary_expr.op = _BINOP_ENCODE[d["op"]]
+        e.binary_expr.l.CopyFrom(expr_to_proto(d["l"]))
+        e.binary_expr.r.CopyFrom(expr_to_proto(d["r"]))
+        return e
+    raise NotImplementedError(f"expression kind {k!r} {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# partitioning
+# ---------------------------------------------------------------------------
+
+def partitioning_from_proto(p: pb.PhysicalRepartition) -> Dict[str, Any]:
+    kind = p.WhichOneof("RepartitionType")
+    if kind == "single_repartition":
+        return {"kind": "single"}
+    if kind == "hash_repartition":
+        h = p.hash_repartition
+        return {"kind": "hash",
+                "exprs": [expr_from_proto(e) for e in h.hash_expr],
+                "num_partitions": int(h.partition_count)}
+    raise NotImplementedError(f"repartition {kind!r} {_LATER}")
+
+
+def partitioning_to_proto(d: Dict[str, Any]) -> pb.PhysicalRepartition:
+    p = pb.PhysicalRepartition()
+    k = d["kind"]
+    if k == "single":
+        p.single_repartition.partition_count = 1
+        return p
+    if k == "hash":
+        p.hash_repartition.partition_count = d["num_partitions"]
+        for e in d["exprs"]:
+            p.hash_repartition.hash_expr.append(expr_to_proto(e))
+        return p
+    raise NotImplementedError(f"partitioning {k!r} {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# plan nodes
+# ---------------------------------------------------------------------------
+
+def _file_groups_from_conf(conf: pb.FileScanExecConf):
+    """The wire carries ONE file group (this task's); rebuild the
+    positional file_groups list so plan.execute(partition_index) finds it."""
+    n = max(1, int(conf.num_partitions))
+    idx = int(conf.partition_index)
+    groups: List[List[str]] = [[] for _ in range(n)]
+    groups[min(idx, n - 1)] = [f.path for f in conf.file_group.files]
+    if conf.HasField("partition_schema") and \
+            len(conf.partition_schema.columns):
+        raise NotImplementedError(f"partition columns {_LATER}")
+    return groups, schema_from_proto(conf.schema)
+
+
+def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
+    kind = n.WhichOneof("PhysicalPlanType")
+    if kind is None:
+        raise ValueError("PhysicalPlanNode with no variant set")
+    if kind == "parquet_scan":
+        node = n.parquet_scan
+        groups, schema = _file_groups_from_conf(node.base_conf)
+        d: Dict[str, Any] = {"kind": kind, "schema": schema,
+                             "file_groups": groups}
+        if node.base_conf.projection:
+            names = [f["name"] for f in schema["fields"]]
+            d["projection"] = [names[i] for i in node.base_conf.projection]
+        if node.pruning_predicates:
+            raise NotImplementedError(f"scan pruning predicates {_LATER}")
+        return d
+    if kind == "ipc_reader":
+        return {"kind": "ipc_reader",
+                "resource_id": n.ipc_reader.ipc_provider_resource_id,
+                "schema": schema_from_proto(n.ipc_reader.schema),
+                "num_partitions": int(n.ipc_reader.num_partitions)}
+    if kind == "shuffle_writer":
+        sw = n.shuffle_writer
+        return {"kind": "shuffle_writer",
+                "input": plan_from_proto(sw.input),
+                "partitioning":
+                    partitioning_from_proto(sw.output_partitioning),
+                "data_file": sw.output_data_file,
+                "index_file": sw.output_index_file}
+    if kind == "projection":
+        pr = n.projection
+        return {"kind": "project", "input": plan_from_proto(pr.input),
+                "exprs": [expr_from_proto(e) for e in pr.expr],
+                "names": list(pr.expr_name)}
+    if kind == "filter":
+        return {"kind": "filter", "input": plan_from_proto(n.filter.input),
+                "predicates": [expr_from_proto(e) for e in n.filter.expr]}
+    if kind == "agg":
+        return _agg_from_proto(n.agg)
+    raise NotImplementedError(f"plan node {kind!r} {_LATER}")
+
+
+def _agg_from_proto(agg: pb.AggExecNode) -> Dict[str, Any]:
+    d: Dict[str, Any] = {
+        "kind": ("hash_agg" if agg.exec_mode == pb.HASH_AGG else "sort_agg"),
+        "input": plan_from_proto(agg.input),
+    }
+    d["groupings"] = [{"expr": expr_from_proto(e), "name": name}
+                      for e, name in zip(agg.grouping_expr,
+                                         agg.grouping_expr_name)]
+    aggs = []
+    # merge-mode acc columns are positional: groupings first, then each
+    # agg's acc fields in order, starting at initial_input_buffer_offset
+    acc_pos = len(d["groupings"]) + int(agg.initial_input_buffer_offset)
+    for e, name, mode in zip(agg.agg_expr, agg.agg_expr_name, agg.mode):
+        if e.WhichOneof("ExprType") != "agg_expr":
+            raise ValueError("agg_expr entry is not a PhysicalAggExprNode")
+        an = e.agg_expr
+        fn_name = _AGG_FN_DECODE.get(an.agg_function)
+        if fn_name is None:
+            raise NotImplementedError(
+                f"AggFunction {an.agg_function} belongs to a later slice of "
+                f"the PyTorch port (ROADMAP Queue 1 item 5)")
+        mode_name = {pb.PARTIAL: "partial", pb.PARTIAL_MERGE: "partial_merge",
+                     pb.FINAL: "final"}[mode]
+        entry: Dict[str, Any] = {"fn": fn_name, "mode": mode_name,
+                                 "name": name}
+        n_acc = _ACC_FIELD_COUNT[fn_name]
+        if mode_name == "partial":
+            entry["args"] = [expr_from_proto(c) for c in an.children]
+        else:
+            entry["args"] = [{"kind": "column", "index": acc_pos + i}
+                             for i in range(n_acc)]
+        acc_pos += n_acc
+        aggs.append(entry)
+    d["aggs"] = aggs
+    if agg.supports_partial_skipping:
+        d["supports_partial_skipping"] = True
+    if agg.initial_input_buffer_offset:
+        d["initial_input_buffer_offset"] = \
+            int(agg.initial_input_buffer_offset)
+    return d
+
+
+def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
+    n = pb.PhysicalPlanNode()
+    k = d["kind"]
+    if k == "parquet_scan":
+        conf = n.parquet_scan.base_conf
+        groups = d["file_groups"]
+        non_empty = [i for i, g in enumerate(groups) if g]
+        if len(non_empty) > 1:
+            raise ValueError(
+                "the wire carries ONE file group per task "
+                "(FileScanExecConf); emit one TaskDefinition per partition")
+        conf.num_partitions = len(groups)
+        idx = non_empty[0] if non_empty else 0
+        conf.partition_index = idx
+        for path in groups[idx]:
+            conf.file_group.files.add(path=path)
+        conf.schema.CopyFrom(schema_to_proto(d["schema"]))
+        if d.get("projection"):
+            names = [f["name"] for f in d["schema"]["fields"]]
+            for p in d["projection"]:
+                conf.projection.append(names.index(p))
+        if d.get("predicate") or d.get("partition_schema"):
+            raise NotImplementedError(
+                f"scan predicates and partition columns {_LATER}")
+        return n
+    if k == "ipc_reader":
+        n.ipc_reader.ipc_provider_resource_id = d["resource_id"]
+        n.ipc_reader.schema.CopyFrom(schema_to_proto(d["schema"]))
+        n.ipc_reader.num_partitions = d.get("num_partitions", 1)
+        return n
+    if k == "shuffle_writer":
+        n.shuffle_writer.input.CopyFrom(plan_to_proto(d["input"]))
+        n.shuffle_writer.output_partitioning.CopyFrom(
+            partitioning_to_proto(d["partitioning"]))
+        n.shuffle_writer.output_data_file = d["data_file"]
+        n.shuffle_writer.output_index_file = d["index_file"]
+        return n
+    if k == "project":
+        n.projection.input.CopyFrom(plan_to_proto(d["input"]))
+        for e in d["exprs"]:
+            n.projection.expr.append(expr_to_proto(e))
+        for name in d["names"]:
+            n.projection.expr_name.append(name)
+        return n
+    if k == "filter":
+        n.filter.input.CopyFrom(plan_to_proto(d["input"]))
+        for e in d["predicates"]:
+            n.filter.expr.append(expr_to_proto(e))
+        return n
+    if k in ("hash_agg", "sort_agg"):
+        return _agg_to_proto(d)
+    raise NotImplementedError(f"plan kind {k!r} {_LATER}")
+
+
+def _agg_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
+    n = pb.PhysicalPlanNode()
+    agg = n.agg
+    agg.input.CopyFrom(plan_to_proto(d["input"]))
+    agg.exec_mode = pb.HASH_AGG if d["kind"] == "hash_agg" else pb.SORT_AGG
+    for g in d.get("groupings", []):
+        agg.grouping_expr.append(expr_to_proto(g["expr"]))
+        agg.grouping_expr_name.append(g["name"])
+    for a in d.get("aggs", []):
+        mode = a.get("mode", "partial")
+        if mode == "complete":
+            raise ValueError("complete agg mode has no wire encoding; "
+                             "split into partial+final")
+        agg.mode.append({"partial": pb.PARTIAL,
+                         "partial_merge": pb.PARTIAL_MERGE,
+                         "final": pb.FINAL}[mode])
+        agg.agg_expr_name.append(a["name"])
+        e = pb.PhysicalExprNode()
+        e.agg_expr.agg_function = _AGG_FN_ENCODE[a["fn"]]
+        for c in a.get("args", []):
+            # merge modes carry placeholders; decode rebinds positionally
+            e.agg_expr.children.append(expr_to_proto(
+                c if mode == "partial" else
+                {"kind": "literal", "value": None, "type": {"id": "null"}}))
+        agg.agg_expr.append(e)
+    agg.initial_input_buffer_offset = d.get("initial_input_buffer_offset", 0)
+    agg.supports_partial_skipping = d.get("supports_partial_skipping", False)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# TaskDefinition
+# ---------------------------------------------------------------------------
+
+def task_definition_from_bytes(data: bytes) -> Dict[str, Any]:
+    td = pb.TaskDefinition()
+    td.ParseFromString(data)
+    out: Dict[str, Any] = {
+        "stage_id": int(td.task_id.stage_id),
+        "partition_id": int(td.task_id.partition_id),
+        "task_attempt_id": int(td.task_id.task_id),
+        "plan": plan_from_proto(td.plan),
+    }
+    if td.HasField("output_partitioning"):
+        out["output_partitioning"] = \
+            partitioning_from_proto(td.output_partitioning)
+    return out
+
+
+def task_definition_to_bytes(td_dict: Dict[str, Any]) -> bytes:
+    td = pb.TaskDefinition()
+    td.task_id.stage_id = td_dict.get("stage_id", 0)
+    td.task_id.partition_id = td_dict.get("partition_id", 0)
+    td.task_id.task_id = td_dict.get("task_attempt_id", 0)
+    td.plan.CopyFrom(plan_to_proto(td_dict["plan"]))
+    if td_dict.get("output_partitioning"):
+        td.output_partitioning.CopyFrom(
+            partitioning_to_proto(td_dict["output_partitioning"]))
+    return td.SerializeToString()
