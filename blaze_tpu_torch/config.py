@@ -126,6 +126,26 @@ FUSED_STAGE_CAPACITY = int_conf(
     "auron.tpu.fused.stage.capacity", 1 << 24,
     "Max dense group-table slots (product of key ranges) for which the "
     "fuser keeps the discovered key ranges.")
+AGG_MXU_ENABLE = bool_conf(
+    "auron.tpu.mxuAgg.enable", True,
+    "Aggregate compact dense group tables through the window-table kernel "
+    "(kernels/window_table.py: an exact 8-bit-limb integer histogram) "
+    "instead of per-accumulator scatters, where the key and value bounds "
+    "from parquet statistics admit it.")
+AGG_MXU_MAX_SLOTS = int_conf(
+    "auron.tpu.mxuAgg.maxSlots", 1 << 17,
+    "Dense-table slot cap for the window-table lane; larger tables take "
+    "the scatter dense lane.")
+AGG_MXU_FORCE = bool_conf(
+    "auron.tpu.mxuAgg.force", False,
+    "Run the window-table lane on the CPU too (through the kernel's plain "
+    "version), as the JAX package runs it off the TPU; on a CUDA device "
+    "the lane runs whenever it is planned.")
+AGG_MXU_DECIMAL_SCALE = int_conf(
+    "auron.tpu.mxuAgg.decimalScale", 100,
+    "Fixed-point scale probed for float64 sum columns on the window-table "
+    "lane (100 = two decimals); a value that fails the exactness verify "
+    "re-runs the partition through the scatter dense lane.")
 SCAN_EAGER_FILE_BYTES = int_conf(
     "auron.tpu.scan.eagerFileBytes", 128 << 20,
     "Local parquet files up to this size decode eagerly per file; larger "

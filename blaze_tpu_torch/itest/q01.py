@@ -1,7 +1,8 @@
 """TPC-DS q01's inner two-stage query as TaskDefinitions (copies of
 `stage1_td`, `stage2_td`, `date_sk_range` and the two schemas of the
 repository's `bench.py`), with a driver that runs every map task and then
-every reduce task through the port's runtime, and a pyarrow oracle.
+every reduce task through the port's runtime (`run_two_stage`, which the
+rollup path of itest/rollup.py shares), and a pyarrow oracle.
 
   map    parquet_scan (4 columns) -> filter (sr_returned_date_sk in
          [lo, hi]) -> partial hash_agg sum(sr_return_amt) by
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import pyarrow as pa
 import pyarrow.compute as pc
@@ -138,12 +139,25 @@ def stage2_td(reduce_id, n_reduces) -> Dict:
 
 
 def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
-    """Every map task, then every reduce task, one after another, as
-    TaskDefinition bytes through the port's runtime.  Returns the reduce
-    outputs (one list of batches per reduce partition), the shuffle files
-    with their offsets, the STAGE_COUNTERS summed over each stage's tasks
-    and the host wall seconds of each stage, each ending in a device
-    synchronisation."""
+    """q01's map tasks, then its reduce tasks, through `run_two_stage`."""
+    return run_two_stage(
+        lambda m: stage1_td(sr_paths, lo, hi, m, tmpdir, n_maps, n_reduces),
+        lambda r: stage2_td(r, n_reduces), tmpdir, n_maps, n_reduces,
+        SHUFFLE_RESOURCE, STAGE_COUNTERS)
+
+
+def run_two_stage(map_td: Callable[[int], Dict],
+                  reduce_td: Callable[[int], Dict], tmpdir: str, n_maps: int,
+                  n_reduces: int, resource: str,
+                  stage_counters: Sequence[str]) -> Dict:
+    """Every map task `map_td(m)` (each writing `shuffle_{m}.data` and
+    `.index` under `tmpdir`), then every reduce task `reduce_td(r)`
+    (reading them through the shuffle resource `resource`), one after
+    another, as TaskDefinition bytes through the port's runtime.  Returns
+    the reduce outputs (one list of batches per reduce partition), the
+    shuffle files with their offsets, the `stage_counters` summed over
+    each stage's tasks and the host wall seconds of each stage, each
+    ending in a device synchronisation."""
     import torch
 
     from blaze_tpu_torch.bridge.resource import put_resource, remove_resource
@@ -158,7 +172,7 @@ def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
     counters = {"map": {}, "reduce": {}}
 
     def count(stage, node):
-        for k in STAGE_COUNTERS:
+        for k in stage_counters:
             counters[stage][k] = (counters[stage].get(k, 0)
                                   + node.values.get(k, 0))
         for c in node.children:
@@ -166,8 +180,7 @@ def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
 
     t0 = time.perf_counter()
     for m in range(n_maps):
-        rt = NativeExecutionRuntime(task_definition_to_bytes(
-            stage1_td(sr_paths, lo, hi, m, tmpdir, n_maps, n_reduces)))
+        rt = NativeExecutionRuntime(task_definition_to_bytes(map_td(m)))
         try:
             for _ in rt.batches():
                 pass
@@ -189,19 +202,19 @@ def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
                 for m, (d, _i, offs) in enumerate(outputs)
                 if offs[reduce_id + 1] > offs[reduce_id]]
 
-    put_resource(SHUFFLE_RESOURCE, blocks_for)
+    put_resource(resource, blocks_for)
     reduce_outputs = []
     try:
         for r in range(n_reduces):
             rt = NativeExecutionRuntime(
-                task_definition_to_bytes(stage2_td(r, n_reduces)))
+                task_definition_to_bytes(reduce_td(r)))
             try:
                 reduce_outputs.append(list(rt.batches()))
             finally:
                 count("reduce", rt.finalize())
         sync()
     finally:
-        remove_resource(SHUFFLE_RESOURCE)
+        remove_resource(resource)
     t2 = time.perf_counter()
     return {"reduce_outputs": reduce_outputs, "shuffle": outputs,
             "counters": counters, "map_s": t1 - t0, "reduce_s": t2 - t1}

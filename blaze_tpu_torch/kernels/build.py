@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {
     "hash_update": "hash_update.cu",
     "radix": "radix.cu",
+    "window_table": "window_table.cu",
 }
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -1,5 +1,8 @@
-"""Device open-addressing group table (port of the hash-aggregation core of
-blaze_tpu/parallel/stage.py, `HashAggCarry` .. `_identity`).
+"""Device group tables (port of the aggregation core of
+blaze_tpu/parallel/stage.py: `HashAggCarry` .. `_identity`, and the dense
+group ids `pack_dense_keys[_i32]` / `unpack_dense_keys`, with the dense
+scatter carry of blaze_tpu/plan/fused.py `_init_carry` /
+`_scatter_into_carry`).
 
 `hash_agg_step` inserts one batch: keys hash with xxhash64 (seed 42) to a
 slot, `kernels/hash_update.placement` places rows by linear probing, and
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.schema import dtype_of
@@ -169,6 +173,88 @@ def scatter_accumulate(g: torch.Tensor,
         new_accs.append(a)
         new_avalid.append(av | (hit > 0))
     return new_accs, new_avalid
+
+
+# ---------------------------------------------------------------------------
+# dense group ids (bounded integer keys) and the dense scatter carry
+# ---------------------------------------------------------------------------
+
+def _strides(ranges: Sequence[Tuple[int, int]]):
+    total, strides = 1, []
+    for lo, hi in ranges:
+        strides.append(total)
+        total *= (hi - lo + 2)  # +1 for the null slot
+    return strides, total
+
+
+def pack_dense_keys(key_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                    ranges: Sequence[Tuple[int, int]]):
+    """Bounded-range keys packed into one dense int64 group id (row-major
+    strides; each key's NULL takes the extra slot hi - lo + 1).  Returns
+    (gid, total_slots)."""
+    strides, total = _strides(ranges)
+    gid = None
+    for (data, valid), (lo, hi), stride in zip(key_cols, ranges, strides):
+        k = (data.to(torch.int64) - lo).clamp(0, hi - lo)
+        k = torch.where(valid, k, torch.full_like(k, hi - lo + 1))
+        gid = k * stride if gid is None else gid + k * stride
+    return gid, total
+
+
+def pack_dense_keys_i32(key_cols: Sequence[Tuple[torch.Tensor,
+                                                 torch.Tensor]],
+                        ranges: Sequence[Tuple[int, int]]):
+    """pack_dense_keys in int32: the same stride layout; only the `data -
+    lo` shift runs in the key's own dtype."""
+    strides, total = _strides(ranges)
+    if total >= (1 << 31):
+        raise ValueError("dense table exceeds the int32 id range")
+    gid = None
+    for (data, valid), (lo, hi), stride in zip(key_cols, ranges, strides):
+        span = hi - lo
+        k = (data - lo).clamp(0, span).to(torch.int32)
+        k = torch.where(valid, k, torch.full_like(k, span + 1))
+        gid = k * stride if gid is None else gid + k * stride
+    return gid, total
+
+
+def unpack_dense_keys(slots, ranges: Sequence[Tuple[int, int]]):
+    """Inverse of pack_dense_keys: slot ids -> [(key, validity)] per key.
+    Takes a torch tensor (decoded on its device) or a numpy array."""
+    if isinstance(slots, np.ndarray):
+        rem, where = slots.astype(np.int64), np.where
+    else:
+        rem, where = slots.to(torch.int64), torch.where
+    out = []
+    for lo, hi in ranges:
+        size = hi - lo + 2
+        k = rem % size
+        rem = rem // size
+        valid = k < (hi - lo + 1)
+        out.append((where(valid, k + lo, 0), valid))
+    return out
+
+
+def init_dense_carry(kinds: Sequence[str], acc_dtypes: Sequence,
+                     num_slots: int, device: torch.device):
+    """(accs, acc_valid, occupied) of the scatter dense lane."""
+    accs, avalid = init_accumulators(kinds, acc_dtypes, num_slots, device)
+    return accs, avalid, torch.zeros(num_slots, dtype=torch.bool,
+                                     device=device)
+
+
+def scatter_into_dense_carry(carry, gid: torch.Tensor, kinds: Sequence[str],
+                             agg_data, agg_valid, mask: torch.Tensor):
+    """One batch into the dense carry: masked rows scatter to their group
+    id, the rest to the sentinel num_slots, which drops."""
+    accs, avalid, occupied = carry
+    num_slots = occupied.shape[0]
+    g = torch.where(mask, gid, torch.full_like(gid, num_slots))
+    hit = torch.zeros(num_slots + 1, dtype=torch.bool, device=g.device)
+    hit[g] = True
+    specs = list(zip(kinds, agg_data, agg_valid))
+    new_a, new_v = scatter_accumulate(g, specs, mask, accs, avalid)
+    return tuple(new_a), tuple(new_v), occupied | hit[:num_slots]
 
 
 def rehash_carry(old: HashAggCarry, kinds: Sequence[str], new_slots: int,

@@ -1,31 +1,42 @@
-"""Fused aggregation: planner trees -> one step per batch on a device hash
-table (port of the hash lane of blaze_tpu/plan/fused.py).
+"""Fused aggregation: planner trees -> one step per batch on a device group
+table (port of the dense, window-table and hash lanes of
+blaze_tpu/plan/fused.py).
 
 `fuse_plan` rewrites an eligible `AggExec` (sum/count/min/max over
 fixed-width keys) into `FusedPartialAggExec`.  The filter/project chain
 between the aggregation and its source is absorbed: each source batch is
-filtered, projected and inserted into the group table in one step,
+filtered, projected and folded into the group table in one step,
 evaluated eagerly on the device (the JAX package traces the same chain
-into one XLA program).  The table is the open-addressing carry of
-parallel/stage.py, placed by the CUDA placement kernel on the card.
+into one XLA program).  The lane is chosen at plan time, as in JAX:
+
+  * DENSE: every grouping key is an integer column whose [min, max] the
+    parquet statistics bound, and the table (the product of the key
+    ranges, one extra slot per key for NULL) is not much sparser than the
+    input.  Group ids are pure arithmetic (`pack_dense_keys`).  Where the
+    value bounds also admit it (`_plan_mxu_meta`), the window-table lane
+    folds each batch into an exact int32 table of 8-bit limb sums through
+    the window-table kernel (kernels/window_table.py) and drains it into
+    int64 within its exactness bound; it runs on a CUDA device, and on the
+    CPU only under `auron.tpu.mxuAgg.force`, so each device picks the lane
+    the JAX package picks on its own tier.  Otherwise the scatter dense
+    lane scatter-accumulates into a dense carry.
+  * HASH: fixed-width keys without usable bounds.  The open-addressing
+    carry of parallel/stage.py, placed by the placement kernel.
 
 Overflow handling is the JAX package's: exact modes (final, merge,
-complete) double the table and rehash; PARTIAL mode emits what it has and
-degrades to batch-local tables passed straight through, since the final
-stage re-merges.  Nothing is emitted before the table's final drain,
-except by the partial-mode skip.
-
-The JAX package also plans a dense lane when every key is an integer with
-known bounds (parquet statistics) that survive the sparsity heuristic.
-That lane, with its window-table kernel, belongs to the next slice: here
-the plan raises NotImplementedError where JAX would take it, so the lane
-choice never differs from JAX's unseen.  So do string keys, the host
-Arrow lane and the device stage loop.
+complete) double the hash table and rehash; PARTIAL mode emits what it has
+and degrades to batch-local tables passed straight through, since the
+final stage re-merges.  Nothing is emitted before a table's final drain,
+except by the partial-mode skip, so a window-table partition whose float
+sums fail the fixed-point verify re-runs losslessly on the scatter dense
+lane.  String keys, the host Arrow lane and the device stage loop belong
+to later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +44,7 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn,
                                    bucket_capacity)
 from blaze_tpu_torch.exprs import BoundReference, PhysicalExpr
+from blaze_tpu_torch.kernels import window_table as WT
 from blaze_tpu_torch.ops.agg import (AggExec, AggMode, CountAgg, MinMaxAgg,
                                      SumAgg)
 from blaze_tpu_torch.ops.agg.exec import build_agg_schema
@@ -41,12 +53,14 @@ from blaze_tpu_torch.ops.basic import FilterExec, ProjectExec, \
     apply_filter, apply_project
 from blaze_tpu_torch.ops.scan import ParquetScanExec, parquet_metadata
 from blaze_tpu_torch.parallel.stage import (HashAggCarry, hash_agg_step,
-                                            init_hash_carry, rehash_carry)
-from blaze_tpu_torch.schema import Schema
-
-_DENSE_LATER = ("belongs to the next slice of the PyTorch port (ROADMAP "
-                "Queue 2 item 1: the window-table kernel with the dense "
-                "lane)")
+                                            init_dense_carry,
+                                            init_hash_carry,
+                                            pack_dense_keys,
+                                            pack_dense_keys_i32,
+                                            rehash_carry,
+                                            scatter_into_dense_carry,
+                                            unpack_dense_keys)
+from blaze_tpu_torch.schema import Schema, TypeId
 
 
 def fuse_plan(plan: ExecutionPlan) -> ExecutionPlan:
@@ -71,7 +85,7 @@ _FUSABLE_CHAIN = (FilterExec, ProjectExec)
 
 def _try_fuse_agg(node: ExecutionPlan) -> Optional["FusedPartialAggExec"]:
     """None where the JAX package keeps the generic AggExec (which raises
-    in this slice); raises where JAX would take a lane this slice lacks."""
+    in the port); raises where JAX would take a lane the port lacks."""
     if not isinstance(node, AggExec):
         return None
     groups = node._group_exprs
@@ -119,28 +133,35 @@ def _try_fuse_agg(node: ExecutionPlan) -> Optional["FusedPartialAggExec"]:
             "dictionary-code lane) belongs to the strings slice of the "
             "PyTorch port (ROADMAP Queue 1 item 13)")
 
-    # the JAX package's dense lane: integer keys with discoverable bounds
-    # whose table is not much sparser than the input
+    # the dense lane: integer keys with discoverable bounds whose table is
+    # not much sparser than the input
+    ranges = None
     if all(t.is_integer for t in key_types):
         ranges = _discover_ranges(child, groups)
         if ranges is not None:
-            total = 1
-            for lo, hi in ranges:
-                total *= (hi - lo + 2)
+            total = _num_slots(ranges)
             if total > config.FUSED_STAGE_CAPACITY.get():
                 ranges = None
             elif total > (1 << 20):
+                # sparsity heuristic: distinct groups <= rows, so a table
+                # much larger than the input loses to the hash table
                 rows = _source_row_count(child)
                 if rows is not None and total > 4 * rows:
                     ranges = None
-        if ranges is not None:
-            raise NotImplementedError(
-                f"the dense aggregation lane (key ranges {ranges}, bounded "
-                f"by parquet statistics) {_DENSE_LATER}")
     grow = complete or merging
     source, chain = _absorbable_chain(child)
-    return FusedPartialAggExec(child, groups, aggs, specs, grow,
-                               source=source, chain=chain)
+    node = FusedPartialAggExec(child, groups, aggs, specs, grow,
+                               source=source, chain=chain, ranges=ranges)
+    if ranges is not None:
+        node._mxu_meta = _plan_mxu_meta(child, specs, ranges, in_schema)
+    return node
+
+
+def _num_slots(ranges) -> int:
+    total = 1
+    for lo, hi in ranges:
+        total *= (hi - lo + 2)
+    return total
 
 
 def _absorbable_chain(child: ExecutionPlan):
@@ -186,11 +207,12 @@ def _discover_ranges(child: ExecutionPlan,
     return ranges
 
 
-def _column_bounds(node: ExecutionPlan,
-                   expr: PhysicalExpr) -> Optional[Tuple[int, int]]:
-    """Trace a grouping expression down a schema-transparent chain to its
-    source scan column and read its global [min, max] from parquet
-    row-group statistics."""
+def _column_bounds(node: ExecutionPlan, expr: PhysicalExpr,
+                   float_ok: bool = False) -> Optional[Tuple]:
+    """Trace an expression down a schema-transparent chain to its source
+    scan column and read its global [min, max] from parquet row-group
+    statistics.  `float_ok` also admits float statistics (the window-table
+    lane's fixed-point planning needs value bounds, not only key bounds)."""
     while True:
         if not isinstance(expr, BoundReference):
             return None
@@ -205,14 +227,15 @@ def _column_bounds(node: ExecutionPlan,
             continue
         break
     if isinstance(node, ParquetScanExec):
-        return _parquet_bounds(node, expr.index)
+        return _parquet_bounds(node, expr.index, float_ok)
     return None
 
 
-def _parquet_bounds(scan: ParquetScanExec,
-                    col_index: int) -> Optional[Tuple[int, int]]:
+def _parquet_bounds(scan: ParquetScanExec, col_index: int,
+                    float_ok: bool = False) -> Optional[Tuple]:
     name = scan.schema[col_index].name
     lo = hi = None
+    is_float = False
     for group in scan._file_groups:
         for path in group:
             try:
@@ -228,17 +251,130 @@ def _parquet_bounds(scan: ParquetScanExec,
                 if st is None or not st.has_min_max:
                     return None
                 mn, mx = st.min, st.max
-                if not isinstance(mn, int):
+                if isinstance(mn, float):
+                    if not float_ok:
+                        return None
+                    is_float = True
+                elif not isinstance(mn, int):
                     return None
                 lo = mn if lo is None else min(lo, mn)
                 hi = mx if hi is None else max(hi, mx)
     if lo is None:
         return None
+    if is_float:
+        return float(lo), float(hi)
     return int(lo), int(hi)
 
 
 # ---------------------------------------------------------------------------
-# the fused operator: hash lane
+# window-table lane planning (kernels/window_table.py): compact dense tables
+# aggregate as exact 8-bit-limb integer histograms
+# ---------------------------------------------------------------------------
+
+class _MxuVerifyFailed(Exception):
+    """A float sum column failed the fixed-point exactness verify (or one
+    batch exceeds the table's exactness bound); the partition re-runs
+    through the scatter dense lane."""
+
+
+class _MxuSpec(NamedTuple):
+    kind: str          # count_star | count | sum | min | max
+    arr_valid: int     # value-array index of the validity block (-1)
+    arr_cents: int     # value-array index of the cents blocks (-1)
+    scatter_idx: int   # min/max scatter accumulator index (-1)
+    off: int           # integer offset subtracted into the limb domain
+    scale: int         # 1 for ints; fixed-point scale for floats
+    is_float: bool
+
+
+class _MxuMeta(NamedTuple):
+    layout: tuple      # window_table.WindowTableLayout
+    specs: Tuple[_MxuSpec, ...]
+    arrays: Tuple[Tuple[str, int], ...]   # ("valid"|"cents", spec_index)
+    scatter: Tuple[Tuple[bool, int], ...]  # (is_min, spec_index)
+
+
+def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[_MxuMeta]:
+    """Eligibility and layout of the window-table lane.  Every aggregated
+    value must map to a non-negative integer domain that 8-bit limbs
+    cover: ints shift by their statistics' minimum; float64s scale to
+    fixed-point cents (verified exactly on the device at run time).  Any
+    miss keeps the stage on the scatter dense lane."""
+    if not config.AGG_MXU_ENABLE.get():
+        return None
+    total = _num_slots(ranges)
+    if total > config.AGG_MXU_MAX_SLOTS.get():
+        return None
+    scale_conf = config.AGG_MXU_DECIMAL_SCALE.get()
+    arrays: List[Tuple[str, int]] = []
+    bits: List[int] = []
+    mspecs: List[_MxuSpec] = []
+    scatter: List[Tuple[bool, int]] = []
+    valid_by_arg: Dict = {}  # argument -> shared validity array index
+
+    def valid_block(si, arg) -> int:
+        """Validity blocks are shared by specs over the same argument
+        (sum + count over one column is the rollup shape)."""
+        k = ("col", arg.index) if isinstance(arg, BoundReference) \
+            else repr(arg)
+        if k not in valid_by_arg:
+            arrays.append(("valid", si))
+            bits.append(1)
+            valid_by_arg[k] = len(arrays) - 1
+        return valid_by_arg[k]
+
+    for si, (rk, _ok, arg) in enumerate(specs):
+        if rk == "count":
+            if arg is None:
+                mspecs.append(_MxuSpec("count_star", -1, -1, -1, 0, 1,
+                                       False))
+            else:
+                mspecs.append(_MxuSpec("count", valid_block(si, arg), -1,
+                                       -1, 0, 1, False))
+            continue
+        if rk not in ("sum", "min", "max") or arg is None:
+            return None
+        t = arg.data_type(in_schema)
+        is_float = t.is_floating
+        if not (is_float or t.is_integer):
+            return None
+        if is_float and t.id != TypeId.FLOAT64:
+            # float32's ~6e-8 relative rounding would fail the verify
+            # every time
+            return None
+        b = _column_bounds(child, arg, float_ok=is_float)
+        if b is None:
+            return None
+        lo, hi = b
+        if is_float:
+            if not (math.isfinite(float(lo)) and math.isfinite(float(hi))):
+                return None
+            clo = int(math.floor(float(lo) * scale_conf)) - 1
+            chi = int(math.ceil(float(hi) * scale_conf)) + 1
+            scale = scale_conf
+        else:
+            clo, chi, scale = int(lo), int(hi), 1
+        span_bits = WT.limb_bits_for(clo, chi)
+        if span_bits > 31:
+            return None
+        vi = valid_block(si, arg)
+        if rk == "sum":
+            arrays.append(("cents", si))
+            bits.append(span_bits)
+            mspecs.append(_MxuSpec("sum", vi, len(arrays) - 1, -1, clo,
+                                   scale, is_float))
+        else:
+            scatter.append((rk == "min", si))
+            mspecs.append(_MxuSpec(rk, vi, -1, len(scatter) - 1, clo,
+                                   scale, is_float))
+    layout = WT.plan_layout(total, bits)
+    if layout is None:
+        return None
+    return _MxuMeta(layout, tuple(mspecs), tuple(arrays), tuple(scatter))
+
+
+# ---------------------------------------------------------------------------
+# the fused operator
 # ---------------------------------------------------------------------------
 
 class FusedPartialAggExec(ExecutionPlan):
@@ -247,7 +383,8 @@ class FusedPartialAggExec(ExecutionPlan):
 
     def __init__(self, child: ExecutionPlan, group_exprs, aggs,
                  specs: Sequence[Tuple[str, str, Optional[PhysicalExpr]]],
-                 grow: bool, source: ExecutionPlan, chain):
+                 grow: bool, source: ExecutionPlan, chain,
+                 ranges: Optional[List[Tuple[int, int]]] = None):
         super().__init__([child])
         self._group_exprs = list(group_exprs)
         self._aggs = list(aggs)
@@ -258,6 +395,8 @@ class FusedPartialAggExec(ExecutionPlan):
                                             self._group_exprs, self._aggs)
         self._source = source
         self._chain = list(chain)
+        self._ranges = ranges  # dense key ranges, None for the hash lane
+        self._mxu_meta: Optional[_MxuMeta] = None  # set by _try_fuse_agg
 
     @property
     def schema(self) -> Schema:
@@ -266,6 +405,10 @@ class FusedPartialAggExec(ExecutionPlan):
     @property
     def num_partitions(self) -> int:
         return self.children[0].num_partitions
+
+    @property
+    def fused_mode(self) -> str:
+        return "dense" if self._ranges is not None else "sorted"
 
     def _acc_dtypes(self) -> Tuple[torch.dtype, ...]:
         """Carry accumulator dtype per spec."""
@@ -288,7 +431,189 @@ class FusedPartialAggExec(ExecutionPlan):
         return hash_agg_step(carry, list(zip(kd, kv)), specs, mask)
 
     def execute(self, partition: int) -> BatchIterator:
-        return self._execute_sorted(partition)
+        if self._ranges is None:
+            yield from self._execute_sorted(partition)
+            return
+        if self._mxu_meta is not None and self._mxu_active():
+            try:
+                yield from self._execute_mxu(partition)
+                return
+            except _MxuVerifyFailed:
+                # nothing has been emitted yet (the lane emits only after
+                # its final drain), so the partition re-runs losslessly
+                self.metrics.add("mxu_verify_fallback", 1)
+        yield from self._execute_dense(partition)
+
+    def _mxu_active(self) -> bool:
+        """The window-table lane runs on a CUDA device, as the JAX package
+        runs it on the TPU; on the CPU only when forced."""
+        if config.AGG_MXU_FORCE.get():
+            return True
+        from blaze_tpu_torch.device import resolve
+        return resolve().type == "cuda"
+
+    # -- bounded keys, window-table lane: exact int32 limb tables ----------
+    def _execute_mxu(self, partition: int) -> BatchIterator:
+        """Fold batches into the window table; drain it into int64
+        accumulators within its exactness bound; emit once at the end.
+        Raises _MxuVerifyFailed before any emission when a float column
+        breaks the fixed-point contract."""
+        meta = self._mxu_meta
+        layout = meta.layout
+        S = layout.num_slots
+        wide = None  # (presence, [array sums], [min/max]) int64 on device
+        carry = None
+        bound = 0
+
+        def drain():
+            nonlocal carry, bound
+            if carry is None:
+                return
+            table, mm, ok = carry
+            carry = None
+            bound = 0
+            if not bool(ok):
+                raise _MxuVerifyFailed()
+            presence, vals = WT.split_blocks(table, layout)
+            wide[0].add_(presence)
+            for acc, v in zip(wide[1], vals):
+                acc.add_(v)
+            for i, (is_min, _si) in enumerate(meta.scatter):
+                op = torch.minimum if is_min else torch.maximum
+                wide[2][i] = op(wide[2][i], mm[i][:S].to(torch.int64))
+
+        for batch in self._source.execute(partition):
+            self.metrics.add(f"{batch.device.type}_batches")
+            wrows = batch.capacity
+            if wrows > WT.MAX_ROWS_PER_TABLE:
+                # one batch past the int32 exactness bound cannot drain
+                # mid-fold; the scatter lane re-runs the partition
+                raise _MxuVerifyFailed()
+            if bound + wrows > WT.MAX_ROWS_PER_TABLE:
+                drain()
+            dev = batch.device
+            if wide is None:
+                wide = (torch.zeros(S, dtype=torch.int64, device=dev),
+                        [torch.zeros(S, dtype=torch.int64, device=dev)
+                         for _ in meta.arrays],
+                        [torch.full((S,), _MM_IDENT[is_min],
+                                    dtype=torch.int64, device=dev)
+                         for is_min, _si in meta.scatter])
+            if carry is None:
+                carry = (torch.zeros(layout.sh, layout.sl * layout.n_blocks,
+                                     dtype=torch.int32, device=dev),
+                         [torch.full((S + 1,), _MM_IDENT[is_min],
+                                     dtype=torch.int32, device=dev)
+                          for is_min, _si in meta.scatter],
+                         torch.ones((), dtype=torch.bool, device=dev))
+            carry = self._mxu_step(carry, batch)
+            bound += wrows
+        drain()
+        if wide is None:
+            return
+        presence, vals, mm = wide
+        self.metrics.add("mxu_rows", int(presence.sum()))
+        slots = torch.nonzero(presence).squeeze(1)
+        if slots.shape[0] == 0:
+            return
+        keys = unpack_dense_keys(slots, self._ranges)
+        accs, avalid = [], []
+        ones = torch.ones(slots.shape[0], dtype=torch.bool,
+                          device=slots.device)
+        for sp in meta.specs:
+            if sp.kind == "count_star":
+                accs.append(presence[slots])
+                avalid.append(ones)
+            elif sp.kind == "count":
+                accs.append(vals[sp.arr_valid][slots])
+                avalid.append(ones)
+            elif sp.kind == "sum":
+                vc = vals[sp.arr_valid][slots]
+                # an exact int64 total, divided once by the scale
+                tot = vals[sp.arr_cents][slots] + vc * sp.off
+                accs.append(tot.to(torch.float64) / sp.scale if sp.is_float
+                            else tot)
+                avalid.append(vc > 0)
+            else:  # min / max
+                vc = vals[sp.arr_valid][slots]
+                raw = mm[sp.scatter_idx][slots] + sp.off
+                accs.append(raw.to(torch.float64) / sp.scale if sp.is_float
+                            else raw)
+                avalid.append(vc > 0)
+        yield from self._emit_rows(keys, accs, avalid)
+
+    def _mxu_step(self, carry, batch: ColumnBatch):
+        """One batch into the window table: the chain, int32 group ids,
+        the fixed-point limb domain and its verify, the table update and
+        the min/max scatters (blaze_tpu/plan/fused.py _mxu_fold_factory's
+        loop body, run eagerly)."""
+        meta = self._mxu_meta
+        table, mm_accs, ok = carry
+        kd, kv, ad, av, m = self._device_inputs(batch)
+        gid, _total = pack_dense_keys_i32(list(zip(kd, kv)), self._ranges)
+        gid = torch.where(m, gid, torch.full_like(gid, meta.layout.num_slots))
+        valids, cents = {}, {}
+        for si, sp in enumerate(meta.specs):
+            if sp.kind == "count_star":
+                continue
+            valids[si] = av[si] if av[si] is not None else \
+                torch.ones_like(m)
+            if sp.kind == "count":
+                continue
+            data = ad[si]
+            if sp.is_float:
+                scale = float(sp.scale)
+                c = torch.round(data * scale)  # half to even, as jnp.rint
+                # fixed-point verify without division: a genuine scaled
+                # value lies within two roundings of its integer
+                exact = (data * scale - c).abs() <= (c.abs() + 1.0) * 1e-12
+                ok = ok & (exact | ~valids[si] | ~m).all()
+                cents[si] = (c - sp.off).to(torch.int32)
+            else:
+                cents[si] = (data.to(torch.int64) - sp.off).to(torch.int32)
+        arrays = []
+        for akind, si in meta.arrays:
+            if akind == "valid":
+                arrays.append((valids[si] & m).to(torch.int32))
+            else:
+                arrays.append(torch.where(valids[si], cents[si],
+                                          torch.zeros_like(cents[si])))
+        WT.window_table(gid, arrays, meta.layout, out=table)
+        gl = gid.to(torch.int64)
+        new_mm = []
+        for (is_min, si), acc in zip(meta.scatter, mm_accs):
+            val = torch.where(valids[si] & m, cents[si],
+                              torch.full_like(cents[si], _MM_IDENT[is_min]))
+            new_mm.append(acc.scatter_reduce_(
+                0, gl, val, "amin" if is_min else "amax", include_self=True))
+        return table, new_mm, ok
+
+    # -- bounded keys, scatter dense lane ------------------------------------
+    def _execute_dense(self, partition: int) -> BatchIterator:
+        num_slots = _num_slots(self._ranges)
+        kinds = [rk for rk, _ok, _a in self._specs]
+        carry = None
+        for batch in self._source.execute(partition):
+            self.metrics.add(f"{batch.device.type}_batches")
+            kd, kv, ad, av, mask = self._device_inputs(batch)
+            gid, _total = pack_dense_keys(list(zip(kd, kv)), self._ranges)
+            if carry is None:
+                carry = init_dense_carry(kinds, self._acc_dtypes(),
+                                         num_slots, batch.device)
+            carry = scatter_into_dense_carry(carry, gid, kinds, ad, av, mask)
+        if carry is not None:
+            yield from self._emit_dense(carry)
+
+    def _emit_dense(self, carry) -> BatchIterator:
+        """The occupied slots in slot order, keys decoded from the slot."""
+        accs, avalid, occupied = carry
+        slots = torch.nonzero(occupied).squeeze(1)
+        if slots.shape[0] == 0:
+            return
+        keys = unpack_dense_keys(slots, self._ranges)
+        yield from self._emit_rows(keys,
+                                   [a.index_select(0, slots) for a in accs],
+                                   [v.index_select(0, slots) for v in avalid])
 
     # -- unbounded keys: device open-addressing hash table -----------------
     def _execute_sorted(self, partition: int) -> BatchIterator:
@@ -408,6 +733,10 @@ class FusedPartialAggExec(ExecutionPlan):
                 valid[:m] = v[off:off + m]
                 out.append(DeviceColumn(f.data_type, data, valid))
             yield ColumnBatch(self._out_schema, out, m)
+
+
+#: identity of the window-table lane's int32 min (True) / max (False)
+_MM_IDENT = {True: (1 << 31) - 1, False: -(1 << 31)}
 
 
 def _pow2(n: int) -> int:

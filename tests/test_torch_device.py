@@ -1,7 +1,8 @@
 """Device selection and kernel routing of the port: `auron.torch.device`
 picks the device and CUDA without a card raises; CPU tensors take the
 plain versions; the kernel wrappers validate their operands and a missing
-toolchain raises instead of falling back; lanes outside the slice raise
+toolchain raises instead of falling back; bounded keys take the dense lane
+as in the JAX package, and lanes the port lacks (string keys) raise
 NotImplementedError instead of rerouting."""
 
 import copy
@@ -112,8 +113,10 @@ def test_lanes_outside_the_slice_raise(tmp_path, device_key):
     # 100,000 customers x 13 stores over 1,000 rows: the ranges drop
     plan = fuse_plan(_agg_plan(tmp_path, 100_000))
     assert isinstance(plan.children[0], FusedPartialAggExec)
-    # 50 customers: the JAX package would take the dense lane
-    with pytest.raises(NotImplementedError, match="dense"):
-        fuse_plan(_agg_plan(tmp_path, 50))
+    assert plan.children[0].fused_mode == "sorted"
+    # 50 customers: the dense lane, as the JAX package plans it
+    dense = fuse_plan(_agg_plan(tmp_path, 50)).children[0]
+    assert isinstance(dense, FusedPartialAggExec)
+    assert dense.fused_mode == "dense" and dense._mxu_meta is not None
     with pytest.raises(NotImplementedError, match="string keys"):
         fuse_plan(_agg_plan(tmp_path, 100_000, keys=("s_name",)))

@@ -1,7 +1,9 @@
-"""The slice end to end: TPC-DS q01's inner two-stage query over a small
-q01-shaped dataset, as TaskDefinition bytes through both packages'
-runtimes (the JAX package on its scatter lanes, the port on the CPU with
-the plain versions of its kernels), 2 maps x 4 reduces.
+"""The port's paths end to end, as TaskDefinition bytes through both
+packages' runtimes (the JAX package on its scatter lanes, the port on the
+CPU with the plain versions of its kernels), 2 maps x 4 reduces, over a
+small q01-shaped dataset.
+
+TPC-DS q01's inner two-stage query:
 
 Customers span 1..100,000, so the key ranges drop to the hash lane as at
 SF10, and the table capacity is small enough that the map side overflows
@@ -9,7 +11,15 @@ into partial skipping and the reduce side grows its table.  The `.index`
 files must be byte-identical; the decoded `.data` frames and the reduce
 outputs must have the same rows in the same order, keys exact and float64
 sums within rel 1e-12 (summation order); both must equal a pyarrow
-group-by."""
+group-by.
+
+The store-by-day returns rollup (itest/rollup.py): each map file's
+statistics bound (store, date) to some 11,900 slots, so the map side plans
+the dense lane, forced onto the window-table lane in both packages or left
+on the scatter dense lane, as each package picks it on the CPU; the reduce
+side runs the hash lane.  The same checks hold, with counts exact; on the
+window-table lane the map-side sums are exact in both packages.
+"""
 
 import io
 import os
@@ -65,22 +75,31 @@ def _dataset(root):
     return q01.write_dataset(root, sr, gen_date_dim(1.0), N_MAPS)
 
 
-def _run_jax(sr_paths, lo, hi, tmpdir):
-    """bench.py's map/reduce tasks through the JAX package's runtime."""
+def _run_jax(map_td, reduce_td, resource, tmpdir):
+    """The map tasks `map_td(m)`, then the reduce tasks `reduce_td(r)`,
+    through the JAX package's runtime.  Returns the reduce outputs and the
+    map-side metric values summed over the tasks' metric trees."""
     from blaze_tpu.bridge.resource import put_resource, remove_resource
     from blaze_tpu.bridge.runtime import NativeExecutionRuntime
     from blaze_tpu.plan.proto_serde import task_definition_to_bytes
     from blaze_tpu.shuffle.exchange import read_index_file
     from blaze_tpu.shuffle.reader import FileSegmentBlock
+    map_metrics = {}
+
+    def add(node):
+        for k, v in node.values.items():
+            map_metrics[k] = map_metrics.get(k, 0) + v
+        for c in node.children:
+            add(c)
+
     for m in range(N_MAPS):
         rt = NativeExecutionRuntime(task_definition_to_bytes(
-            q01.stage1_td(sr_paths, lo, hi, m, tmpdir, N_MAPS,
-                          N_REDUCES))).start()
+            map_td(m))).start()
         try:
             for _ in rt.batches():
                 pass
         finally:
-            rt.finalize()
+            add(rt.finalize())
     offs = [read_index_file(os.path.join(tmpdir, f"shuffle_{m}.index"),
                             N_REDUCES) for m in range(N_MAPS)]
 
@@ -89,28 +108,30 @@ def _run_jax(sr_paths, lo, hi, tmpdir):
                                  o[r], o[r + 1] - o[r])
                 for m, o in enumerate(offs) if o[r + 1] > o[r]]
 
-    put_resource(q01.SHUFFLE_RESOURCE, blocks_for)
+    put_resource(resource, blocks_for)
     outs = []
     try:
         for r in range(N_REDUCES):
             rt = NativeExecutionRuntime(task_definition_to_bytes(
-                q01.stage2_td(r, N_REDUCES))).start()
+                reduce_td(r))).start()
             try:
                 outs.append(list(rt.batches()))
             finally:
                 rt.finalize()
     finally:
-        remove_resource(q01.SHUFFLE_RESOURCE)
-    return outs
+        remove_resource(resource)
+    return outs, map_metrics
 
 
 def _table(batches, schema=None):
     return pa.Table.from_batches(batches, schema=schema).combine_chunks()
 
 
-def _assert_same_rows(a: pa.Table, b: pa.Table, keys, value):
+def _assert_same_rows(a: pa.Table, b: pa.Table, keys, value, exact=()):
     assert a.num_rows == b.num_rows
     assert a.select(keys).equals(b.select(keys))
+    for name in exact:
+        assert a[name].equals(b[name]), name
     x = np.asarray(a[value].fill_null(np.nan))
     y = np.asarray(b[value].fill_null(np.nan))
     assert np.array_equal(np.isnan(x), np.isnan(y))
@@ -144,7 +165,11 @@ def test_q01_two_stage_matches_jax_and_oracle(tmp_path, confs):
     jdir.mkdir()
     tdir.mkdir()
 
-    j_out = _run_jax(sr_paths, lo, hi, str(jdir))
+    j_out, _m = _run_jax(
+        lambda m: q01.stage1_td(sr_paths, lo, hi, m, str(jdir), N_MAPS,
+                                N_REDUCES),
+        lambda r: q01.stage2_td(r, N_REDUCES), q01.SHUFFLE_RESOURCE,
+        str(jdir))
     res = q01.run_q01(sr_paths, lo, hi, str(tdir), N_MAPS, N_REDUCES)
     t_out = res["reduce_outputs"]
     c = res["counters"]
@@ -189,3 +214,73 @@ def test_q01_two_stage_matches_jax_and_oracle(tmp_path, confs):
         got = pa.concat_tables([_table(b) for b in outs if b]).sort_by(order)
         _assert_same_rows(got.select(ora.column_names), ora, keys,
                           "ctr_total_return")
+
+
+@pytest.mark.parametrize("lane", ["window_table", "scatter"])
+def test_rollup_two_stage_matches_jax_and_oracle(tmp_path, confs, lane):
+    from blaze_tpu.shuffle.ipc import read_batches_from_bytes
+    from blaze_tpu_torch.itest import rollup
+    from blaze_tpu_torch.kernels import window_table
+    from blaze_tpu_torch.shuffle.ipc import IpcCompressionReader
+
+    if lane == "window_table":
+        for c in (jconf, tconf):
+            c.conf.set("auron.tpu.mxuAgg.force", True)
+    try:
+        sr_paths, dd_path = _dataset(str(tmp_path / "data"))
+        lo, hi = q01.date_sk_range(dd_path)
+        jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+        jdir.mkdir()
+        tdir.mkdir()
+        j_out, j_map = _run_jax(
+            lambda m: rollup.stage1_td(sr_paths, lo, hi, m, str(jdir),
+                                       N_MAPS, N_REDUCES),
+            lambda r: rollup.stage2_td(r, N_REDUCES),
+            rollup.SHUFFLE_RESOURCE, str(jdir))
+        res = rollup.run_rollup(sr_paths, lo, hi, str(tdir), N_MAPS,
+                                N_REDUCES)
+    finally:
+        for c in (jconf, tconf):
+            c.conf.unset("auron.tpu.mxuAgg.force")
+    t_out = res["reduce_outputs"]
+    c = res["counters"]
+    filtered = rollup.filtered_rows(sr_paths, lo, hi)
+    assert filtered > 0
+    mxu_rows = filtered if lane == "window_table" else 0
+    assert c["map"]["mxu_rows"] == j_map.get("mxu_rows", 0) == mxu_rows
+    assert c["map"]["mxu_verify_fallback"] == 0
+    assert j_map.get("mxu_verify_fallback", 0) == 0
+    assert c["map"]["cpu_batches"] >= N_MAPS and not c["map"]["cuda_batches"]
+    assert window_table.window_table_launches == 0
+
+    # map side: byte-identical offsets, the same rows in the same order
+    for m in range(N_MAPS):
+        with open(jdir / f"shuffle_{m}.index", "rb") as f:
+            j_index = f.read()
+        with open(tdir / f"shuffle_{m}.index", "rb") as f:
+            assert f.read() == j_index
+    j_seg = _segments(str(jdir), read_batches_from_bytes)
+    t_seg = _segments(str(tdir), lambda b: IpcCompressionReader(
+        io.BytesIO(b)).read_batches())
+    keys = ["store", "d"]
+    exact = ["cnt.count"] + (["amt.sum"] if lane == "window_table" else [])
+    for k in j_seg:
+        assert len(j_seg[k]) == len(t_seg[k])
+        if j_seg[k]:
+            _assert_same_rows(_table(t_seg[k]), _table(j_seg[k]), keys,
+                              "amt.sum", exact)
+
+    # reduce side: the same rows in the same order in every partition
+    for jb, tb in zip(j_out, t_out):
+        assert bool(jb) == bool(tb)
+        if jb:
+            _assert_same_rows(_table(tb), _table(jb), keys, "amt", ["cnt"])
+
+    # both equal the oracle
+    order = [(k, "ascending") for k in keys]
+    ora = rollup.oracle(sr_paths, lo, hi).sort_by(order)
+    assert pa.compute.sum(ora["cnt"]).as_py() == filtered
+    for outs in (j_out, t_out):
+        got = pa.concat_tables([_table(b) for b in outs if b]).sort_by(order)
+        _assert_same_rows(got.select(ora.column_names), ora, keys, "amt",
+                          ["cnt"])
