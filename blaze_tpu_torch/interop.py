@@ -18,20 +18,29 @@ from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn, to_device,
 from blaze_tpu_torch.parallel.stage import HashAggCarry
 from blaze_tpu_torch.schema import Schema
 
+#: the carry's leaves that both packages hold (the port's `limbs` is
+#: derived from `keys` and `key_valid`)
 CARRY_FIELDS = ("keys", "key_valid", "accs", "acc_valid", "used")
 
 
 def carry_from_numpy(leaves: Dict[str, object],
                      device: torch.device) -> HashAggCarry:
     """{"keys": [..], "key_valid": [..], "accs": [..], "acc_valid": [..],
-    "used": array} of numpy arrays -> the port's carry (copies)."""
+    "used": array} of numpy arrays -> the port's carry (copies).  The
+    carry's key-limb table, which the JAX carry does not hold, is encoded
+    from the stored keys (zero where a slot is unused)."""
+    from blaze_tpu_torch.kernels.hash_update import encode_limbs
+
     def dev(a):
         return to_device(np.asarray(a), device)
-    return HashAggCarry(tuple(dev(a) for a in leaves["keys"]),
-                        tuple(dev(a) for a in leaves["key_valid"]),
+    keys = tuple(dev(a) for a in leaves["keys"])
+    key_valid = tuple(dev(a) for a in leaves["key_valid"])
+    used = dev(leaves["used"])
+    limbs = encode_limbs(list(zip(keys, key_valid)))
+    return HashAggCarry(keys, key_valid,
                         tuple(dev(a) for a in leaves["accs"]),
                         tuple(dev(a) for a in leaves["acc_valid"]),
-                        dev(leaves["used"]))
+                        used, limbs * used.to(torch.int32))
 
 
 def carry_to_numpy(carry: HashAggCarry) -> Dict[str, object]:

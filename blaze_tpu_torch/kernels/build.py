@@ -7,6 +7,11 @@ build takes seconds).  Builds happen at first use, never at import, into
 digest of its source, so an edited source is rebuilt.  `build_all` starts
 one `nvcc` per source, all at once.  A missing toolchain or a failed build
 raises: there is no fallback to the plain PyTorch versions.
+
+Binding happens once: `load` sets every entry point's `restype` and
+`argtypes` from `SIGNATURES` when it first opens a library, and `bound`
+hands wrappers the bound function from a module-level cache, so a launch
+takes no lock and sets no argument types.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -32,10 +37,33 @@ SOURCES = {
     "window_table": "window_table.cu",
 }
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: library -> entry point -> (restype, argtypes); every pointer and the
+#: stream are c_void_p, so ctypes never cuts a 64-bit address
+SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
+    "hash_update": {
+        # h, limbs, mask, used, tab, out, scratch, slots, base, n, S, L,
+        # rounds, h_is64, stream
+        "blaze_place_in_carry": (_I, [_P] * 7 + [_I, ctypes.c_uint] +
+                                 [_I] * 5 + [_P]),
+        # slots, rounds -> cells of the scratch buffer
+        "blaze_place_scratch_cells": (ctypes.c_longlong, [_I] * 2),
+    },
+    "radix": {
+        "blaze_radix_partition": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+        "blaze_radix_tile_rows": (_I, []),
+    },
+    "window_table": {
+        # the StepParams block in host memory, stream
+        "blaze_window_step": (_I, [_P, _P]),
+    },
+}
+
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], Callable] = {}
 
 
 def nvcc_path() -> str:
@@ -90,7 +118,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, building it first if needed."""
+    """The loaded library of one kernel, building it first if needed; its
+    entry points' types are set from `SIGNATURES` as it is opened."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -99,8 +128,30 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
+        for fn_name, (restype, argtypes) in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _libs[name] = lib
         return lib
+
+
+def bound(name: str, fn_name: str) -> Callable:
+    """One entry point of a kernel library, typed and cached: after the
+    first call this is a dict lookup."""
+    fn = _bound.get((name, fn_name))
+    if fn is None:
+        fn = _bound.setdefault((name, fn_name), getattr(load(name), fn_name))
+    return fn
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

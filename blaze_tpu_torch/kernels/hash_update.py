@@ -1,21 +1,30 @@
 """Open-addressing placement for hash_agg_step (port of
 blaze_tpu/kernels/hash_update.py).
 
-`placement` computes, for one batch, where each pending row lands in the
-group table: round r probes slot (h + r) & (S - 1); the lowest row index
-claims a contested empty slot; after the claims, a pending row whose key
-limbs equal the slot's limbs is placed.  It returns `placed` (slot per
-row, S = never placed) and `wslot` (slot a row claimed as new, S = none).
-The kernel is placement-only: parallel/stage.py replays the key scatters
-through `wslot` and the accumulation through `placed`, the same tail the
-JAX package runs on every lane, so the carry is bit-identical.
+`place_in_carry` computes, for one batch, where each masked row lands in
+the group table: round r probes slot (h + r) & (S - 1); the lowest row
+index claims a contested empty slot; after the claims, a pending row whose
+key limbs equal the slot's limbs is placed.  It returns `placed` (slot per
+row, S = never placed), `wslot` (slot a row claimed as new, S = none) and
+the count of masked rows left unplaced, and it writes the claims into the
+`used` flags and the (L, S) limb table it is handed (parallel/stage.py
+keeps that table in the carry and hands in copies).  The kernel is
+placement-only: parallel/stage.py replays the key scatters through `wslot`
+and the accumulation through `placed`, the same tail the JAX package runs
+on every lane, so the carry is bit-identical.
 
 Two implementations of one function, chosen by the tensors' device
 (kernels/lane.py):
-  * CUDA: csrc/hash_update.cu, round-synchronous claim/commit/match passes
-    (see the note at the top of that file);
-  * CPU: `placement_plain`, the scatter formulation over limbs with
+  * CUDA: csrc/hash_update.cu, one cooperative launch whose grid barriers
+    separate the round-synchronous claim/commit/match phases (see the note
+    at the top of that file);
+  * CPU: `place_in_carry_plain`, the scatter formulation over limbs with
     `scatter_reduce_(..., "amin")` for the claims.
+
+`placement_plain` takes the JAX package's operands (a pending row list,
+int32 `used`, a table it does not write), so the tests can hold the plain
+version to the Pallas kernel's contract; it runs `place_in_carry_plain`
+on copies.
 
 Keys are matched on int32 limbs of the already-normalized key bits: data
 limbs are zeroed where the key is NULL and each column adds its validity
@@ -24,15 +33,14 @@ bit as one more limb, so equality over all limbs is SQL grouping equality.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import torch
 
 from blaze_tpu_torch.kernels import lane
 
-#: launches of the CUDA placement kernel (one per `placement` call on a
-#: CUDA device)
+#: launches of the CUDA placement kernel (one per `place_in_carry` call on
+#: a CUDA device)
 placement_launches = 0
 
 
@@ -66,142 +74,162 @@ def encode_limbs(key_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
-# placement: plain version and CUDA kernel
+# placement into the carry's table: plain version and CUDA kernel
 # ---------------------------------------------------------------------------
 
-def placement_plain(h, limbs, pend0, npend, used0, tab0, probe_rounds: int):
-    """Scatter formulation of the placement on any device.  Same operands
-    and results as `placement`."""
+def place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds: int):
+    """Scatter formulation of `place_in_carry` on any device: same
+    operands, same results, `used` and `tab` claimed into in place."""
     n = h.shape[0]
-    L, S = tab0.shape
+    S = tab.shape[1]
     dev = h.device
-    npend = int(npend)
-    pending = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    pending[pend0[:npend].long()] = True
-    pending = pending[:n]
+    pending = mask.clone()
     row = torch.arange(n, dtype=torch.int64, device=dev)
     hl = h.to(torch.int64)
-    # one spare trailing slot takes the writes of rows that do not win
-    used = torch.cat([used0.to(torch.int32),
-                      torch.zeros(1, dtype=torch.int32, device=dev)])
-    tab = torch.cat([tab0, torch.zeros(L, 1, dtype=torch.int32, device=dev)],
-                    dim=1)
     placed = torch.full((n,), S, dtype=torch.int64, device=dev)
     wslot = torch.full((n,), S, dtype=torch.int64, device=dev)
     for r in range(probe_rounds):
         if not bool(pending.any()):
             break
         slot = (hl + r) & (S - 1)
-        can_claim = pending & (used[slot] == 0)
+        can_claim = pending & ~used[slot]
         claim = torch.full((S + 1,), n, dtype=torch.int64, device=dev)
         claim.scatter_reduce_(0, torch.where(can_claim, slot, S), row,
                               "amin", include_self=True)
         winner = can_claim & (claim[slot] == row)
-        ws = torch.where(winner, slot, S)
-        used[ws] = 1
-        tab[:, ws] = limbs
+        won = slot[winner]  # one winner per slot
+        used[won] = True
+        tab[:, won] = limbs[:, winner]
         wslot = torch.where(winner, slot, wslot)
         # match after the claims, so same-key rows of this round unify
-        eq = (used[slot] == 1) & (tab[:, slot] == limbs).all(dim=0)
+        eq = used[slot] & (tab[:, slot] == limbs).all(dim=0)
         ok = pending & eq
         placed = torch.where(ok, slot, placed)
         pending = pending & ~ok
-    return placed.to(torch.int32), wslot.to(torch.int32)
+    return (placed.to(torch.int32), wslot.to(torch.int32),
+            pending.sum().to(torch.int32).reshape(1))
 
 
-def _check_operands(h, limbs, pend0, npend, used0, tab0):
+def _check_operands(h, limbs, mask, used, tab, probe_rounds):
     n = h.shape[0]
-    L, S = tab0.shape
-    for name, t, shape in (("h", h, (n,)), ("limbs", limbs, (L, n)),
-                           ("pend0", pend0, (n,)), ("npend", npend, (1,)),
-                           ("used0", used0, (S,)), ("tab0", tab0, (L, S))):
-        if t.dtype != torch.int32:
-            raise TypeError(f"placement: {name} must be int32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"placement: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if t.device != h.device:
-            raise ValueError(f"placement: {name} is on {t.device}, "
-                             f"h on {h.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"placement: {name} must be contiguous")
+    L, S = tab.shape
+    dev = h.get_device()
+    for t, dtypes, shape in ((h, (torch.int32, torch.int64), (n,)),
+                             (limbs, (torch.int32,), (L, n)),
+                             (mask, (torch.bool,), (n,)),
+                             (used, (torch.bool,), (S,)),
+                             (tab, (torch.int32,), (L, S))):
+        if (t.dtype not in dtypes or t.shape != shape
+                or t.get_device() != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"place_in_carry: expected contiguous {shape} "
+                f"{'/'.join(map(str, dtypes))} on {h.device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if S < 1 or S & (S - 1):
-        raise ValueError(f"placement: table size {S} is not a power of two")
-    if n >= (1 << 31) - 1 or L * S >= (1 << 31):
-        raise ValueError("placement: operands exceed int32 indexing")
+        raise ValueError(f"place_in_carry: table size {S} is not a power "
+                         f"of two")
+    if probe_rounds < 1:
+        raise ValueError("place_in_carry: probe_rounds must be at least 1")
+    if 5 * S + probe_rounds + 257 >= (1 << 31) or L * S >= (1 << 31):
+        raise ValueError("place_in_carry: operands exceed int32 indexing")
 
 
-def _placement_cuda(h, limbs, pend0, npend, used0, tab0, probe_rounds: int):
+class _Scratch:
+    """The placement kernel's scratch on one device: its claim and stamp
+    arrays for tables of up to `slots` slots, zeroed once and kept across
+    calls, and the next call's round tag (csrc/hash_update.cu: every value
+    a call leaves there is tagged below the next call's rounds, so nothing
+    is cleared between calls, whatever their tables)."""
+
+    #: tags are 32-bit; the scratch is zeroed again before they run out
+    TAG_LIMIT = (1 << 32) - 1
+
+    def __init__(self, device, slots: int, rounds: int):
+        from blaze_tpu_torch.kernels import build
+        self.slots, self.rounds = slots, max(rounds, 16)
+        cells = build.bound("hash_update", "blaze_place_scratch_cells")(
+            slots, self.rounds)
+        self.buf = torch.zeros(cells, dtype=torch.int32, device=device)
+        self.base = 1
+
+    def take(self, rounds: int) -> int:
+        """The base tag of a call of `rounds` rounds."""
+        if self.base + rounds + 1 >= self.TAG_LIMIT:
+            self.buf.zero_()
+            self.base = 1
+        base = self.base
+        self.base += rounds + 1
+        return base
+
+
+#: device index -> _Scratch, sized for the largest table placed there;
+#: kernels on one device run on PyTorch's current stream, one at a time
+_scratch: dict = {}
+
+
+def _scratch_for(device, S: int, rounds: int) -> _Scratch:
+    sc = _scratch.get(device.index)
+    if sc is None or sc.slots < S or sc.rounds < rounds:
+        sc = _scratch[device.index] = _Scratch(
+            device, max(S, sc.slots if sc else 0), rounds)
+    return sc
+
+
+def _place_cuda(h, limbs, mask, used, tab, probe_rounds: int):
     global placement_launches
     from blaze_tpu_torch.kernels import build
-    _check_operands(h, limbs, pend0, npend, used0, tab0)
+    _check_operands(h, limbs, mask, used, tab, probe_rounds)
     n = h.shape[0]
-    L, S = tab0.shape
-    lib = build.load("hash_update")
-    fn = lib.blaze_hash_placement
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    dev = h.device
-    used = torch.empty(S, dtype=torch.int32, device=dev)
-    tab = torch.empty(L, S, dtype=torch.int32, device=dev)
-    claim = torch.empty(S, dtype=torch.int32, device=dev)
-    cnt = torch.empty(probe_rounds + 1, dtype=torch.int32, device=dev)
-    placed = torch.empty(n, dtype=torch.int32, device=dev)
-    wslot = torch.empty(n, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(h.data_ptr(), limbs.data_ptr(), pend0.data_ptr(),
-            npend.data_ptr(), used0.data_ptr(), tab0.data_ptr(),
-            used.data_ptr(), tab.data_ptr(), claim.data_ptr(),
-            cnt.data_ptr(), placed.data_ptr(), wslot.data_ptr(),
-            n, S, L, probe_rounds, stream)
+    L, S = tab.shape
+    sc = _scratch_for(h.device, S, probe_rounds)
+    out = torch.empty(2 * n + 1, dtype=torch.int32, device=h.device)
+    rc = build.bound("hash_update", "blaze_place_in_carry")(
+        h.data_ptr(), limbs.data_ptr(), mask.data_ptr(), used.data_ptr(),
+        tab.data_ptr(), out.data_ptr(), sc.buf.data_ptr(), sc.slots,
+        sc.take(probe_rounds), n, S, L, probe_rounds,
+        int(h.dtype == torch.int64), build.stream_of(h.device))
     build.check(rc, "hash placement kernel")
     placement_launches += 1
-    return placed, wslot
+    return out[:n], out[n:2 * n], out[2 * n:]
 
 
-def placement(h, limbs, pend0, npend, used0, tab0, probe_rounds: int):
-    """Run the placement.  All operands int32 on one device: h (n,)
-    pre-masked to [0, S); limbs (L, n); pend0 (n,) pending rows in row
-    order, padded with n; npend (1,) their count; used0 (S,) 0/1; tab0
-    (L, S) stored-key limbs.  Returns (placed (n,), wslot (n,)) int32 with
-    sentinel S."""
+def place_in_carry(h, limbs, mask, used, tab, probe_rounds: int):
+    """Place one batch's rows into a table, claiming in place.  h (n,)
+    int32 or int64 slot hashes (bits above log2(S) ignored); limbs (L, n)
+    int32 row key limbs; mask (n,) bool rows to place; used (S,) bool and
+    tab (L, S) int32 stored-key limbs, both written where rows claim a
+    slot.  Returns (placed (n,), wslot (n,), unplaced (1,)) int32: slots
+    with sentinel S, and the masked rows left unplaced."""
     if h.shape[0] == 0:
         empty = torch.empty(0, dtype=torch.int32, device=h.device)
-        return empty, empty.clone()
+        return empty, empty.clone(), torch.zeros(1, dtype=torch.int32,
+                                                 device=h.device)
     if lane.route(h) == "cuda":
-        return _placement_cuda(h, limbs, pend0, npend, used0, tab0,
-                               probe_rounds)
-    return placement_plain(h, limbs, pend0, npend, used0, tab0, probe_rounds)
+        return _place_cuda(h, limbs, mask, used, tab, probe_rounds)
+    return place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds)
 
 
 # ---------------------------------------------------------------------------
-# hash_agg_step integration
+# the JAX package's operands: a pending list and an int32 `used`
 # ---------------------------------------------------------------------------
 
-def placement_inputs(h, key_cols, mask, carry):
-    """The operands of `placement` for one hash_agg_step batch:
-    (h, limbs, pend0, npend, used0, tab0).  `h` already masked to [0, S);
-    key_cols already normalized."""
-    n = mask.shape[0]
-    dev = mask.device
-    limbs = encode_limbs(key_cols)
-    tab0 = encode_limbs(list(zip(carry.keys, carry.key_valid)))
-    used0 = carry.used.to(torch.int32)
-    # pending list = masked row indices in row order (the claim rule gives
-    # contested slots to the lowest row index)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
-    pend = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
-    pend.scatter_(0, torch.where(mask, pos, n), idx)
-    pend0 = pend[:n].contiguous()
-    npend = mask.sum().to(torch.int32).reshape(1)
-    return (h.to(torch.int32).contiguous(), limbs, pend0, npend,
-            used0.contiguous(), tab0)
+def _carry_operands(pend0, npend, used0, tab0):
+    """(mask, used, tab) for `place_in_carry` from the JAX package's
+    operands: the first npend entries of pend0 as a row mask, and copies
+    of used0 (as bool) and tab0."""
+    n = pend0.shape[0]
+    first = torch.arange(n, device=pend0.device) < npend.reshape(())
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=pend0.device)
+    mask[torch.where(first, pend0.long(), n)] = True
+    return mask[:n], used0 != 0, tab0.clone()
 
 
-def place_rows(h, key_cols, mask, carry, probe_rounds: int):
-    """Placement for one hash_agg_step batch.  Returns (placed, wslot)
-    int32 with sentinel S."""
-    return placement(*placement_inputs(h, key_cols, mask, carry),
-                     probe_rounds)
+def placement_plain(h, limbs, pend0, npend, used0, tab0, probe_rounds: int):
+    """The placement with the JAX package's operands (its Pallas kernel's
+    contract), on any device: h (n,) pre-masked to [0, S); limbs (L, n);
+    pend0 (n,) pending rows in row order; npend (1,) their count; used0
+    (S,) 0/1; tab0 (L, S) stored-key limbs, neither written; all int32.
+    Returns (placed (n,), wslot (n,)) int32 with sentinel S."""
+    placed, wslot, _ = place_in_carry_plain(
+        h, limbs, *_carry_operands(pend0, npend, used0, tab0), probe_rounds)
+    return placed, wslot

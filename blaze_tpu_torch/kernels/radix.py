@@ -21,8 +21,6 @@ column to a power-of-two bucket with parked rows, as the JAX package does.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -70,12 +68,8 @@ def _partition_ranks_cuda(pid: torch.Tensor, P: int, capacity: int):
     n = pid.shape[0]
     if n >= (1 << 31) - 1 or capacity >= (1 << 31) - 1:
         raise ValueError("partition_ranks: sizes exceed int32 indexing")
-    lib = build.load("radix")
-    tile = lib.blaze_radix_tile_rows()
-    fn = lib.blaze_radix_partition
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
+    tile = build.bound("radix", "blaze_radix_tile_rows")()
+    fn = build.bound("radix", "blaze_radix_partition")
     dev = pid.device
     part = torch.empty(n, dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
@@ -83,7 +77,7 @@ def _partition_ranks_cuda(pid: torch.Tensor, P: int, capacity: int):
     counts = torch.empty(P, dtype=torch.int32, device=dev)
     starts = torch.empty(P, dtype=torch.int32, device=dev)
     mat = torch.empty(P * (-(-n // tile)), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = build.stream_of(dev)
     rc = fn(pid.data_ptr(), part.data_ptr(), slot.data_ptr(),
             order.data_ptr(), counts.data_ptr(), starts.data_ptr(),
             mat.data_ptr(), n, P, int(capacity), stream)

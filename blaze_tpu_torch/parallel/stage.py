@@ -5,16 +5,18 @@ scatter carry of blaze_tpu/plan/fused.py `_init_carry` /
 `_scatter_into_carry`).
 
 `hash_agg_step` inserts one batch: keys hash with xxhash64 (seed 42) to a
-slot, `kernels/hash_update.placement` places rows by linear probing, and
-the shared tail replays the key scatters through the claimed slots and
+slot, `kernels/hash_update.place_in_carry` places rows by linear probing,
+claiming slots in the carry's `used` flags and its key-limb table, and the
+shared tail replays the key scatters through the claimed slots and
 accumulates through the placed slots.  The step is atomic: when any row
 fails to place within `probe_rounds`, the original carry comes back
 unchanged with the overflow count, so the caller can grow (exact modes) or
 degrade to pass-through (partial mode) losslessly.
 
 The port keeps the JAX package's functional contract: a step never writes
-into the carry it was given (the new carry holds fresh tensors), so a
-caller may retry a batch against the old carry.
+into the carry it was given (the new carry holds fresh tensors: `used`
+and `limbs` are copied once, before the placement claims into them), so
+a caller may retry a batch against the old carry.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ class HashAggCarry(NamedTuple):
     accs: Tuple[torch.Tensor, ...]
     acc_valid: Tuple[torch.Tensor, ...]
     used: torch.Tensor                    # (S,) bool
+    #: (L, S) int32 key limbs of the stored keys
+    #: (kernels/hash_update.encode_limbs), zero where `used` is false
+    limbs: torch.Tensor
 
 
 def _identity(dtype: torch.dtype, minimum: bool):
@@ -72,14 +77,18 @@ def init_accumulators(kinds: Sequence[str], acc_dtypes: Sequence,
 def init_hash_carry(key_dtypes: Sequence, acc_kinds: Sequence[str],
                     acc_dtypes: Sequence, num_slots: int,
                     device: torch.device) -> HashAggCarry:
+    from blaze_tpu_torch.kernels.hash_update import limbs_per_column
     keys = tuple(torch.zeros(num_slots, dtype=dt, device=device)
                  for dt in key_dtypes)
     kvalid = tuple(torch.zeros(num_slots, dtype=torch.bool, device=device)
                    for _ in key_dtypes)
     accs, avalid = init_accumulators(acc_kinds, acc_dtypes, num_slots,
                                      device)
+    n_limbs = sum(limbs_per_column(dt) for dt in key_dtypes)
     return HashAggCarry(keys, kvalid, accs, avalid,
                         torch.zeros(num_slots, dtype=torch.bool,
+                                    device=device),
+                        torch.zeros(n_limbs, num_slots, dtype=torch.int32,
                                     device=device))
 
 
@@ -106,17 +115,24 @@ def hash_agg_step(carry: HashAggCarry,
                 for d, v in key_cols]
     cols = [(d, v, dtype_of(d).id.value) for d, v in key_cols]
     h = hash_columns(cols, seed=42, algo="xxhash64") & (S - 1)
-    placed, wslot = HU.place_rows(h, key_cols, mask, carry, probe_rounds)
-    overflow = int((mask & (placed == S)).sum())
+    used = carry.used.clone()
+    limbs = carry.limbs.clone()
+    placed, wslot, unplaced = HU.place_in_carry(
+        h, HU.encode_limbs(key_cols), mask, used, limbs, probe_rounds)
+    overflow = int(unplaced)
     if overflow:
         return carry, overflow, carry.used.sum()
-    new = _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot)
+    new = _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot,
+                          used, limbs)
     return new, 0, new.used.sum()
 
 
-def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot):
+def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot, used,
+                    limbs):
     """Key scatters through the newly claimed slots, then the accumulation
-    through the placed slots: one code path behind every placement."""
+    through the placed slots: one code path behind every placement.
+    `used` and `limbs` are the new carry's, already claimed into by the
+    placement."""
     S = carry.used.shape[0]
     claimed = torch.nonzero(wslot < S).squeeze(1)
     slots = wslot.index_select(0, claimed).long()
@@ -128,12 +144,10 @@ def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot):
         tv[slots] = kv.index_select(0, claimed)
         tkeys.append(tk)
         tkvalid.append(tv)
-    used = carry.used.clone()
-    used[slots] = True
     accs, avalid = scatter_accumulate(placed, agg_specs, mask, carry.accs,
                                       carry.acc_valid)
     return HashAggCarry(tuple(tkeys), tuple(tkvalid), tuple(accs),
-                        tuple(avalid), used)
+                        tuple(avalid), used, limbs)
 
 
 def scatter_accumulate(g: torch.Tensor,
@@ -205,13 +219,16 @@ def pack_dense_keys_i32(key_cols: Sequence[Tuple[torch.Tensor,
                                                  torch.Tensor]],
                         ranges: Sequence[Tuple[int, int]]):
     """pack_dense_keys in int32: the same stride layout; only the `data -
-    lo` shift runs in the key's own dtype."""
+    lo` shift runs in the key's own dtype, int32 for int8 and int16 keys
+    (whose span may exceed their own range)."""
     strides, total = _strides(ranges)
     if total >= (1 << 31):
         raise ValueError("dense table exceeds the int32 id range")
     gid = None
     for (data, valid), (lo, hi), stride in zip(key_cols, ranges, strides):
         span = hi - lo
+        if data.dtype.itemsize < 4:
+            data = data.to(torch.int32)
         k = (data - lo).clamp(0, span).to(torch.int32)
         k = torch.where(valid, k, torch.full_like(k, span + 1))
         gid = k * stride if gid is None else gid + k * stride

@@ -14,12 +14,13 @@ into one XLA program).  The lane is chosen at plan time, as in JAX:
     ranges, one extra slot per key for NULL) is not much sparser than the
     input.  Group ids are pure arithmetic (`pack_dense_keys`).  Where the
     value bounds also admit it (`_plan_mxu_meta`), the window-table lane
-    folds each batch into an exact int32 table of 8-bit limb sums through
-    the window-table kernel (kernels/window_table.py) and drains it into
-    int64 within its exactness bound; it runs on a CUDA device, and on the
-    CPU only under `auron.tpu.mxuAgg.force`, so each device picks the lane
-    the JAX package picks on its own tier.  Otherwise the scatter dense
-    lane scatter-accumulates into a dense carry.
+    folds each batch into an exact int32 table of 8-bit limb sums with one
+    `window_step` (kernels/window_table.py: one kernel launch per batch on
+    the card) and drains it into int64 within its exactness bound; it runs
+    on a CUDA device, and on the CPU only under `auron.tpu.mxuAgg.force`,
+    so each device picks the lane the JAX package picks on its own tier.
+    Otherwise the scatter dense lane scatter-accumulates into a dense
+    carry.
   * HASH: fixed-width keys without usable bounds.  The open-addressing
     carry of parallel/stage.py, placed by the placement kernel.
 
@@ -36,7 +37,7 @@ to later slices and raise NotImplementedError.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,7 +57,6 @@ from blaze_tpu_torch.parallel.stage import (HashAggCarry, hash_agg_step,
                                             init_dense_carry,
                                             init_hash_carry,
                                             pack_dense_keys,
-                                            pack_dense_keys_i32,
                                             rehash_carry,
                                             scatter_into_dense_carry,
                                             unpack_dense_keys)
@@ -277,24 +277,7 @@ class _MxuVerifyFailed(Exception):
     through the scatter dense lane."""
 
 
-class _MxuSpec(NamedTuple):
-    kind: str          # count_star | count | sum | min | max
-    arr_valid: int     # value-array index of the validity block (-1)
-    arr_cents: int     # value-array index of the cents blocks (-1)
-    scatter_idx: int   # min/max scatter accumulator index (-1)
-    off: int           # integer offset subtracted into the limb domain
-    scale: int         # 1 for ints; fixed-point scale for floats
-    is_float: bool
-
-
-class _MxuMeta(NamedTuple):
-    layout: tuple      # window_table.WindowTableLayout
-    specs: Tuple[_MxuSpec, ...]
-    arrays: Tuple[Tuple[str, int], ...]   # ("valid"|"cents", spec_index)
-    scatter: Tuple[Tuple[bool, int], ...]  # (is_min, spec_index)
-
-
-def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[_MxuMeta]:
+def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[WT.MxuMeta]:
     """Eligibility and layout of the window-table lane.  Every aggregated
     value must map to a non-negative integer domain that 8-bit limbs
     cover: ints shift by their statistics' minimum; float64s scale to
@@ -302,13 +285,15 @@ def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[_MxuMeta]:
     miss keeps the stage on the scatter dense lane."""
     if not config.AGG_MXU_ENABLE.get():
         return None
+    if len(ranges) > WT.MAX_KEYS or len(specs) > WT.MAX_SPECS:
+        return None  # past what the step kernel takes
     total = _num_slots(ranges)
     if total > config.AGG_MXU_MAX_SLOTS.get():
         return None
     scale_conf = config.AGG_MXU_DECIMAL_SCALE.get()
     arrays: List[Tuple[str, int]] = []
     bits: List[int] = []
-    mspecs: List[_MxuSpec] = []
+    mspecs: List[WT.MxuSpec] = []
     scatter: List[Tuple[bool, int]] = []
     valid_by_arg: Dict = {}  # argument -> shared validity array index
 
@@ -326,11 +311,11 @@ def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[_MxuMeta]:
     for si, (rk, _ok, arg) in enumerate(specs):
         if rk == "count":
             if arg is None:
-                mspecs.append(_MxuSpec("count_star", -1, -1, -1, 0, 1,
-                                       False))
+                mspecs.append(WT.MxuSpec("count_star", -1, -1, -1, 0, 1,
+                                         False))
             else:
-                mspecs.append(_MxuSpec("count", valid_block(si, arg), -1,
-                                       -1, 0, 1, False))
+                mspecs.append(WT.MxuSpec("count", valid_block(si, arg),
+                                         -1, -1, 0, 1, False))
             continue
         if rk not in ("sum", "min", "max") or arg is None:
             return None
@@ -361,16 +346,16 @@ def _plan_mxu_meta(child, specs, ranges, in_schema) -> Optional[_MxuMeta]:
         if rk == "sum":
             arrays.append(("cents", si))
             bits.append(span_bits)
-            mspecs.append(_MxuSpec("sum", vi, len(arrays) - 1, -1, clo,
-                                   scale, is_float))
+            mspecs.append(WT.MxuSpec("sum", vi, len(arrays) - 1, -1, clo,
+                                     scale, is_float))
         else:
             scatter.append((rk == "min", si))
-            mspecs.append(_MxuSpec(rk, vi, -1, len(scatter) - 1, clo,
-                                   scale, is_float))
+            mspecs.append(WT.MxuSpec(rk, vi, -1, len(scatter) - 1, clo,
+                                     scale, is_float))
     layout = WT.plan_layout(total, bits)
     if layout is None:
         return None
-    return _MxuMeta(layout, tuple(mspecs), tuple(arrays), tuple(scatter))
+    return WT.MxuMeta(layout, tuple(mspecs), tuple(arrays), tuple(scatter))
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +381,7 @@ class FusedPartialAggExec(ExecutionPlan):
         self._source = source
         self._chain = list(chain)
         self._ranges = ranges  # dense key ranges, None for the hash lane
-        self._mxu_meta: Optional[_MxuMeta] = None  # set by _try_fuse_agg
+        self._mxu_meta: Optional[WT.MxuMeta] = None  # set by _try_fuse_agg
 
     @property
     def schema(self) -> Schema:
@@ -496,13 +481,13 @@ class FusedPartialAggExec(ExecutionPlan):
                 wide = (torch.zeros(S, dtype=torch.int64, device=dev),
                         [torch.zeros(S, dtype=torch.int64, device=dev)
                          for _ in meta.arrays],
-                        [torch.full((S,), _MM_IDENT[is_min],
+                        [torch.full((S,), WT.MM_IDENT[is_min],
                                     dtype=torch.int64, device=dev)
                          for is_min, _si in meta.scatter])
             if carry is None:
                 carry = (torch.zeros(layout.sh, layout.sl * layout.n_blocks,
                                      dtype=torch.int32, device=dev),
-                         [torch.full((S + 1,), _MM_IDENT[is_min],
+                         [torch.full((S + 1,), WT.MM_IDENT[is_min],
                                      dtype=torch.int32, device=dev)
                           for is_min, _si in meta.scatter],
                          torch.ones((), dtype=torch.bool, device=dev))
@@ -543,50 +528,13 @@ class FusedPartialAggExec(ExecutionPlan):
         yield from self._emit_rows(keys, accs, avalid)
 
     def _mxu_step(self, carry, batch: ColumnBatch):
-        """One batch into the window table: the chain, int32 group ids,
-        the fixed-point limb domain and its verify, the table update and
-        the min/max scatters (blaze_tpu/plan/fused.py _mxu_fold_factory's
-        loop body, run eagerly)."""
-        meta = self._mxu_meta
-        table, mm_accs, ok = carry
+        """One batch into the window table: the chain, then one
+        `window_step` (int32 group ids, the fixed-point limb domain and its
+        verify, the table update and the min/max accumulators: the loop
+        body of blaze_tpu/plan/fused.py _mxu_fold_factory)."""
         kd, kv, ad, av, m = self._device_inputs(batch)
-        gid, _total = pack_dense_keys_i32(list(zip(kd, kv)), self._ranges)
-        gid = torch.where(m, gid, torch.full_like(gid, meta.layout.num_slots))
-        valids, cents = {}, {}
-        for si, sp in enumerate(meta.specs):
-            if sp.kind == "count_star":
-                continue
-            valids[si] = av[si] if av[si] is not None else \
-                torch.ones_like(m)
-            if sp.kind == "count":
-                continue
-            data = ad[si]
-            if sp.is_float:
-                scale = float(sp.scale)
-                c = torch.round(data * scale)  # half to even, as jnp.rint
-                # fixed-point verify without division: a genuine scaled
-                # value lies within two roundings of its integer
-                exact = (data * scale - c).abs() <= (c.abs() + 1.0) * 1e-12
-                ok = ok & (exact | ~valids[si] | ~m).all()
-                cents[si] = (c - sp.off).to(torch.int32)
-            else:
-                cents[si] = (data.to(torch.int64) - sp.off).to(torch.int32)
-        arrays = []
-        for akind, si in meta.arrays:
-            if akind == "valid":
-                arrays.append((valids[si] & m).to(torch.int32))
-            else:
-                arrays.append(torch.where(valids[si], cents[si],
-                                          torch.zeros_like(cents[si])))
-        WT.window_table(gid, arrays, meta.layout, out=table)
-        gl = gid.to(torch.int64)
-        new_mm = []
-        for (is_min, si), acc in zip(meta.scatter, mm_accs):
-            val = torch.where(valids[si] & m, cents[si],
-                              torch.full_like(cents[si], _MM_IDENT[is_min]))
-            new_mm.append(acc.scatter_reduce_(
-                0, gl, val, "amin" if is_min else "amax", include_self=True))
-        return table, new_mm, ok
+        return WT.window_step(self._mxu_meta, self._ranges, kd, kv, ad, av,
+                              m, carry)
 
     # -- bounded keys, scatter dense lane ------------------------------------
     def _execute_dense(self, partition: int) -> BatchIterator:
@@ -733,10 +681,6 @@ class FusedPartialAggExec(ExecutionPlan):
                 valid[:m] = v[off:off + m]
                 out.append(DeviceColumn(f.data_type, data, valid))
             yield ColumnBatch(self._out_schema, out, m)
-
-
-#: identity of the window-table lane's int32 min (True) / max (False)
-_MM_IDENT = {True: (1 << 31) - 1, False: -(1 << 31)}
 
 
 def _pow2(n: int) -> int:

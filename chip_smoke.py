@@ -4,14 +4,17 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
-  2. build: the three CUDA kernels of blaze_tpu_torch/csrc, built with nvcc
+  2. build: the three CUDA sources of blaze_tpu_torch/csrc, built with nvcc
      for sm_90a into build/kernels/ (one nvcc per source, started
      together);
-  3. kernel parity and times at the main paths' shapes: each kernel
-     against its plain PyTorch version on the same CUDA tensors (outputs
-     must be exactly equal), timed with CUDA events (median of 25 after
-     warm-up), beside the plain version, a one-call PyTorch yardstick
-     where one exists, and a bound from the bytes moved;
+  3. kernel parity and times at the main paths' shapes: each kernel entry
+     (placement, radix, window step) against its plain
+     PyTorch version on the same CUDA tensors (outputs must be exactly
+     equal), timed with CUDA events (median of 25 after warm-up), beside
+     the plain version, a one-call PyTorch yardstick where one exists, and
+     a bound from the bytes moved; the device time per call and launches
+     per call from torch.profiler; the host cost of the wrappers' stream
+     lookup;
   4. the two main paths, each as TaskDefinition bytes through the port's
      runtime on the card over the same SF10 data (2,875,140 store_returns
      rows in 4 parquet files; 4 map tasks, 16 reduce tasks), each checked
@@ -20,12 +23,14 @@ Phases, each printing its own lines; any failure exits non-zero:
        q01     TPC-DS q01's inner two-stage query (hash lane: placement
                and radix kernels);
        rollup  the store-by-day returns rollup (dense window-table lane on
-               the map side, hash lane on the reduce side: all three
-               kernels);
+               the map side, one window-step launch per map batch; hash
+               lane on the reduce side);
   5. where the time goes: each path again under torch.profiler, with the
-     card's busy share of the wall and the top kernels and host ops;
-  6. the kernel table as one JSON line, the card's name and power limit,
-     and the result line.
+     card's busy share of the wall, the top kernels and host ops, the host
+     kernel launches, and a check that each of the port's kernels ran on
+     the card exactly as often as its wrapper counted;
+  6. the paths' profile summary and the kernel table as JSON lines, the
+     card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
 exits non-zero where torch sees none.
@@ -74,6 +79,57 @@ def time_ms(fn, warmup=3, iters=25):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+#: the device kernels (csrc/, in anonymous namespaces) behind each wrapper
+KERNEL_NAMES = {
+    "hash_placement": ("::place_kernel(",),
+    "radix_partition": ("::hist_kernel(", "::scan_kernel(", "::rank_kernel("),
+    "window_step": ("::window_step_kernel(",),
+}
+PROFILED_CALLS = 20
+
+
+def _device_events(prof, names):
+    """(device microseconds, launches) of the kernels named `names` in a
+    profile (copies and memsets left out; "" names every kernel)."""
+    import torch
+    us, count = 0.0, 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))
+                and any(k in e.name for k in names)):
+            us += e.time_range.elapsed_us()
+            count += 1
+    return us, count
+
+
+def device_us_of(fn, names, calls=PROFILED_CALLS):
+    """Device time per call of the kernels `names` over `calls` calls of
+    fn under torch.profiler, and their launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = _device_events(prof, names)
+    return us / calls, count / calls
+
+
+def host_us_of(fn, calls=200):
+    """Host microseconds per call of fn, without waiting for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def environment():
@@ -126,10 +182,11 @@ def _key_batch(gen, pool, fresh, n, dev):
 
 
 def _placement_state(gen, dev, load):
-    """The placement operands of one full batch against a table of S
-    slots filled to `load` with (customer, store) keys by linear probing
-    (the port's own tail, replayed through the plain placement run to
-    completion): half the batch's keys are in the table, half are not."""
+    """The operands of `place_in_carry` for one full batch against a carry
+    of S slots filled to `load` with (customer, store) keys by linear
+    probing (the port's own tail, replayed through the plain placement run
+    to completion): half the batch's keys are in the table, half are not.
+    Returns (h, limbs, mask, used, tab) as hash_agg_step hands them over."""
     import torch
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels.hashing import hash_columns
@@ -147,31 +204,31 @@ def _placement_state(gen, dev, load):
     kc = [(fresh[:n_fill, 0].to(dev), ones), (fresh[:n_fill, 1].to(dev), ones)]
     carry = init_hash_carry([torch.int64, torch.int64], ["sum"],
                             [torch.float64], S, dev)
-    placed, wslot = HU.placement_plain(
-        *HU.placement_inputs(hashed(kc), kc, ones, carry), 1 << 16)
-    if bool((placed == S).any()):
+    used, tab = carry.used.clone(), carry.limbs.clone()
+    placed, wslot, unplaced = HU.place_in_carry_plain(
+        hashed(kc), HU.encode_limbs(kc), ones, used, tab, 1 << 16)
+    if int(unplaced):
         raise SystemExit("placement state: the table could not be filled")
     specs = [("sum", torch.ones(n_fill, dtype=torch.float64, device=dev),
               ones)]
-    carry = _hash_step_tail(carry, kc, specs, ones, placed, wslot)
+    carry = _hash_step_tail(carry, kc, specs, ones, placed, wslot, used, tab)
     kc, mask = _key_batch(gen, fresh[:n_fill], fresh[n_fill:], N, dev)
-    return HU.placement_inputs(hashed(kc), kc, mask, carry)
+    return hashed(kc), HU.encode_limbs(kc), mask, carry.used, carry.limbs
 
 
-def _placement_bytes(h, pend0, npend, placed, L, S_):
+def _placement_bytes(h, mask, placed, L, S_):
     """Bytes the placement must move for these inputs: each round reads,
-    for every row still pending, its hash, its L key limbs, the probed
-    slot's used flag and L limbs, and its pending entry, and writes its
-    two outputs; rows unplaced after the last round stay pending through
-    every round."""
+    for every row still pending, its hash (8 B), mask byte and L key
+    limbs, the probed slot's used byte and L limbs, and writes its two
+    outputs; rows unplaced after the last round stay pending through every
+    round."""
     import torch
-    k = int(npend.item())
-    rows = pend0[:k].long()
+    rows = torch.nonzero(mask).squeeze(1)
     p = placed[rows].long()
     hit_round = torch.where(p < S_, (p - h[rows].long()) & (S_ - 1),
                             torch.full_like(p, ROUNDS - 1))
     row_rounds = int((hit_round + 1).sum().item())
-    return row_rounds * (4 + 8 * L + 16), row_rounds
+    return row_rounds * (8 + 1 + 8 * L + 1 + 8), row_rounds
 
 
 def placement_cases(gen, dev):
@@ -179,29 +236,44 @@ def placement_cases(gen, dev):
     from blaze_tpu_torch.kernels import hash_update as HU
     out = []
     for label, load in (("load 0.5", 0.5), ("overflowing", 0.9)):
-        h, limbs, pend0, npend, used0, tab0 = _placement_state(gen, dev,
-                                                               load)
-        args = (h, limbs, pend0, npend, used0, tab0, ROUNDS)
-        placed, wslot = HU.placement(*args)
-        ref_p, ref_w = HU.placement_plain(*args)
+        h, limbs, mask, used0, tab0 = _placement_state(gen, dev, load)
+        used, tab = used0.clone(), tab0.clone()
+        got = HU.place_in_carry(h, limbs, mask, used, tab, ROUNDS)
+        ref_used, ref_tab = used0.clone(), tab0.clone()
+        ref = HU.place_in_carry_plain(h, limbs, mask, ref_used, ref_tab,
+                                      ROUNDS)
         torch.cuda.synchronize()
-        exact = torch.equal(placed, ref_p) and torch.equal(wslot, ref_w)
-        err = max(int((placed.long() - ref_p.long()).abs().max()),
-                  int((wslot.long() - ref_w.long()).abs().max()))
-        ms = time_ms(lambda: HU.placement(*args))
-        plain_ms = time_ms(lambda: HU.placement_plain(*args))
-        nbytes, row_rounds = _placement_bytes(h, pend0, npend, placed,
+        exact = (all(torch.equal(a, b) for a, b in zip(got, ref))
+                 and torch.equal(used, ref_used) and torch.equal(tab, ref_tab))
+        err = max([int((a.long() - b.long()).abs().max())
+                   for a, b in zip(got, ref)] +
+                  [int((tab.long() - ref_tab.long()).abs().max()),
+                   int((used != ref_used).sum())])
+        # each call claims into fresh copies of the carry's used flags and
+        # table, as hash_agg_step hands them over (the copies are timed
+        # too: the step pays for them)
+        ms = time_ms(lambda: HU.place_in_carry(
+            h, limbs, mask, used0.clone(), tab0.clone(), ROUNDS))
+        plain_ms = time_ms(lambda: HU.place_in_carry_plain(
+            h, limbs, mask, used0.clone(), tab0.clone(), ROUNDS))
+        dev_us, per_call = device_us_of(
+            lambda: HU.place_in_carry(h, limbs, mask, used0.clone(),
+                                      tab0.clone(), ROUNDS),
+            KERNEL_NAMES["hash_placement"])
+        nbytes, row_rounds = _placement_bytes(h, mask, got[0],
                                               limbs.shape[0], S)
         load = float(used0.float().mean())
-        unplaced = int((placed[pend0[:int(npend)].long()] == S).sum())
+        unplaced = int(got[2])
         print(f"placement {label}: n={N} S={S} L={limbs.shape[0]} "
-              f"table load {load:.3f} pending {int(npend)} unplaced "
+              f"table load {load:.3f} pending {int(mask.sum())} unplaced "
               f"{unplaced} row-rounds {row_rounds} exact={exact} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms ({dev_us:.2f} us on the card, "
+              f"{per_call:g} launches per call) plain {plain_ms:.4f} ms")
         if not exact:
             raise SystemExit(f"placement ({label}) disagrees with its "
                              f"plain version (max abs err {err})")
         out.append({"case": label, "ms": ms, "plain_ms": plain_ms,
+                    "device_us": dev_us, "launches_per_call": per_call,
                     "bytes": nbytes, "err": err})
     return out
 
@@ -229,89 +301,233 @@ def radix_cases(gen, dev):
         ms = time_ms(lambda: R.partition_ranks(pid, P, bucket))
         plain_ms = time_ms(lambda: R.partition_ranks_plain(pid, P, bucket))
         lib_ms = time_ms(lambda: torch.argsort(pid, stable=True))
+        dev_us, per_call = device_us_of(
+            lambda: R.partition_ranks(pid, P, bucket),
+            KERNEL_NAMES["radix_partition"])
         nbytes = 16 * bucket + 4 * P
         print(f"radix P={P}: bucket {bucket} real rows {real} exact={exact} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"kernel {ms:.4f} ms ({dev_us:.2f} us on the card, "
+              f"{per_call:g} launches per call) plain {plain_ms:.4f} ms "
               f"argsort {lib_ms:.4f} ms")
         if not exact:
             raise SystemExit(f"radix (P={P}) disagrees with its plain "
                              f"version (max abs err {err})")
         out.append({"case": f"P={P}", "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bytes": nbytes, "err": err})
+                    "library_ms": lib_ms, "device_us": dev_us,
+                    "launches_per_call": per_call, "bytes": nbytes,
+                    "err": err})
     return out
 
 
-def _window_table_case(gen, dev, layout, gid):
-    """Operands of one window-table call: the layout's value arrays for
-    the rows of `gid` (a validity 0/1 array, then arrays spanning their
-    limbs), on `dev`."""
+def _step_case(gen, dev, label):
+    """One map batch of the window-table lane: (meta, ranges, kd, kv, ad,
+    av, m).  "rollup map batch": the rollup's shape (12 stores x ~457 days,
+    date-ordered rows over ~21 days, ~60% filtered, float64 amounts in
+    cents with ~2% NULL) with sum and count of the amount, plus a min over
+    an int64 quantity and a max over the amount; "dirty amounts": the same
+    with one kept amount off the cents grid (the verify fails); "one int32
+    key": count(*) and the sum of an int32 by day alone; "five narrow
+    keys": store as int8 and day as int16 beside int32, int64 and int16
+    flags (107,172 slots), with count(*), the sum and the max of an int16
+    quantity."""
     import torch
-    arrays = []
-    for nl in layout.limbs:
-        top = (1 << min(31, 8 * nl)) - 1
-        if nl == 1 and not arrays:
-            top = 1  # the validity array of the rollup's amount
-        arrays.append(torch.randint(0, top + 1, (gid.shape[0],),
-                                    generator=gen, dtype=torch.int64)
-                      .to(torch.int32).to(dev))
-    return gid.to(dev), arrays
+    from blaze_tpu_torch.kernels import window_table as WT
+    d_lo = 2450820
+    days = torch.sort(torch.randint(0, 21, (N,), generator=gen)).values
+    date = (days + d_lo + 200).to(torch.int64)
+    store = torch.randint(1, 13, (N,), generator=gen)
+    m = torch.rand(N, generator=gen) >= 0.6
+    qty = torch.randint(1, 101, (N,), generator=gen)
+    qty_valid = torch.rand(N, generator=gen) >= 0.02
+
+    def on(*ts):
+        return [t.to(dev) for t in ts]
+
+    if label == "one int32 key":
+        ranges = [(d_lo, d_lo + 456)]
+        specs = (WT.MxuSpec("count_star", -1, -1, -1, 0, 1, False),
+                 WT.MxuSpec("sum", 0, 1, -1, 1, 1, False))
+        layout = WT.plan_layout(458, [1, WT.limb_bits_for(1, 100)])
+        meta = WT.MxuMeta(layout, specs, (("valid", 1), ("cents", 1)), ())
+        kd, kv = on(date.to(torch.int32)), on(torch.ones(N, dtype=torch.bool))
+        ad = [None] + on(qty.to(torch.int32))
+        av = [None] + on(qty_valid)
+        return meta, ranges, kd, kv, ad, av, m.to(dev)
+    if label == "five narrow keys":
+        ranges = [(1, 12), (0, 456), (0, 1), (0, 0), (0, 1)]
+        specs = (WT.MxuSpec("count_star", -1, -1, -1, 0, 1, False),
+                 WT.MxuSpec("sum", 0, 1, -1, 1, 1, False),
+                 WT.MxuSpec("max", 0, -1, 0, 1, 1, False))
+        layout = WT.plan_layout(13 * 458 * 3 * 2 * 3,
+                                [1, WT.limb_bits_for(1, 100)])
+        meta = WT.MxuMeta(layout, specs, (("valid", 1), ("cents", 1)),
+                          ((False, 2),))
+        flags = [torch.randint(0, hi + 1, (N,), generator=gen)
+                 for _lo, hi in ranges[2:]]
+        kd = on(store.to(torch.int8), (days + 200).to(torch.int16),
+                flags[0].to(torch.int32), flags[1], flags[2].to(torch.int16))
+        kv = on(torch.rand(N, generator=gen) >= 0.01,
+                *[torch.ones(N, dtype=torch.bool)] * 4)
+        ad = [None] + on(qty.to(torch.int16), qty.to(torch.int16))
+        av = [None] + on(qty_valid, qty_valid)
+        return meta, ranges, kd, kv, ad, av, m.to(dev)
+    amt = torch.round(torch.rand(N, generator=gen, dtype=torch.float64)
+                      * 20000) / 100
+    amt_valid = torch.rand(N, generator=gen) >= 0.02
+    if label == "dirty amounts":
+        kept = torch.nonzero(m & amt_valid).squeeze(1)
+        amt[kept[kept.shape[0] // 2]] = 1.234567
+    store_valid = torch.rand(N, generator=gen) >= 0.01
+    ranges = [(1, 12), (d_lo, d_lo + 456)]
+    clo, chi = -1, 20001  # floor(0 * 100) - 1, ceil(200 * 100) + 1
+    specs = (WT.MxuSpec("sum", 0, 1, -1, clo, 100, True),
+             WT.MxuSpec("count", 0, -1, -1, 0, 1, False),
+             WT.MxuSpec("min", 2, -1, 0, 1, 1, False),
+             WT.MxuSpec("max", 0, -1, 1, clo, 100, True))
+    layout = WT.plan_layout(13 * 458, [1, WT.limb_bits_for(clo, chi), 1])
+    meta = WT.MxuMeta(layout, specs,
+                      (("valid", 0), ("cents", 0), ("valid", 2)),
+                      ((True, 2), (False, 3)))
+    kd = on(store.to(torch.int64), date)
+    kv = on(store_valid, torch.ones(N, dtype=torch.bool))
+    ad = on(amt, amt, qty, amt)
+    av = on(amt_valid, amt_valid, qty_valid, amt_valid)
+    return meta, ranges, kd, kv, ad, av, m.to(dev)
 
 
-def window_table_cases(gen, dev):
+def _step_carry(meta, dev):
+    import torch
+    from blaze_tpu_torch.kernels import window_table as WT
+    lay = meta.layout
+    return (torch.zeros(lay.sh, lay.sl * lay.n_blocks, dtype=torch.int32,
+                        device=dev),
+            [torch.full((lay.num_slots + 1,), WT.MM_IDENT[is_min],
+                        dtype=torch.int32, device=dev)
+             for is_min, _si in meta.scatter],
+            torch.ones((), dtype=torch.bool, device=dev))
+
+
+def _eager_step_launches(args, dev):
+    """Device launches per batch of the eager formulation the step kernel
+    replaced: window_step_plain's launches, with its table update (the
+    plain table's launches and the add into the carry) counted as the one
+    window-table launch it was; and the table's operands (gid, arrays,
+    layout) as that formulation made them."""
+    from blaze_tpu_torch.kernels import window_table as WT
+    table_plain = WT.window_table_plain
+    seen = {}
+
+    def spy(g, arrays, layout):
+        seen["args"] = (g, arrays, layout)
+        return table_plain(g, arrays, layout)
+
+    carry = _step_carry(args[0], dev)
+    WT.window_table_plain = spy
+    try:
+        _, step = device_us_of(lambda: WT.window_step_plain(*args, carry),
+                               ("",), calls=1)
+    finally:
+        WT.window_table_plain = table_plain
+    _, table = device_us_of(lambda: table_plain(*seen["args"]), ("",),
+                            calls=1)
+    # the plain table and its add into the carry were one kernel launch
+    return int(step - table), seen["args"]
+
+
+def _table_index_add_ms(g, arrays, layout, dev):
+    """A yardstick for the table update alone: the same sums, slot-major,
+    as one index_add_ of the (n, nb) limb matrix, built beforehand, into
+    an (S + 1, nb) table."""
+    import torch
+    S, nb = layout.num_slots, layout.n_blocks
+    cols = [torch.ones_like(g)] if layout.presence else []
+    for a, nl in zip(arrays, layout.limbs):
+        for li in range(nl):
+            cols.append((a >> (8 * li)) & 255)
+    wmat = torch.stack(cols, 1).contiguous()
+    slot = torch.where(g < S, g, S).long()
+    yard = torch.zeros(S + 1, nb, dtype=torch.int32, device=dev)
+    return time_ms(lambda: yard.index_add_(0, slot, wmat))
+
+
+def window_step_cases(gen, dev):
     import torch
     from blaze_tpu_torch.kernels import window_table as WT
     out = []
-    # the rollup's map side at SF10: 12 stores x ~457 days (5,954 dense
-    # slots with the NULL slots), amount validity + 16-bit cents; a batch
-    # of date-ordered rows covers ~21 days; ~60% of rows are filtered
-    rollup = WT.plan_layout(13 * 458, [1, 16])
-    if tuple(rollup) != (48, 128, (1, 2), True):
-        raise SystemExit(f"window table: the rollup plans {rollup}")
-    days = torch.sort(torch.randint(0, 21, (N,), generator=gen)).values
-    store = torch.randint(0, 12, (N,), generator=gen)
-    gid = (store + 13 * (days + 200)).to(torch.int32)
-    gid[torch.rand(N, generator=gen) < 0.6] = rollup.num_slots
-    largest = WT.plan_layout(512 * 256, [31, 24])
-    if (largest.sh, largest.sl * largest.n_blocks) != (512, 2048):
-        raise SystemExit(f"window table: the largest layout is {largest}")
-    big_gid = torch.randint(0, largest.num_slots, (N,), generator=gen,
-                            dtype=torch.int64).to(torch.int32)
-    big_gid[torch.rand(N, generator=gen) < 0.1] = largest.num_slots
-    for label, layout, g in (("rollup map batch", rollup, gid),
-                             ("largest layout", largest, big_gid)):
-        g, arrays = _window_table_case(gen, dev, layout, g)
-        got = WT.window_table(g, arrays, layout)
-        ref = WT.window_table_plain(g, arrays, layout)
+    for label in ("rollup map batch", "dirty amounts", "one int32 key",
+                  "five narrow keys"):
+        args = _step_case(gen, dev, label)
+        meta = args[0]
+        got = WT.window_step(*args, _step_carry(meta, dev))
+        ref = WT.window_step_plain(*args, _step_carry(meta, dev))
         torch.cuda.synchronize()
-        exact = torch.equal(got, ref)
-        err = int((got.long() - ref.long()).abs().max())
-        table = torch.zeros_like(got)
-        ms = time_ms(lambda: WT.window_table(g, arrays, layout, out=table))
-        plain_ms = time_ms(lambda: WT.window_table_plain(g, arrays, layout))
-        # yardstick: the same sums, slot-major, as one index_add_ of the
-        # (n, nb) limb matrix into an (S + 1, nb) table
-        S, nb = layout.num_slots, layout.n_blocks
-        cols = [torch.ones_like(g)] if layout.presence else []
-        for a, nl in zip(arrays, layout.limbs):
-            for li in range(nl):
-                cols.append((a >> (8 * li)) & 255)
-        wmat = torch.stack(cols, 1).contiguous()
-        slot = torch.where(g < S, g, S).long()
-        yard = torch.zeros(S + 1, nb, dtype=torch.int32, device=dev)
-        lib_ms = time_ms(lambda: yard.index_add_(0, slot, wmat))
-        live = int((g < S).sum())
-        nbytes = 4 * N * (1 + len(arrays)) + 2 * 4 * S * nb
-        print(f"window table {label}: n={N} sh={layout.sh} sl={layout.sl} "
-              f"limbs={layout.limbs} nb={nb} live rows {live} distinct "
-              f"slots {int(torch.unique(g[g < S]).numel())} exact={exact} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms index_add_ "
-              f"{lib_ms:.4f} ms")
+        ok = bool(got[2])
+        if label == "dirty amounts":
+            # a failed verify: the lane re-runs the partition, so only the
+            # flag is compared
+            exact = not ok and not bool(ref[2])
+            err = int(ok != bool(ref[2]))
+        else:
+            exact = (ok and bool(ref[2]) and torch.equal(got[0], ref[0])
+                     and all(torch.equal(a, b)
+                             for a, b in zip(got[1], ref[1])))
+            err = max([int((got[0].long() - ref[0].long()).abs().max())] +
+                      [int((a.long() - b.long()).abs().max())
+                       for a, b in zip(got[1], ref[1])] +
+                      [int(ok != bool(ref[2]))])
         if not exact:
-            raise SystemExit(f"window table ({label}) disagrees with its "
-                             f"plain version (max abs err {err})")
+            raise SystemExit(f"window step ({label}) disagrees with its "
+                             f"plain version (max abs err {err}, ok "
+                             f"{ok} vs {bool(ref[2])})")
+        carry_k, carry_p = _step_carry(meta, dev), _step_carry(meta, dev)
+        ms = time_ms(lambda: WT.window_step(*args, carry_k))
+        plain_ms = time_ms(lambda: WT.window_step_plain(*args, carry_p))
+        dev_us, per_call = device_us_of(
+            lambda: WT.window_step(*args, carry_k),
+            KERNEL_NAMES["window_step"])
+        host_us = host_us_of(lambda: WT.window_step(*args, carry_k))
+        eager, table_args = _eager_step_launches(args, dev)
+        index_add_ms = _table_index_add_ms(*table_args, dev)
+        # each input read once; the table and the min/max accumulators
+        # read and written once, the ok flag written
+        inputs = {id(t): t for t in (*args[2], *args[3], *args[4],
+                                     *args[5], args[6]) if t is not None}
+        nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
+                  + 2 * got[0].numel() * 4
+                  + sum(2 * a.numel() * 4 for a in got[1]) + 1)
+        lay = meta.layout
+        live = int(args[6].sum())
+        print(f"window step {label}: n={N} keys {len(args[1])} aggregates "
+              f"{len(meta.specs)} sh={lay.sh} sl={lay.sl} limbs={lay.limbs} "
+              f"kept rows {live} ok={ok} exact={exact} kernel {ms:.4f} ms "
+              f"({dev_us:.2f} us on the card, {per_call:g} launches per "
+              f"call, wrapper {host_us:.1f} us of host time) plain "
+              f"{plain_ms:.4f} ms; the eager step it replaced: {eager} "
+              f"launches; the table update alone as one index_add_ "
+              f"{index_add_ms:.4f} ms")
         out.append({"case": label, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bytes": nbytes, "err": err})
+                    "device_us": dev_us, "launches_per_call": per_call,
+                    "host_us": host_us, "eager_launches": eager,
+                    "table_index_add_ms": index_add_ms, "bytes": nbytes,
+                    "err": err})
     return out
+
+
+def stream_lookup_cost(dev):
+    """Host microseconds of the two ways a wrapper finds its stream, for a
+    tensor's device (which names its index)."""
+    import torch
+    from blaze_tpu_torch.kernels import build
+    dev = torch.empty(1, device=dev).device
+    public = host_us_of(lambda: torch.cuda.current_stream(dev).cuda_stream,
+                        calls=10000)
+    raw = host_us_of(lambda: build.stream_of(dev), calls=10000)
+    empty = host_us_of(lambda: None, calls=10000)
+    print(f"stream lookup: torch.cuda.current_stream(dev).cuda_stream "
+          f"{public:.2f} us, build.stream_of {raw:.2f} us per call (an "
+          f"empty Python call {empty:.2f} us)")
+    return {"current_stream_us": public, "stream_of_us": raw,
+            "empty_call_us": empty}
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +555,7 @@ def _zero_launches():
     from blaze_tpu_torch.kernels import window_table as WT
     HU.placement_launches = 0
     R.partition_launches = 0
-    WT.window_table_launches = 0
+    WT.window_step_launches = 0
 
 
 def _read_launches():
@@ -348,7 +564,7 @@ def _read_launches():
     from blaze_tpu_torch.kernels import window_table as WT
     return {"hash_placement": HU.placement_launches,
             "radix_partition": R.partition_launches,
-            "window_table": WT.window_table_launches}
+            "window_step": WT.window_step_launches}
 
 
 def _check_on_card(res, launches, needed, path):
@@ -477,14 +693,22 @@ def rollup_path(root, sr_paths, lo, hi):
         raise SystemExit(f"rollup path: the window tables counted "
                          f"{counters['map']['mxu_rows']} rows, the filter "
                          f"kept {filtered}")
-    _check_on_card(res, launches, ("window_table", "hash_placement",
+    _check_on_card(res, launches, ("window_step", "hash_placement",
                                    "radix_partition"), "rollup")
+    if launches["window_step"] != counters["map"]["cuda_batches"]:
+        raise SystemExit(f"rollup path: {launches['window_step']} window "
+                         f"steps for {counters['map']['cuda_batches']} map "
+                         f"batches")
     return launches
 
 
 def profile_path(name, run, root):
     """A second run of one main path under torch.profiler: the share of
-    its wall time the card was busy, and device time by kernel."""
+    its wall time the card was busy, device time by kernel, host kernel
+    launches, and per wrapper of the port the device time per call.  Fails
+    unless each of the port's kernels ran as often on the card as its
+    wrapper counted (one placement launch per call, one window step per
+    map batch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -492,9 +716,11 @@ def profile_path(name, run, root):
           f"torch.profiler")
     shuffle_dir = os.path.join(root, f"shuffle_{name}_profiled")
     os.makedirs(shuffle_dir)
+    _zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run(shuffle_dir)
+    launches = _read_launches()
     wall_us = (res["map_s"] + res["reduce_s"]) * 1e6
 
     # kernels and copies on the card: one stream, so their durations add
@@ -509,22 +735,43 @@ def profile_path(name, run, root):
           f"reduce {res['reduce_s']:.3f} s); device busy "
           f"{busy_us / 1e6:.4f} s = {100 * busy_us / wall_us:.2f}% of the "
           f"wall, idle {100 - 100 * busy_us / wall_us:.2f}%")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0],
-                               reverse=True)[:12]:
-        print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {name[:90]}")
+    for kname, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:12]:
+        print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
     # the port's own kernels (csrc/, anonymous namespaces), wherever they
     # rank: device time per launch on this path
-    for name, (t, c) in sorted(by_name.items()):
-        if name.startswith("(anonymous namespace)::"):
+    for kname, (t, c) in sorted(by_name.items()):
+        if kname.startswith("(anonymous namespace)::"):
             print(f"  own    {t / 1e3:9.3f} ms  calls {c:6d}  "
                   f"{t / c:8.3f} us/call  "
-                  f"{name.split('::')[1].split('(')[0]}")
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  f"{kname.split('::')[1].split('(')[0]}")
+    averages = prof.key_averages()
+    host = sorted(averages, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:8]
     for e in host:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
               f"{e.count:6d}  {e.key[:90]}")
+    host_launches = sum(e.count for e in averages
+                        if e.key.startswith("cudaLaunch"))
+    print(f"host kernel launches (cudaLaunch*) on the {name} path: "
+          f"{host_launches}")
     torch.cuda.synchronize()
+    out = {"wall_s": wall_us / 1e6, "busy_s": busy_us / 1e6,
+           "busy_share": busy_us / wall_us, "host_launches": host_launches,
+           "kernels": {}}
+    for kernel, names in KERNEL_NAMES.items():
+        us, count = _device_events(prof, names)
+        calls = launches[kernel]
+        print(f"  {kernel}: wrapper launches {calls}, device kernels "
+              f"{count}" + (f", {us / calls:.2f} us on the card per call"
+                            if calls else ""))
+        if count != calls * len(names):
+            raise SystemExit(f"{name} path: {kernel} ran {count} device "
+                             f"kernels for {calls} wrapper launches "
+                             f"({len(names)} per call expected)")
+        out["kernels"][kernel] = {"launches": calls,
+                                  "device_us": us / calls if calls else None}
+    return out
 
 
 def pq_rows(path):
@@ -546,10 +793,10 @@ def main():
 
     phase("kernels against their plain versions, main-path shapes")
     gen = torch.Generator().manual_seed(1234)
-    place = placement_cases(gen, dev)
-    radix = radix_cases(gen, dev)
-
-    wtab = window_table_cases(gen, dev)
+    stream_lookup_cost(dev)
+    cases = {"hash_placement": placement_cases(gen, dev),
+             "radix_partition": radix_cases(gen, dev),
+             "window_step": window_step_cases(gen, dev)}
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -557,53 +804,51 @@ def main():
         by_path = {"q01": q01_path(root, sr_paths, lo, hi),
                    "rollup": rollup_path(root, sr_paths, lo, hi)}
         from blaze_tpu_torch.itest import q01, rollup
-        profile_path("q01", lambda d: q01.run_q01(
-            sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root)
-        profile_path("rollup", lambda d: rollup.run_rollup(
-            sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root)
+        profiled = {
+            "q01": profile_path("q01", lambda d: q01.run_q01(
+                sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root),
+            "rollup": profile_path("rollup", lambda d: rollup.run_rollup(
+                sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    def launches(name):
-        return {"launches": sum(p[name] for p in by_path.values()),
-                "launches_by_path": {k: p[name]
-                                     for k, p in by_path.items()}}
+    def entry(name, source, replaces):
+        """One kernel's line: its main case (the first: the main path's
+        shape), launches on the main paths, and its device time per call
+        on the paths' profiles (on its case's profile where no path runs
+        it)."""
+        main_case = cases[name][0]
+        runs = [p["kernels"][name] for p in profiled.values()
+                if p["kernels"][name]["launches"]]
+        calls = sum(r["launches"] for r in runs)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {k: p[name] for k, p in by_path.items()},
+                "max_abs_err": max(c["err"] for c in cases[name]),
+                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bytes"] / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": main_case.get("library_ms"),
+                "device_us": (sum(r["device_us"] * r["launches"]
+                                  for r in runs) / calls if calls
+                              else main_case["device_us"]),
+                "device_us_from": "main paths" if calls else "kernel case",
+                "launches_per_call": main_case["launches_per_call"],
+                "parity": True, "cases": cases[name]}
 
-    main_place = place[0]   # load 0.5: the map side's steady state
-    main_radix = radix[0]   # P = 16: the writer's reduce count
-    main_wtab = wtab[0]     # the rollup's map-side batch
+    # main cases: placement at load 0.5 (the map side's steady state),
+    # radix at P = 16 (the writer's reduce count), the window step at the
+    # rollup's map-side batch
     kernels = [
-        {"name": "hash_placement", "route": "cuda",
-         "source": "blaze_tpu_torch/csrc/hash_update.cu",
-         "replaces": "blaze_tpu/kernels/hash_update.py:182",
-         **launches("hash_placement"),
-         "max_abs_err": max(c["err"] for c in place),
-         "ms": main_place["ms"],
-         "plain_ms": main_place["plain_ms"],
-         "bound_ms": main_place["bytes"] / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None,
-         "parity": True, "cases": place},
-        {"name": "radix_partition", "route": "cuda",
-         "source": "blaze_tpu_torch/csrc/radix.cu",
-         "replaces": "blaze_tpu/kernels/radix.py:122",
-         **launches("radix_partition"),
-         "max_abs_err": max(c["err"] for c in radix),
-         "ms": main_radix["ms"],
-         "plain_ms": main_radix["plain_ms"],
-         "bound_ms": main_radix["bytes"] / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": main_radix["library_ms"],
-         "parity": True, "cases": radix},
-        {"name": "window_table", "route": "cuda",
-         "source": "blaze_tpu_torch/csrc/window_table.cu",
-         "replaces": "blaze_tpu/kernels/mxu_agg.py:200",
-         **launches("window_table"),
-         "max_abs_err": max(c["err"] for c in wtab),
-         "ms": main_wtab["ms"],
-         "plain_ms": main_wtab["plain_ms"],
-         "bound_ms": main_wtab["bytes"] / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": main_wtab["library_ms"],
-         "parity": True, "cases": wtab},
+        entry("hash_placement", "blaze_tpu_torch/csrc/hash_update.cu",
+              "blaze_tpu/kernels/hash_update.py:182"),
+        entry("radix_partition", "blaze_tpu_torch/csrc/radix.cu",
+              "blaze_tpu/kernels/radix.py:122"),
+        entry("window_step", "blaze_tpu_torch/csrc/window_table.cu",
+              "blaze_tpu/kernels/mxu_agg.py:200"),
     ]
+    print(json.dumps({"paths": profiled}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

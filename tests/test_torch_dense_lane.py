@@ -81,14 +81,16 @@ def _col(name):
     return {"kind": "column", "name": name}
 
 
-def _plan_dict(paths, date_gt=150):
-    aggs = [("sum", "amt", "amt_sum"), ("sum", "qty", "qty_sum"),
-            ("count", "amt", "cnt"), ("count", None, "cnt_star"),
-            ("min", "qty", "qty_min"), ("max", "amt", "amt_max")]
+AGGS = [("sum", "amt", "amt_sum"), ("sum", "qty", "qty_sum"),
+        ("count", "amt", "cnt"), ("count", None, "cnt_star"),
+        ("min", "qty", "qty_min"), ("max", "amt", "amt_max")]
+
+
+def _plan_dict(paths, date_gt=150, keys=("cust", "store"), aggs=AGGS,
+               schema=SCHEMA_D):
     return {
         "kind": "hash_agg",
-        "groupings": [{"expr": _col("cust"), "name": "cust"},
-                      {"expr": _col("store"), "name": "store"}],
+        "groupings": [{"expr": _col(k), "name": k} for k in keys],
         "aggs": [{"fn": fn, "mode": "partial", "name": name,
                   "args": [] if arg is None else [_col(arg)]}
                  for fn, arg, name in aggs],
@@ -97,7 +99,7 @@ def _plan_dict(paths, date_gt=150):
             "predicates": [{"kind": "binary", "op": ">", "l": _col("date"),
                             "r": {"kind": "literal", "value": date_gt,
                                   "type": {"id": "int64"}}}],
-            "input": {"kind": "parquet_scan", "schema": SCHEMA_D,
+            "input": {"kind": "parquet_scan", "schema": schema,
                       "file_groups": [paths]}}}
 
 
@@ -214,3 +216,79 @@ def test_all_rows_filtered(tmp_path, confs, lane):
     t_rbs, tp = _run_torch(plan_d)
     assert j_rbs == [] and t_rbs == []
     assert _metric(tp, "mxu_rows") == 0
+
+
+NARROW = {"fields": [
+    {"name": "date", "type": {"id": "int64"}, "nullable": True},
+    {"name": "k8", "type": {"id": "int8"}, "nullable": True},
+    {"name": "k16", "type": {"id": "int16"}, "nullable": True},
+    {"name": "k32", "type": {"id": "int32"}, "nullable": True},
+    {"name": "store", "type": {"id": "int64"}, "nullable": True},
+    {"name": "k64", "type": {"id": "int64"}, "nullable": True},
+    {"name": "amt", "type": {"id": "float64"}, "nullable": True},
+    {"name": "qty", "type": {"id": "int16"}, "nullable": True},
+]}
+
+
+def _narrow_files(root):
+    """Keys of every integer width with small ranges (some NULL), an int16
+    quantity and a two-decimal amount."""
+    rng = np.random.default_rng(12)
+
+    def ints(lo, hi, typ, nulls=0.0):
+        v = rng.integers(lo, hi + 1, N)
+        return pa.array(np.where(rng.random(N) < nulls, None, v).tolist(),
+                        type=typ)
+    t = pa.table({
+        "date": ints(100, 199, pa.int64()),
+        "k8": ints(-3, 4, pa.int8(), 0.05),
+        "k16": ints(-2, 2, pa.int16()),
+        "k32": ints(10, 12, pa.int32(), 0.02),
+        "store": ints(1, 12, pa.int64()),
+        "k64": ints(0, 1, pa.int64()),
+        "amt": pa.array(np.round(rng.random(N) * 500 - 100, 2)),
+        "qty": ints(-50, 1000, pa.int16(), 0.03),
+    })
+    paths = []
+    for i in range(2):
+        p = str(root / f"narrow{i}.parquet")
+        pq.write_table(t.slice(i * N // 2, N // 2), p, row_group_size=1500)
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("keys", [("k16", "store"),
+                                  ("k8", "k16", "k32", "store", "k64")],
+                         ids=["int16 key", "five keys"])
+def test_narrow_and_many_keys_on_the_forced_lane(tmp_path, confs, keys):
+    """int8 and int16 keys and five keys plan the window-table lane in
+    both packages (the step kernel takes them) and agree exactly."""
+    confs(FORCE, True)
+    plan_d = _plan_dict(_narrow_files(tmp_path), keys=keys, schema=NARROW)
+    j_rbs, jp = _run_jax(plan_d)
+    t_rbs, tp = _run_torch(plan_d)
+    assert tp._mxu_meta is not None and jp._mxu_meta is not None
+    assert tuple(tp._mxu_meta.layout) == tuple(jp._mxu_meta.layout)
+    rows = _metric(jp, "mxu_rows")
+    assert rows > 0 and _metric(tp, "mxu_rows") == rows
+    assert _metric(tp, "mxu_verify_fallback") == 0
+    _compare(t_rbs, j_rbs, exact_sums=True)
+
+
+def test_more_aggregates_than_the_step_takes_keep_the_scatter_lane(
+        tmp_path, confs):
+    """17 aggregates (none adds a value array, so the JAX package still
+    plans the window-table lane): the port plans the scatter dense lane,
+    and both give the same groups, counts, minima and maxima."""
+    from blaze_tpu_torch.kernels import window_table as WT
+    confs(FORCE, True)
+    aggs = ([("count", None, f"c{i}") for i in range(8)] +
+            [("min", "qty", f"mn{i}") for i in range(5)] +
+            [("max", "qty", f"mx{i}") for i in range(4)])
+    assert len(aggs) == WT.MAX_SPECS + 1
+    plan_d = _plan_dict(_files(tmp_path), aggs=aggs)
+    j_rbs, jp = _run_jax(plan_d)
+    t_rbs, tp = _run_torch(plan_d)
+    assert jp._mxu_meta is not None and tp._mxu_meta is None
+    assert _metric(jp, "mxu_rows") > 0 and _metric(tp, "mxu_rows") == 0
+    _compare(t_rbs, j_rbs, exact_sums=True)

@@ -50,18 +50,24 @@ def test_route_by_tensor_device():
 def test_wrappers_reject_bad_operands():
     n, L, S = 8, 3, 16
     i32 = dict(dtype=torch.int32)
+    b8 = dict(dtype=torch.bool)
+    # place_in_carry's operands: h, limbs, mask, used, tab, probe rounds
     good = [torch.zeros(n, **i32), torch.zeros(L, n, **i32),
-            torch.zeros(n, **i32), torch.zeros(1, **i32),
-            torch.zeros(S, **i32), torch.zeros(L, S, **i32)]
+            torch.zeros(n, **b8), torch.zeros(S, **b8),
+            torch.zeros(L, S, **i32), 16]
     hash_update._check_operands(*good)
-    for i, bad in [(0, torch.zeros(n, dtype=torch.int64)),
+    hash_update._check_operands(torch.zeros(n, dtype=torch.int64),
+                                *good[1:])
+    for i, bad in [(0, torch.zeros(n, dtype=torch.int16)),
                    (1, torch.zeros(L + 1, n, **i32)),
-                   (5, torch.zeros(S, L, **i32).t()),
-                   (4, torch.zeros(S - 1, **i32))]:
+                   (2, torch.zeros(n, **i32)),
+                   (4, torch.zeros(S, L, **i32).t()),
+                   (3, torch.zeros(S - 1, **b8)),
+                   (5, 0)]:
         ops = list(good)
         ops[i] = bad
-        if i == 4:
-            ops[5] = torch.zeros(L, S - 1, **i32)
+        if i == 3:
+            ops[4] = torch.zeros(L, S - 1, **i32)
         with pytest.raises((TypeError, ValueError)):
             hash_update._check_operands(*ops)
     with pytest.raises(ValueError, match="int32"):

@@ -52,8 +52,8 @@ def test_placement_matches_pallas_interpret(n, S, L, load, rounds):
         want_p, want_w = JHU.placement(
             *[jnp.asarray(a) for a in ops[:3]], jnp.asarray(ops[3][0]),
             *[jnp.asarray(a) for a in ops[4:]], rounds, interpret=True)
-        got_p, got_w = THU.placement(*[torch.from_numpy(a) for a in ops],
-                                     rounds)
+        got_p, got_w = THU.placement_plain(
+            *[torch.from_numpy(a) for a in ops], rounds)
         np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
         np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
         if load > 0.9:
@@ -63,9 +63,14 @@ def test_placement_matches_pallas_interpret(n, S, L, load, rounds):
 
 def test_placement_routes_cpu_tensors_to_plain():
     ops = [torch.from_numpy(a) for a in _operands(3, 128, 256, 3, 0.4, 20)]
-    got = THU.placement(*ops, 16)
-    want = THU.placement_plain(*ops, 16)
+    h, limbs = ops[:2]
+    mask, used, tab = THU._carry_operands(*ops[2:])
+    got = THU.place_in_carry(h, limbs, mask, used.clone(), tab.clone(), 16)
+    want = THU.place_in_carry_plain(h, limbs, mask, used.clone(),
+                                    tab.clone(), 16)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        got[:2], THU.placement_plain(*ops, 16)))
     assert THU.placement_launches == 0  # no kernel runs on the CPU
 
 

@@ -251,7 +251,7 @@ def test_rollup_two_stage_matches_jax_and_oracle(tmp_path, confs, lane):
     assert c["map"]["mxu_verify_fallback"] == 0
     assert j_map.get("mxu_verify_fallback", 0) == 0
     assert c["map"]["cpu_batches"] >= N_MAPS and not c["map"]["cuda_batches"]
-    assert window_table.window_table_launches == 0
+    assert window_table.window_step_launches == 0
 
     # map side: byte-identical offsets, the same rows in the same order
     for m in range(N_MAPS):
