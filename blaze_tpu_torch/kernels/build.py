@@ -50,7 +50,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
         "blaze_place_scratch_cells": (ctypes.c_longlong, [_I] * 2),
     },
     "radix": {
-        "blaze_radix_partition": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+        # pid, part, slot, order, counts, state, agg, n, P, capacity,
+        # sentinel, parity, stream
+        "blaze_radix_partition": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+        # cells of the state buffer
+        "blaze_radix_state_cells": (ctypes.c_longlong, []),
         "blaze_radix_tile_rows": (_I, []),
     },
     "window_table": {

@@ -6,9 +6,10 @@ Each inserted batch is compacted on the device; its partition ids are
 computed there (murmur3 + pmod) and stay there, while its rows go to the
 host as an Arrow batch, as in the JAX package.  At write time the staged
 pid columns are concatenated on the device and grouped by the radix
-partition kernel (kernels/radix.py); only the resulting row order comes
-back to the host, which takes the staged rows in that order and writes one
-run of framed IPC per partition.  The layout, frame boundaries and
+partition kernel (kernels/radix.py); only the resulting row order and
+partition counts come back to the host (one copy, one sync), which takes
+the staged rows in that order and writes one run of framed IPC per
+partition.  The layout, frame boundaries and
 `.index` offsets are those of the JAX package: `.data` is
 partition-major, `.index` holds n_parts + 1 little-endian int64
 cumulative offsets.
@@ -69,9 +70,10 @@ class ShuffleRepartitioner:
             return [0, sink.tell()]
         rb = pa.Table.from_batches(self._staged).combine_chunks() \
             .to_batches()[0]
-        order, starts, ends = radix.partition_order(torch.cat(self._pids),
-                                                    n_parts)
-        payload = rb.take(pa.array(order.cpu().numpy(), type=pa.int64()))
+        pids = self._pids[0] if len(self._pids) == 1 else torch.cat(
+            self._pids)
+        order, starts, ends = radix.partition_order(pids, n_parts)
+        payload = rb.take(pa.array(order, type=pa.int64()))
         offsets = [0]
         bs = config.BATCH_SIZE.get()
         for p in range(n_parts):

@@ -8,13 +8,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      for sm_90a into build/kernels/ (one nvcc per source, started
      together);
   3. kernel parity and times at the main paths' shapes: each kernel entry
-     (placement, radix, window step) against its plain
+     (placement, radix's two entries, window step) against its plain
      PyTorch version on the same CUDA tensors (outputs must be exactly
      equal), timed with CUDA events (median of 25 after warm-up), beside
      the plain version, a one-call PyTorch yardstick where one exists, and
      a bound from the bytes moved; the device time per call and launches
-     per call from torch.profiler; the host cost of the wrappers' stream
-     lookup;
+     per call from torch.profiler; radix also at its edge cases (tile
+     edges, one partition, all parked, P = 12288, the rollup's one-tile
+     shape), with its launches per route (1 for one tile, 2 beyond) and
+     the shuffle writer's grouping (device operations, syncs and host
+     time per call); the host cost of the wrappers' stream lookup;
   4. the two main paths, each as TaskDefinition bytes through the port's
      runtime on the card over the same SF10 data (2,875,140 store_returns
      rows in 4 parquet files; 4 map tasks, 16 reduce tasks), each checked
@@ -27,8 +30,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                lane on the reduce side);
   5. where the time goes: each path again under torch.profiler, with the
      card's busy share of the wall, the top kernels and host ops, the host
-     kernel launches, and a check that each of the port's kernels ran on
-     the card exactly as often as its wrapper counted;
+     kernel launches, and a check that each of the port's device kernels
+     ran on the card exactly as often as its wrapper counted;
   6. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
@@ -81,10 +84,13 @@ def time_ms(fn, warmup=3, iters=25):
     return statistics.median(times)
 
 
+#: the radix wrapper's device kernels, by the name of its launch counter
+RADIX_KERNELS = {"upsweep": "::upsweep_kernel(",
+                 "downsweep": "::downsweep_kernel<"}
 #: the device kernels (csrc/, in anonymous namespaces) behind each wrapper
 KERNEL_NAMES = {
     "hash_placement": ("::place_kernel(",),
-    "radix_partition": ("::hist_kernel(", "::scan_kernel(", "::rank_kernel("),
+    "radix_partition": tuple(RADIX_KERNELS.values()),
     "window_step": ("::window_step_kernel(",),
 }
 PROFILED_CALLS = 20
@@ -278,44 +284,228 @@ def placement_cases(gen, dev):
     return out
 
 
+def ops_per_call(fn, calls=PROFILED_CALLS):
+    """Per call of fn under torch.profiler: device operations (kernels,
+    copies and memsets), kernels alone, and host synchronisations
+    (cuda*Synchronize calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(f, k):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                f()
+            torch.cuda.synchronize()
+        ops = kernels = syncs = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ops += 1
+                kernels += not e.name.startswith(("Memcpy", "Memset"))
+            elif e.name.startswith("cuda") and "Synchronize" in e.name:
+                syncs += 1
+        return ops, kernels, syncs
+
+    fn()
+    torch.cuda.synchronize()
+    ops, kernels, syncs = count(fn, calls)
+    # the closing synchronize() is the profile's, not fn's
+    syncs -= count(lambda: None, 1)[2]
+    return ops / calls, kernels / calls, syncs / calls
+
+
+def _radix_column(gen, kind, n, P, dev):
+    """A pid column on the card: "hashed" (the writer's spark partition
+    ids of (customer, store) keys), "mixed" (uniform over [-2, P + 3):
+    clamped on both sides), "one partition", "all parked" or "negative"
+    (every pid below 0, so partition 0)."""
+    import torch
+    from blaze_tpu_torch.kernels.hashing import spark_partition_ids
+    if kind == "hashed":
+        keys = torch.randint(1, 1_000_001, (n,), generator=gen).to(dev)
+        store = torch.randint(1, 13, (n,), generator=gen).to(dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        return spark_partition_ids([(keys, ones), (store, ones)],
+                                   ["int64", "int64"], P)
+    if kind == "mixed":
+        pid = torch.randint(-2, P + 3, (n,), generator=gen)
+    elif kind == "one partition":
+        pid = torch.full((n,), P // 2)
+    elif kind == "all parked":
+        pid = torch.randint(P, P + 3, (n,), generator=gen)
+    else:
+        pid = torch.randint(-5, 0, (n,), generator=gen)
+    return pid.to(torch.int32).to(dev)
+
+
+def _radix_exact(got, ref):
+    import torch
+    exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, ref))
+    return exact, err
+
+
+def _order_exact(got, ref):
+    import numpy as np
+    exact = all(np.array_equal(a, b) for a, b in zip(got, ref))
+    err = max(int(np.abs(a - b).max()) if a.size else 0
+              for a, b in zip(got, ref))
+    return exact, err
+
+
+#: the radix edge cases, each held exact to the plain version through both
+#: entries: (label, n, P, capacity, column kind); capacity None is n
+RADIX_EDGES = [
+    ("n=1", 1, 16, None, "mixed"),
+    ("n=4095", 4095, 16, None, "mixed"),
+    ("n=4096", 4096, 16, None, "mixed"),
+    ("n=4097", 4097, 16, None, "mixed"),
+    ("n=8193", 8193, 16, None, "mixed"),
+    ("P=1", 70_000, 1, None, "mixed"),
+    ("one partition", 70_000, 16, None, "one partition"),
+    ("all parked", 70_000, 16, None, "all parked"),
+    ("negative pids", 8193, 16, None, "negative"),
+    ("capacity below the counts", 70_000, 16, 1000, "mixed"),
+    ("P=200 mixed", 290_000, 200, 1000, "mixed"),
+    ("P=3000", 290_000, 3000, None, "mixed"),
+    ("P=12288", 290_000, 12288, None, "mixed"),
+]
+
+
 def radix_cases(gen, dev):
+    """The radix kernel's two entries on the card.  Main case:
+    `partition_ranks` over the shuffle writer's 2^19 bucket at P = 16
+    (maps 1 and 2 of the q01 path emit about 290,000 rows each over 16
+    reducers; the JAX package pads them to that bucket), timed beside its
+    plain version and a stable argsort.  Then the writer's order-only
+    entry (`partition_order`) at q01's shape (290,000 unpadded hashed
+    pids), timed with its one copy to the host and its host work beside
+    the plain version and a stable argsort with a bincount copied to the
+    host, with its device operations, kernels, syncs and host
+    microseconds per call; `partition_ranks` over the bucket at P = 200;
+    the rollup's shapes (one tile); and the edge cases of RADIX_EDGES.
+    Every case exact against the plain version or the run fails."""
+    import numpy as np
     import torch
     from blaze_tpu_torch.kernels import radix as R
-    from blaze_tpu_torch.kernels.hashing import spark_partition_ids
     out = []
-    bucket = 1 << 19
-    real = 290_000
-    for P in (16, 200):
-        keys = torch.randint(1, 1_000_001, (real,), generator=gen).to(dev)
-        store = torch.randint(1, 13, (real,), generator=gen).to(dev)
-        ones = torch.ones(real, dtype=torch.bool, device=dev)
-        pid = torch.full((bucket,), P, dtype=torch.int32, device=dev)
-        pid[:real] = spark_partition_ids([(keys, ones), (store, ones)],
-                                         ["int64", "int64"], P)
-        got = R.partition_ranks(pid, P, bucket)
-        ref = R.partition_ranks_plain(pid, P, bucket)
+    names = KERNEL_NAMES["radix_partition"]
+    real, bucket, P = 290_000, 1 << 19, 16
+
+    def order_case(label, pid, P):
+        n = pid.shape[0]
+        got = R.partition_order(pid, P)
+        ref = R.partition_order_plain(pid, P)
+        exact, err = _order_exact(got, ref)
+        # pids in range: `order` is a stable argsort of the pids
+        if int(pid.min()) >= 0 and int(pid.max()) < P:
+            argsorted = torch.argsort(pid, stable=True).cpu().numpy()
+            exact = exact and np.array_equal(got[0], argsorted)
+        dev_us, per_call = device_us_of(lambda: R.partition_order(pid, P),
+                                        names)
+        return {"case": f"partition_order {label}", "entry": "order",
+                "n": n, "P": P, "exact": exact, "err": err,
+                "device_us": dev_us,
+                "launches_per_call": kernels_of(
+                    lambda: R.partition_order(pid, P)),
+                "profiled_launches_per_call": per_call,
+                "bytes": 8 * n + 4 * P}
+
+    def ranks_case(label, pid, P, capacity):
+        got = R.partition_ranks(pid, P, capacity)
+        ref = R.partition_ranks_plain(pid, P, capacity)
         torch.cuda.synchronize()
-        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
-        err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in zip(got, ref))
-        ms = time_ms(lambda: R.partition_ranks(pid, P, bucket))
-        plain_ms = time_ms(lambda: R.partition_ranks_plain(pid, P, bucket))
-        lib_ms = time_ms(lambda: torch.argsort(pid, stable=True))
+        exact, err = _radix_exact(got, ref)
         dev_us, per_call = device_us_of(
-            lambda: R.partition_ranks(pid, P, bucket),
-            KERNEL_NAMES["radix_partition"])
-        nbytes = 16 * bucket + 4 * P
-        print(f"radix P={P}: bucket {bucket} real rows {real} exact={exact} "
-              f"kernel {ms:.4f} ms ({dev_us:.2f} us on the card, "
-              f"{per_call:g} launches per call) plain {plain_ms:.4f} ms "
-              f"argsort {lib_ms:.4f} ms")
-        if not exact:
-            raise SystemExit(f"radix (P={P}) disagrees with its plain "
-                             f"version (max abs err {err})")
-        out.append({"case": f"P={P}", "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "device_us": dev_us,
-                    "launches_per_call": per_call, "bytes": nbytes,
-                    "err": err})
+            lambda: R.partition_ranks(pid, P, capacity), names)
+        return {"case": f"partition_ranks {label}", "entry": "ranks",
+                "n": pid.shape[0], "P": P, "exact": exact, "err": err,
+                "device_us": dev_us,
+                "launches_per_call": kernels_of(
+                    lambda: R.partition_ranks(pid, P, capacity)),
+                "profiled_launches_per_call": per_call,
+                "bytes": 16 * pid.shape[0] + 4 * P}
+
+    def kernels_of(fn):
+        """Device kernels one call of fn launched, by the wrapper's own
+        counts (the profiler's per-call averages may drop an event)."""
+        before = sum(R.kernel_launches.values())
+        fn()
+        return sum(R.kernel_launches.values()) - before
+
+    def timed(case, fn, plain, library):
+        case["ms"] = time_ms(fn)
+        case["plain_ms"] = time_ms(plain)
+        case["library_ms"] = time_ms(library)
+        return case
+
+    def bucket_case(P_):
+        """partition_ranks over the writer's padded 2^19 bucket"""
+        pid = torch.full((bucket,), P_, dtype=torch.int32, device=dev)
+        pid[:real] = _radix_column(gen, "hashed", real, P_, dev)
+        return timed(ranks_case(f"P={P_} bucket 2^19", pid, P_, bucket),
+                     lambda: R.partition_ranks(pid, P_, bucket),
+                     lambda: R.partition_ranks_plain(pid, P_, bucket),
+                     lambda: torch.argsort(pid, stable=True))
+
+    out.append(bucket_case(P))  # the main case
+
+    # the writer's order-only entry at q01's shape
+    pid = _radix_column(gen, "hashed", real, P, dev)
+    writer = timed(order_case("q01 shape", pid, P),
+                   lambda: R.partition_order(pid, P),
+                   lambda: R.partition_order_plain(pid, P),
+                   lambda: torch.cat((torch.bincount(pid, minlength=P),
+                                      torch.argsort(pid, stable=True))).cpu())
+    writer["host_us"] = host_us_of(lambda: R.partition_order(pid, P))
+    (writer["device_ops_per_call"], writer["kernels_per_call"],
+     writer["syncs_per_call"]) = ops_per_call(
+        lambda: R.partition_order(pid, P))
+    out.append(writer)
+    print(f"radix {writer['case']}: per call {writer['device_ops_per_call']:g}"
+          f" device operations ({writer['kernels_per_call']:g} kernels), "
+          f"{writer['syncs_per_call']:g} syncs, {writer['host_us']:.1f} us "
+          f"of host time (yardstick: argsort(stable) and bincount copied to "
+          f"the host)")
+
+    out.append(bucket_case(200))
+
+    # the rollup's writer calls: a few thousand groups, one tile
+    groups = 2190
+    pid = _radix_column(gen, "hashed", groups, P, dev)
+    out.append(order_case("rollup shape", pid, P))
+    padded = torch.full((4096,), P, dtype=torch.int32, device=dev)
+    padded[:groups] = pid
+    out.append(ranks_case("rollup bucket 4096", padded, P, 4096))
+
+    for label, n, P_, cap, kind in RADIX_EDGES:
+        pid = _radix_column(gen, kind, n, P_, dev)
+        out.append(ranks_case(label, pid, P_, n if cap is None else cap))
+        out.append(order_case(label, pid, P_))
+
+    for c in out:
+        print(f"radix {c['case']}: n={c['n']} P={c['P']} exact={c['exact']} "
+              f"{c['device_us']:.2f} us on the card, "
+              f"{c['launches_per_call']:g} launches per call, bound "
+              f"{c['bytes']} B" + (
+                  f"; kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
+                  f"library {c['library_ms']:.4f} ms"
+                  if "ms" in c else ""))
+    bad = [c["case"] for c in out if not c["exact"]]
+    if bad:
+        raise SystemExit(f"radix disagrees with its plain version: {bad}")
+    routes = {}
+    for c in out:
+        route = "one tile" if c["n"] <= 4096 else "more tiles"
+        routes.setdefault(route, set()).add(c["launches_per_call"])
+    print(f"radix launches per call by route: "
+          f"{ {k: sorted(v) for k, v in routes.items()} }")
+    if routes.get("one tile") != {1} or routes.get("more tiles") != {2}:
+        raise SystemExit(f"radix launches per call by route: {routes}")
+    # the edge cases sized the kernel's scratch for P = 12288 (10.5 MB);
+    # drop it, so that the paths' peak memory counts what they need
+    R._scratch.clear()
     return out
 
 
@@ -513,6 +703,17 @@ def window_step_cases(gen, dev):
     return out
 
 
+def launch_floor(dev):
+    """Device microseconds of the smallest kernel: one fill_ of 1024
+    floats, the floor of any launch's time on the card."""
+    import torch
+    x = torch.empty(1024, device=dev)
+    us, per_call = device_us_of(lambda: x.fill_(1.0), ("",))
+    print(f"launch floor: one fill_ of 1024 floats {us:.2f} us on the "
+          f"card ({per_call:g} launches per call)")
+    return us
+
+
 def stream_lookup_cost(dev):
     """Host microseconds of the two ways a wrapper finds its stream, for a
     tensor's device (which names its index)."""
@@ -555,6 +756,8 @@ def _zero_launches():
     from blaze_tpu_torch.kernels import window_table as WT
     HU.placement_launches = 0
     R.partition_launches = 0
+    for k in R.kernel_launches:
+        R.kernel_launches[k] = 0
     WT.window_step_launches = 0
 
 
@@ -564,7 +767,8 @@ def _read_launches():
     from blaze_tpu_torch.kernels import window_table as WT
     return {"hash_placement": HU.placement_launches,
             "radix_partition": R.partition_launches,
-            "window_step": WT.window_step_launches}
+            "window_step": WT.window_step_launches,
+            "radix_kernels": dict(R.kernel_launches)}
 
 
 def _check_on_card(res, launches, needed, path):
@@ -741,7 +945,8 @@ def profile_path(name, run, root):
     # the port's own kernels (csrc/, anonymous namespaces), wherever they
     # rank: device time per launch on this path
     for kname, (t, c) in sorted(by_name.items()):
-        if kname.startswith("(anonymous namespace)::"):
+        if kname.startswith(("(anonymous namespace)::",
+                             "void (anonymous namespace)::")):
             print(f"  own    {t / 1e3:9.3f} ms  calls {c:6d}  "
                   f"{t / c:8.3f} us/call  "
                   f"{kname.split('::')[1].split('(')[0]}")
@@ -765,12 +970,21 @@ def profile_path(name, run, root):
         print(f"  {kernel}: wrapper launches {calls}, device kernels "
               f"{count}" + (f", {us / calls:.2f} us on the card per call"
                             if calls else ""))
-        if count != calls * len(names):
-            raise SystemExit(f"{name} path: {kernel} ran {count} device "
-                             f"kernels for {calls} wrapper launches "
-                             f"({len(names)} per call expected)")
+        # each device kernel as often as the wrapper counted it: one per
+        # call, or for radix by name (the upsweep only for columns of more
+        # than one tile)
+        expected = ({RADIX_KERNELS[k]: c
+                     for k, c in launches["radix_kernels"].items()}
+                    if kernel == "radix_partition" else {names[0]: calls})
+        for pattern, want in expected.items():
+            _us, got = _device_events(prof, (pattern,))
+            if got != want:
+                raise SystemExit(f"{name} path: {kernel} ran {got} device "
+                                 f"kernels {pattern} where its wrapper "
+                                 f"counted {want}")
         out["kernels"][kernel] = {"launches": calls,
-                                  "device_us": us / calls if calls else None}
+                                  "device_us": us / calls if calls else None,
+                                  "device_kernels": count}
     return out
 
 
@@ -794,6 +1008,7 @@ def main():
     phase("kernels against their plain versions, main-path shapes")
     gen = torch.Generator().manual_seed(1234)
     stream_lookup_cost(dev)
+    launch_floor(dev)
     cases = {"hash_placement": placement_cases(gen, dev),
              "radix_partition": radix_cases(gen, dev),
              "window_step": window_step_cases(gen, dev)}
@@ -835,11 +1050,30 @@ def main():
                               else main_case["device_us"]),
                 "device_us_from": "main paths" if calls else "kernel case",
                 "launches_per_call": main_case["launches_per_call"],
+                "launches_per_call_by_route": {
+                    route: sorted({c["launches_per_call"] for c in cases[name]
+                                   if (c.get("n", 0) <= 4096) == (
+                                       route == "one tile")})
+                    for route in ("one tile", "more tiles")}
+                if name == "radix_partition" else None,
+                "writer_entry": writer_entry(cases[name][1])
+                if name == "radix_partition" else None,
                 "parity": True, "cases": cases[name]}
 
+    def writer_entry(c):
+        """The shuffle writer's partition_order at q01's shape: its times
+        include the copy to the host and the host's work, as does its
+        library yardstick (a stable argsort and a bincount, copied)."""
+        keys = ("ms", "plain_ms", "library_ms", "device_us",
+                "launches_per_call", "device_ops_per_call",
+                "kernels_per_call", "syncs_per_call", "host_us")
+        return dict({k: c[k] for k in keys}, case=c["case"],
+                    bound_ms=c["bytes"] / HBM_BYTES_PER_S * 1e3)
+
     # main cases: placement at load 0.5 (the map side's steady state),
-    # radix at P = 16 (the writer's reduce count), the window step at the
-    # rollup's map-side batch
+    # radix's partition_ranks over the writer's 2^19 bucket at P = 16 (the
+    # writer's reduce count; its order-only entry at q01's shape beside
+    # it), the window step at the rollup's map-side batch
     kernels = [
         entry("hash_placement", "blaze_tpu_torch/csrc/hash_update.cu",
               "blaze_tpu/kernels/hash_update.py:182"),
@@ -848,6 +1082,11 @@ def main():
         entry("window_step", "blaze_tpu_torch/csrc/window_table.cu",
               "blaze_tpu/kernels/mxu_agg.py:200"),
     ]
+    print("radix on the paths, us on the card per call: " + ", ".join(
+        f"{k} {p['kernels']['radix_partition']['device_us']:.2f} "
+        f"({p['kernels']['radix_partition']['launches']} calls, "
+        f"{p['kernels']['radix_partition']['device_kernels']} kernels)"
+        for k, p in profiled.items()))
     print(json.dumps({"paths": profiled}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
