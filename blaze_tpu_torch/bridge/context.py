@@ -19,6 +19,8 @@ class TaskContext:
     task_attempt_id: int = 0
     # cooperative-cancel probe, polled at batch boundaries
     is_running: Callable[[], bool] = lambda: True
+    # chunks the device stage loop has folded for this task
+    loop_chunks: int = 0
 
     def check_running(self):
         if not self.is_running():

@@ -146,6 +146,20 @@ AGG_MXU_DECIMAL_SCALE = int_conf(
     "Fixed-point scale probed for float64 sum columns on the window-table "
     "lane (100 = two decimals); a value that fails the exactness verify "
     "re-runs the partition through the scatter dense lane.")
+STAGE_DEVICE_LOOP_ENABLE = str_conf(
+    "auron.tpu.stage.deviceLoop.enable", "auto",
+    "Device stage loop (runtime/loop.py): an eligible hash-lane fused "
+    "aggregation (plan/stage_compiler.py) folds a chunk of source batches "
+    "per step, on a CUDA device as one CUDA graph replay with one host "
+    "sync.  'auto' runs it where the port's device is CUDA; 'on' forces it "
+    "wherever the stage compiles (the CPU tests, where the same fold body "
+    "runs eagerly); 'off' always uses the staged per-batch executor.  A "
+    "partial-mode overflow or a table past 2^24 slots falls back "
+    "wholesale to the staged path (stage_loop_fallback).")
+STAGE_DEVICE_LOOP_CHUNK = int_conf(
+    "auron.tpu.stage.deviceLoop.chunkBatches", 8,
+    "Batches folded per stage-loop step (one graph replay on a CUDA "
+    "device); cancellation is checked between chunks.")
 SCAN_EAGER_FILE_BYTES = int_conf(
     "auron.tpu.scan.eagerFileBytes", 128 << 20,
     "Local parquet files up to this size decode eagerly per file; larger "

@@ -1,5 +1,6 @@
 // Hash placement for one hash_agg_step batch, in place in the carry's
-// table (CUDA C++, sm_90a, one cooperative launch per call).
+// table (CUDA C++, sm_90a, one cooperative launch per call; a launch may
+// be captured into a CUDA graph and replayed).
 //
 // Replaces: blaze_tpu/kernels/hash_update.py `placement` (Pallas body
 // `_make_kernel`), the open-addressing claim/match walk behind
@@ -12,9 +13,13 @@
 // equal the slot's limbs is placed.  Outputs: placed[i] (slot, or S when
 // never placed), wslot[i] (the slot row i claimed as new, or S) and the
 // count of masked rows left unplaced.  The winners' claims are written
-// into `used` (bool) and the (L, S) limb table that the caller hands in:
-// the caller gives copies of its carry's, so the table is never copied
-// here.
+// into `used` (bool) and the (L, S) limb table that the caller hands in.
+// With `rollback`, a call that leaves a masked row unplaced takes its
+// claims back before it returns: every slot claimed in the call gets its
+// limbs zeroed again (an unused slot's limbs are zero) and stays unused,
+// and every row reads as unplaced (placed and wslot S), so the table is
+// as it was before the call (the atomic overflow of hash_agg_step, on a
+// table the caller updates in place).
 //
 // What bounds it on this card: latency, not bytes.  A pending row moves
 // about 26 + 8L bytes per round (its hash, mask and limbs, the slot's
@@ -31,10 +36,15 @@
 // .sync()) stand where kernel boundaries stood, and it needs one barrier
 // per round, not two:
 //   * Every value the kernel keeps about a round carries the round's tag
-//     t(r) = base + r, where the caller gives each call a base above every
-//     tag of its earlier calls on the same scratch.  So the scratch is
-//     never cleared: values of earlier calls and rounds are smaller, and
-//     lose or read as stale.
+//     t(r) = base + r.  `base` is a word in the scratch: every thread
+//     reads it at the start, and once the rounds are over (after a grid
+//     barrier, so every thread has read it) the first thread advances it
+//     by rounds + 1.  So each call's tags lie above every tag of the
+//     earlier calls on the same scratch, whether the call was launched
+//     eagerly or replayed from a graph, and the scratch is never cleared:
+//     values of earlier calls and rounds are smaller, and lose or read as
+//     stale.  The host only zeroes the scratch (and sets the word to 1)
+//     before the tags would pass 2^32.
 //   * Claims are unconditional: a row pending for round r does
 //     atomicMax(claim[r & 1][slot], t(r) << 32 | ~row) one phase ahead,
 //     so the largest value of a round names its lowest row.  Two claim
@@ -56,7 +66,9 @@
 // count after the grid barrier, so all blocks leave the loop together.
 // Where the grid holds one row per thread, a thread keeps its row's hash
 // and state in registers.  Once the rounds are over, the winners set
-// their slots' `used` flags.  The grid spans every SM and is sized to be
+// their slots' `used` flags, or, on a rolled-back overflow, zero their
+// slots' limbs; a rolled-back claim's stamp stays, and reads as stale to
+// every later call.  The grid spans every SM and is sized to be
 // co-resident (at most occupancy x SMs), as a cooperative launch requires.
 // The last rounds leave a few hundred rows pending: spread over every SM
 // a round then costs little more than its barrier, and measured faster
@@ -91,9 +103,9 @@ struct PlaceArgs {
   unsigned long long* claim;  // round r claims in claim[r & 1][0, S)
   uint32_t* stamp;        // (S,) the tag of the round a slot was claimed in
   int32_t* cnt;           // (rounds + 1,) rows pending after each round
+  uint32_t* tag;          // the next call's t(0), advanced by the call
   int64_t claim_stride;   // cells between the two claim arrays
-  uint32_t base;          // t(0), the tag of this call's round 0
-  int n, S, L, rounds, h_is64;
+  int n, S, L, rounds, h_is64, rollback;
 };
 
 __device__ __forceinline__ int64_t hash_of(const PlaceArgs& a, int64_t i) {
@@ -114,10 +126,10 @@ __device__ __forceinline__ unsigned long long* claims(const PlaceArgs& a,
   return a.claim + (r & 1) * a.claim_stride;
 }
 
-__device__ __forceinline__ void claim(const PlaceArgs& a, int row,
-                                      int64_t hv, int r) {
+__device__ __forceinline__ void claim(const PlaceArgs& a, uint32_t base,
+                                      int row, int64_t hv, int r) {
   atomicMax(claims(a, r) + slot_of(a, hv, r),
-            (static_cast<unsigned long long>(a.base + r) << 32) |
+            (static_cast<unsigned long long>(base + r) << 32) |
                 static_cast<unsigned>(~row));
 }
 
@@ -139,8 +151,9 @@ __device__ __forceinline__ bool limbs_equal(const PlaceArgs& a,
 
 // Round r for pending row i on slot s: true when the row is placed.
 // Data written during the call is read with __ldcg (from L2).
-__device__ bool resolve(const PlaceArgs& a, int i, int r, int s) {
-  const uint32_t t = a.base + r;
+__device__ bool resolve(const PlaceArgs& a, uint32_t base, int i, int r,
+                        int s) {
+  const uint32_t t = base + r;
   const uint32_t st = __ldcg(a.stamp + s);
   const unsigned long long c = __ldcg(claims(a, r) + s);
   const bool carry_used = __ldcg(a.used + s) != 0;
@@ -149,7 +162,7 @@ __device__ bool resolve(const PlaceArgs& a, int i, int r, int s) {
   for (int l = 0; l < kLimbRegs; ++l)
     if (l < a.L) mine[l] = __ldg(a.limbs + static_cast<int64_t>(l) * a.n + i);
   const bool used_at_start =
-      st >= a.base ? st < t : carry_used;  // claimed earlier, or the carry's
+      st >= base ? st < t : carry_used;  // claimed earlier, or the carry's
   bool eq;
   if (used_at_start) {
     eq = limbs_equal(a, mine, i, a.tab + s, a.S);
@@ -175,10 +188,10 @@ __device__ bool resolve(const PlaceArgs& a, int i, int r, int s) {
 
 // One round for pending row i: true when it stays pending (it has then
 // claimed its slot of the next round).
-__device__ __forceinline__ bool round_row(const PlaceArgs& a, int i,
-                                          int64_t hv, int r) {
-  if (resolve(a, i, r, slot_of(a, hv, r))) return false;
-  if (r + 1 < a.rounds) claim(a, i, hv, r + 1);
+__device__ __forceinline__ bool round_row(const PlaceArgs& a, uint32_t base,
+                                          int i, int64_t hv, int r) {
+  if (resolve(a, base, i, r, slot_of(a, hv, r))) return false;
+  if (r + 1 < a.rounds) claim(a, base, i, hv, r + 1);
   return true;
 }
 
@@ -195,6 +208,9 @@ __global__ void __launch_bounds__(kThreads) place_kernel(PlaceArgs a) {
                       threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int S = a.S;
+  // this call's t(0): read by every thread before the first grid barrier;
+  // the first thread advances the word after the last one
+  const uint32_t base = *static_cast<volatile const uint32_t*>(a.tag);
   // Where the grid holds one row per thread, a thread keeps its row's
   // hash and pending state in registers; else rows are walked grid-stride
   // and a row is pending while mask[i] and placed[i] == S.
@@ -206,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) place_kernel(PlaceArgs a) {
     a.wslot[i] = S;
     if (__ldg(a.mask + i)) {
       const int64_t h = hash_of(a, i);
-      claim(a, static_cast<int>(i), h, 0);
+      claim(a, base, static_cast<int>(i), h, 0);
       if (own) {
         row = static_cast<int>(i);
         hv = h;
@@ -220,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) place_kernel(PlaceArgs a) {
     int mine = 0;
     if (own) {
       if (row >= 0) {
-        if (round_row(a, row, hv, r)) {
+        if (round_row(a, base, row, hv, r)) {
           mine = 1;
         } else {
           row = -1;
@@ -229,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) place_kernel(PlaceArgs a) {
     } else {
       for (int64_t i = tid; i < a.n; i += stride) {
         if (__ldg(a.mask + i) && a.placed[i] == S &&
-            round_row(a, static_cast<int>(i), hash_of(a, i), r))
+            round_row(a, base, static_cast<int>(i), hash_of(a, i), r))
           ++mine;
       }
     }
@@ -238,11 +254,26 @@ __global__ void __launch_bounds__(kThreads) place_kernel(PlaceArgs a) {
     left = *static_cast<volatile int32_t*>(a.cnt + r + 1);
     if (left == 0) break;
   }
+  // the claims stand (`used` set), or on a rolled-back overflow go (limbs
+  // zeroed, every row unplaced); each thread rewrites only its own rows
+  const bool undo = a.rollback && left > 0;
   for (int64_t i = tid; i < a.n; i += stride) {
     const int ws = a.wslot[i];
-    if (ws != S) a.used[ws] = 1;
+    if (ws != S) {
+      if (undo) {
+        for (int l = 0; l < a.L; ++l)
+          a.tab[static_cast<int64_t>(l) * S + ws] = 0;
+        a.wslot[i] = S;
+      } else {
+        a.used[ws] = 1;
+      }
+    }
+    if (undo) a.placed[i] = S;
   }
-  if (tid == 0) *a.unplaced = left;
+  if (tid == 0) {
+    *a.unplaced = left;
+    *a.tag = base + static_cast<uint32_t>(a.rounds) + 1u;
+  }
 }
 
 // Per device: co-resident blocks of place_kernel (0: not computed yet),
@@ -253,12 +284,13 @@ int g_sms[kMaxDevices];
 }  // namespace
 
 // Cells of the int32 scratch buffer that blaze_place_in_carry takes for
-// tables of up to `slots` slots and up to `rounds` probe rounds: claims
-// (4 slots), stamps (slots), counts (rounds + 1).  Zeroed once when it is
-// allocated; a call leaves it for the next, whatever its table (a stale
-// tag reads as stale in any table).
+// tables of up to `slots` slots and up to `rounds` probe rounds: the tag
+// word and a pad cell, claims (4 slots), stamps (slots), counts
+// (rounds + 1).  Zeroed with the tag word set to 1 when it is allocated;
+// a call leaves it for the next, whatever its table (a stale tag reads as
+// stale in any table).
 extern "C" long long blaze_place_scratch_cells(int slots, int rounds) {
-  return 5ll * slots + rounds + 1ll;
+  return 2ll + 5ll * slots + rounds + 1ll;
 }
 
 // All pointers are device pointers.  h (n,) int32 (h_is64 = 0) or int64
@@ -267,21 +299,21 @@ extern "C" long long blaze_place_scratch_cells(int slots, int rounds) {
 // claimed into in place; out (2n + 1,) int32: placed, wslot, unplaced.
 // scratch: an 8-byte aligned int32 buffer of
 // blaze_place_scratch_cells(slots, rounds) cells with slots >= S, used by
-// one stream at a time; base: above every tag (base + r) of the earlier
-// calls on it, and base + rounds < 2^32.  S is a power of two,
-// rounds >= 1.  Returns the launch's error code: a
-// cooperative launch the device refuses returns it here, and nothing runs.
+// one stream at a time, whose tag word (cell 0) the caller keeps at least
+// 1 and below 2^32 - rounds - 1 when the launch runs.  S is a power of
+// two, rounds >= 1; rollback != 0 takes an overflowing call's claims back
+// (see the top of this file).  The launch may be captured into a CUDA
+// graph: it reads nothing from the host after this call.  Returns the
+// launch's error code: a cooperative launch the device refuses returns it
+// here, and nothing runs.
 extern "C" int blaze_place_in_carry(const void* h, const int32_t* limbs,
                                     const uint8_t* mask, uint8_t* used,
                                     int32_t* tab, int32_t* out,
-                                    int32_t* scratch, int slots,
-                                    unsigned base, int n, int S, int L,
-                                    int rounds, int h_is64, void* stream) {
+                                    int32_t* scratch, int slots, int n,
+                                    int S, int L, int rounds, int h_is64,
+                                    int rollback, void* stream) {
   if (n < 0 || S < 1 || (S & (S - 1)) != 0 || slots < S || L < 1 ||
-      rounds < 1 ||
-      base < 1 || base + static_cast<unsigned long long>(rounds) >=
-                      (1ull << 32) ||
-      (reinterpret_cast<uintptr_t>(scratch) & 7) != 0) {
+      rounds < 1 || (reinterpret_cast<uintptr_t>(scratch) & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
@@ -317,17 +349,18 @@ extern "C" int blaze_place_in_carry(const void* h, const int32_t* limbs,
   a.placed = out;
   a.wslot = out + n;
   a.unplaced = out + 2 * static_cast<int64_t>(n);
-  a.claim = reinterpret_cast<unsigned long long*>(scratch);
-  a.stamp = reinterpret_cast<uint32_t*>(scratch +
+  a.tag = reinterpret_cast<uint32_t*>(scratch);
+  a.claim = reinterpret_cast<unsigned long long*>(scratch + 2);
+  a.stamp = reinterpret_cast<uint32_t*>(scratch + 2 +
                                         4 * static_cast<int64_t>(slots));
-  a.cnt = scratch + 5 * static_cast<int64_t>(slots);
+  a.cnt = scratch + 2 + 5 * static_cast<int64_t>(slots);
   a.claim_stride = slots;
-  a.base = base;
   a.n = n;
   a.S = S;
   a.L = L;
   a.rounds = rounds;
   a.h_is64 = h_is64;
+  a.rollback = rollback;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(place_kernel),

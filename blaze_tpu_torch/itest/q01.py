@@ -25,9 +25,14 @@ SHUFFLE_RESOURCE = "bench_q01_shuffle"
 
 #: operator counters `run_q01` sums per stage: the fused aggregation's
 #: input batches by device type, its partial-skip switches and its table
-#: doublings
+#: doublings, and the device stage loop's (runtime/loop.py: tasks folded,
+#: steps, batches, source rows, regrows, fallbacks to the staged path,
+#: graphs captured)
 STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "partial_skipped",
-                  "table_grown")
+                  "table_grown", "stage_loop_tasks", "stage_loop_chunks",
+                  "stage_loop_batches", "stage_loop_rows",
+                  "stage_loop_regrows", "stage_loop_fallback",
+                  "stage_loop_graph_captures")
 
 SR_SCHEMA_D = {"fields": [
     {"name": "sr_returned_date_sk", "type": {"id": "int64"},

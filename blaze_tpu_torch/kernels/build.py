@@ -42,10 +42,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: stream are c_void_p, so ctypes never cuts a 64-bit address
 SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
     "hash_update": {
-        # h, limbs, mask, used, tab, out, scratch, slots, base, n, S, L,
-        # rounds, h_is64, stream
-        "blaze_place_in_carry": (_I, [_P] * 7 + [_I, ctypes.c_uint] +
-                                 [_I] * 5 + [_P]),
+        # h, limbs, mask, used, tab, out, scratch, slots, n, S, L, rounds,
+        # h_is64, rollback, stream
+        "blaze_place_in_carry": (_I, [_P] * 7 + [_I] * 7 + [_P]),
         # slots, rounds -> cells of the scratch buffer
         "blaze_place_scratch_cells": (ctypes.c_longlong, [_I] * 2),
     },

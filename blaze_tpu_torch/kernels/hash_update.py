@@ -11,7 +11,10 @@ the count of masked rows left unplaced, and it writes the claims into the
 keeps that table in the carry and hands in copies).  The kernel is
 placement-only: parallel/stage.py replays the key scatters through `wslot`
 and the accumulation through `placed`, the same tail the JAX package runs
-on every lane, so the carry is bit-identical.
+on every lane, so the carry is bit-identical.  With `rollback`, a call
+that leaves a masked row unplaced takes its claims back and reports every
+row unplaced, so a table updated in place stays as it was (the device
+stage loop's fold step, parallel/stage.py `fold_step`).
 
 Two implementations of one function, chosen by the tensors' device
 (kernels/lane.py):
@@ -39,9 +42,13 @@ import torch
 
 from blaze_tpu_torch.kernels import lane
 
-#: launches of the CUDA placement kernel (one per `place_in_carry` call on
-#: a CUDA device)
+#: launches of the CUDA placement kernel: one per eager `place_in_carry`
+#: call on a CUDA device; a call captured into a CUDA graph counts in
+#: `captured_launches` instead, and each replay of the graph adds its
+#: placement nodes here (runtime/loop.py)
 placement_launches = 0
+#: placement launches recorded into CUDA graphs while they were captured
+captured_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -77,9 +84,11 @@ def encode_limbs(key_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]]
 # placement into the carry's table: plain version and CUDA kernel
 # ---------------------------------------------------------------------------
 
-def place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds: int):
+def place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds: int,
+                         rollback: bool = False):
     """Scatter formulation of `place_in_carry` on any device: same
-    operands, same results, `used` and `tab` claimed into in place."""
+    operands, same results, `used` and `tab` claimed into in place (and
+    taken back on overflow with `rollback`)."""
     n = h.shape[0]
     S = tab.shape[1]
     dev = h.device
@@ -106,6 +115,13 @@ def place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds: int):
         ok = pending & eq
         placed = torch.where(ok, slot, placed)
         pending = pending & ~ok
+    if rollback and bool(pending.any()):
+        # the call's claims go: an unused slot holds zero limbs
+        won = wslot[wslot < S]
+        used[won] = False
+        tab[:, won] = 0
+        placed.fill_(S)
+        wslot.fill_(S)
     return (placed.to(torch.int32), wslot.to(torch.int32),
             pending.sum().to(torch.int32).reshape(1))
 
@@ -134,79 +150,110 @@ def _check_operands(h, limbs, mask, used, tab, probe_rounds):
         raise ValueError("place_in_carry: operands exceed int32 indexing")
 
 
-class _Scratch:
-    """The placement kernel's scratch on one device: its claim and stamp
-    arrays for tables of up to `slots` slots, zeroed once and kept across
-    calls, and the next call's round tag (csrc/hash_update.cu: every value
-    a call leaves there is tagged below the next call's rounds, so nothing
-    is cleared between calls, whatever their tables)."""
+class Scratch:
+    """The placement kernel's scratch: its claim and stamp arrays for
+    tables of up to `slots` slots and the device word holding the next
+    call's round tag (csrc/hash_update.cu: every value a call leaves there
+    is tagged below the next call's rounds, so nothing is cleared between
+    calls, whatever their tables).  The kernel advances the word itself,
+    so calls launched eagerly and calls replayed from a CUDA graph draw
+    their tags from it alike; the host only counts the tags it has let
+    launches take (`reserve`), and zeroes the scratch before they would
+    run out.  Each CUDA graph of the device stage loop owns one; eager
+    calls share one per device."""
 
     #: tags are 32-bit; the scratch is zeroed again before they run out
     TAG_LIMIT = (1 << 32) - 1
 
-    def __init__(self, device, slots: int, rounds: int):
+    def __init__(self, device, slots: int, rounds: int = 16):
         from blaze_tpu_torch.kernels import build
         self.slots, self.rounds = slots, max(rounds, 16)
         cells = build.bound("hash_update", "blaze_place_scratch_cells")(
             slots, self.rounds)
         self.buf = torch.zeros(cells, dtype=torch.int32, device=device)
-        self.base = 1
+        self.buf[0] = 1
+        self.next = 1  # the most the tag word can hold now
 
-    def take(self, rounds: int) -> int:
-        """The base tag of a call of `rounds` rounds."""
-        if self.base + rounds + 1 >= self.TAG_LIMIT:
+    def reserve(self, tags: int) -> None:
+        """Before launches (or a graph replay) that take up to `tags` round
+        tags: zero the scratch and restart the word at 1 where they would
+        reach the limit.  Stream-ordered with the launches."""
+        if self.next + tags >= self.TAG_LIMIT:
             self.buf.zero_()
-            self.base = 1
-        base = self.base
-        self.base += rounds + 1
-        return base
+            self.buf[0] = 1
+            self.next = 1
+        self.next += tags
 
 
-#: device index -> _Scratch, sized for the largest table placed there;
-#: kernels on one device run on PyTorch's current stream, one at a time
+#: device index -> the eager calls' Scratch, sized for the largest table
+#: placed there; kernels on one device run on PyTorch's current stream,
+#: one at a time
 _scratch: dict = {}
 
 
-def _scratch_for(device, S: int, rounds: int) -> _Scratch:
+def _scratch_for(device, S: int, rounds: int) -> Scratch:
     sc = _scratch.get(device.index)
     if sc is None or sc.slots < S or sc.rounds < rounds:
-        sc = _scratch[device.index] = _Scratch(
+        sc = _scratch[device.index] = Scratch(
             device, max(S, sc.slots if sc else 0), rounds)
     return sc
 
 
-def _place_cuda(h, limbs, mask, used, tab, probe_rounds: int):
-    global placement_launches
+def _place_cuda(h, limbs, mask, used, tab, probe_rounds: int,
+                rollback: bool, scratch):
+    """One launch.  Under CUDA graph capture the launch is recorded, not
+    run: it takes the caller's `scratch` (which reserves the replay's tags)
+    and counts in `captured_launches`."""
+    global placement_launches, captured_launches
     from blaze_tpu_torch.kernels import build
     _check_operands(h, limbs, mask, used, tab, probe_rounds)
     n = h.shape[0]
     L, S = tab.shape
-    sc = _scratch_for(h.device, S, probe_rounds)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and scratch is None:
+        raise RuntimeError("place_in_carry: a captured launch needs the "
+                           "graph's own scratch")
+    sc = scratch if scratch is not None else _scratch_for(h.device, S,
+                                                          probe_rounds)
+    if sc.slots < S or sc.rounds < probe_rounds:
+        raise ValueError(f"place_in_carry: scratch for {sc.slots} slots and "
+                         f"{sc.rounds} rounds, table {S} and {probe_rounds}")
+    if not capturing:
+        sc.reserve(probe_rounds + 1)
     out = torch.empty(2 * n + 1, dtype=torch.int32, device=h.device)
     rc = build.bound("hash_update", "blaze_place_in_carry")(
         h.data_ptr(), limbs.data_ptr(), mask.data_ptr(), used.data_ptr(),
-        tab.data_ptr(), out.data_ptr(), sc.buf.data_ptr(), sc.slots,
-        sc.take(probe_rounds), n, S, L, probe_rounds,
-        int(h.dtype == torch.int64), build.stream_of(h.device))
+        tab.data_ptr(), out.data_ptr(), sc.buf.data_ptr(), sc.slots, n, S,
+        L, probe_rounds, int(h.dtype == torch.int64), int(rollback),
+        build.stream_of(h.device))
     build.check(rc, "hash placement kernel")
-    placement_launches += 1
+    if capturing:
+        captured_launches += 1
+    else:
+        placement_launches += 1
     return out[:n], out[n:2 * n], out[2 * n:]
 
 
-def place_in_carry(h, limbs, mask, used, tab, probe_rounds: int):
+def place_in_carry(h, limbs, mask, used, tab, probe_rounds: int,
+                   rollback: bool = False, scratch: Scratch = None):
     """Place one batch's rows into a table, claiming in place.  h (n,)
     int32 or int64 slot hashes (bits above log2(S) ignored); limbs (L, n)
     int32 row key limbs; mask (n,) bool rows to place; used (S,) bool and
     tab (L, S) int32 stored-key limbs, both written where rows claim a
     slot.  Returns (placed (n,), wslot (n,), unplaced (1,)) int32: slots
-    with sentinel S, and the masked rows left unplaced."""
+    with sentinel S, and the masked rows left unplaced.  `rollback` takes
+    an overflowing call's claims back (every row then reads as unplaced);
+    `scratch` is the kernel's scratch on a CUDA device (the device's
+    shared one when None; a CUDA graph capture must pass its own)."""
     if h.shape[0] == 0:
         empty = torch.empty(0, dtype=torch.int32, device=h.device)
         return empty, empty.clone(), torch.zeros(1, dtype=torch.int32,
                                                  device=h.device)
     if lane.route(h) == "cuda":
-        return _place_cuda(h, limbs, mask, used, tab, probe_rounds)
-    return place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds)
+        return _place_cuda(h, limbs, mask, used, tab, probe_rounds,
+                           rollback, scratch)
+    return place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds,
+                                rollback)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,18 @@ class ExecutionPlan:
             return self._children[0].num_partitions
         return 1
 
+    @property
+    def reexecutable(self) -> bool:
+        """Whether execute(partition) can be called again from scratch
+        (the port's sources are file-backed: yes).  The device stage loop
+        (plan/stage_compiler.py) admits only stages whose source is
+        re-executable, because its wholesale fallback re-runs the
+        partition through the staged path.  A one-shot stream overrides
+        this to False."""
+        if self._children:
+            return all(c.reexecutable for c in self._children)
+        return True
+
     def execute(self, partition: int) -> BatchIterator:
         """Pull-stream of batches for one partition."""
         raise NotImplementedError

@@ -17,6 +17,13 @@ The port keeps the JAX package's functional contract: a step never writes
 into the carry it was given (the new carry holds fresh tensors: `used`
 and `limbs` are copied once, before the placement claims into them), so
 a caller may retry a batch against the old carry.
+
+`fold_step` is the device stage loop's step (runtime/loop.py): the same
+insert, in place into the carry it is given, with static shapes and no
+host sync, so a CUDA graph can capture it.  Its overflow is atomic all the
+same: the placement takes its claims back (`rollback`), every row then
+reads as unplaced, and the tail leaves every bit of the carry as it was.
+Its final carry equals `hash_agg_step`'s bit for bit.
 """
 
 from __future__ import annotations
@@ -50,27 +57,27 @@ def _identity(dtype: torch.dtype, minimum: bool):
     return info.min if minimum else info.max
 
 
+def _acc_init(kind: str, dtype: torch.dtype):
+    """(initial value, initial validity) of one accumulator kind."""
+    if kind == "count":
+        return 0, True
+    if kind == "min":
+        return _identity(dtype, False), False
+    if kind == "max":
+        return _identity(dtype, True), False
+    return 0, False
+
+
 def init_accumulators(kinds: Sequence[str], acc_dtypes: Sequence,
                       num_slots: int, device: torch.device):
     """Identity-initialized accumulator columns."""
     accs, avalid = [], []
     for kind, dt in zip(kinds, acc_dtypes):
-        if kind == "count":
-            accs.append(torch.zeros(num_slots, dtype=torch.int64,
-                                    device=device))
-            avalid.append(torch.ones(num_slots, dtype=torch.bool,
-                                     device=device))
-            continue
-        if kind == "min":
-            accs.append(torch.full((num_slots,), _identity(dt, False),
-                                   dtype=dt, device=device))
-        elif kind == "max":
-            accs.append(torch.full((num_slots,), _identity(dt, True),
-                                   dtype=dt, device=device))
-        else:
-            accs.append(torch.zeros(num_slots, dtype=dt, device=device))
-        avalid.append(torch.zeros(num_slots, dtype=torch.bool,
-                                  device=device))
+        dt = torch.int64 if kind == "count" else dt
+        value, valid = _acc_init(kind, dt)
+        accs.append(torch.full((num_slots,), value, dtype=dt, device=device))
+        avalid.append(torch.full((num_slots,), valid, dtype=torch.bool,
+                                 device=device))
     return tuple(accs), tuple(avalid)
 
 
@@ -92,6 +99,16 @@ def init_hash_carry(key_dtypes: Sequence, acc_kinds: Sequence[str],
                                     device=device))
 
 
+def reset_hash_carry(carry: HashAggCarry, kinds: Sequence[str]) -> None:
+    """Put a carry back to `init_hash_carry`'s state, in place."""
+    for t in (*carry.keys, *carry.key_valid, carry.used, carry.limbs):
+        t.zero_()
+    for kind, a, av in zip(kinds, carry.accs, carry.acc_valid):
+        value, valid = _acc_init(kind, a.dtype)
+        a.fill_(value)
+        av.fill_(valid)
+
+
 def _norm_float(d: torch.Tensor) -> torch.Tensor:
     """-0.0 -> 0.0 and every NaN -> one canonical bit pattern, before
     hashing (Spark's NormalizeFloatingNumbers), so equal keys hash alike
@@ -109,12 +126,8 @@ def hash_agg_step(carry: HashAggCarry,
     num_groups): overflow is a host int (the unplaced masked rows; > 0
     returns the original carry); num_groups a 0-d tensor."""
     from blaze_tpu_torch.kernels import hash_update as HU
-    from blaze_tpu_torch.kernels.hashing import hash_columns
     S = carry.used.shape[0]
-    key_cols = [(_norm_float(d), v) if d.is_floating_point() else (d, v)
-                for d, v in key_cols]
-    cols = [(d, v, dtype_of(d).id.value) for d, v in key_cols]
-    h = hash_columns(cols, seed=42, algo="xxhash64") & (S - 1)
+    key_cols, h = _slot_hashes(key_cols, S)
     used = carry.used.clone()
     limbs = carry.limbs.clone()
     placed, wslot, unplaced = HU.place_in_carry(
@@ -125,6 +138,61 @@ def hash_agg_step(carry: HashAggCarry,
     new = _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot,
                           used, limbs)
     return new, 0, new.used.sum()
+
+
+def _slot_hashes(key_cols, S: int):
+    """Normalized key columns and their slot hashes into a table of S."""
+    from blaze_tpu_torch.kernels.hashing import hash_columns
+    key_cols = [(_norm_float(d), v) if d.is_floating_point() else (d, v)
+                for d, v in key_cols]
+    cols = [(d, v, dtype_of(d).id.value) for d, v in key_cols]
+    return key_cols, hash_columns(cols, seed=42, algo="xxhash64") & (S - 1)
+
+
+_SAME_WIDTH_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's storage as integers of its width (a view)."""
+    return t.view(_SAME_WIDTH_INT[t.element_size()])
+
+
+def fold_step(carry: HashAggCarry,
+              key_cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+              agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
+                                        Optional[torch.Tensor]]],
+              live: torch.Tensor, probe_rounds: int = 16, scratch=None):
+    """Insert one batch's `live` rows into `carry` in place.  Returns a
+    (1,) bool tensor on the carry's device: the batch overflowed, and the
+    carry is unchanged.  No host sync, no data-dependent shape: the step
+    a CUDA graph captures (`scratch`: the graph's placement scratch)."""
+    from blaze_tpu_torch.kernels import hash_update as HU
+    S = carry.used.shape[0]
+    key_cols, h = _slot_hashes(key_cols, S)
+    placed, wslot, unplaced = HU.place_in_carry(
+        h, HU.encode_limbs(key_cols), live, carry.used, carry.limbs,
+        probe_rounds, rollback=True, scratch=scratch)
+    # a claimed slot was empty, so its key and validity are zero: adding a
+    # key's bits writes them; a row that claimed nothing adds zero to a
+    # slot of its own (spread, so the atomics do not pile onto one slot)
+    claimed = wslot < S
+    idx = torch.where(claimed, wslot.long(), _spread(live.shape[0], S,
+                                                     live.device))
+    for tk, tv, (kd, kv) in zip(carry.keys, carry.key_valid, key_cols):
+        kb = _bits(kd.to(tk.dtype))
+        _bits(tk).index_add_(0, idx, torch.where(claimed, kb,
+                                                 torch.zeros_like(kb)))
+        _bits(tv).index_add_(0, idx, (kv & claimed).to(torch.uint8))
+    scatter_accumulate(placed, agg_specs, live, carry.accs, carry.acc_valid,
+                       inplace=True)
+    return unplaced > 0
+
+
+def _spread(n: int, S: int, device) -> torch.Tensor:
+    """Row i's slot for an update that changes nothing: i & (S - 1), in
+    [0, S) for any S (i mod S where S is a power of two)."""
+    return torch.arange(n, device=device) & (S - 1)
 
 
 def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot, used,
@@ -154,38 +222,46 @@ def scatter_accumulate(g: torch.Tensor,
                        agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
                                                  Optional[torch.Tensor]]],
                        mask: torch.Tensor, accs: Sequence[torch.Tensor],
-                       avalid: Sequence[torch.Tensor]):
+                       avalid: Sequence[torch.Tensor], inplace: bool = False):
     """Rows scatter into slot `g`; out-of-range slots (the sentinel S) drop.
-    Dropped rows are routed to slot 0 with the operation's identity (0 for
-    sums and counts, the max/min identity for min/max), which leaves every
-    accumulator bit unchanged."""
+    Row i, dropped, is routed to slot i & (S - 1) (spread, so that on a CUDA
+    device the atomics of the dropped rows do not all contend for one
+    slot) with the operation's identity (0 for integer sums and counts,
+    -0.0 for float sums, the max/min identity for min/max), which leaves
+    every accumulator bit unchanged.  `inplace` updates `accs` and
+    `avalid` themselves (the fold step) instead of new tensors."""
     new_accs, new_avalid = [], []
+    spread = None
     for (kind, vd, vv), a, av in zip(agg_specs, accs, avalid):
         S = a.shape[0]
         live = g < S
-        gi = torch.where(live, g, 0).long()
+        if spread is None:
+            spread = _spread(g.shape[0], S, g.device)
+        gi = torch.where(live, g.long(), spread)
         cv = (vv if vv is not None else torch.ones_like(mask)) & mask & live
+        if not inplace:
+            a = a.clone()
         if kind == "count":
-            a = a.clone().index_add_(0, gi, cv.to(a.dtype))
-            new_accs.append(a)
+            new_accs.append(a.index_add_(0, gi, cv.to(a.dtype)))
             new_avalid.append(av)
             continue
         if kind == "sum":
-            upd = torch.where(cv, vd.to(a.dtype), torch.zeros_like(a[:1]))
-            a = a.clone().index_add_(0, gi, upd)
+            zero = -0.0 if a.dtype.is_floating_point else 0
+            upd = torch.where(cv, vd.to(a.dtype), torch.full_like(a[:1], zero))
+            a.index_add_(0, gi, upd)
         elif kind in ("min", "max"):
             ident = _identity(a.dtype, kind == "max")
             upd = torch.where(cv, vd.to(a.dtype),
                               torch.full_like(a[:1], ident))
-            a = a.clone().scatter_reduce_(0, gi, upd,
-                                          "amin" if kind == "min" else "amax",
-                                          include_self=True)
+            a.scatter_reduce_(0, gi, upd, "amin" if kind == "min" else "amax",
+                              include_self=True)
         else:
             raise ValueError(f"unsupported agg kind {kind}")
         hit = torch.zeros(S, dtype=torch.int32, device=a.device)
         hit.index_add_(0, gi, cv.to(torch.int32))
         new_accs.append(a)
-        new_avalid.append(av | (hit > 0))
+        new_avalid.append(av.logical_or_(hit > 0) if inplace
+                          else av | (hit > 0))
     return new_accs, new_avalid
 
 

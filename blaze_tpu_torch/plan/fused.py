@@ -30,8 +30,17 @@ and degrades to batch-local tables passed straight through, since the
 final stage re-merges.  Nothing is emitted before a table's final drain,
 except by the partial-mode skip, so a window-table partition whose float
 sums fail the fixed-point verify re-runs losslessly on the scatter dense
-lane.  String keys, the host Arrow lane and the device stage loop belong
-to later slices and raise NotImplementedError.
+lane.
+
+Where the device stage loop is active (`auron.tpu.stage.deviceLoop.enable`:
+`auto` on a CUDA device, `on` anywhere) and the stage compiles
+(plan/stage_compiler.py: the hash lane, fixed-width keys, a re-executable
+source), `execute` takes the loop first (runtime/loop.py: a chunk of
+source batches per CUDA graph replay), as the JAX package does; a
+`StageLoopFallback` (a partial-mode overflow) re-runs the partition
+through the lanes above, counted in `stage_loop_fallback`.  String keys
+and the host Arrow lane belong to later slices and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -415,7 +424,26 @@ class FusedPartialAggExec(ExecutionPlan):
                  zip(self._specs, ad, av)]
         return hash_agg_step(carry, list(zip(kd, kv)), specs, mask)
 
+    def _stage_loop_program(self):
+        """StageProgram for the device stage loop, or None where the knob
+        or the device declines it or the stage does not compile."""
+        from blaze_tpu_torch.plan import stage_compiler
+        if not stage_compiler.stage_loop_active():
+            return None
+        return stage_compiler.try_compile(self)
+
     def execute(self, partition: int) -> BatchIterator:
+        prog = self._stage_loop_program()
+        if prog is not None:
+            # the loop emits only at its final drain, so a fallback here is
+            # lossless and the partition re-runs through the lanes below
+            from blaze_tpu_torch.runtime.loop import (StageLoopFallback,
+                                                      execute_loop)
+            try:
+                yield from execute_loop(prog, partition)
+                return
+            except StageLoopFallback:
+                self.metrics.add("stage_loop_fallback", 1)
         if self._ranges is None:
             yield from self._execute_sorted(partition)
             return
@@ -681,6 +709,19 @@ class FusedPartialAggExec(ExecutionPlan):
                 valid[:m] = v[off:off + m]
                 out.append(DeviceColumn(f.data_type, data, valid))
             yield ColumnBatch(self._out_schema, out, m)
+
+
+def _batch_windows(stream, window: int):
+    """Lists of up to `window` consecutive source batches (the device stage
+    loop copies each into its graph's input slabs)."""
+    buf = []
+    for batch in stream:
+        buf.append(batch)
+        if len(buf) >= window:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
 def _pow2(n: int) -> int:

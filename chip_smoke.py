@@ -17,22 +17,37 @@ Phases, each printing its own lines; any failure exits non-zero:
      edges, one partition, all parked, P = 12288, the rollup's one-tile
      shape), with its launches per route (1 for one tile, 2 beyond) and
      the shuffle writer's grouping (device operations, syncs and host
-     time per call); the host cost of the wrappers' stream lookup;
-  4. the two main paths, each as TaskDefinition bytes through the port's
+     time per call); the host cost of the wrappers' stream lookup; first,
+     one cooperative placement launch captured into a CUDA graph and
+     replayed twice, exact both times;
+  4. the device stage loop's fold at q01's reduce shape as CUDA graph
+     replays against the same fold on the CPU (integer columns exact,
+     float sums within 1e-9), its host launches and placement kernels
+     under torch.profiler, and one fold graph replayed alone: its device
+     operations, the host time of a replay against issuing the same body
+     eagerly, and its device time;
+  5. the two main paths, each as TaskDefinition bytes through the port's
      runtime on the card over the same SF10 data (2,875,140 store_returns
-     rows in 4 parquet files; 4 map tasks, 16 reduce tasks), each checked
-     against a pyarrow group-by, with every kernel's launch count set to 0
-     just before the path and read just after it:
+     rows in 4 parquet files; 4 map tasks, 16 reduce tasks), each with the
+     stage loop under auto (the loop) and off (staged), each run checked
+     against a pyarrow group-by and the two modes against each other, with
+     every kernel's launch count set to 0 just before the path and read
+     just after it, and the loop's route checked (16 loop tasks on each
+     reduce stage, q01's fallbacks equal to its partial skips, the
+     rollup's map side outside the loop):
        q01     TPC-DS q01's inner two-stage query (hash lane: placement
                and radix kernels);
        rollup  the store-by-day returns rollup (dense window-table lane on
                the map side, one window-step launch per map batch; hash
                lane on the reduce side);
-  5. where the time goes: each path again under torch.profiler, with the
-     card's busy share of the wall, the top kernels and host ops, the host
-     kernel launches, and a check that each of the port's device kernels
+  6. where the time goes: each path again under torch.profiler in both
+     modes, with the card's busy share of the wall, the top kernels and
+     host ops, the host launches (cudaLaunch* and cudaGraphLaunch apart)
+     and graph replays, and a check that each of the port's device kernels
      ran on the card exactly as often as its wrapper counted;
-  6. the paths' profile summary and the kernel table as JSON lines, the
+  7. regrow: q01 under auto with a 4,096-slot table, every reduce task
+     regrowing in the loop, one graph per table size, equal to the oracle;
+  8. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
@@ -282,6 +297,255 @@ def placement_cases(gen, dev):
                     "device_us": dev_us, "launches_per_call": per_call,
                     "bytes": nbytes, "err": err})
     return out
+
+
+def cooperative_capture_probe(gen, dev):
+    """One cooperative placement launch captured into a CUDA graph (global
+    capture error mode) and replayed twice on the same table state: both
+    replays must equal the plain version, which holds only if the kernel
+    takes a fresh round tag from its scratch on every replay.  Then the
+    stage loop's mode: an overflowing batch at the same shape with
+    `rollback`, eagerly and replayed from a graph, must equal the plain
+    rollback in every output and leave `used` and the limb table exactly
+    as they were before the call."""
+    import torch
+    from blaze_tpu_torch.kernels import hash_update as HU
+    phase("cooperative launch captured into a CUDA graph")
+    for label, load, rollback in (("load 0.5", 0.5, False),
+                                  ("overflowing, rollback", 0.9, True)):
+        h, limbs, mask, used0, tab0 = _placement_state(gen, dev, load)
+        sc = HU.Scratch(dev, S, ROUNDS)
+        ref_used, ref_tab = used0.clone(), tab0.clone()
+        ref = HU.place_in_carry_plain(h, limbs, mask, ref_used, ref_tab,
+                                      ROUNDS, rollback=rollback)
+        if rollback and not (int(ref[2]) > 0 and torch.equal(ref_used, used0)
+                             and torch.equal(ref_tab, tab0)):
+            raise SystemExit(f"placement ({label}): the plain version did "
+                             f"not overflow and roll back")
+
+        def exact_after(got, used, tab):
+            torch.cuda.synchronize()
+            return (all(torch.equal(a, b) for a, b in zip(got, ref))
+                    and torch.equal(used, ref_used)
+                    and torch.equal(tab, ref_tab))
+
+        # eager first: loads the kernel before the capture
+        used, tab = used0.clone(), tab0.clone()
+        ok = exact_after(HU.place_in_carry(h, limbs, mask, used, tab, ROUNDS,
+                                           rollback=rollback, scratch=sc),
+                         used, tab)
+        print(f"placement {label}, eager: exact={ok} unplaced "
+              f"{int(ref[2])}")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = HU.place_in_carry(h, limbs, mask, used, tab, ROUNDS,
+                                    rollback=rollback, scratch=sc)
+        for replay in (1, 2):
+            used.copy_(used0)
+            tab.copy_(tab0)
+            sc.reserve(ROUNDS + 1)
+            graph.replay()
+            exact = exact_after(got, used, tab)
+            print(f"placement {label}, replay {replay}: exact={exact} (tag "
+                  f"word {int(sc.buf[0])})")
+            ok = ok and exact
+        del graph
+        if not ok:
+            raise SystemExit(f"the captured placement launch ({label}) "
+                             f"disagrees with its plain version")
+
+
+def _reduce_batches(n_batches, dev):
+    """q01's reduce-side input (customer, store, partial sum) as batches of
+    32768 rows on `dev`, from a numpy seed: ~40,000 distinct keys, 2%
+    NULL customers, 1% NULL sums."""
+    import numpy as np
+    from blaze_tpu_torch.interop import batch_from_numpy
+    from blaze_tpu_torch.plan.types import schema_from_dict
+    from blaze_tpu_torch.itest import q01
+    schema = schema_from_dict(q01.PARTIAL_SCHEMA_D)
+    rng = np.random.default_rng(77)
+    out = []
+    for _ in range(n_batches):
+        cust = rng.integers(1, 20_001, N)
+        store = (cust * 7 + rng.integers(0, 2, N)) % 12 + 1
+        amt = np.round(rng.random(N) * 1000, 2)
+        cols = [(cust, rng.random(N) >= 0.02), (store, np.ones(N, bool)),
+                (amt, rng.random(N) >= 0.01)]
+        out.append(batch_from_numpy(schema, cols, N, dev))
+    return out
+
+
+def fold_graph_parity(dev):
+    """The stage loop's fold at q01's reduce shape (final sum by customer
+    and store, 2^18 slots, chunks of 8 over 11 batches: a full chunk on the
+    8-slot graph, then 3 batches on the 4-slot graph, one slot padded), as
+    CUDA graph replays on the card against the same fold
+    run eagerly on the CPU with the plain placement: `used`, keys, key
+    validity, limbs and sum validity exact, sums within 1e-9 relative
+    (float64 atomics add in a run-dependent order).  Then the card's
+    replays again under torch.profiler: host launches (cudaLaunch* and
+    cudaGraphLaunch apart) and the placement kernels it ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import q01
+    from blaze_tpu_torch.kernels import hash_update as HU
+    from blaze_tpu_torch.plan import create_plan, stage_compiler
+    from blaze_tpu_torch.plan.fused import fuse_plan
+    from blaze_tpu_torch.runtime import loop
+    phase("stage loop: the fold graph against the same fold on the CPU, "
+          "q01 reduce shape")
+    n_batches = 11
+
+    def fold(device):
+        config.conf.set(config.TORCH_DEVICE.key, device)
+        try:
+            agg = fuse_plan(create_plan(q01.stage2_td(0, N_REDUCES)["plan"]))
+            prog = stage_compiler.compile_fused_agg(agg)
+            batches = _reduce_batches(n_batches, torch.device(device))
+            t0 = time.perf_counter()
+            carry = loop.run_partition(prog, 0, source_stream=iter(batches))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return carry, agg.metrics.values, time.perf_counter() - t0, \
+                (prog, batches)
+        finally:
+            config.conf.set(config.TORCH_DEVICE.key, "cuda")
+
+    stats0 = dict(loop.graph_stats)
+    cuda, m, first_s, (prog, batches) = fold("cuda")
+    captured = {k: loop.graph_stats[k] - stats0[k] for k in stats0}
+    cuda2, _m, second_s, _ = fold("cuda")
+    cpu, _m, cpu_s, _ = fold("cpu")
+    ints = ["used", "limbs"]
+    exact = all(torch.equal(getattr(cuda, f).cpu(), getattr(cpu, f))
+                for f in ints)
+    for f in ("keys", "key_valid", "acc_valid"):
+        exact = exact and all(torch.equal(a.cpu(), b) for a, b in
+                              zip(getattr(cuda, f), getattr(cpu, f)))
+    got, want = cuda.accs[0].cpu(), cpu.accs[0]
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+    again = torch.equal(cuda.used, cuda2.used) and all(
+        torch.equal(a, b) for a, b in zip(cuda.keys, cuda2.keys))
+    print(f"fold of {n_batches} batches x {N} rows into {S} slots: "
+          f"{int(cuda.used.sum())} groups; integer columns exact={exact}, "
+          f"sums max relative error {rel:.3e} (limit 1e-9); second run "
+          f"equal={again}; counters {m}; graphs {captured}; wall "
+          f"{first_s:.3f} s (with the capture), {second_s:.4f} s replayed, "
+          f"{cpu_s:.3f} s on the CPU")
+    if not exact or rel > 1e-9 or not again:
+        raise SystemExit("the fold graph disagrees with the same fold on "
+                         "the CPU")
+    if (m["stage_loop_batches"] != n_batches or m["stage_loop_regrows"]
+            or captured["captures"] != 2 or captured["replays"] != 2):
+        raise SystemExit(f"fold: expected two captures (8 and 4 batch "
+                         f"slots), two replays and no regrow: {m}, "
+                         f"{captured}")
+    # the replays under the profiler
+    before = HU.placement_launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.run_partition(prog, 0, source_stream=iter(batches))
+        torch.cuda.synchronize()
+    counted = HU.placement_launches - before
+    place_us, kernels = _device_events(prof, KERNEL_NAMES["hash_placement"])
+    launches = _host_launches(prof)
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    nodes = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    launch_us = sum(e.self_cpu_time_total for e in prof.key_averages()
+                    if e.key.startswith("cudaGraphLaunch"))
+    print(f"fold replays profiled: host cudaLaunch* {launches['kernel']}, "
+          f"cudaGraphLaunch {launches['graph']} ({launch_us:.1f} us of host "
+          f"time for {nodes} device operations); placement counted "
+          f"{counted}, device kernels {kernels}, "
+          f"{place_us / max(kernels, 1):.2f} us on the card per graph node "
+          f"(live and gated-off slots); device busy {busy_us / 1e3:.3f} ms")
+    if kernels != counted:
+        raise SystemExit(f"fold: {kernels} placement kernels on the card "
+                         f"where the wrapper counted {counted}")
+    replay = replay_cost(prog)
+    return {"groups": int(cuda.used.sum()), "max_rel_err": rel,
+            "wall_first_s": first_s, "wall_replayed_s": second_s,
+            "wall_cpu_s": cpu_s, "graphs": captured,
+            "host_launches": launches, "placement_kernels": kernels,
+            "placement_us_per_node": place_us / max(kernels, 1),
+            "device_operations": nodes, "graph_launch_host_us": launch_us,
+            "device_busy_ms": busy_us / 1e3, "replay": replay}
+
+
+def replay_cost(prog, replays=10):
+    """The 8-slot fold graph of `prog` (left loaded with its last chunk)
+    replayed on its own: device operations in one replay (profiled), and
+    without the profiler the host microseconds of one `replay()` call
+    (median, each on an idle card) beside the host microseconds of
+    issuing the same body eagerly, and the device milliseconds of one
+    replay (CUDA events over `replays`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.runtime import loop
+    fold = next(f for k, f in loop._FOLDS.items()
+                if k[0] == prog.fingerprint and k[2] == 8 and
+                f.graph is not None)
+    fold.acquire(prog)
+    try:
+        def once():
+            fold.scratch.reserve(fold.placement_nodes *
+                                 (loop.PROBE_ROUNDS + 1))
+            fold.graph.replay()
+
+        once()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            once()
+            torch.cuda.synchronize()
+        nodes = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        host = []
+        for _ in range(replays):  # each call timed on an idle card
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            once()
+            host.append((time.perf_counter() - t0) * 1e6)
+        host_us = statistics.median(host)
+        torch.cuda.synchronize()
+        eager = []
+        for _ in range(3):  # the same body issued eagerly, op by op
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fold._body(prog)
+            eager.append((time.perf_counter() - t0) * 1e6)
+        eager_us = statistics.median(eager)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            once()
+        b.record()
+        b.synchronize()
+        device_ms = a.elapsed_time(b) / replays
+    finally:
+        fold.release()
+    print(f"8-slot fold graph, replayed alone: {nodes} device operations a "
+          f"replay; {host_us:.1f} us of host time per replay() call "
+          f"({host_us / nodes:.3f} us a node; the same body issued eagerly "
+          f"{eager_us:.1f} us), {device_ms:.4f} ms on the card per replay "
+          f"(no profiler for any of these times)")
+    return {"nodes": nodes, "host_us": host_us, "eager_host_us": eager_us,
+            "device_ms": device_ms}
+
+
+def _host_launches(prof):
+    """Host calls that launched work in a profile: cudaLaunch* (kernels)
+    and cudaGraphLaunch (graph replays), counted apart."""
+    averages = prof.key_averages()
+    return {"kernel": sum(e.count for e in averages
+                          if e.key.startswith("cudaLaunch")),
+            "graph": sum(e.count for e in averages
+                         if e.key.startswith("cudaGraphLaunch"))}
 
 
 def ops_per_call(fn, calls=PROFILED_CALLS):
@@ -782,25 +1046,50 @@ def _check_on_card(res, launches, needed, path):
                              f"card: {counts}")
 
 
-def q01_path(root, sr_paths, lo, hi):
+def _loop_mode(mode):
+    from blaze_tpu_torch import config
+    config.conf.set(config.STAGE_DEVICE_LOOP_ENABLE.key, mode)
+    print(f"{config.STAGE_DEVICE_LOOP_ENABLE.key} = {mode}")
+
+
+def _sums_close(a, b, name):
+    """Max relative error of float column `name` of two sorted tables
+    (NULLs where the other has NULLs)."""
     import numpy as np
+    got = np.asarray(a[name].fill_null(np.nan))
+    want = np.asarray(b[name].fill_null(np.nan))
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    max_rel = float(np.nanmax(rel)) if len(rel) else 0.0
+    return np.array_equal(np.isnan(got), np.isnan(want)), max_rel
+
+
+def q01_path(root, sr_paths, lo, hi, mode, label="q01"):
+    """q01 with the stage loop under `mode` (auto: on the card, the loop;
+    off: the staged executor), checked against the oracle.  Returns its
+    launches, counters, walls and sorted output."""
     import pyarrow as pa
     import torch
 
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest import q01
+    from blaze_tpu_torch.runtime import loop
 
-    phase("main path q01: TPC-DS q01 inner, SF10, 4 maps x 16 reduces")
+    phase(f"main path {label}: TPC-DS q01 inner, SF10, 4 maps x 16 "
+          f"reduces, stage loop {mode}")
+    _loop_mode(mode)
     for opt in (config.TORCH_DEVICE, config.BATCH_SIZE,
-                config.ON_DEVICE_AGG_CAPACITY):
+                config.ON_DEVICE_AGG_CAPACITY,
+                config.STAGE_DEVICE_LOOP_CHUNK):
         print(f"{opt.key} = {opt.get()}")
-    shuffle_dir = os.path.join(root, "shuffle")
+    shuffle_dir = os.path.join(root, f"shuffle_{label}_{mode}")
     os.makedirs(shuffle_dir)
 
     torch.cuda.reset_peak_memory_stats()
+    graphs0 = dict(loop.graph_stats)
     _zero_launches()
     res = q01.run_q01(sr_paths, lo, hi, shuffle_dir, N_MAPS, N_REDUCES)
     launches = _read_launches()
+    graphs = {k: loop.graph_stats[k] - graphs0[k] for k in graphs0}
     peak = torch.cuda.max_memory_allocated()
 
     out = pa.Table.from_batches(
@@ -819,44 +1108,76 @@ def q01_path(root, sr_paths, lo, hi):
           f"{ora.num_rows}); shuffle bytes "
           f"{sum(o[2][-1] for o in res['shuffle'])}")
     print(f"aggregation counters per stage: {res['counters']}")
-    print(f"launches on the q01 path: {launches}")
+    print(f"CUDA graphs: {graphs}")
+    print(f"launches on the {label} path: {launches}")
     print(f"torch.cuda.max_memory_allocated: {peak} bytes")
     if a.num_rows != b.num_rows or not a.select(keys).equals(b.select(keys)):
-        raise SystemExit("main path: the group set differs from the oracle")
-    got = np.asarray(a["ctr_total_return"].fill_null(np.nan))
-    want = np.asarray(b["ctr_total_return"].fill_null(np.nan))
-    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
-    max_rel = float(np.nanmax(rel)) if len(rel) else 0.0
+        raise SystemExit(f"{label}: the group set differs from the oracle")
+    nulls_ok, max_rel = _sums_close(a, b, "ctr_total_return")
     print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: float64 "
           f"atomics add in a run-dependent order)")
-    if not np.array_equal(np.isnan(got), np.isnan(want)) or max_rel > 1e-9:
-        raise SystemExit("main path: sums differ from the oracle")
+    if not nulls_ok or max_rel > 1e-9:
+        raise SystemExit(f"{label}: sums differ from the oracle")
     _check_on_card(res, launches, ("hash_placement", "radix_partition"),
-                   "q01")
-    return launches
+                   label)
+    _check_loop(res["counters"], mode, label, map_eligible=True)
+    return {"launches": launches, "counters": res["counters"],
+            "graphs": graphs, "map_s": res["map_s"],
+            "reduce_s": res["reduce_s"], "peak_bytes": peak, "table": a}
 
 
-def rollup_path(root, sr_paths, lo, hi):
-    import numpy as np
+def _check_loop(counters, mode, label, map_eligible):
+    """Under auto every reduce task folds through the loop, and a map task
+    falls back exactly where its partial table overflows (q01) or never
+    enters the loop (the rollup's dense map side); under off nothing
+    does."""
+    m, r = counters["map"], counters["reduce"]
+    if mode == "off":
+        bad = {k: v for st in (m, r) for k, v in st.items()
+               if k.startswith("stage_loop") and v}
+        if bad:
+            raise SystemExit(f"{label}: stage loop counters under off: {bad}")
+        return
+    if r["stage_loop_tasks"] != N_REDUCES or r["stage_loop_fallback"]:
+        raise SystemExit(f"{label}: {r['stage_loop_tasks']} reduce tasks "
+                         f"folded in the loop, {r['stage_loop_fallback']} "
+                         f"fell back (expected {N_REDUCES}, 0)")
+    if map_eligible:
+        if (m["stage_loop_fallback"] != m["partial_skipped"]
+                or m["stage_loop_tasks"] + m["stage_loop_fallback"]
+                != N_MAPS):
+            raise SystemExit(f"{label}: map stage loop tasks "
+                             f"{m['stage_loop_tasks']}, fallbacks "
+                             f"{m['stage_loop_fallback']}, partial skips "
+                             f"{m['partial_skipped']}")
+    elif m["stage_loop_tasks"] or m["stage_loop_fallback"]:
+        raise SystemExit(f"{label}: the dense map side entered the loop")
+
+
+def rollup_path(root, sr_paths, lo, hi, mode):
     import pyarrow as pa
     import torch
 
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest import rollup
+    from blaze_tpu_torch.runtime import loop
 
-    phase("main path rollup: store-by-day returns rollup, SF10, 4 maps x "
-          "16 reduces")
+    phase(f"main path rollup: store-by-day returns rollup, SF10, 4 maps x "
+          f"16 reduces, stage loop {mode}")
+    _loop_mode(mode)
     for opt in (config.AGG_MXU_ENABLE, config.AGG_MXU_MAX_SLOTS,
                 config.AGG_MXU_DECIMAL_SCALE):
         print(f"{opt.key} = {opt.get()}")
-    shuffle_dir = os.path.join(root, "shuffle_rollup")
+    shuffle_dir = os.path.join(root, f"shuffle_rollup_{mode}")
     os.makedirs(shuffle_dir)
 
     torch.cuda.reset_peak_memory_stats()
+    graphs0 = dict(loop.graph_stats)
     _zero_launches()
     res = rollup.run_rollup(sr_paths, lo, hi, shuffle_dir, N_MAPS,
                             N_REDUCES)
     launches = _read_launches()
+    graphs = {k: loop.graph_stats[k] - graphs0[k] for k in graphs0}
     peak = torch.cuda.max_memory_allocated()
 
     out = pa.Table.from_batches(
@@ -876,19 +1197,17 @@ def rollup_path(root, sr_paths, lo, hi):
           f"(oracle {ora.num_rows}); shuffle bytes "
           f"{sum(o[2][-1] for o in res['shuffle'])}")
     print(f"aggregation counters per stage: {counters}")
+    print(f"CUDA graphs: {graphs}")
     print(f"launches on the rollup path: {launches}")
     print(f"torch.cuda.max_memory_allocated: {peak} bytes")
     if a.num_rows != b.num_rows or not a.select(keys + ["cnt"]).equals(
             b.select(keys + ["cnt"])):
         raise SystemExit("rollup path: groups or counts differ from the "
                          "oracle")
-    got = np.asarray(a["amt"].fill_null(np.nan))
-    want = np.asarray(b["amt"].fill_null(np.nan))
-    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
-    max_rel = float(np.nanmax(rel)) if len(rel) else 0.0
+    nulls_ok, max_rel = _sums_close(a, b, "amt")
     print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: the reduce "
           f"side adds float64 with atomics)")
-    if not np.array_equal(np.isnan(got), np.isnan(want)) or max_rel > 1e-9:
+    if not nulls_ok or max_rel > 1e-9:
         raise SystemExit("rollup path: sums differ from the oracle")
     if counters["map"]["mxu_verify_fallback"]:
         raise SystemExit("rollup path: the window-table lane fell back to "
@@ -903,28 +1222,82 @@ def rollup_path(root, sr_paths, lo, hi):
         raise SystemExit(f"rollup path: {launches['window_step']} window "
                          f"steps for {counters['map']['cuda_batches']} map "
                          f"batches")
-    return launches
+    _check_loop(counters, mode, "rollup", map_eligible=False)
+    return {"launches": launches, "counters": counters, "graphs": graphs,
+            "map_s": res["map_s"], "reduce_s": res["reduce_s"],
+            "peak_bytes": peak, "table": a}
 
 
-def profile_path(name, run, root):
-    """A second run of one main path under torch.profiler: the share of
-    its wall time the card was busy, device time by kernel, host kernel
-    launches, and per wrapper of the port the device time per call.  Fails
-    unless each of the port's kernels ran as often on the card as its
-    wrapper counted (one placement launch per call, one window step per
-    map batch)."""
+def same_result(auto, off, keys, exact, value, label):
+    """The loop's result against the staged one: the same groups in key
+    order, `exact` columns equal, `value` within 1e-9 relative."""
+    a, b = auto["table"], off["table"]
+    if a.num_rows != b.num_rows or not a.select(keys + exact).equals(
+            b.select(keys + exact)):
+        raise SystemExit(f"{label}: the stage loop's groups differ from the "
+                         f"staged executor's")
+    nulls_ok, max_rel = _sums_close(a, b, value)
+    print(f"{label}: stage loop (auto) against staged (off): {a.num_rows} "
+          f"groups equal, sums max relative error {max_rel:.3e}")
+    if not nulls_ok or max_rel > 1e-9:
+        raise SystemExit(f"{label}: the stage loop's sums differ from the "
+                         f"staged executor's")
+
+
+def regrow_path(root, sr_paths, lo, hi):
+    """q01 under auto with a 4,096-slot table: the map tasks fall back
+    where they overflow, and every reduce task regrows its table in the
+    loop; one graph captured per table size, the result equal to the
+    oracle."""
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.runtime import loop
+    config.conf.set(config.ON_DEVICE_AGG_CAPACITY.key, 4096)
+    loop._FOLDS.clear()  # every graph of this phase is its own capture
+    try:
+        res = q01_path(root, sr_paths, lo, hi, "auto", label="q01 regrow")
+    finally:
+        config.conf.unset(config.ON_DEVICE_AGG_CAPACITY.key)
+    r = res["counters"]["reduce"]
+    sizes = sorted({k[3] for k in loop._FOLDS})
+    print(f"regrow: reduce regrows {r['stage_loop_regrows']}, captures "
+          f"{res['graphs']['captures']} ({res['graphs']['capture_ms']:.1f} "
+          f"ms), replays {res['graphs']['replays']}; table sizes with a "
+          f"graph: {sizes}")
+    if r["stage_loop_regrows"] <= 0:
+        raise SystemExit("regrow: no reduce task regrew its table")
+    chain = [4096 << i for i in range(len(sizes))]
+    if sizes != chain or res["graphs"]["captures"] < len(chain):
+        raise SystemExit(f"regrow: table sizes {sizes}, captures "
+                         f"{res['graphs']['captures']}")
+    del res["table"]
+    return res
+
+
+def profile_path(name, run, root, mode):
+    """A second run of one main path, with the stage loop under `mode`,
+    under torch.profiler: the share of its wall time the card was busy,
+    device time by kernel, host launches (cudaLaunch* and cudaGraphLaunch
+    apart), graph replays, and per wrapper of the port the device time per
+    call.  Fails unless each of the port's kernels ran as often on the
+    card as its wrapper counted (one placement launch per eager call and
+    one per batch slot of each graph replay, one window step per map
+    batch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.runtime import loop
 
-    phase(f"where the time goes: the {name} path again, under "
-          f"torch.profiler")
-    shuffle_dir = os.path.join(root, f"shuffle_{name}_profiled")
+    phase(f"where the time goes: the {name} path again, stage loop {mode}, "
+          f"under torch.profiler")
+    _loop_mode(mode)
+    shuffle_dir = os.path.join(root, f"shuffle_{name}_{mode}_profiled")
     os.makedirs(shuffle_dir)
     _zero_launches()
+    replays0 = loop.graph_stats["replays"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run(shuffle_dir)
     launches = _read_launches()
+    replays = loop.graph_stats["replays"] - replays0
     wall_us = (res["map_s"] + res["reduce_s"]) * 1e6
 
     # kernels and copies on the card: one stream, so their durations add
@@ -956,14 +1329,16 @@ def profile_path(name, run, root):
     for e in host:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
               f"{e.count:6d}  {e.key[:90]}")
-    host_launches = sum(e.count for e in averages
-                        if e.key.startswith("cudaLaunch"))
-    print(f"host kernel launches (cudaLaunch*) on the {name} path: "
-          f"{host_launches}")
+    host = _host_launches(prof)
+    print(f"host launches on the {name} path ({mode}): cudaLaunch* "
+          f"{host['kernel']}, cudaGraphLaunch {host['graph']} (graph "
+          f"replays {replays})")
     torch.cuda.synchronize()
-    out = {"wall_s": wall_us / 1e6, "busy_s": busy_us / 1e6,
-           "busy_share": busy_us / wall_us, "host_launches": host_launches,
-           "kernels": {}}
+    out = {"mode": mode, "wall_s": wall_us / 1e6, "busy_s": busy_us / 1e6,
+           "busy_share": busy_us / wall_us,
+           "host_launches": host["kernel"],
+           "graph_launches": host["graph"], "graph_replays": replays,
+           "counters": res["counters"], "kernels": {}}
     for kernel, names in KERNEL_NAMES.items():
         us, count = _device_events(prof, names)
         calls = launches[kernel]
@@ -1009,33 +1384,71 @@ def main():
     gen = torch.Generator().manual_seed(1234)
     stream_lookup_cost(dev)
     launch_floor(dev)
+    cooperative_capture_probe(gen, dev)
     cases = {"hash_placement": placement_cases(gen, dev),
              "radix_partition": radix_cases(gen, dev),
              "window_step": window_step_cases(gen, dev)}
 
+    loop_phases = {"fold": fold_graph_parity(dev)}
+
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sr_paths, lo, hi = make_data(root)
-        by_path = {"q01": q01_path(root, sr_paths, lo, hi),
-                   "rollup": rollup_path(root, sr_paths, lo, hi)}
+        runs = {"q01": q01_path(root, sr_paths, lo, hi, "auto"),
+                "rollup": rollup_path(root, sr_paths, lo, hi, "auto"),
+                "q01 off": q01_path(root, sr_paths, lo, hi, "off"),
+                "rollup off": rollup_path(root, sr_paths, lo, hi, "off")}
+        same_result(runs["q01"], runs["q01 off"],
+                    ["ctr_customer_sk", "ctr_store_sk"], [],
+                    "ctr_total_return", "q01")
+        same_result(runs["rollup"], runs["rollup off"], ["store", "d"],
+                    ["cnt"], "amt", "rollup")
+        by_path = {k: runs[k]["launches"] for k in ("q01", "rollup")}
         from blaze_tpu_torch.itest import q01, rollup
+
+        def q01_run(d):
+            return q01.run_q01(sr_paths, lo, hi, d, N_MAPS, N_REDUCES)
+
+        def rollup_run(d):
+            return rollup.run_rollup(sr_paths, lo, hi, d, N_MAPS, N_REDUCES)
+
         profiled = {
-            "q01": profile_path("q01", lambda d: q01.run_q01(
-                sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root),
-            "rollup": profile_path("rollup", lambda d: rollup.run_rollup(
-                sr_paths, lo, hi, d, N_MAPS, N_REDUCES), root)}
+            "q01": profile_path("q01", q01_run, root, "auto"),
+            "rollup": profile_path("rollup", rollup_run, root, "auto"),
+            "q01 off": profile_path("q01", q01_run, root, "off"),
+            "rollup off": profile_path("rollup", rollup_run, root, "off")}
+        _loop_mode("auto")
+        loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    for k, r in runs.items():
+        del r["table"]
+        loop_counters = {st: {c: v for c, v in r["counters"][st].items()
+                              if "loop" in c} for st in ("map", "reduce")}
+        print(f"{k}: walls map {r['map_s']:.3f} s reduce {r['reduce_s']:.3f}"
+              f" s; loop counters {loop_counters}; graphs {r['graphs']}")
+    for k, p in profiled.items():
+        print(f"{k} profiled: wall {p['wall_s']:.3f} s, busy "
+              f"{100 * p['busy_share']:.2f}%, cudaLaunch* "
+              f"{p['host_launches']}, cudaGraphLaunch {p['graph_launches']},"
+              f" replays {p['graph_replays']}")
+
+    def device_us(name, modes):
+        """Device us per call of a kernel on the paths' profiles under the
+        stage-loop modes `modes`, or None where no such path ran it."""
+        seen = [p["kernels"][name] for p in profiled.values()
+                if p["mode"] in modes and p["kernels"][name]["launches"]]
+        calls = sum(r["launches"] for r in seen)
+        return (sum(r["device_us"] * r["launches"] for r in seen) / calls
+                if calls else None)
 
     def entry(name, source, replaces):
         """One kernel's line: its main case (the first: the main path's
-        shape), launches on the main paths, and its device time per call
-        on the paths' profiles (on its case's profile where no path runs
-        it)."""
+        shape), launches on the main paths (the stage loop under auto),
+        and its device time per call on those paths' profiles (on its
+        case's profile where no path runs it), beside the staged paths'."""
         main_case = cases[name][0]
-        runs = [p["kernels"][name] for p in profiled.values()
-                if p["kernels"][name]["launches"]]
-        calls = sum(r["launches"] for r in runs)
+        on_paths = device_us(name, ("auto",))
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(p[name] for p in by_path.values()),
@@ -1045,10 +1458,11 @@ def main():
                 "bound_ms": main_case["bytes"] / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
                 "library_ms": main_case.get("library_ms"),
-                "device_us": (sum(r["device_us"] * r["launches"]
-                                  for r in runs) / calls if calls
+                "device_us": (on_paths if on_paths is not None
                               else main_case["device_us"]),
-                "device_us_from": "main paths" if calls else "kernel case",
+                "device_us_from": ("main paths" if on_paths is not None
+                                   else "kernel case"),
+                "device_us_staged": device_us(name, ("off",)),
                 "launches_per_call": main_case["launches_per_call"],
                 "launches_per_call_by_route": {
                     route: sorted({c["launches_per_call"] for c in cases[name]
@@ -1087,7 +1501,8 @@ def main():
         f"({p['kernels']['radix_partition']['launches']} calls, "
         f"{p['kernels']['radix_partition']['device_kernels']} kernels)"
         for k, p in profiled.items()))
-    print(json.dumps({"paths": profiled}))
+    print(json.dumps({"paths": profiled, "runs": runs,
+                      "stage_loop": loop_phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -175,3 +175,134 @@ def test_carry_limbs_through_steps_overflow_and_rehash():
     # the carry brought across from the JAX leaves derives the same limbs
     back = interop.carry_from_numpy(_leaves(jc), CPU)
     assert torch.equal(back.limbs, tc.limbs)
+
+
+# ---------------------------------------------------------------------------
+# atomic placement in place (rollback) and the stage loop's fold step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,S,L,load,rounds", [
+    (64, 128, 3, 0.0, 16),
+    (256, 2048, 6, 0.3, 16),
+    (1000, 4096, 4, 0.25, 16),
+    (4096, 32768, 6, 0.3, 16),
+])
+def test_rollback_matches_pallas_interpret_without_overflow(n, S, L, load,
+                                                            rounds):
+    """Where nothing overflows, `rollback` changes nothing: the plain
+    version still places exactly as the interpret-mode Pallas kernel."""
+    h, limbs, pend0, npend, used0, tab0 = _operands(
+        n, n, S, L, load, dup_keys=max(4, n // 3))
+    want_p, want_w = JHU.placement(
+        *[jnp.asarray(a) for a in (h, limbs, pend0)], jnp.asarray(npend[0]),
+        jnp.asarray(used0), jnp.asarray(tab0), rounds, interpret=True)
+    mask = np.zeros(n, bool)
+    mask[pend0[:npend[0]]] = True
+    used = torch.from_numpy(used0.astype(bool))
+    tab = torch.from_numpy(tab0.copy())
+    placed, wslot, unplaced = THU.place_in_carry(
+        torch.from_numpy(h).long(), torch.from_numpy(limbs),
+        torch.from_numpy(mask), used, tab, rounds, rollback=True)
+    assert int(unplaced) == 0
+    np.testing.assert_array_equal(placed.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(wslot.numpy(), np.asarray(want_w))
+    won = np.flatnonzero(np.asarray(want_w) < S)
+    assert used.numpy()[np.asarray(want_w)[won]].all()
+
+
+@pytest.mark.parametrize("n,S,L,load,rounds", [
+    (512, 256, 6, 0.95, 4),     # most rows stay unplaced
+    (300, 1024, 4, 0.5, 1),     # a single round
+    (64, 64, 3, 0.0, 1),        # an empty table, one round
+])
+def test_rollback_on_overflow_leaves_table_as_it_was(n, S, L, load, rounds):
+    h, limbs, pend0, npend, used0, tab0 = _operands(
+        n, n, S, L, load, dup_keys=max(4, n // 3))
+    mask = np.zeros(n, bool)
+    mask[pend0[:npend[0]]] = True
+    # the carry's invariant: an unused slot holds zero limbs
+    tab0 = tab0 * used0[None, :].astype(np.int32)
+    used = torch.from_numpy(used0.astype(bool))
+    tab = torch.from_numpy(tab0.copy())
+    args = (torch.from_numpy(h).long(), torch.from_numpy(limbs),
+            torch.from_numpy(mask))
+    # without rollback the same call claims slots and leaves rows unplaced
+    u2, t2 = used.clone(), tab.clone()
+    _p, w_keep, left = THU.place_in_carry(*args, u2, t2, rounds)
+    assert int(left) > 0 and bool((w_keep < S).any())
+    placed, wslot, unplaced = THU.place_in_carry(*args, used, tab, rounds,
+                                                 rollback=True)
+    assert int(unplaced) == int(left)
+    assert torch.equal(used, torch.from_numpy(used0.astype(bool)))
+    assert torch.equal(tab, torch.from_numpy(tab0))
+    assert bool((placed == S).all()) and bool((wslot == S).all())
+
+
+def _fold_batch(rng, n, distinct):
+    keys, specs, mask = _batch(rng, n, distinct)
+    return ([(torch.from_numpy(d), torch.from_numpy(v)) for d, v in keys],
+            [(k, torch.from_numpy(d), torch.from_numpy(v))
+             for k, d, v in specs], torch.from_numpy(mask))
+
+
+def test_fold_step_matches_hash_agg_step():
+    """The in-place fold step leaves the carry `hash_agg_step` returns, bit
+    for bit, through overflows (the carry stays as it was) and a rehash."""
+    rng = np.random.default_rng(23)
+    S, n = 256, 200
+    dts = [torch.from_numpy(np.zeros(1, d)).dtype for d in ACC_DTYPES]
+    staged = TS.init_hash_carry([torch.int64, torch.int32], KINDS, dts, S,
+                                CPU)
+    folded = TS.init_hash_carry([torch.int64, torch.int32], KINDS, dts, S,
+                                CPU)
+    overflowed = 0
+    for step in range(8):
+        keys, specs, mask = _fold_batch(rng, n, 60 + 40 * step)
+        new, ovf, _ng = TS.hash_agg_step(staged, keys, specs, mask)
+        hit = TS.fold_step(folded, keys, specs, mask)
+        assert hit.shape == (1,) and bool(hit) == (ovf > 0)
+        if ovf:
+            overflowed += 1
+            S *= 4
+            staged, _o, _ = TS.rehash_carry(staged, KINDS, S)
+            folded, _o, _ = TS.rehash_carry(folded, KINDS, S)
+        else:
+            staged = new
+        _same(interop.carry_to_numpy(folded), interop.carry_to_numpy(staged))
+        assert torch.equal(folded.limbs, staged.limbs)
+    assert overflowed >= 1
+
+
+def test_fold_step_gated_off_changes_nothing():
+    """A batch whose rows are all gated off (the loop's `live` after an
+    overflow: mask & ~ovf_seen) leaves every bit of the carry, including a
+    -0.0 sum in slot 0, and reports no overflow."""
+    rng = np.random.default_rng(29)
+    dts = [torch.from_numpy(np.zeros(1, d)).dtype for d in ACC_DTYPES]
+    carry = TS.init_hash_carry([torch.int64, torch.int32], KINDS, dts, 512,
+                               CPU)
+    keys, specs, mask = _fold_batch(rng, 300, 80)
+    assert not bool(TS.fold_step(carry, keys, specs, mask))
+    carry.accs[0][0] = -0.0
+    before = _snapshot(carry)
+    ovf_seen = torch.ones(1, dtype=torch.bool)
+    keys, specs, mask = _fold_batch(rng, 300, 400)
+    hit = TS.fold_step(carry, keys, specs, mask & ~ovf_seen)
+    assert not bool(hit)
+    after = _snapshot(carry)
+    assert all(a.dtype == b.dtype and
+               a.numpy().tobytes() == b.numpy().tobytes()
+               for a, b in zip(before, after))
+
+
+def test_reset_hash_carry_restores_init():
+    rng = np.random.default_rng(31)
+    dts = [torch.from_numpy(np.zeros(1, d)).dtype for d in ACC_DTYPES]
+    carry = TS.init_hash_carry([torch.int64, torch.int32], KINDS, dts, 256,
+                               CPU)
+    fresh = _snapshot(carry)
+    keys, specs, mask = _fold_batch(rng, 200, 50)
+    TS.fold_step(carry, keys, specs, mask)
+    assert bool(carry.used.any())
+    TS.reset_hash_carry(carry, KINDS)
+    assert all(torch.equal(a, b) for a, b in zip(fresh, _snapshot(carry)))

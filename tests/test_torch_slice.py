@@ -19,6 +19,13 @@ the dense lane, forced onto the window-table lane in both packages or left
 on the scatter dense lane, as each package picks it on the CPU; the reduce
 side runs the hash lane.  The same checks hold, with counts exact; on the
 window-table lane the map-side sums are exact in both packages.
+
+Each path runs again with the device stage loop forced on in both
+packages (`auron.tpu.stage.deviceLoop.enable=on`): the q01 map tasks fold
+through the loop until their partial table overflows, then fall back to
+the staged path (`stage_loop_fallback` = `partial_skipped`); every reduce
+task of both paths folds through the loop, regrowing its table; the
+rollup's dense map side is not eligible.  The same checks hold.
 """
 
 import io
@@ -40,6 +47,7 @@ BATCH = 4096
 
 CONFS = {"auron.tpu.agg.table.capacity": CAPACITY,
          "auron.batch.size": BATCH}
+LOOP = "auron.tpu.stage.deviceLoop.enable"
 JAX_ONLY = {"auron.tpu.fused.hostVectorized": False,
             "auron.tpu.stage.deviceLoop.enable": "off",
             "auron.tpu.kernels.pallas": "off"}
@@ -55,7 +63,7 @@ def confs():
     yield
     for k in {**CONFS, **JAX_ONLY}:
         jconf.conf.unset(k)
-    for k in CONFS:
+    for k in (*CONFS, LOOP):
         tconf.conf.unset(k)
     tconf.conf.unset(tconf.TORCH_DEVICE.key)
 
@@ -154,7 +162,51 @@ def _segments(tmpdir, reader):
     return out
 
 
+def _loop_on():
+    for c in (jconf, tconf):
+        c.conf.set(LOOP, "on")
+
+
+def _jax_loop_delta(run):
+    """run() and the JAX package's stage-loop counters it moved."""
+    from blaze_tpu.bridge import xla_stats
+    before = xla_stats.snapshot()
+    out = run()
+    d = xla_stats.delta(before)
+    return out, {k: d[k] for k in ("stage_loop_tasks", "stage_loop_regrows",
+                                   "stage_loop_fallbacks")}
+
+
 def test_q01_two_stage_matches_jax_and_oracle(tmp_path, confs):
+    c, _m, _l = _check_q01(tmp_path)
+    assert c["reduce"]["table_grown"] >= 1
+
+
+def test_q01_two_stage_stage_loop_matches_jax_and_oracle(tmp_path, confs):
+    _loop_on()
+    c, j_map, j_loop = _check_q01(tmp_path)
+    # the partial maps fold through the loop until their table overflows,
+    # then re-run staged, in both packages
+    assert c["map"]["stage_loop_fallback"] >= 1
+    assert (c["map"]["stage_loop_fallback"] == c["map"]["partial_skipped"]
+            == j_map["stage_loop_fallback"] == j_loop["stage_loop_fallbacks"])
+    assert c["map"]["stage_loop_tasks"] == N_MAPS - c["map"][
+        "stage_loop_fallback"]
+    # every reduce task folds through the loop and regrows its table
+    assert c["reduce"]["stage_loop_tasks"] == N_REDUCES
+    assert c["reduce"]["table_grown"] == 0
+    assert c["reduce"]["stage_loop_regrows"] >= 1
+    assert c["reduce"]["stage_loop_batches"] == c["reduce"]["cpu_batches"]
+    assert j_loop["stage_loop_tasks"] == (c["map"]["stage_loop_tasks"]
+                                          + c["reduce"]["stage_loop_tasks"])
+    assert j_loop["stage_loop_regrows"] == (
+        c["map"]["stage_loop_regrows"] + c["reduce"]["stage_loop_regrows"])
+
+
+def _check_q01(tmp_path):
+    """q01 through both packages: every check of the module docstring.
+    Returns the port's stage counters, the JAX map-side metrics and the
+    JAX stage-loop counters."""
     from blaze_tpu.shuffle.ipc import read_batches_from_bytes
     from blaze_tpu_torch.kernels import hash_update, radix
     from blaze_tpu_torch.shuffle.ipc import IpcCompressionReader
@@ -165,17 +217,16 @@ def test_q01_two_stage_matches_jax_and_oracle(tmp_path, confs):
     jdir.mkdir()
     tdir.mkdir()
 
-    j_out, _m = _run_jax(
+    (j_out, j_map), j_loop = _jax_loop_delta(lambda: _run_jax(
         lambda m: q01.stage1_td(sr_paths, lo, hi, m, str(jdir), N_MAPS,
                                 N_REDUCES),
         lambda r: q01.stage2_td(r, N_REDUCES), q01.SHUFFLE_RESOURCE,
-        str(jdir))
+        str(jdir)))
     res = q01.run_q01(sr_paths, lo, hi, str(tdir), N_MAPS, N_REDUCES)
     t_out = res["reduce_outputs"]
     c = res["counters"]
     assert c["map"]["cpu_batches"] > N_MAPS and not c["map"]["cuda_batches"]
     assert c["map"]["partial_skipped"] >= 1
-    assert c["reduce"]["table_grown"] >= 1
     assert hash_update.placement_launches == 0
     assert radix.partition_launches == 0
 
@@ -214,10 +265,34 @@ def test_q01_two_stage_matches_jax_and_oracle(tmp_path, confs):
         got = pa.concat_tables([_table(b) for b in outs if b]).sort_by(order)
         _assert_same_rows(got.select(ora.column_names), ora, keys,
                           "ctr_total_return")
+    return c, j_map, j_loop
 
 
 @pytest.mark.parametrize("lane", ["window_table", "scatter"])
 def test_rollup_two_stage_matches_jax_and_oracle(tmp_path, confs, lane):
+    _check_rollup(tmp_path, lane)
+
+
+@pytest.mark.parametrize("lane", ["window_table", "scatter"])
+def test_rollup_two_stage_stage_loop_matches_jax_and_oracle(tmp_path, confs,
+                                                            lane):
+    _loop_on()
+    c, j_loop = _check_rollup(tmp_path, lane)
+    # the dense map side is not eligible; every reduce task folds
+    assert c["map"]["stage_loop_tasks"] == c["map"]["stage_loop_fallback"] \
+        == 0
+    assert c["reduce"]["stage_loop_tasks"] == N_REDUCES
+    assert c["reduce"]["stage_loop_fallback"] == 0
+    assert c["reduce"]["stage_loop_batches"] == c["reduce"]["cpu_batches"]
+    assert j_loop == {"stage_loop_tasks": N_REDUCES,
+                      "stage_loop_regrows": c["reduce"]["stage_loop_regrows"],
+                      "stage_loop_fallbacks": 0}
+
+
+def _check_rollup(tmp_path, lane):
+    """The rollup through both packages: every check of the module
+    docstring.  Returns the port's stage counters and the JAX stage-loop
+    counters."""
     from blaze_tpu.shuffle.ipc import read_batches_from_bytes
     from blaze_tpu_torch.itest import rollup
     from blaze_tpu_torch.kernels import window_table
@@ -232,11 +307,11 @@ def test_rollup_two_stage_matches_jax_and_oracle(tmp_path, confs, lane):
         jdir, tdir = tmp_path / "jax", tmp_path / "torch"
         jdir.mkdir()
         tdir.mkdir()
-        j_out, j_map = _run_jax(
+        (j_out, j_map), j_loop = _jax_loop_delta(lambda: _run_jax(
             lambda m: rollup.stage1_td(sr_paths, lo, hi, m, str(jdir),
                                        N_MAPS, N_REDUCES),
             lambda r: rollup.stage2_td(r, N_REDUCES),
-            rollup.SHUFFLE_RESOURCE, str(jdir))
+            rollup.SHUFFLE_RESOURCE, str(jdir)))
         res = rollup.run_rollup(sr_paths, lo, hi, str(tdir), N_MAPS,
                                 N_REDUCES)
     finally:
@@ -284,3 +359,4 @@ def test_rollup_two_stage_matches_jax_and_oracle(tmp_path, confs, lane):
         got = pa.concat_tables([_table(b) for b in outs if b]).sort_by(order)
         _assert_same_rows(got.select(ora.column_names), ora, keys, "amt",
                           ["cnt"])
+    return c, j_loop
