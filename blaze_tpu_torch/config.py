@@ -160,6 +160,22 @@ STAGE_DEVICE_LOOP_CHUNK = int_conf(
     "auron.tpu.stage.deviceLoop.chunkBatches", 8,
     "Batches folded per stage-loop step (one graph replay on a CUDA "
     "device); cancellation is checked between chunks.")
+PARTIAL_AGG_SKIPPING_ENABLE = bool_conf(
+    "auron.tpu.partialAgg.skipping.enable", True,
+    "Pass rows through un-aggregated when partial-agg cardinality is too "
+    "high (the generic AggExec's one-shot probe, ops/agg/exec.py).")
+PARTIAL_AGG_SKIPPING_RATIO = float_conf(
+    "auron.tpu.partialAgg.skipping.ratio", 0.9,
+    "Groups-emitted/rows-consumed ratio beyond which a partial AggExec "
+    "switches to pass-through.")
+PARTIAL_AGG_SKIPPING_MIN_ROWS = int_conf(
+    "auron.tpu.partialAgg.skipping.minRows", 50000,
+    "Probe window: rows a partial AggExec sees before its one-shot "
+    "cardinality probe runs.")
+ANSI_ENABLED = bool_conf(
+    "spark.sql.ansi.enabled", False,
+    "ANSI SQL mode: integral division or modulo by zero and integer "
+    "overflow in + - * / raise instead of giving NULL or wrapping.")
 SCAN_EAGER_FILE_BYTES = int_conf(
     "auron.tpu.scan.eagerFileBytes", 128 << 20,
     "Local parquet files up to this size decode eagerly per file; larger "

@@ -1,5 +1,5 @@
-"""Expressions of the PyTorch port (this slice: column, literal, the
-comparisons and AND)."""
+"""Expressions of the PyTorch port: column, literal, and the binary
+comparisons, AND/OR and arithmetic over fixed-width types."""
 
 from blaze_tpu_torch.exprs.base import (BoundReference, ColVal, Literal,
                                         PhysicalExpr)

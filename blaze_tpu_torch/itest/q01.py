@@ -2,7 +2,8 @@
 `stage1_td`, `stage2_td`, `date_sk_range` and the two schemas of the
 repository's `bench.py`), with a driver that runs every map task and then
 every reduce task through the port's runtime (`run_two_stage`, which the
-rollup path of itest/rollup.py shares), and a pyarrow oracle.
+rollup path of itest/rollup.py shares, over `run_stages`, which runs any
+linear chain of stages: itest/q01_branches.py), and a pyarrow oracle.
 
   map    parquet_scan (4 columns) -> filter (sr_returned_date_sk in
          [lo, hi]) -> partial hash_agg sum(sr_return_amt) by
@@ -15,13 +16,18 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
 SHUFFLE_RESOURCE = "bench_q01_shuffle"
+
+#: prefix of the named range (torch.profiler.record_function) that
+#: `run_stages` opens around each stage, followed by the stage's name
+STAGE_RANGE = "stage "
 
 #: operator counters `run_q01` sums per stage: the fused aggregation's
 #: input batches by device type, its partial-skip switches and its table
@@ -151,17 +157,32 @@ def run_q01(sr_paths, lo, hi, tmpdir, n_maps, n_reduces) -> Dict:
         SHUFFLE_RESOURCE, STAGE_COUNTERS)
 
 
-def run_two_stage(map_td: Callable[[int], Dict],
-                  reduce_td: Callable[[int], Dict], tmpdir: str, n_maps: int,
-                  n_reduces: int, resource: str,
-                  stage_counters: Sequence[str]) -> Dict:
-    """Every map task `map_td(m)` (each writing `shuffle_{m}.data` and
-    `.index` under `tmpdir`), then every reduce task `reduce_td(r)`
-    (reading them through the shuffle resource `resource`), one after
-    another, as TaskDefinition bytes through the port's runtime.  Returns
-    the reduce outputs (one list of batches per reduce partition), the
-    shuffle files with their offsets, the `stage_counters` summed over
-    each stage's tasks and the host wall seconds of each stage, each
+@dataclass
+class Stage:
+    """One stage of a linear chain for `run_stages`: `n_tasks` tasks, task
+    t running the TaskDefinition `task_td(t)`.  A stage that writes a
+    shuffle has its task t write `shuffle_{t}.data` and `.index` with
+    `out_partitions` partitions under `out_dir`; a stage that reads one
+    names the stage it reads (`reads`) and the shuffle resource its
+    ipc_reader asks for (`resource`)."""
+
+    name: str
+    task_td: Callable[[int], Dict]
+    n_tasks: int
+    out_dir: Optional[str] = None
+    out_partitions: int = 0
+    reads: Optional[str] = None
+    resource: Optional[str] = None
+
+
+def run_stages(stages: Sequence[Stage],
+               stage_counters: Sequence[str]) -> Dict[str, Dict]:
+    """Every task of every stage, stage by stage in the given order, as
+    TaskDefinition bytes through the port's runtime.  Before a stage that
+    reads a shuffle runs, its resource serves the blocks of the stage it
+    reads.  Returns per stage name: its tasks' outputs (one list of
+    batches per task), the shuffle files it wrote with their offsets, the
+    `stage_counters` summed over its tasks and its host wall seconds,
     ending in a device synchronisation."""
     import torch
 
@@ -174,55 +195,81 @@ def run_two_stage(map_td: Callable[[int], Dict],
         if torch.cuda.is_available():
             torch.cuda.synchronize()
 
-    counters = {"map": {}, "reduce": {}}
-
-    def count(stage, node):
+    def count(counters, node):
         for k in stage_counters:
-            counters[stage][k] = (counters[stage].get(k, 0)
-                                  + node.values.get(k, 0))
+            counters[k] = counters.get(k, 0) + node.values.get(k, 0)
         for c in node.children:
-            count(stage, c)
+            count(counters, c)
 
-    t0 = time.perf_counter()
-    for m in range(n_maps):
-        rt = NativeExecutionRuntime(task_definition_to_bytes(map_td(m)))
-        try:
-            for _ in rt.batches():
-                pass
-        finally:
-            count("map", rt.finalize())
-    sync()
-    t1 = time.perf_counter()
-    outputs = []
-    for m in range(n_maps):
-        data = os.path.join(tmpdir, f"shuffle_{m}.data")
-        index = os.path.join(tmpdir, f"shuffle_{m}.index")
-        outputs.append((data, index, read_index_file(
-            index, expected_partitions=n_reduces, data_file=data)))
+    def blocks(written, stage_id):
+        def blocks_for(part):
+            return [FileSegmentBlock(d, offs[part],
+                                     offs[part + 1] - offs[part],
+                                     stage_id=stage_id, map_id=m)
+                    for m, (d, _i, offs) in enumerate(written)
+                    if offs[part + 1] > offs[part]]
+        return blocks_for
 
-    def blocks_for(reduce_id):
-        return [FileSegmentBlock(d, offs[reduce_id],
-                                 offs[reduce_id + 1] - offs[reduce_id],
-                                 stage_id=1, map_id=m)
-                for m, (d, _i, offs) in enumerate(outputs)
-                if offs[reduce_id + 1] > offs[reduce_id]]
-
-    put_resource(resource, blocks_for)
-    reduce_outputs = []
+    results: Dict[str, Dict] = {}
+    stage_ids = {st.name: i + 1 for i, st in enumerate(stages)}
+    resources = set()
     try:
-        for r in range(n_reduces):
-            rt = NativeExecutionRuntime(
-                task_definition_to_bytes(reduce_td(r)))
-            try:
-                reduce_outputs.append(list(rt.batches()))
-            finally:
-                count("reduce", rt.finalize())
-        sync()
+        for st in stages:
+            t0 = time.perf_counter()
+            if st.reads is not None:
+                put_resource(st.resource, blocks(
+                    results[st.reads]["shuffle"], stage_ids[st.reads]))
+                resources.add(st.resource)
+            counters: Dict[str, int] = {}
+            outputs = []
+            # a named range per stage, for torch.profiler's per-stage counts
+            with torch.profiler.record_function(STAGE_RANGE + st.name):
+                for t in range(st.n_tasks):
+                    rt = NativeExecutionRuntime(
+                        task_definition_to_bytes(st.task_td(t)))
+                    try:
+                        outputs.append(list(rt.batches()))
+                    finally:
+                        count(counters, rt.finalize())
+                sync()
+            written = []
+            if st.out_dir is not None:
+                for t in range(st.n_tasks):
+                    data = os.path.join(st.out_dir, f"shuffle_{t}.data")
+                    index = os.path.join(st.out_dir, f"shuffle_{t}.index")
+                    written.append((data, index, read_index_file(
+                        index, expected_partitions=st.out_partitions,
+                        data_file=data)))
+            results[st.name] = {"outputs": outputs, "shuffle": written,
+                                "counters": counters,
+                                "seconds": time.perf_counter() - t0}
     finally:
-        remove_resource(resource)
-    t2 = time.perf_counter()
-    return {"reduce_outputs": reduce_outputs, "shuffle": outputs,
-            "counters": counters, "map_s": t1 - t0, "reduce_s": t2 - t1}
+        for r in resources:
+            remove_resource(r)
+    return results
+
+
+def run_two_stage(map_td: Callable[[int], Dict],
+                  reduce_td: Callable[[int], Dict], tmpdir: str, n_maps: int,
+                  n_reduces: int, resource: str,
+                  stage_counters: Sequence[str]) -> Dict:
+    """Every map task `map_td(m)` (each writing `shuffle_{m}.data` and
+    `.index` under `tmpdir`), then every reduce task `reduce_td(r)`
+    (reading them through the shuffle resource `resource`), through
+    `run_stages`.  Returns the reduce outputs (one list of batches per
+    reduce partition), the shuffle files with their offsets, the
+    `stage_counters` summed over each stage's tasks and the host wall
+    seconds of each stage, each ending in a device synchronisation."""
+    res = run_stages(
+        [Stage("map", map_td, n_maps, out_dir=tmpdir,
+               out_partitions=n_reduces),
+         Stage("reduce", reduce_td, n_reduces, reads="map",
+               resource=resource)], stage_counters)
+    return {"reduce_outputs": res["reduce"]["outputs"],
+            "shuffle": res["map"]["shuffle"],
+            "counters": {k: res[k]["counters"] for k in ("map", "reduce")},
+            "map_s": res["map"]["seconds"],
+            "reduce_s": res["reduce"]["seconds"]}
 
 
 def oracle(sr_paths, lo, hi) -> pa.Table:

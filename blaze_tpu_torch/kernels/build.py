@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels under `csrc/`.
+"""Build and load the hand-written CUDA kernels under `csrc/` (and the
+host-only CRC32C of the shuffle frames, `csrc/crc32c.cu`).
 
 Each source is compiled by `nvcc` for `sm_90a` into its own shared library
 with a plain C interface, loaded with `ctypes` (no PyTorch headers, so a
@@ -35,6 +36,7 @@ SOURCES = {
     "hash_update": "hash_update.cu",
     "radix": "radix.cu",
     "window_table": "window_table.cu",
+    "crc32c": "crc32c.cu",
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,6 +61,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
     "window_table": {
         # the StepParams block in host memory, stream
         "blaze_window_step": (_I, [_P, _P]),
+    },
+    "crc32c": {
+        # data (bytes), n, crc -> crc
+        "blaze_crc32c": (ctypes.c_uint32, [ctypes.c_char_p,
+                                           ctypes.c_longlong,
+                                           ctypes.c_uint32]),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Filter and Project (port of FilterExec/ProjectExec,
+"""Filter, Project and Limit (port of FilterExec/ProjectExec/LimitExec,
 blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
@@ -11,7 +11,9 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from blaze_tpu_torch.batch import ColumnBatch
+import torch
+
+from blaze_tpu_torch.batch import ColumnBatch, bucket_capacity
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.ops.base import BatchIterator, CoalesceStream, ExecutionPlan
 from blaze_tpu_torch.schema import Field, Schema
@@ -75,3 +77,48 @@ class ProjectExec(ExecutionPlan):
         out_schema = self.schema
         for batch in self.children[0].execute(partition):
             yield apply_project(batch, self._exprs, out_schema)
+
+
+def _take_range(batch: ColumnBatch, start: int, stop: int) -> ColumnBatch:
+    """Rows [start, stop) of a compacted batch, gathered on its device
+    into a buffer on the bucket ladder."""
+    batch = batch.compact()
+    idx = torch.arange(start, stop, device=batch.device)
+    cap = bucket_capacity(stop - start)
+    return ColumnBatch(batch.schema, [c.take(idx, cap) for c in batch.columns],
+                       stop - start, None)
+
+
+class LimitExec(ExecutionPlan):
+    """The first `limit` rows of each partition after skipping `offset`
+    (LocalLimit per partition, GlobalLimit on a single partition)."""
+
+    def __init__(self, child: ExecutionPlan, limit: int, offset: int = 0):
+        super().__init__([child])
+        self._limit = limit
+        self._offset = offset
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int) -> BatchIterator:
+        to_skip = self._offset
+        remaining = self._limit
+        for batch in self.children[0].execute(partition):
+            if remaining <= 0:
+                break
+            n = batch.selected_count()
+            if to_skip:
+                if n <= to_skip:
+                    to_skip -= n
+                    continue
+                batch = _take_range(batch, to_skip, n)
+                n -= to_skip
+                to_skip = 0
+            if n <= remaining:
+                remaining -= n
+                yield batch
+            else:
+                yield _take_range(batch, 0, remaining)
+                break

@@ -1,5 +1,6 @@
 """Expression decoding: IR dicts -> PhysicalExpr trees (port of the part of
-blaze_tpu/plan/exprs.py this slice uses: column, literal and binary).
+blaze_tpu/plan/exprs.py the port uses: column, literal and binary, and
+sort specs).
 
 Constant folding of all-literal subtrees (the JAX package's exprs/fold.py)
 is not carried over: it changes no result, and this slice's filters
@@ -36,3 +37,11 @@ def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
         f"expression kind {k!r} belongs to a later slice of the PyTorch port "
         f"(ROADMAP Queue 1 item 3); this slice decodes column, literal and "
         f"binary")
+
+
+def sort_spec_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None):
+    """{expr, descending, nulls_first} -> a SortExec spec tuple (nulls
+    first by default on ASC, last on DESC)."""
+    return (expr_from_dict(d["expr"], schema),
+            bool(d.get("descending", False)),
+            bool(d.get("nulls_first", not d.get("descending", False))))

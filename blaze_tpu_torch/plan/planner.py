@@ -1,9 +1,9 @@
 """Physical planner: plan IR dicts -> operator trees (port of the part of
 blaze_tpu/plan/planner.py this slice uses).
 
-Node kinds: parquet_scan, filter, project, hash_agg, sort_agg,
-shuffle_writer, ipc_reader.  Every other kind raises NotImplementedError
-naming the slice it belongs to.
+Node kinds: parquet_scan, filter, project, hash_agg, sort_agg, sort,
+limit, shuffle_writer, ipc_reader.  Every other kind raises
+NotImplementedError naming the slice it belongs to.
 """
 
 from __future__ import annotations
@@ -13,9 +13,10 @@ from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
 from blaze_tpu_torch.ops.base import ExecutionPlan
-from blaze_tpu_torch.ops.basic import FilterExec, ProjectExec
+from blaze_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
 from blaze_tpu_torch.ops.scan import ParquetScanExec
-from blaze_tpu_torch.plan.exprs import expr_from_dict
+from blaze_tpu_torch.ops.sort import SortExec
+from blaze_tpu_torch.plan.exprs import expr_from_dict, sort_spec_from_dict
 from blaze_tpu_torch.plan.types import schema_from_dict
 from blaze_tpu_torch.schema import Schema
 from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
@@ -39,8 +40,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return IpcReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
                              d.get("num_partitions", 1))
 
-    if k not in ("filter", "project", "hash_agg", "sort_agg",
-                 "shuffle_writer"):
+    if k not in ("filter", "project", "hash_agg", "sort_agg", "sort",
+                 "limit", "shuffle_writer"):
         raise NotImplementedError(
             f"plan node kind {k!r} belongs to a later slice of the PyTorch "
             f"port (ROADMAP Queue 1 item 3)")
@@ -53,6 +54,11 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k == "project":
         return ProjectExec(child, [expr_from_dict(e, in_schema)
                                    for e in d["exprs"]], d["names"])
+    if k == "sort":
+        specs = [sort_spec_from_dict(s, in_schema) for s in d["specs"]]
+        return SortExec(child, specs, fetch=d.get("fetch"))
+    if k == "limit":
+        return LimitExec(child, d["limit"], offset=d.get("offset", 0))
     if k in ("hash_agg", "sort_agg"):
         groups = [(expr_from_dict(g["expr"], in_schema), g["name"])
                   for g in d.get("groupings", [])]

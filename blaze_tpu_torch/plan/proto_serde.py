@@ -4,9 +4,11 @@ of blaze_tpu/plan/proto_serde.py this slice uses).
 Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
 `create_plan` reads, with the same dict vocabulary as the JAX package, so
 the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
-ipc_reader, filter, projection, agg (hash_agg/sort_agg), shuffle_writer;
-expressions: column, bound_reference, literal, binary; partitionings:
-single and hash.  Every other variant raises NotImplementedError.
+ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
+shuffle_writer; expressions: column, bound_reference, literal, binary
+(comparisons, and/or, arithmetic) and the sort expression of a sort
+node; partitionings: single and hash.  Every other variant raises
+NotImplementedError.
 
 `ScalarValue` follows the reference encoding: a one-batch Arrow IPC stream
 whose column 0 row 0 is the value.
@@ -132,11 +134,12 @@ _BINOP_DECODE = {
 _BINOP_ENCODE = {v: k for k, v in _BINOP_DECODE.items()}
 
 _AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
-                  pb.COUNT: "count"}
+                  pb.AVG: "avg", pb.COUNT: "count"}
 _AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
 
-#: acc-column counts per agg kind (ops/agg/functions.py acc_fields)
-_ACC_FIELD_COUNT = {"sum": 1, "count": 1, "min": 1, "max": 1}
+#: acc-column counts per agg kind (ops/agg/functions.py acc_fields): avg
+#: carries (sum, count)
+_ACC_FIELD_COUNT = {"sum": 1, "count": 1, "min": 1, "max": 1, "avg": 2}
 
 
 def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
@@ -184,6 +187,23 @@ def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
         e.binary_expr.r.CopyFrom(expr_to_proto(d["r"]))
         return e
     raise NotImplementedError(f"expression kind {k!r} {_LATER}")
+
+
+def sort_spec_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
+    if e.WhichOneof("ExprType") != "sort":
+        raise ValueError("expected PhysicalSortExprNode")
+    s = e.sort
+    return {"expr": expr_from_proto(s.expr), "descending": not s.asc,
+            "nulls_first": s.nulls_first}
+
+
+def sort_spec_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
+    e = pb.PhysicalExprNode()
+    e.sort.expr.CopyFrom(expr_to_proto(d["expr"]))
+    e.sort.asc = not d.get("descending", False)
+    e.sort.nulls_first = d.get("nulls_first",
+                               not d.get("descending", False))
+    return e
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +289,21 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
     if kind == "filter":
         return {"kind": "filter", "input": plan_from_proto(n.filter.input),
                 "predicates": [expr_from_proto(e) for e in n.filter.expr]}
+    if kind == "sort":
+        srt = n.sort
+        d = {"kind": "sort", "input": plan_from_proto(srt.input),
+             "specs": [sort_spec_from_proto(e) for e in srt.expr]}
+        if srt.HasField("fetch_limit"):
+            if srt.fetch_limit.offset:
+                raise NotImplementedError("sort fetch offset")
+            d["fetch"] = int(srt.fetch_limit.limit)
+        return d
+    if kind == "limit":
+        d = {"kind": "limit", "input": plan_from_proto(n.limit.input),
+             "limit": int(n.limit.limit)}
+        if n.limit.offset:
+            d["offset"] = int(n.limit.offset)
+        return d
     if kind == "agg":
         return _agg_from_proto(n.agg)
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
@@ -294,7 +329,7 @@ def _agg_from_proto(agg: pb.AggExecNode) -> Dict[str, Any]:
         if fn_name is None:
             raise NotImplementedError(
                 f"AggFunction {an.agg_function} belongs to a later slice of "
-                f"the PyTorch port (ROADMAP Queue 1 item 5)")
+                f"the PyTorch port (ROADMAP Queue 1 items 11, 13 and 16)")
         mode_name = {pb.PARTIAL: "partial", pb.PARTIAL_MERGE: "partial_merge",
                      pb.FINAL: "final"}[mode]
         entry: Dict[str, Any] = {"fn": fn_name, "mode": mode_name,
@@ -364,6 +399,18 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         n.filter.input.CopyFrom(plan_to_proto(d["input"]))
         for e in d["predicates"]:
             n.filter.expr.append(expr_to_proto(e))
+        return n
+    if k == "sort":
+        n.sort.input.CopyFrom(plan_to_proto(d["input"]))
+        for spec in d["specs"]:
+            n.sort.expr.append(sort_spec_to_proto(spec))
+        if d.get("fetch") is not None:
+            n.sort.fetch_limit.limit = d["fetch"]
+        return n
+    if k == "limit":
+        n.limit.input.CopyFrom(plan_to_proto(d["input"]))
+        n.limit.limit = d["limit"]
+        n.limit.offset = d.get("offset", 0)
         return n
     if k in ("hash_agg", "sort_agg"):
         return _agg_to_proto(d)

@@ -13,9 +13,9 @@ frame boundary, which is what the shuffle `.index` file points at.  Batches
 are buffered until the target frame size.  A CRC mismatch, or a codec byte
 with unknown bits, raises ShuffleChecksumError.
 
-Where the `google_crc32c` package is missing the checksum is zlib's CRC-32,
-the JAX package's own fallback: writer and reader of one installation
-agree, but frames then differ from those of an installation that has it.
+The checksum is CRC32C wherever the port runs: the `google_crc32c`
+package where it is installed, else the port's own build of it
+(csrc/crc32c.cu); with neither, writing or checking a frame raises.
 Socket transports, fault sites and the worker wire belong to later slices.
 """
 
@@ -44,18 +44,33 @@ FLAG_CRC = 0x80
 _CODEC_MASK = 0x7F
 _KNOWN_CODECS = (CODEC_RAW, CODEC_ZSTD, CODEC_LZ4)
 
-try:
-    from google_crc32c import value as _crc32c_impl
+_crc32c_fn = None
 
-    def _crc32c(data) -> int:
+
+def _pick_crc32c():
+    """google_crc32c where it is installed, else the port's built CRC32C
+    (shuffle/crc32c.py); raises where neither is there.  Never zlib's
+    CRC-32: that is another polynomial, and frames carrying it fail the
+    check of every other installation."""
+    try:
+        from google_crc32c import value
+    except ImportError:
+        from blaze_tpu_torch.shuffle.crc32c import crc32c_built
+        crc32c_built(b"")  # builds and loads it now, or raises
+        return crc32c_built
+
+    def google(data) -> int:
         if not isinstance(data, bytes):
             data = bytes(data)  # google_crc32c rejects memoryviews
-        return _crc32c_impl(data)
-except ImportError:
-    import zlib
+        return value(data)
+    return google
 
-    def _crc32c(data) -> int:
-        return zlib.crc32(data) & 0xFFFFFFFF
+
+def _crc32c(data) -> int:
+    global _crc32c_fn
+    if _crc32c_fn is None:
+        _crc32c_fn = _pick_crc32c()
+    return _crc32c_fn(data)
 
 
 def _check_frame_byte(raw_codec: int) -> int:

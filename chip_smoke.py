@@ -47,7 +47,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      ran on the card exactly as often as its wrapper counted;
   7. regrow: q01 under auto with a 4,096-slot table, every reduce task
      regrowing in the loop, one graph per table size, equal to the oracle;
-  8. the paths' profile summary and the kernel table as JSON lines, the
+  8. crc32c: the port's built CRC32C (csrc/crc32c.cu, host code) against
+     its plain version on 1 B, 4 KiB and 1 MiB seeded payloads and the
+     check value CRC32C("123456789") = 0xE3069283, and a frame written on
+     the card verified through the plain version;
+  9. q01 branches (itest/q01_branches.py): q01's map and reduce stages,
+     the reduce output re-exchanged by store, then avg by store through
+     the generic aggregation engine with `avg_return * 1.2` (stage 3a)
+     and the top returns through a sort with fetch (stage 3b), each into
+     one partition, and a sort with fetch and a limit over each (stages
+     4a, 4b), under auto and off, each against the pyarrow oracle
+     (averages and totals within 1e-9, keys and order exact up to ties);
+     fails unless every generic-engine batch of stage 3a ran on the card,
+     every sort of 1024 rows or more ran on the device, and the kernels
+     ran; its shuffle frames verified through the plain CRC32C; one run
+     profiled (busy share, cudaLaunch* per stage, placement and radix on
+     the card as often as their wrappers counted);
+ 10. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
@@ -111,13 +127,25 @@ KERNEL_NAMES = {
 PROFILED_CALLS = 20
 
 
+def _on_card(e):
+    """Whether a profiler event is work the card ran: a kernel, copy or
+    memset.  A named range (torch.profiler.record_function, as
+    itest/q01.py `run_stages` opens one per stage) also appears on the
+    device's timeline and is left out."""
+    import torch
+    from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(STAGE_RANGE))
+
+
 def _device_events(prof, names):
     """(device microseconds, launches) of the kernels named `names` in a
     profile (copies and memsets left out; "" names every kernel)."""
     import torch
     us, count = 0.0, 0
     for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
+        if (_on_card(e)
                 and not e.name.startswith(("Memcpy", "Memset"))
                 and any(k in e.name for k in names)):
             us += e.time_range.elapsed_us()
@@ -452,9 +480,9 @@ def fold_graph_parity(dev):
     place_us, kernels = _device_events(prof, KERNEL_NAMES["hash_placement"])
     launches = _host_launches(prof)
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                  if _on_card(e))
     nodes = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+                if _on_card(e))
     launch_us = sum(e.self_cpu_time_total for e in prof.key_averages()
                     if e.key.startswith("cudaGraphLaunch"))
     print(f"fold replays profiled: host cudaLaunch* {launches['kernel']}, "
@@ -502,7 +530,7 @@ def replay_cost(prog, replays=10):
             once()
             torch.cuda.synchronize()
         nodes = sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                    if _on_card(e))
         host = []
         for _ in range(replays):  # each call timed on an idle card
             torch.cuda.synchronize()
@@ -563,7 +591,7 @@ def ops_per_call(fn, calls=PROFILED_CALLS):
             torch.cuda.synchronize()
         ops = kernels = syncs = 0
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if _on_card(e):
                 ops += 1
                 kernels += not e.name.startswith(("Memcpy", "Memset"))
             elif e.name.startswith("cuda") and "Synchronize" in e.name:
@@ -1284,6 +1312,7 @@ def profile_path(name, run, root, mode):
     batch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.itest import q01
     from blaze_tpu_torch.runtime import loop
 
     phase(f"where the time goes: the {name} path again, stage loop {mode}, "
@@ -1304,7 +1333,7 @@ def profile_path(name, run, root, mode):
     # up to the busy time
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if _on_card(e):
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     busy_us = sum(t for t, _c in by_name.values())
@@ -1324,8 +1353,9 @@ def profile_path(name, run, root, mode):
                   f"{t / c:8.3f} us/call  "
                   f"{kname.split('::')[1].split('(')[0]}")
     averages = prof.key_averages()
-    host = sorted(averages, key=lambda e: e.self_cpu_time_total,
-                  reverse=True)[:8]
+    host = sorted((e for e in averages
+                   if not e.key.startswith(q01.STAGE_RANGE)),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     for e in host:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
               f"{e.count:6d}  {e.key[:90]}")
@@ -1363,6 +1393,252 @@ def profile_path(name, run, root, mode):
     return out
 
 
+# ---------------------------------------------------------------------------
+# crc32c and the q01 branches
+# ---------------------------------------------------------------------------
+
+CRC_CHECK = 0xE3069283  # CRC32C("123456789")
+
+
+def _frames(data):
+    """(stored CRC32C, payload) of each frame of a shuffle byte string
+    (codec byte with the CRC flag, u32 length, u32 CRC, payload)."""
+    import struct
+    from blaze_tpu_torch.shuffle.ipc import FLAG_CRC
+    out, off = [], 0
+    while off < len(data):
+        codec, length = struct.unpack_from("<BI", data, off)
+        if not codec & FLAG_CRC:
+            raise SystemExit("shuffle frame written without a checksum")
+        (crc,) = struct.unpack_from("<I", data, off + 5)
+        out.append((crc, data[off + 9:off + 9 + length]))
+        off += 9 + length
+    return out
+
+
+def _verify_frames(data, what):
+    from blaze_tpu_torch.shuffle.crc32c import crc32c_plain
+    frames = _frames(data)
+    for crc, payload in frames:
+        if crc != crc32c_plain(payload):
+            raise SystemExit(f"{what}: a frame's checksum is not the "
+                             f"CRC32C of its payload")
+    return len(frames)
+
+
+def crc32c_phase(dev):
+    """The built CRC32C against its plain version and the check value; the
+    implementation the shuffle writer takes; a frame written from a batch
+    on the card, verified through the plain version."""
+    import io
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.shuffle import ipc
+    from blaze_tpu_torch.shuffle.crc32c import crc32c_built, crc32c_plain
+
+    phase("crc32c: the built CRC32C (csrc/crc32c.cu) against its plain "
+          "version")
+    rng = np.random.default_rng(32)
+    out = {}
+    for n in (1, 4096, 1 << 20):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        built, plain = crc32c_built(data), crc32c_plain(data)
+        t0 = time.perf_counter()
+        reps = max(1, min(10_000, (64 << 20) // n))
+        for _ in range(reps):
+            crc32c_built(data)
+        us = (time.perf_counter() - t0) / reps * 1e6
+        print(f"{n} B: built 0x{built:08x}, plain 0x{plain:08x}, built "
+              f"{us:.2f} us per call ({n / us / 1e3:.3f} GB/s on the host)")
+        if built != plain:
+            raise SystemExit(f"crc32c: built and plain differ on {n} B")
+        out[n] = {"crc": built, "us": us}
+    check = crc32c_built(b"123456789")
+    print(f'CRC32C("123456789") = 0x{check:08x} (expected '
+          f"0x{CRC_CHECK:08X})")
+    if check != CRC_CHECK or crc32c_plain(b"123456789") != CRC_CHECK:
+        raise SystemExit("crc32c: the check value differs")
+    impl = ipc._pick_crc32c()
+    name = ("built" if impl is crc32c_built else "google_crc32c")
+    print(f"shuffle frames checksum with: {name}")
+    rb = pa.record_batch({"a": pa.array(rng.integers(0, 1 << 40, 50_000)),
+                          "b": pa.array(rng.random(50_000))})
+    cb = ColumnBatch.from_arrow(rb, device=dev)
+    if cb.columns[0].data.device.type != "cuda":
+        raise SystemExit("crc32c: the frame's batch is not on the card")
+    sink = io.BytesIO()
+    w = ipc.IpcCompressionWriter(sink, checksum=True)
+    w.write_batch(cb.to_arrow())
+    w.finish()
+    frames = _verify_frames(sink.getvalue(), "crc32c")
+    torch.cuda.synchronize()
+    print(f"frame written from a batch on the card: {frames} frame(s) "
+          f"verified through crc32c_plain")
+    return {"sizes": out, "check": check, "impl": name}
+
+
+def _per_stage(prof, stages):
+    """cudaLaunch* host calls, and the card's busy microseconds, inside
+    each stage's named range (a stage ends in a device synchronisation,
+    so its device work falls inside its range)."""
+    import torch
+    from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+    ranges = {}
+    for e in prof.events():
+        st = e.name[len(STAGE_RANGE):]
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(STAGE_RANGE) and st in stages):
+            ranges[st] = (e.time_range.start, e.time_range.end)
+    launches = {st: 0 for st in stages}
+    busy = {st: 0.0 for st in stages}
+    for e in prof.events():
+        launch = e.name.startswith("cudaLaunch")
+        card = _on_card(e)
+        if not (launch or card):
+            continue
+        for st, (a, b) in ranges.items():
+            if a <= e.time_range.start <= b:
+                if launch:
+                    launches[st] += 1
+                else:
+                    busy[st] += e.time_range.elapsed_us()
+    return launches, busy
+
+
+def branches_path(root, sr_paths, lo, hi, mode, oracle, profiled=False):
+    """q01's two branches over four stages with the stage loop under
+    `mode`, checked against the oracle and for their route on the card.
+    With `profiled`, under torch.profiler: the busy share, cudaLaunch*
+    per stage, and each kernel of the path run on the card as often as
+    its wrapper counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.itest import q01_branches as QB
+    from blaze_tpu_torch.ops.sort import DEVICE_SORT_MIN_ROWS
+
+    label = f"q01 branches {mode}" + (" profiled" if profiled else "")
+    phase(f"main path {label}: stages 1-4 of the avg-by-store and "
+          f"top-returns branches, SF10, 4 maps x 16 reduces")
+    _loop_mode(mode)
+    out_dir = os.path.join(root, label.replace(" ", "_"))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = QB.run_branches(sr_paths, lo, hi, out_dir, N_MAPS,
+                                  N_REDUCES)
+    else:
+        res = QB.run_branches(sr_paths, lo, hi, out_dir, N_MAPS, N_REDUCES)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    walls = {st: res[st]["seconds"] for st in QB.STAGES}
+    print("stage walls, s (host clock, each ending in a device "
+          "synchronisation): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in walls.items()))
+    for st in QB.STAGES:
+        c = {k: v for k, v in res[st]["counters"].items() if v}
+        print(f"  {st}: {c}")
+    print(f"launches on the branches path: {launches}")
+    print(f"torch.cuda.max_memory_allocated: {peak} bytes")
+
+    avg = QB.table(res["avg_limit"]["outputs"][0])
+    top = QB.table(res["top_limit"]["outputs"][0])
+    try:
+        avg_err = QB.check_avg(avg, oracle["avg"], 1e-9)
+        top_err = QB.check_top(top, oracle["top"], 1e-9)
+    except AssertionError as e:
+        raise SystemExit(f"{label}: {e}")
+    print(f"avg by store: {avg.num_rows} stores, keys and order exact, "
+          f"max relative error {avg_err:.3e} (limit 1e-9)")
+    print(f"top returns: {top.num_rows} rows, keys and order exact (ties "
+          f"aside), totals max relative error {top_err:.3e} (limit 1e-9)")
+    a = res["avg"]["counters"]
+    if a.get("cpu_batches") or not a.get("cuda_batches"):
+        raise SystemExit(f"{label}: stage 3a's generic-engine batches not "
+                         f"all on the card: {a}")
+    for st in QB.STAGES:
+        if res[st]["counters"].get("cpu_batches"):
+            raise SystemExit(f"{label}: stage {st} ran batches off the "
+                             f"card")
+    rows = QB.top_input_rows(res)
+    want, ran = QB.device_sorts(res)
+    print(f"sorts of the top branch read {rows} rows; sorts of "
+          f">= {DEVICE_SORT_MIN_ROWS} rows {want}, sort_device_runs {ran}")
+    if ran != want or ran <= 0:
+        raise SystemExit(f"{label}: sort_device_runs {ran}, expected {want}")
+    for k in ("hash_placement", "radix_partition"):
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    data, _index, _offs = res["ctr"]["shuffle"][0]
+    with open(data, "rb") as f:
+        n_frames = _verify_frames(f.read(), label)
+    print(f"stage-2 shuffle file 0: {n_frames} frames verified through "
+          f"crc32c_plain")
+    out = {"mode": mode, "walls": walls, "wall_s": wall,
+           "launches": launches, "peak_bytes": peak,
+           "counters": {st: res[st]["counters"] for st in QB.STAGES},
+           "sort_input_rows": rows, "sort_device_runs": ran,
+           "avg_max_rel": avg_err, "top_max_rel": top_err}
+    if profiled:
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if _on_card(e))
+        per_stage, busy_stage = _per_stage(prof, QB.STAGES)
+        host = _host_launches(prof)
+        print(f"profiled wall {wall:.3f} s; device busy {busy / 1e6:.4f} s "
+              f"= {100 * busy / 1e6 / wall:.2f}% of the wall")
+        print(f"cudaLaunch* per stage: {per_stage} (all {host['kernel']}, "
+              f"cudaGraphLaunch {host['graph']})")
+        print("device busy per stage, ms: " + ", ".join(
+            f"{st} {us / 1e3:.3f}" for st, us in busy_stage.items()))
+        by_name = {}
+        for e in prof.events():
+            if _on_card(e):
+                t, c = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        for kname, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0],
+                                    reverse=True)[:10]:
+            print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
+        from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+        for e in sorted((e for e in prof.key_averages()
+                         if not e.key.startswith(STAGE_RANGE)),
+                        key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:10]:
+            print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
+                  f"{e.count:6d}  {e.key[:90]}")
+        for kernel in ("hash_placement", "radix_partition"):
+            names = KERNEL_NAMES[kernel]
+            expected = ({RADIX_KERNELS[k]: c
+                         for k, c in launches["radix_kernels"].items()}
+                        if kernel == "radix_partition"
+                        else {names[0]: launches[kernel]})
+            for pattern, want_n in expected.items():
+                _us, got = _device_events(prof, (pattern,))
+                if got != want_n:
+                    raise SystemExit(f"{label}: {kernel} ran {got} device "
+                                     f"kernels {pattern} where its wrapper "
+                                     f"counted {want_n}")
+            print(f"  {kernel}: wrapper launches {launches[kernel]}, the "
+                  f"same on the card")
+        out.update(busy_s=busy / 1e6, busy_share=busy / 1e6 / wall,
+                   launches_per_stage=per_stage,
+                   busy_ms_per_stage={k: v / 1e3
+                                      for k, v in busy_stage.items()},
+                   host_launches=host["kernel"],
+                   graph_launches=host["graph"])
+    return out
+
+
+def branches_oracle(sr_paths, lo, hi):
+    from blaze_tpu_torch.itest import q01, q01_branches as QB
+    ctr = q01.oracle(sr_paths, lo, hi)
+    return {"avg": QB.avg_oracle(ctr), "top": QB.top_oracle(ctr)}
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -1379,6 +1655,7 @@ def main():
     config.conf.set(config.TORCH_DEVICE.key, "cuda")
     dev = torch.device("cuda")
     build_kernels()
+    crc = crc32c_phase(dev)
 
     phase("kernels against their plain versions, main-path shapes")
     gen = torch.Generator().manual_seed(1234)
@@ -1417,6 +1694,13 @@ def main():
             "rollup": profile_path("rollup", rollup_run, root, "auto"),
             "q01 off": profile_path("q01", q01_run, root, "off"),
             "rollup off": profile_path("rollup", rollup_run, root, "off")}
+        oracle = branches_oracle(sr_paths, lo, hi)
+        branches = {
+            "auto": branches_path(root, sr_paths, lo, hi, "auto", oracle),
+            "off": branches_path(root, sr_paths, lo, hi, "off", oracle),
+            "profiled": branches_path(root, sr_paths, lo, hi, "auto",
+                                      oracle, profiled=True)}
+        by_path["q01 branches"] = branches["auto"]["launches"]
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
     finally:
@@ -1501,8 +1785,15 @@ def main():
         f"({p['kernels']['radix_partition']['launches']} calls, "
         f"{p['kernels']['radix_partition']['device_kernels']} kernels)"
         for k, p in profiled.items()))
+    for k, b in branches.items():
+        print(f"q01 branches {k}: stage walls {b['walls']}, peak "
+              f"{b['peak_bytes']} bytes" + (
+                  f", busy {100 * b['busy_share']:.2f}%, cudaLaunch* per "
+                  f"stage {b['launches_per_stage']}" if "busy_share" in b
+                  else ""))
     print(json.dumps({"paths": profiled, "runs": runs,
-                      "stage_loop": loop_phases}))
+                      "stage_loop": loop_phases, "branches": branches,
+                      "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

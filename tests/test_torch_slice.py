@@ -20,6 +20,17 @@ on the scatter dense lane, as each package picks it on the CPU; the reduce
 side runs the hash lane.  The same checks hold, with counts exact; on the
 window-table lane the map-side sums are exact in both packages.
 
+q01's avg-by-store and top-returns branches over four stages
+(itest/q01_branches.py): the map and reduce stages above, the reduce
+output re-exchanged by store, then the generic aggregation engine with
+avg and the projected `avg_return * 1.2` (stage 3a) and a sort with fetch
+(stage 3b), each into one partition, then a sort with fetch and a limit
+over each (stages 4a and 4b).  Every stage that writes a shuffle must
+write byte-identical `.index` files in both packages, stages 4a and 4b
+must give the same rows in the same order (keys exact, floats within rel
+1e-12), and both must equal the pyarrow oracle and a pandas one
+(averages and totals within rel 1e-9).
+
 Each path runs again with the device stage loop forced on in both
 packages (`auron.tpu.stage.deviceLoop.enable=on`): the q01 map tasks fold
 through the loop until their partial table overflows, then fall back to
@@ -360,3 +371,124 @@ def _check_rollup(tmp_path, lane):
         _assert_same_rows(got.select(ora.column_names), ora, keys, "amt",
                           ["cnt"])
     return c, j_loop
+
+
+def _run_jax_stages(stages):
+    """itest/q01.py `run_stages` through the JAX package's runtime: each
+    stage's task outputs, by stage name."""
+    from blaze_tpu.bridge.resource import put_resource, remove_resource
+    from blaze_tpu.bridge.runtime import NativeExecutionRuntime
+    from blaze_tpu.plan.proto_serde import task_definition_to_bytes
+    from blaze_tpu.shuffle.exchange import read_index_file
+    from blaze_tpu.shuffle.reader import FileSegmentBlock
+    outputs, written = {}, {}
+    try:
+        for st in stages:
+            if st.reads is not None:
+                files = written[st.reads]
+
+                def blocks_for(r, files=files):
+                    return [FileSegmentBlock(d, o[r], o[r + 1] - o[r])
+                            for d, o in files if o[r + 1] > o[r]]
+                put_resource(st.resource, blocks_for)
+            outs = []
+            for t in range(st.n_tasks):
+                rt = NativeExecutionRuntime(task_definition_to_bytes(
+                    st.task_td(t))).start()
+                try:
+                    outs.append(list(rt.batches()))
+                finally:
+                    rt.finalize()
+            outputs[st.name] = outs
+            if st.out_dir is not None:
+                written[st.name] = [
+                    (os.path.join(st.out_dir, f"shuffle_{t}.data"),
+                     read_index_file(os.path.join(
+                         st.out_dir, f"shuffle_{t}.index"),
+                         st.out_partitions))
+                    for t in range(st.n_tasks)]
+    finally:
+        for st in stages:
+            if st.resource is not None:
+                remove_resource(st.resource)
+    return outputs
+
+
+@pytest.mark.parametrize("loop", ["off", "on"])
+def test_q01_branches_match_jax_and_oracle(tmp_path, confs, loop):
+    from blaze_tpu_torch.itest import q01_branches as QB
+    from blaze_tpu_torch.kernels import hash_update, radix
+
+    if loop == "on":
+        _loop_on()
+    sr_paths, dd_path = _dataset(str(tmp_path / "data"))
+    lo, hi = q01.date_sk_range(dd_path)
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    j_out = _run_jax_stages(QB.stages(sr_paths, lo, hi, str(jdir), N_MAPS,
+                                      N_REDUCES))
+    res = QB.run_branches(sr_paths, lo, hi, str(tdir), N_MAPS, N_REDUCES)
+    assert hash_update.placement_launches == 0
+    assert radix.partition_launches == 0
+
+    # every shuffle-writing stage: byte-identical .index files
+    n_tasks = {"map": N_MAPS, "ctr": N_REDUCES, "avg": N_REDUCES,
+               "top": N_REDUCES}
+    for name, d in QB.stage_dirs(str(jdir)).items():
+        for t in range(n_tasks[name]):
+            with open(os.path.join(d, f"shuffle_{t}.index"), "rb") as f:
+                j_index = f.read()
+            with open(tdir / name / f"shuffle_{t}.index", "rb") as f:
+                assert f.read() == j_index, (name, t)
+
+    # the generic engine ran every stage-3a batch, on the CPU here
+    c = res["avg"]["counters"]
+    assert c["cpu_batches"] > 0 and c["cuda_batches"] == 0
+    want, ran = QB.device_sorts(res)
+    assert ran == want
+
+    # stages 4a and 4b: the same rows in the same order
+    ctr = q01.oracle(sr_paths, lo, hi)
+    avg_j = QB.table(j_out["avg_limit"][0])
+    avg_t = QB.table(res["avg_limit"]["outputs"][0])
+    assert avg_t.num_rows == 12
+    _assert_same_rows(avg_t, avg_j, ["avg_store_sk"], "avg_return")
+    _assert_same_rows(avg_t, avg_j, ["avg_store_sk"], "threshold")
+    top_j = QB.table(j_out["top_limit"][0])
+    top_t = QB.table(res["top_limit"]["outputs"][0])
+    assert top_t.num_rows == QB.LIMIT
+    _assert_same_rows(top_t, top_j, ["ctr_customer_sk", "ctr_store_sk"],
+                      "ctr_total_return")
+
+    # both equal the pyarrow oracle and the pandas one
+    pd_avg, pd_top = _pandas_branches(sr_paths, lo, hi)
+    for avg, top in ((avg_j, top_j), (avg_t, top_t)):
+        QB.check_avg(avg, QB.avg_oracle(ctr), 1e-9)
+        QB.check_top(top, QB.top_oracle(ctr), 1e-9)
+        QB.check_avg(avg, pd_avg, 1e-9)
+        QB.check_top(top, pd_top, 1e-9)
+
+
+def _pandas_branches(sr_paths, lo, hi):
+    """The two branches in pandas over the same parquet files: avg of the
+    ctr totals by store, sorted by store; every ctr row ordered by total
+    (desc), customer (asc, NULL first) and store (asc)."""
+    import pandas as pd
+    import pyarrow.parquet as pq
+    from blaze_tpu_torch.itest import q01_branches as QB
+    df = pd.concat([pq.read_table(p).to_pandas() for p in sr_paths])
+    df = df[(df.sr_returned_date_sk >= lo) & (df.sr_returned_date_sk <= hi)]
+    ctr = (df.groupby(["sr_customer_sk", "sr_store_sk"], dropna=False,
+                      as_index=False).sr_return_amt.sum()
+           .rename(columns={"sr_customer_sk": "ctr_customer_sk",
+                            "sr_store_sk": "ctr_store_sk",
+                            "sr_return_amt": "ctr_total_return"}))
+    ctr["ctr_customer_sk"] = ctr["ctr_customer_sk"].astype("Int64")
+    avg = (ctr.groupby("ctr_store_sk", as_index=False).ctr_total_return
+           .mean().sort_values("ctr_store_sk")
+           .rename(columns={"ctr_store_sk": "avg_store_sk",
+                            "ctr_total_return": "avg_return"}))
+    top = ctr.sort_values(["ctr_total_return", "ctr_customer_sk",
+                           "ctr_store_sk"], ascending=[False, True, True],
+                          na_position="first", kind="stable")
+    return (pa.Table.from_pandas(avg.head(QB.LIMIT), preserve_index=False),
+            pa.Table.from_pandas(top, preserve_index=False))

@@ -1,7 +1,9 @@
 """The port's plan wire (blaze_tpu_torch/plan/proto_serde.py) against the
 JAX package's: the same TaskDefinition dicts encode to the same bytes,
 and the same bytes decode to equal dicts in both packages; the port's
-copies of the q01 stage builders equal bench.py's."""
+copies of the q01 stage functions equal bench.py's.  The stages of q01's
+two branches (itest/q01_branches.py: avg aggregations, `*`, sort with
+fetch, limit) and a limit with an offset round-trip the same way."""
 
 import pytest
 
@@ -9,6 +11,7 @@ import bench
 from blaze_tpu.plan import proto_serde as JP
 from blaze_tpu.plan.planner import decode_task_definition as j_decode
 from blaze_tpu_torch.itest import q01
+from blaze_tpu_torch.itest import q01_branches as QB
 from blaze_tpu_torch.plan import proto_serde as TP
 from blaze_tpu_torch.plan.planner import decode_task_definition as t_decode
 
@@ -31,6 +34,16 @@ def _tds():
                                    "type": {"id": "float64"}}}],
                   "names": ["a", "b"],
                   "input": q01.stage2_td(0, 2)["plan"]["input"]}}})
+    tds += [QB.ctr_td(1, 16, "/tmp/ctr"), QB.avg_td(2, 16, "/tmp/avg"),
+            QB.avg_limit_td(), QB.top_td(3, 16, "/tmp/top"),
+            QB.top_limit_td()]
+    # a limit with an offset over a sort with nulls last on ASC
+    tds.append({"stage_id": 7, "partition_id": 0, "plan": {
+        "kind": "limit", "limit": 5, "offset": 3,
+        "input": {"kind": "sort", "specs": [
+            {"expr": {"kind": "column", "index": 0}, "descending": False,
+             "nulls_first": False}],
+            "input": q01.stage2_td(0, 2)["plan"]["input"]}}})
     return tds
 
 
@@ -43,7 +56,7 @@ def test_port_stage_builders_equal_bench():
     assert q01.PARTIAL_SCHEMA_D == bench.PARTIAL_SCHEMA_D
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(13))
 def test_same_bytes_decode_to_equal_dicts(i):
     td = _tds()[i]
     data = JP.task_definition_to_bytes(td)
@@ -54,7 +67,7 @@ def test_same_bytes_decode_to_equal_dicts(i):
 
 
 def test_out_of_slice_nodes_raise():
-    td = {"plan": {"kind": "sort", "specs": [],
+    td = {"plan": {"kind": "rename_columns", "names": ["a", "b", "c"],
                    "input": q01.stage2_td(0, 2)["plan"]["input"]}}
     with pytest.raises(NotImplementedError, match="later slice"):
         TP.task_definition_to_bytes(td)
