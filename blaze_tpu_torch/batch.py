@@ -165,8 +165,9 @@ class DeviceColumn:
 
 @dataclass
 class HostColumn:
-    """Variable-width / nested column kept on the host as an Arrow array;
-    device expressions over it belong to a later slice."""
+    """Variable-width / nested column kept on the host as an Arrow array
+    (utf8 in the port): compaction, concatenation and row takes work on
+    it with Arrow's kernels, as in the JAX package."""
 
     dtype: DataType
     array: pa.Array  # exactly num_rows long (never padded)
@@ -181,6 +182,14 @@ class HostColumn:
         if selection is not None:
             arr = arr.filter(pa.array(selection[:num_rows]))
         return arr
+
+    def take(self, indices, capacity: int = 0) -> "HostColumn":
+        """Rows at `indices` (a tensor on any device, or numpy); a host
+        column is never padded, so `capacity` is not used."""
+        if isinstance(indices, torch.Tensor):
+            indices = indices.cpu().numpy()
+        return HostColumn(self.dtype, self.array.take(
+            pa.array(np.asarray(indices, dtype=np.int64), type=pa.int64())))
 
 
 Column = Union[DeviceColumn, HostColumn]
@@ -272,13 +281,14 @@ class ColumnBatch:
         count = self.selected_count()
         if count == self.num_rows:
             return replace(self, selection=None)
-        if any(isinstance(c, HostColumn) for c in self.columns):
-            raise NotImplementedError(
-                "compacting host (string) columns belongs to the strings "
-                "slice of the PyTorch port (ROADMAP Queue 1 item 13)")
         idx = torch.nonzero(self.row_mask()).squeeze(1)
         cap = bucket_capacity(count)
-        cols = [c.take(idx, cap) for c in self.columns]
+        # device columns gather on the device; host (utf8) columns take
+        # the same rows on the host (one copy of the indices)
+        host_idx = (idx.cpu().numpy() if any(
+            isinstance(c, HostColumn) for c in self.columns) else None)
+        cols = [c.take(host_idx if isinstance(c, HostColumn) else idx, cap)
+                for c in self.columns]
         return ColumnBatch(self.schema, cols, count, None)
 
     def to_arrow(self) -> pa.RecordBatch:
@@ -299,7 +309,7 @@ class ColumnBatch:
     def concat(batches: Sequence["ColumnBatch"],
                capacity: Optional[int] = None) -> "ColumnBatch":
         """Concatenate after compacting each batch; device columns stay on
-        the device."""
+        the device, host columns concatenate through Arrow."""
         if not batches:
             raise ValueError("concat of no batches")
         batches = [b.compact() for b in batches]
@@ -309,9 +319,11 @@ class ColumnBatch:
         cols: List[Column] = []
         for i, f in enumerate(schema):
             if not f.data_type.is_fixed_width:
-                raise NotImplementedError(
-                    "concatenating host (string) columns belongs to the "
-                    "strings slice of the PyTorch port")
+                at = f.data_type.to_arrow()
+                cols.append(HostColumn(f.data_type, pa.concat_arrays(
+                    [b.columns[i].to_arrow(b.num_rows).cast(at)
+                     for b in batches])))
+                continue
             vals = torch.cat([b.columns[i].data[:b.num_rows]
                               for b in batches])
             valid = torch.cat([b.columns[i].validity[:b.num_rows]

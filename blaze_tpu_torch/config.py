@@ -81,6 +81,14 @@ class ConfSession:
             return opt.parse(os.environ[opt.env_key])
         return opt.default
 
+    def get_raw(self, key: str) -> Optional[str]:
+        """The override (or environment) string of `key`, which need not
+        be a key the port defines; None where neither sets it."""
+        with self._lock:
+            if key in self._overrides:
+                return self._overrides[key]
+        return os.environ.get("BLAZE_TPU_" + key.upper().replace(".", "_"))
+
     def is_set(self, opt: ConfigOption) -> bool:
         with self._lock:
             if opt.key in self._overrides:
@@ -203,3 +211,40 @@ TORCH_DEVICE = str_conf(
     "Device the PyTorch port runs on: `cuda` (the default; raises when no "
     "card is visible) or `cpu`, where every kernel wrapper runs its plain "
     "PyTorch version.")
+
+# -- the stage DAG (plan/stages.py) and task retry (bridge/tasks.py) --------
+
+DAG_SINGLE_TASK_BYTES = int_conf(
+    "auron.tpu.dag.singleTaskBytes", 64 << 20,
+    "Queries whose total file-scan input is at or below this run as ONE "
+    "task with in-process exchanges in the JAX package (the Spark-AQE "
+    "coalesce-to-one-partition analog).  The port has no local mode yet "
+    "(ROADMAP Queue 1 item 8): where it would apply, DagScheduler raises.  "
+    "0 disables it.")
+TASK_MAX_ATTEMPTS = int_conf(
+    "auron.tpu.task.maxAttempts", 4,
+    "Bounded per-task attempts for retryable failures (transient IO, a "
+    "corrupt frame): the spark.task.maxFailures analog.  Fatal errors and "
+    "FetchFailedError never retry in place; 1 disables retry.")
+TASK_RETRY_BACKOFF_MS = int_conf(
+    "auron.tpu.task.backoff", 100,
+    "Base backoff between task attempts in ms; attempt n sleeps "
+    "base*2^(n-1) with up to +25% jitter, capped at 10s.")
+STAGE_MAX_RECOVERIES = int_conf(
+    "auron.tpu.stage.maxRecoveries", 3,
+    "Lineage-recovery rounds per query: each FetchFailedError re-runs only "
+    "the poisoned producer map task and restarts the consuming stage; "
+    "beyond this many rounds the failure propagates.")
+#: keys of the JAX scheduler's branches the port has not ported: the
+#: scheduler raises where one of them turns its branch on (ROADMAP items
+#: 14 and 16)
+UNPORTED_SCHEDULER_KEYS = {
+    "auron.tpu.workers.enable": "item 16 (worker-process pool)",
+    "auron.tpu.speculation.enable": "item 16 (speculative execution)",
+    "auron.tpu.shuffle.service": "item 16 (remote shuffle service)",
+    "auron.tpu.cache.enable": "item 16 (subplan cache)",
+    "auron.tpu.stats.enable": "item 16 (statistics store)",
+    "auron.tpu.aqe.enable": "item 16 (adaptive execution)",
+    "auron.tpu.history.enable": "item 15 (query history)",
+    "auron.tpu.shuffle.device": "item 14 (device exchange)",
+}

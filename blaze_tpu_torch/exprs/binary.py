@@ -13,8 +13,11 @@ of blaze_tpu/exprs/binary.py).
     dividend's sign (Java).  Under `spark.sql.ansi.enabled` a selected
     row that divides by zero or overflows an integer raises instead.
 
-Decimal operands and var-width (string) operands belong to the
-strings/decimals slice and raise NotImplementedError.
+A utf8 operand (host form: an Arrow array) takes the host-operand branch
+of the JAX package: `==` and `!=` run on the host through Arrow's
+kernels, NULL in, NULL out (q01's `s_state = 'TN'`).  The other operators
+over utf8, and decimal operands, belong to the strings/decimals slice and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,10 +25,11 @@ from __future__ import annotations
 import operator
 from dataclasses import dataclass
 
+import pyarrow.compute as pc
 import torch
 
 from blaze_tpu_torch import config
-from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.batch import ColumnBatch, DeviceColumn
 from blaze_tpu_torch.exprs.base import ColVal, PhysicalExpr
 from blaze_tpu_torch.kernels.compare import null_aware_eq
 from blaze_tpu_torch.schema import BOOL, DataType, Schema, TypeId, _BY_TORCH
@@ -85,6 +89,11 @@ class BinaryExpr(PhysicalExpr):
     def evaluate(self, batch: ColumnBatch) -> ColVal:
         a = self.left.evaluate(batch)
         b = self.right.evaluate(batch)
+        if self.op in _BOOLEAN:
+            # a utf8 comparison's bool result crosses to the device
+            a, b = (_bool_on_device(v, batch) for v in (a, b))
+        if not (a.is_device and b.is_device):
+            return self._evaluate_host(batch, a, b)
         for side in (a, b):
             _check_operand(side.dtype)
         if self.op in _BOOLEAN:
@@ -100,8 +109,32 @@ class BinaryExpr(PhysicalExpr):
             _ansi_arith_check(self.op, batch, a, b, out)
         return out
 
+    def _evaluate_host(self, batch: ColumnBatch, a: ColVal,
+                       b: ColVal) -> ColVal:
+        """utf8 `==`/`!=` on host Arrow arrays (the JAX package's
+        `_evaluate_host`)."""
+        fns = {"==": pc.equal, "!=": pc.not_equal}
+        for side in (a, b):
+            if side.dtype.id != TypeId.UTF8:
+                _check_operand(side.dtype)
+        if self.op not in fns:
+            raise NotImplementedError(
+                f"utf8 operator {self.op!r} belongs to the strings slice "
+                f"of the PyTorch port (ROADMAP Queue 1 item 13); the port "
+                f"has == and !=")
+        n = batch.num_rows
+        return ColVal(BOOL, array=fns[self.op](a.to_host(n), b.to_host(n)))
+
     def __repr__(self):
         return f"({self.left!r} {self.op} {self.right!r})"
+
+
+def _bool_on_device(v: ColVal, batch: ColumnBatch) -> ColVal:
+    if v.is_device or v.dtype.id != TypeId.BOOL:
+        return v
+    dc = DeviceColumn.from_arrow(v.array, BOOL, batch.capacity,
+                                 batch.device)
+    return ColVal(BOOL, dc.data, dc.validity)
 
 
 def _promote(a: ColVal, b: ColVal):

@@ -1,8 +1,9 @@
-"""Synthetic TPC-DS-shaped tables for the q01 path (a copy of
-`gen_store_returns` and `gen_date_dim` of blaze_tpu/itest/tpcds_data.py,
-with the helpers they use).  The same seed gives the same values as the
-JAX package's generator: same columns, types and key relationships as
-TPC-DS, scaled by `scale` (1.0 ~ SF1 row counts).
+"""Synthetic TPC-DS-shaped tables for q01 (a copy of `gen_store_returns`,
+`gen_date_dim`, `gen_store`, `gen_customer` and `write_parquet_splits` of
+blaze_tpu/itest/tpcds_data.py, with the helpers they use).  The same seed
+gives the same values as the JAX package's generator: same columns, types
+and key relationships as TPC-DS, scaled by `scale` (1.0 ~ SF1 row
+counts).  Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ SF1_ROWS = {
     "store_returns": 287_514,
     "store": 12,
     "customer": 100_000,
+    "customer_address": 50_000,
+    "customer_demographics": 1_920_800,
     "date_dim": 73_049,
     "item": 18_000,
 }
@@ -31,6 +34,9 @@ def _rows(name: str, scale: float) -> int:
     base = SF1_ROWS[name]
     if name in ("store", "date_dim"):
         return base  # dimension tables do not scale
+    if name == "customer_demographics":
+        # fixed-size cross-product dimension in TPC-DS
+        return min(base, max(1, int(base * max(scale, 0.01))))
     return max(1, int(base * scale))
 
 
@@ -48,6 +54,32 @@ def gen_date_dim(scale: float, seed: int = 11) -> pa.Table:
         "d_week_seq": pa.array((np.arange(n) // 7 + 1).astype(np.int32)),
         "d_qoy": pa.array((((np.minimum(moy, 12) - 1) // 3) + 1)
                           .astype(np.int32)),
+    })
+
+
+def gen_store(scale: float, seed: int = 12) -> pa.Table:
+    n = _rows("store", scale)
+    rng = np.random.default_rng(seed)
+    states = np.array(["TN", "CA", "NY", "TX", "WA"])
+    return pa.table({
+        "s_store_sk": pa.array(np.arange(1, n + 1)),
+        "s_state": pa.array(states[rng.integers(0, len(states), n)]),
+        "s_store_name": pa.array([f"store_{i}" for i in range(1, n + 1)]),
+    })
+
+
+def gen_customer(scale: float, seed: int = 13) -> pa.Table:
+    n = _rows("customer", scale)
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "c_customer_sk": pa.array(np.arange(1, n + 1)),
+        "c_customer_id": pa.array([f"C{i:011d}" for i in range(1, n + 1)]),
+        "c_current_addr_sk": pa.array(
+            rng.integers(1, _rows("customer_address", scale) + 1, n)),
+        "c_current_cdemo_sk": pa.array(
+            rng.integers(1, _rows("customer_demographics", scale) + 1, n)),
+        "c_birth_year": pa.array(
+            rng.integers(1924, 1993, n).astype(np.int32)),
     })
 
 
@@ -72,3 +104,27 @@ def gen_store_returns(scale: float, seed: int = 14) -> pa.Table:
         "sr_reason_sk": pa.array(rng.integers(1, 36, n)),
         "sr_net_loss": pa.array(np.round(rng.random(n) * 60, 2)),
     }), "sr_returned_date_sk")
+
+
+def write_parquet_splits(tables, out_dir: str, partitions: int,
+                         row_group_size: int = 1 << 16):
+    """Fact tables split into `partitions` files, one scan file group per
+    partition; dimension tables (10,000 rows or fewer) stay single-file.
+    Returns {name: [[file], [file], ...]} in the parquet_scan IR shape."""
+    import os
+
+    import pyarrow.parquet as pq
+    paths = {}
+    for name, t in tables.items():
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        nparts = partitions if t.num_rows > 10_000 else 1
+        per = -(-t.num_rows // nparts)
+        groups = []
+        for i in range(nparts):
+            p = os.path.join(d, f"part-{i:05d}.parquet")
+            pq.write_table(t.slice(i * per, per), p,
+                           row_group_size=row_group_size)
+            groups.append([p])
+        paths[name] = groups
+    return paths

@@ -1,0 +1,375 @@
+"""Streaming sort-merge join over key-sorted children (port of
+blaze_tpu/ops/joins/smj.py).
+
+Both inputs arrive sorted ascending, nulls first, on the join keys; the
+join walks equal-key RUNS with two cursors, emitting each run pair's
+cross product (through the optional join filter) and never holding more
+than the current runs.  Run boundaries are found per batch with Arrow's
+vectorized equality; only the run-level two-pointer walk is sequential.
+A run that touches a batch's tail is carried until its key changes, so
+runs may span batches.  The key columns are evaluated on the port's
+device and read back as Arrow arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+
+from blaze_tpu_torch import config
+from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.exprs import PhysicalExpr
+from blaze_tpu_torch.schema import Schema
+
+
+class _Run:
+    """One complete equal-key run: key tuple + the rows (arrow table)."""
+
+    __slots__ = ("key", "table")
+
+    def __init__(self, key: Tuple, table: pa.Table):
+        self.key = key
+        self.table = table
+
+    @property
+    def is_null_key(self) -> bool:
+        # flag 0 = NULL (sorts first) never matches across sides.  NaN
+        # (flag 2, sorts last) DOES match NaN: Spark treats NaN as a
+        # normal value in join keys (NaN semantics doc; grouping and
+        # joins both normalize NaN), so only nulls are excluded here.
+        return any(k[0] == 0 for k in self.key)
+
+
+def _key_tuple(arrays: List[pa.Array], row: int) -> Tuple:
+    out = []
+    for a in arrays:
+        v = a[row]
+        if not v.is_valid:
+            out.append((0, 0))  # nulls first, never equal across sides
+        else:
+            py = v.as_py()
+            if isinstance(py, float) and py != py:
+                # NaN poisons tuple comparison (both < and > come back
+                # False); encode it as a sorts-last flag with a fixed
+                # payload so NaN == NaN, matching Spark join semantics.
+                # (-0.0 needs no special case: tuple comparison already
+                # treats -0.0 == 0.0.)
+                out.append((2, 0))
+            else:
+                out.append((1, py))
+    return tuple(out)
+
+
+def _run_key_cmp(a: Tuple, b: Tuple) -> int:
+    # null slots (flag 0) compare before values; null != null for matching
+    # is handled by the caller via is_null_key
+    if a < b:
+        return -1
+    if a > b:
+        return 1
+    return 0
+
+
+class _RunCursor:
+    """Pulls key-sorted batches and yields complete equal-key runs."""
+
+    def __init__(self, batches: Iterator[pa.RecordBatch],
+                 key_exprs: Sequence[PhysicalExpr], schema: Schema):
+        self._batches = batches
+        self._key_exprs = list(key_exprs)
+        self._schema = schema
+        self._pending: List[Tuple[Tuple, pa.Table]] = []  # complete runs
+        self._tail: Optional[Tuple[Tuple, pa.Table]] = None
+        self._done = False
+
+    def _keys_of(self, rb: pa.RecordBatch) -> List[pa.Array]:
+        cb = ColumnBatch.from_arrow(rb)
+        out = []
+        for e in self._key_exprs:
+            out.append(e.evaluate(cb).to_host(rb.num_rows))
+        return out
+
+    def _ingest(self) -> None:
+        """Pull one batch, split into runs; keep the last run as tail."""
+        try:
+            rb = next(self._batches)
+        except StopIteration:
+            if self._tail is not None:
+                self._pending.append(self._tail)
+                self._tail = None
+            self._done = True
+            return
+        if rb.num_rows == 0:
+            return
+        keys = self._keys_of(rb)
+        n = rb.num_rows
+        # vectorized adjacent-equality -> run starts
+        change = np.zeros(n, dtype=bool)
+        change[0] = True
+        for a in keys:
+            cur = a.slice(1)
+            prev = a.slice(0, n - 1)
+            eq = pc.equal(cur, prev)
+            both_null = pc.and_(pc.is_null(cur), pc.is_null(prev))
+            same = pc.or_kleene(eq, both_null)
+            if isinstance(same, pa.ChunkedArray):
+                same = same.combine_chunks()
+            same_np = np.asarray(same.fill_null(False))
+            change[1:] |= ~same_np
+        starts = np.nonzero(change)[0]
+        ends = np.append(starts[1:], n)
+        table = pa.Table.from_batches([rb])
+        for s, e in zip(starts, ends):
+            key = _key_tuple(keys, int(s))
+            run_tbl = table.slice(int(s), int(e - s))
+            if self._tail is not None:
+                tkey, ttbl = self._tail
+                if tkey == key:
+                    self._tail = (tkey, pa.concat_tables([ttbl, run_tbl]))
+                    continue
+                self._pending.append(self._tail)
+                self._tail = None
+            self._tail = (key, run_tbl)
+
+    def next_run(self) -> Optional[_Run]:
+        while not self._pending and not self._done:
+            self._ingest()
+        if self._pending:
+            key, tbl = self._pending.pop(0)
+            return _Run(key, tbl)
+        return None
+
+
+class MergeJoiner:
+    """Run-level merge of two sorted sides (the smj/*_join.rs dispatch)."""
+
+    def __init__(self, left_schema: Schema, right_schema: Schema,
+                 out_schema: Schema, join_type,
+                 join_filter: Optional[PhysicalExpr],
+                 existence_col: str = "exists"):
+        from blaze_tpu_torch.ops.joins.exec import JoinType
+        self.JT = JoinType
+        self.left_schema = left_schema
+        self.right_schema = right_schema
+        self.out_schema = out_schema
+        self.join_type = join_type
+        self.join_filter = join_filter
+        self._batch_rows = config.BATCH_SIZE.get()
+
+    # -- emission helpers ---------------------------------------------------
+    def _null_side(self, schema: Schema, n: int) -> List[pa.Array]:
+        return [pa.nulls(n, f.data_type.to_arrow()) for f in schema]
+
+    def _emit_pairs(self, lt: pa.Table, rt: pa.Table,
+                    l_idx: np.ndarray, r_idx: np.ndarray
+                    ) -> Optional[pa.RecordBatch]:
+        if not len(l_idx):
+            return None
+        lc = lt.take(pa.array(l_idx, type=pa.int64()))
+        rc = rt.take(pa.array(r_idx, type=pa.int64()))
+        arrays = [a.combine_chunks() for a in lc.columns] + \
+                 [a.combine_chunks() for a in rc.columns]
+        return pa.RecordBatch.from_arrays(
+            arrays, schema=pa.schema(
+                [f.to_arrow() for f in self.left_schema] +
+                [f.to_arrow() for f in self.right_schema]))
+
+    def _filter_pairs(self, lt: pa.Table, rt: pa.Table,
+                      l_idx: np.ndarray, r_idx: np.ndarray) -> np.ndarray:
+        """Boolean keep-mask over the candidate pairs."""
+        if self.join_filter is None:
+            return np.ones(len(l_idx), dtype=bool)
+        rb = self._emit_pairs(lt, rt, l_idx, r_idx)
+        if rb is None:
+            return np.zeros(0, dtype=bool)
+        cb = ColumnBatch.from_arrow(rb)
+        v = self.join_filter.evaluate(cb)
+        return v.as_mask(cb).cpu().numpy()[:rb.num_rows]
+
+    def _project_out(self, rb: pa.RecordBatch) -> pa.RecordBatch:
+        """Joined (left+right) rows -> output schema (inner/outer only)."""
+        out_arrow = self.out_schema.to_arrow()
+        arrays = [col.cast(f.type, safe=False)
+                  if not col.type.equals(f.type) else col
+                  for col, f in zip(rb.columns, out_arrow)]
+        return pa.RecordBatch.from_arrays(arrays, schema=out_arrow)
+
+    def _left_rows(self, tbl: pa.Table,
+                   exists: Optional[bool] = None) -> pa.RecordBatch:
+        arrays = [a.combine_chunks() for a in tbl.columns]
+        if exists is not None:
+            arrays = arrays + [pa.array([exists] * tbl.num_rows,
+                                        type=pa.bool_())]
+        return pa.RecordBatch.from_arrays(
+            arrays, schema=self.out_schema.to_arrow())
+
+    def _outer_left(self, tbl: pa.Table) -> pa.RecordBatch:
+        arrays = [a.combine_chunks() for a in tbl.columns] + \
+            self._null_side(self.right_schema, tbl.num_rows)
+        return self._project_out(pa.RecordBatch.from_arrays(
+            arrays, schema=pa.schema(
+                [f.to_arrow() for f in self.left_schema] +
+                [f.to_arrow() for f in self.right_schema])))
+
+    def _outer_right(self, tbl: pa.Table) -> pa.RecordBatch:
+        arrays = self._null_side(self.left_schema, tbl.num_rows) + \
+            [a.combine_chunks() for a in tbl.columns]
+        return self._project_out(pa.RecordBatch.from_arrays(
+            arrays, schema=pa.schema(
+                [f.to_arrow() for f in self.left_schema] +
+                [f.to_arrow() for f in self.right_schema])))
+
+    # -- the merge ----------------------------------------------------------
+    def join(self, lcur: _RunCursor, rcur: _RunCursor
+             ) -> Iterator[pa.RecordBatch]:
+        JT = self.JT
+        jt = self.join_type
+        left_outer = jt in (JT.LEFT, JT.FULL)
+        right_outer = jt in (JT.RIGHT, JT.FULL)
+        lrun = lcur.next_run()
+        rrun = rcur.next_run()
+        while lrun is not None and rrun is not None:
+            if lrun.is_null_key:
+                yield from self._on_left_unmatched(lrun, left_outer)
+                lrun = lcur.next_run()
+                continue
+            if rrun.is_null_key:
+                yield from self._on_right_unmatched(rrun, right_outer)
+                rrun = rcur.next_run()
+                continue
+            cmp = _run_key_cmp(lrun.key, rrun.key)
+            if cmp < 0:
+                yield from self._on_left_unmatched(lrun, left_outer)
+                lrun = lcur.next_run()
+            elif cmp > 0:
+                yield from self._on_right_unmatched(rrun, right_outer)
+                rrun = rcur.next_run()
+            else:
+                yield from self._on_match(lrun, rrun, left_outer,
+                                          right_outer)
+                lrun = lcur.next_run()
+                rrun = rcur.next_run()
+        while lrun is not None:
+            yield from self._on_left_unmatched(lrun, left_outer)
+            lrun = lcur.next_run()
+        while rrun is not None:
+            yield from self._on_right_unmatched(rrun, right_outer)
+            rrun = rcur.next_run()
+
+    def _on_left_unmatched(self, run: _Run, left_outer: bool
+                           ) -> Iterator[pa.RecordBatch]:
+        JT = self.JT
+        jt = self.join_type
+        if jt == JT.LEFT_ANTI:
+            yield self._left_rows(run.table)
+        elif jt == JT.EXISTENCE:
+            yield self._left_rows(run.table, exists=False)
+        elif left_outer:
+            yield self._outer_left(run.table)
+
+    def _on_right_unmatched(self, run: _Run, right_outer: bool
+                            ) -> Iterator[pa.RecordBatch]:
+        JT = self.JT
+        jt = self.join_type
+        if jt == JT.RIGHT_ANTI:
+            yield self._right_rows_only(run.table)
+        elif right_outer:
+            yield self._outer_right(run.table)
+
+    def _right_rows_only(self, tbl: pa.Table) -> pa.RecordBatch:
+        arrays = [a.combine_chunks() for a in tbl.columns]
+        return pa.RecordBatch.from_arrays(
+            arrays, schema=self.out_schema.to_arrow())
+
+    def _on_match(self, lrun: _Run, rrun: _Run, left_outer: bool,
+                  right_outer: bool) -> Iterator[pa.RecordBatch]:
+        JT = self.JT
+        jt = self.join_type
+        lt, rt = lrun.table, rrun.table
+        ln, rn = lt.num_rows, rt.num_rows
+        pair_emitting = jt in (JT.INNER, JT.LEFT, JT.RIGHT, JT.FULL)
+
+        if self.join_filter is None:
+            # equal keys: every pair matches — no expansion needed for
+            # the row-level variants
+            matched_l = np.ones(ln, dtype=bool)
+            matched_r = np.ones(rn, dtype=bool)
+            if pair_emitting:
+                yield from self._emit_cross(lt, rt, None)
+        else:
+            # chunk the cross-product so a skewed hot key (huge ln*rn)
+            # never materializes at once — the run may be exactly why the
+            # hash join fell back here
+            matched_l = np.zeros(ln, dtype=bool)
+            matched_r = np.zeros(rn, dtype=bool)
+            block = max(1, self._batch_rows // max(rn, 1))
+            for ls in range(0, ln, block):
+                le = min(ls + block, ln)
+                l_idx = np.repeat(np.arange(ls, le, dtype=np.int64), rn)
+                r_idx = np.tile(np.arange(rn, dtype=np.int64), le - ls)
+                keep = self._filter_pairs(lt, rt, l_idx, r_idx)
+                l_idx, r_idx = l_idx[keep], r_idx[keep]
+                matched_l[l_idx] = True
+                matched_r[r_idx] = True
+                if pair_emitting:
+                    for off in range(0, len(l_idx), self._batch_rows):
+                        rb = self._emit_pairs(
+                            lt, rt, l_idx[off:off + self._batch_rows],
+                            r_idx[off:off + self._batch_rows])
+                        if rb is not None:
+                            yield self._project_out(rb)
+
+        if jt == JT.LEFT_SEMI:
+            rows = np.nonzero(matched_l)[0]
+            if len(rows):
+                yield self._left_rows(lt.take(pa.array(rows)))
+            return
+        if jt == JT.LEFT_ANTI:
+            rows = np.nonzero(~matched_l)[0]
+            if len(rows):
+                yield self._left_rows(lt.take(pa.array(rows)))
+            return
+        if jt == JT.RIGHT_SEMI:
+            rows = np.nonzero(matched_r)[0]
+            if len(rows):
+                yield self._right_rows_only(rt.take(pa.array(rows)))
+            return
+        if jt == JT.RIGHT_ANTI:
+            rows = np.nonzero(~matched_r)[0]
+            if len(rows):
+                yield self._right_rows_only(rt.take(pa.array(rows)))
+            return
+        if jt == JT.EXISTENCE:
+            arrays = [a.combine_chunks() for a in lt.columns] + \
+                [pa.array(matched_l, type=pa.bool_())]
+            yield pa.RecordBatch.from_arrays(
+                arrays, schema=self.out_schema.to_arrow())
+            return
+
+        if left_outer:
+            rows = np.nonzero(~matched_l)[0]
+            if len(rows):
+                yield self._outer_left(lt.take(pa.array(rows)))
+        if right_outer:
+            rows = np.nonzero(~matched_r)[0]
+            if len(rows):
+                yield self._outer_right(rt.take(pa.array(rows)))
+
+    def _emit_cross(self, lt: pa.Table, rt: pa.Table, _unused
+                    ) -> Iterator[pa.RecordBatch]:
+        """Unfiltered run cross-product in batch-sized chunks."""
+        ln, rn = lt.num_rows, rt.num_rows
+        block = max(1, self._batch_rows // max(rn, 1))
+        for ls in range(0, ln, block):
+            le = min(ls + block, ln)
+            l_idx = np.repeat(np.arange(ls, le, dtype=np.int64), rn)
+            r_idx = np.tile(np.arange(rn, dtype=np.int64), le - ls)
+            for off in range(0, len(l_idx), self._batch_rows):
+                rb = self._emit_pairs(lt, rt,
+                                      l_idx[off:off + self._batch_rows],
+                                      r_idx[off:off + self._batch_rows])
+                if rb is not None:
+                    yield self._project_out(rb)

@@ -9,8 +9,9 @@ spilled runs carry their keys).  At the end the staged rows form one run:
     become order operands (kernels/compare.py) and are lexsorted there;
     only the permutation comes back, and the host takes the rows in that
     order (counted in the `sort_device_runs` metric);
-  * below 1024 rows the host sorts numpy order keys (`host_sort_keys`,
-    `lexsort_host`), as the JAX package does.
+  * below 1024 rows, or with a utf8 key at any size, the host sorts
+    numpy order keys (`host_sort_keys`, `lexsort_host`; a utf8 key is an
+    object column of its UTF-8 bytes), as the JAX package does.
 
 The sorted run leaves in `auron.batch.size` slices; with `fetch`, only the
 first `fetch` rows leave.  Ties keep their input order (the sort is
@@ -47,13 +48,17 @@ DEVICE_SORT_MIN_ROWS = 1024
 
 def _host_order_key(arr: pa.Array, descending: bool, nulls_first: bool
                     ) -> List[np.ndarray]:
-    """[bucket u8, key u64] whose joint lexicographic order equals the SQL
-    order (numerics sign-biased or IEEE-flipped), as the JAX package's
-    host keys."""
+    """[bucket u8, key] whose joint lexicographic order equals the SQL
+    order, as the JAX package's host keys: key is u64 for numerics
+    (sign-biased or IEEE-flipped) or an object column of UTF-8 bytes for
+    strings."""
     n = len(arr)
     valid = np.ones(n, dtype=bool) if arr.null_count == 0 else \
         np.asarray(arr.is_valid())
     t = arr.type
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        bucket = np.where(valid, 2, 0 if nulls_first else 4).astype(np.uint8)
+        return [bucket] + _string_sort_keys(arr, descending)
     if pa.types.is_floating(t):
         f = np.asarray(arr.fill_null(0.0), dtype=np.float64)
         nan = np.isnan(f)
@@ -85,6 +90,22 @@ def _host_order_key(arr: pa.Array, descending: bool, nulls_first: bool
     bucket = np.where(valid, bucket, 0 if nulls_first else 4).astype(np.uint8)
     key = np.where(valid, key, np.zeros_like(key))
     return [bucket, key]
+
+
+_INVERT_TABLE = bytes(255 - i for i in range(256))
+
+
+def _string_sort_keys(arr: pa.Array, descending: bool) -> List[np.ndarray]:
+    """UTF-8 bytewise keys as one object column of `bytes` (byte order is
+    code-point order, Spark's string order).  Descending maps every string
+    through a 256-entry invert table plus an 0xFF sentinel."""
+    bin_t = (pa.large_binary() if pa.types.is_large_string(arr.type)
+             else pa.binary())
+    raw = arr.cast(bin_t).fill_null(b"").to_pylist()
+    key = np.empty(len(raw), dtype=object)
+    key[:] = ([b.translate(_INVERT_TABLE) + b"\xff" for b in raw]
+              if descending else raw)
+    return [key]
 
 
 def host_sort_keys(rb: pa.RecordBatch, key_cols: Sequence[int],
@@ -162,9 +183,9 @@ class _SortState:
             sel = batch.row_mask()[:batch.num_rows].cpu().numpy()
         arrays, names = [], []
         for i, (expr, _, _) in enumerate(self._specs):
-            v = expr.evaluate(batch)
-            arrays.append(DeviceColumn(v.dtype, v.data, v.validity).to_arrow(
-                batch.num_rows, sel))
+            key = expr.evaluate(batch).to_host(batch.num_rows)
+            arrays.append(key if sel is None else
+                          key.filter(pa.array(sel[:batch.num_rows])))
             names.append(f"__key{i}")
         payload = batch.to_arrow()
         arrays.extend(payload.columns)

@@ -2,7 +2,8 @@
 blaze_tpu/plan/planner.py this slice uses).
 
 Node kinds: parquet_scan, filter, project, hash_agg, sort_agg, sort,
-limit, shuffle_writer, ipc_reader.  Every other kind raises
+limit, shuffle_writer, ipc_reader, broadcast_join, sort_merge_join,
+hash_join and broadcast_join_build_hash_map.  Every other kind raises
 NotImplementedError naming the slice it belongs to.
 """
 
@@ -14,6 +15,9 @@ from typing import Any, Dict, Optional
 from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
 from blaze_tpu_torch.ops.base import ExecutionPlan
 from blaze_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
+from blaze_tpu_torch.ops.joins import (BroadcastJoinExec, BuildHashMapExec,
+                                       JoinType, ShuffledHashJoinExec,
+                                       SortMergeJoinExec)
 from blaze_tpu_torch.ops.scan import ParquetScanExec
 from blaze_tpu_torch.ops.sort import SortExec
 from blaze_tpu_torch.plan.exprs import expr_from_dict, sort_spec_from_dict
@@ -40,8 +44,12 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return IpcReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
                              d.get("num_partitions", 1))
 
+    if k in ("sort_merge_join", "hash_join", "broadcast_join"):
+        return _join_from_dict(d)
+
     if k not in ("filter", "project", "hash_agg", "sort_agg", "sort",
-                 "limit", "shuffle_writer"):
+                 "limit", "shuffle_writer",
+                 "broadcast_join_build_hash_map"):
         raise NotImplementedError(
             f"plan node kind {k!r} belongs to a later slice of the PyTorch "
             f"port (ROADMAP Queue 1 item 3)")
@@ -59,6 +67,9 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return SortExec(child, specs, fetch=d.get("fetch"))
     if k == "limit":
         return LimitExec(child, d["limit"], offset=d.get("offset", 0))
+    if k == "broadcast_join_build_hash_map":
+        return BuildHashMapExec(child, [expr_from_dict(e, in_schema)
+                                        for e in d["keys"]])
     if k in ("hash_agg", "sort_agg"):
         groups = [(expr_from_dict(g["expr"], in_schema), g["name"])
                   for g in d.get("groupings", [])]
@@ -73,6 +84,31 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return AggExec(child, groups, aggs, mode)
     part = partitioning_from_dict(d["partitioning"], in_schema)
     return ShuffleWriterExec(child, part, d["data_file"], d["index_file"])
+
+
+def _join_from_dict(d: Dict[str, Any]) -> ExecutionPlan:
+    k = d["kind"]
+    left = create_plan(d["left"])
+    right = create_plan(d["right"])
+    lkeys = [expr_from_dict(e, left.schema) for e in d["left_keys"]]
+    rkeys = [expr_from_dict(e, right.schema) for e in d["right_keys"]]
+    jt = JoinType(d.get("join_type", "inner"))
+    flt = None
+    if d.get("join_filter"):
+        flt = expr_from_dict(d["join_filter"])  # bound on the joined schema
+    cls = {"sort_merge_join": SortMergeJoinExec,
+           "hash_join": ShuffledHashJoinExec,
+           "broadcast_join": BroadcastJoinExec}[k]
+    kw = dict(build_side=d.get("build_side", "right"), join_filter=flt,
+              null_aware_anti=d.get("null_aware_anti", False))
+    if k == "broadcast_join" and d.get("broadcast_id"):
+        kw["broadcast_id"] = d["broadcast_id"]
+        # a build-map stage on the broadcast side shares its map with this
+        # join through the cache id
+        build = right if d.get("build_side", "right") == "right" else left
+        if isinstance(build, BuildHashMapExec):
+            build.cache_id = d["broadcast_id"]
+    return cls(left, right, lkeys, rkeys, jt, **kw)
 
 
 def partitioning_from_dict(d: Dict[str, Any],

@@ -5,10 +5,13 @@ Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
 `create_plan` reads, with the same dict vocabulary as the JAX package, so
 the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
 ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
-shuffle_writer; expressions: column, bound_reference, literal, binary
-(comparisons, and/or, arithmetic) and the sort expression of a sort
-node; partitionings: single and hash.  Every other variant raises
-NotImplementedError.
+shuffle_writer, the joins (sort_merge_join, hash_join, broadcast_join,
+with join type, build side, broadcast_id / cached_build_hash_map_id and
+join_filter) and broadcast_join_build_hash_map; expressions: column,
+bound_reference, literal, binary (comparisons, and/or, arithmetic) and
+the sort expression of a sort node; partitionings: single and hash.
+Every other variant raises NotImplementedError; a keyless broadcast join
+(the wire's nested-loop join) belongs to bnlj.py, not yet ported.
 
 `ScalarValue` follows the reference encoding: a one-batch Arrow IPC stream
 whose column 0 row 0 is the value.
@@ -136,6 +139,12 @@ _BINOP_ENCODE = {v: k for k, v in _BINOP_DECODE.items()}
 _AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
                   pb.AVG: "avg", pb.COUNT: "count"}
 _AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
+
+_JOIN_TYPE_DECODE = {
+    pb.INNER: "inner", pb.LEFT: "left", pb.RIGHT: "right", pb.FULL: "full",
+    pb.SEMI: "left_semi", pb.ANTI: "left_anti", pb.EXISTENCE: "existence",
+}
+_JOIN_TYPE_ENCODE = {v: k for k, v in _JOIN_TYPE_DECODE.items()}
 
 #: acc-column counts per agg kind (ops/agg/functions.py acc_fields): avg
 #: carries (sum, count)
@@ -306,7 +315,46 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
         return d
     if kind == "agg":
         return _agg_from_proto(n.agg)
+    if kind in ("sort_merge_join", "hash_join", "broadcast_join"):
+        return _join_from_proto(kind, n)
+    if kind == "broadcast_join_build_hash_map":
+        b = n.broadcast_join_build_hash_map
+        return {"kind": "broadcast_join_build_hash_map",
+                "input": plan_from_proto(b.input),
+                "keys": [expr_from_proto(e) for e in b.keys]}
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
+
+
+def _join_from_proto(kind: str, n: pb.PhysicalPlanNode) -> Dict[str, Any]:
+    node = getattr(n, kind)
+    if kind == "broadcast_join" and not node.on:
+        raise NotImplementedError(
+            "a keyless broadcast join (nested-loop join) belongs to "
+            "bnlj.py, not yet ported (ROADMAP Queue 1 item 11)")
+    d: Dict[str, Any] = {
+        "kind": kind,
+        "left": plan_from_proto(node.left),
+        "right": plan_from_proto(node.right),
+        "left_keys": [expr_from_proto(o.left) for o in node.on],
+        "right_keys": [expr_from_proto(o.right) for o in node.on],
+        "join_type": _JOIN_TYPE_DECODE[node.join_type],
+    }
+    if kind == "hash_join":
+        d["build_side"] = ("left" if node.build_side == pb.LEFT_SIDE
+                           else "right")
+        if node.HasField("filter"):
+            d["join_filter"] = expr_from_proto(node.filter.expression)
+    elif kind == "broadcast_join":
+        d["build_side"] = ("left" if node.broadcast_side == pb.LEFT_SIDE
+                           else "right")
+        if node.cached_build_hash_map_id:
+            d["broadcast_id"] = node.cached_build_hash_map_id
+        if node.is_null_aware_anti_join:
+            d["null_aware_anti"] = True
+    else:  # sort_merge_join
+        if node.HasField("filter"):
+            d["join_filter"] = expr_from_proto(node.filter.expression)
+    return d
 
 
 def _agg_from_proto(agg: pb.AggExecNode) -> Dict[str, Any]:
@@ -414,7 +462,55 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         return n
     if k in ("hash_agg", "sort_agg"):
         return _agg_to_proto(d)
+    if k in ("sort_merge_join", "hash_join", "broadcast_join"):
+        return _join_to_proto(d)
+    if k == "broadcast_join_build_hash_map":
+        n.broadcast_join_build_hash_map.input.CopyFrom(
+            plan_to_proto(d["input"]))
+        for e in d["keys"]:
+            n.broadcast_join_build_hash_map.keys.append(expr_to_proto(e))
+        return n
     raise NotImplementedError(f"plan kind {k!r} {_LATER}")
+
+
+def _join_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
+    n = pb.PhysicalPlanNode()
+    k = d["kind"]
+    if not d["left_keys"]:
+        raise NotImplementedError(
+            "a keyless join (nested-loop join) belongs to bnlj.py, not yet "
+            "ported (ROADMAP Queue 1 item 11)")
+    node = getattr(n, k)
+    node.left.CopyFrom(plan_to_proto(d["left"]))
+    node.right.CopyFrom(plan_to_proto(d["right"]))
+    for lk, rk in zip(d["left_keys"], d["right_keys"]):
+        on = node.on.add()
+        on.left.CopyFrom(expr_to_proto(lk))
+        on.right.CopyFrom(expr_to_proto(rk))
+    jt = d.get("join_type", "inner")
+    if jt in ("right_semi", "right_anti"):
+        # the wire has no right-sided semi/anti; front-ends swap children
+        raise ValueError(f"{jt} has no wire encoding; swap the sides")
+    node.join_type = _JOIN_TYPE_ENCODE[jt]
+    if k == "hash_join":
+        node.build_side = (pb.LEFT_SIDE
+                           if d.get("build_side", "right") == "left"
+                           else pb.RIGHT_SIDE)
+        if d.get("join_filter"):
+            node.filter.expression.CopyFrom(expr_to_proto(d["join_filter"]))
+    elif k == "broadcast_join":
+        node.broadcast_side = (pb.LEFT_SIDE
+                               if d.get("build_side", "right") == "left"
+                               else pb.RIGHT_SIDE)
+        if d.get("broadcast_id"):
+            node.cached_build_hash_map_id = d["broadcast_id"]
+        node.is_null_aware_anti_join = d.get("null_aware_anti", False)
+    else:
+        if d.get("join_filter"):
+            node.filter.expression.CopyFrom(expr_to_proto(d["join_filter"]))
+        for _ in d["left_keys"]:
+            node.sort_options.add(asc=True, nulls_first=True)
+    return n
 
 
 def _agg_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:

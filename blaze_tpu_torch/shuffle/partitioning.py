@@ -3,7 +3,8 @@ blaze_tpu/shuffle/partitioning.py).
 
 The partition id is Spark's `pmod(murmur3(keys, seed=42), n)`, bit-exact
 with Spark's HashPartitioning, computed on the batch's device by the
-port's hashing (kernels/hashing.py).  Round-robin and range partitioning
+port's hashing (kernels/hashing.py); a utf8 key's bytes cross to the
+device as a padded byte matrix.  Round-robin and range partitioning
 belong to a later slice.
 """
 
@@ -48,6 +49,12 @@ class HashPartitioning(Partitioning):
         flat_cols, tids = [], []
         for e in self.exprs:
             v = e.evaluate(batch)
-            flat_cols.append((v.data[:n], v.validity[:n]))
+            if v.is_device:
+                flat_cols.append((v.data[:n], v.validity[:n]))
+            else:
+                # utf8: the byte matrix crosses to the batch's device
+                (mat, lens), valid = H.padded_string_key(
+                    v.to_host(n), n, batch.device)
+                flat_cols.append(((mat, lens), valid))
             tids.append(v.dtype.id.value)
         return H.spark_partition_ids(flat_cols, tids, self.num_partitions)

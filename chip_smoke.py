@@ -63,7 +63,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      ran; its shuffle frames verified through the plain CRC32C; one run
      profiled (busy share, cudaLaunch* per stage, placement and radix on
      the card as often as their wrappers counted);
- 10. the paths' profile summary and the kernel table as JSON lines, the
+ 10. q01 full (stage DAG): date_dim, store, customer and store_returns at
+     SF10 from their seeds, written with write_parquet_splits(..., 4), and
+     TPC-DS q01 (itest/queries.py) through the port's DagScheduler
+     (plan/stages.py) with 16 exchange partitions: 6 stages, broadcast
+     joins to date_dim, the TN stores and customer on the device probe, a
+     sort-merge join, under auto and off, each held to the pandas oracle
+     (the 100 c_customer_id exact and in order); fails unless no batch
+     and no join probe ran off the card, the device probe calls equal the
+     probe batches, and placement and radix launched; one run profiled
+     (stage walls, tasks and cudaLaunch* per stage, busy share, top device
+     and host ops, placement and radix on the card as often as counted,
+     one searchsorted kernel per device probe call, peak memory); and a
+     lineage probe (one byte of a committed map output flipped: the
+     result equal, exactly one map task run twice);
+ 11. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
@@ -130,13 +144,14 @@ PROFILED_CALLS = 20
 def _on_card(e):
     """Whether a profiler event is work the card ran: a kernel, copy or
     memset.  A named range (torch.profiler.record_function, as
-    itest/q01.py `run_stages` opens one per stage) also appears on the
-    device's timeline and is left out."""
+    itest/q01.py `run_stages` and plan/stages.py's DagScheduler open one
+    per stage) also appears on the device's timeline and is left out."""
     import torch
     from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+    from blaze_tpu_torch.plan.stages import STAGE_RANGE as DAG_RANGE
     return (e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(STAGE_RANGE))
+            and not e.name.startswith((STAGE_RANGE, DAG_RANGE)))
 
 
 def _device_events(prof, names):
@@ -1479,17 +1494,18 @@ def crc32c_phase(dev):
     return {"sizes": out, "check": check, "impl": name}
 
 
-def _per_stage(prof, stages):
+def _per_stage(prof, stages, prefix=None):
     """cudaLaunch* host calls, and the card's busy microseconds, inside
-    each stage's named range (a stage ends in a device synchronisation,
-    so its device work falls inside its range)."""
+    each stage's named range `prefix + stage` (a stage ends in a device
+    synchronisation, so its device work falls inside its range)."""
     import torch
     from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+    prefix = STAGE_RANGE if prefix is None else prefix
     ranges = {}
     for e in prof.events():
-        st = e.name[len(STAGE_RANGE):]
+        st = e.name[len(prefix):]
         if (e.device_type == torch.autograd.DeviceType.CPU
-                and e.name.startswith(STAGE_RANGE) and st in stages):
+                and e.name.startswith(prefix) and st in stages):
             ranges[st] = (e.time_range.start, e.time_range.end)
     launches = {st: 0 for st in stages}
     busy = {st: 0.0 for st in stages}
@@ -1639,6 +1655,188 @@ def branches_oracle(sr_paths, lo, hi):
     return {"avg": QB.avg_oracle(ctr), "top": QB.top_oracle(ctr)}
 
 
+FULL_PARTS = 16             # q01 full: the exchanges' partitions
+FULL_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
+                 "stage_loop_tasks", "stage_loop_fallback",
+                 "partial_skipped", "sort_device_runs")
+
+
+def full_data(root):
+    """q01's four tables at SF10 from their seeds, written as
+    write_parquet_splits(..., 4) writes them, and the pandas oracle's
+    frame."""
+    from blaze_tpu_torch.itest import q01_dag as QD
+    from blaze_tpu_torch.itest import queries as Q
+    from blaze_tpu_torch.itest.tpcds_data import write_parquet_splits
+    phase("data: TPC-DS date_dim, store, customer and store_returns at "
+          "SF10 for q01 full")
+    t0 = time.perf_counter()
+    tables = QD.make_tables(SCALE)
+    paths = write_parquet_splits(tables, os.path.join(root, "q01_full"),
+                                 N_FILES)
+    plan, oracle = Q.q01(paths, tables, partitions=FULL_PARTS)
+    t1 = time.perf_counter()
+    want = oracle()
+    print("rows: " + ", ".join(f"{k} {t.num_rows} in {len(paths[k])} "
+                               f"file(s)" for k, t in tables.items())
+          + f" ({t1 - t0:.1f} s); pandas oracle {time.perf_counter() - t1:.1f}"
+          f" s, {len(want)} rows")
+    return plan, want
+
+
+def full_path(plan, want, mode, profiled=False, corrupt=False):
+    """Full q01 through the port's DagScheduler with the stage loop under
+    `mode`: 6 stages, the 100 c_customer_id exact and in order against the
+    pandas oracle, every batch and every join probe on the card, the
+    kernels launched.  With `profiled`, under torch.profiler: the busy
+    share, cudaLaunch* per stage, the top device and host ops, and
+    placement, radix and the probe's searchsorted run on the card as often
+    as counted.  With `corrupt`, the lineage probe: one byte of the first
+    non-empty map output of stage 0 is flipped after it commits, and
+    exactly that map task must run twice."""
+    import pandas as pd
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import q01_dag as QD
+    from blaze_tpu_torch.itest.runner import compare_frames, same_order
+    from blaze_tpu_torch.kernels import join as JK
+    from blaze_tpu_torch.plan.stages import STAGE_RANGE, DagScheduler
+
+    label = (f"q01 full {mode}" + (" profiled" if profiled else "")
+             + (" lineage probe" if corrupt else ""))
+    phase(f"main path {label}: TPC-DS q01 through the stage DAG, SF10, "
+          f"{N_FILES} file splits, {FULL_PARTS} exchange partitions")
+    _loop_mode(mode)
+    config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    sched = (QD.CorruptingScheduler(0) if corrupt else DagScheduler())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    probes0 = dict(JK.probe_calls)
+    if profiled:
+        # the wall ends before the profiler's own teardown
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = sched.run_collect(plan)
+            wall = time.perf_counter() - t0
+    else:
+        t0 = time.perf_counter()
+        out = sched.run_collect(plan)
+        wall = time.perf_counter() - t0
+    launches = _read_launches()
+    probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
+    peak = torch.cuda.max_memory_allocated()
+    got = out.to_pandas() if out.num_rows else pd.DataFrame(
+        {n: [] for n in out.schema.names})
+    counters = QD.stage_counters(sched, FULL_COUNTERS)
+    tasks = {st.sid: st.num_tasks for st in sched.stages}
+    print(sched.describe())
+    print("stage walls, s (host clock, each ending in a device "
+          "synchronisation): " + ", ".join(
+              f"{sid} {w:.3f}" for sid, w in sorted(sched.stage_walls.items()))
+          + f"; run {wall:.3f} s")
+    for sid in sorted(counters):
+        print(f"  stage {sid} ({tasks[sid]} tasks): "
+              f"{ {k: v for k, v in counters[sid].items() if v} }")
+    print(f"launches on the q01 full path: {launches}; join probes "
+          f"{probes}; task runs {sorted(sched.task_runs.items())}")
+    print(f"torch.cuda.max_memory_allocated: {peak} bytes")
+    if len(sched.stages) != 6:
+        raise SystemExit(f"{label}: {len(sched.stages)} stages, expected 6")
+    err = compare_frames(got, want) or same_order(got, want)
+    if len(got) != 100 or err:
+        raise SystemExit(f"{label}: {len(got)} rows against the oracle: "
+                         f"{err}")
+    print(f"result: {len(got)} c_customer_id equal to the pandas oracle, in "
+          f"order (first {got.iloc[0, 0]}, last {got.iloc[-1, 0]})")
+    for k in ("hash_placement", "radix_partition"):
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    off_card = {sid: c["cpu_batches"] for sid, c in counters.items()
+                if c["cpu_batches"]}
+    if off_card or probes["cpu"]:
+        raise SystemExit(f"{label}: work off the card: cpu_batches "
+                         f"{off_card}, CPU join probes {probes['cpu']}")
+    probe_batches = sum(c["probe_batches"] for c in counters.values())
+    if probes["cuda"] != probe_batches or probe_batches <= 0:
+        raise SystemExit(f"{label}: {probes['cuda']} device probe calls for "
+                         f"{probe_batches} probe batches")
+    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
+    if corrupt:
+        if sched.corrupted_at is None or runs != {sched.target: 2}:
+            raise SystemExit(f"{label}: task runs other than one map task "
+                             f"twice: {runs}")
+        print(f"lineage probe: byte {sched.corrupted_at} of the output of "
+              f"map task {sched.target} flipped after its commit; that map "
+              f"task ran twice, every other once, the result equal")
+    elif runs:
+        raise SystemExit(f"{label}: tasks ran more than once: {runs}")
+    leaks = sched.leak_report()
+    if any(leaks.values()):
+        raise SystemExit(f"{label}: the scheduler leaked {leaks}")
+    res = {"mode": mode, "wall_s": wall, "stage_walls": sched.stage_walls,
+           "tasks": tasks, "counters": counters, "launches": launches,
+           "probe_calls": probes, "peak_bytes": peak,
+           "task_runs": {f"{k[0]},{k[1]}": v
+                         for k, v in sched.task_runs.items()}}
+    if not profiled:
+        return res
+    stages = [str(sid) for sid in tasks]
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if _on_card(e))
+    per_stage, busy_stage = _per_stage(prof, stages, STAGE_RANGE)
+    host = _host_launches(prof)
+    print(f"profiled wall {wall:.3f} s; device busy {busy / 1e6:.4f} s = "
+          f"{100 * busy / 1e6 / wall:.2f}% of the wall")
+    print(f"cudaLaunch* per stage: {per_stage} (all {host['kernel']}, "
+          f"cudaGraphLaunch {host['graph']})")
+    print("device busy per stage, ms: " + ", ".join(
+        f"{st} {us / 1e3:.3f}" for st, us in busy_stage.items()))
+    by_name = {}
+    for e in prof.events():
+        if _on_card(e):
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for kname, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:12]:
+        print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
+    for e in sorted((e for e in prof.key_averages()
+                     if not e.key.startswith(STAGE_RANGE)),
+                    key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
+        print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
+              f"{e.count:6d}  {e.key[:90]}")
+    for kernel in ("hash_placement", "radix_partition"):
+        names = KERNEL_NAMES[kernel]
+        expected = ({RADIX_KERNELS[k]: c
+                     for k, c in launches["radix_kernels"].items()}
+                    if kernel == "radix_partition"
+                    else {names[0]: launches[kernel]})
+        for pattern, want_n in expected.items():
+            _us, n_dev = _device_events(prof, (pattern,))
+            if n_dev != want_n:
+                raise SystemExit(f"{label}: {kernel} ran {n_dev} device "
+                                 f"kernels {pattern} where its wrapper "
+                                 f"counted {want_n}")
+        print(f"  {kernel}: wrapper launches {launches[kernel]}, the same "
+              f"on the card")
+    # the join probe's torch ops on the card: one searchsorted kernel per
+    # device probe call
+    probe_us, n_search = _device_events(prof, ("searchsorted",))
+    if n_search != probes["cuda"]:
+        raise SystemExit(f"{label}: {n_search} searchsorted kernels on the "
+                         f"card for {probes['cuda']} device probe calls")
+    print(f"  join probe: {probes['cuda']} device probe calls, "
+          f"{n_search} searchsorted kernels on the card "
+          f"({probe_us / 1e3:.3f} ms)")
+    res.update(busy_s=busy / 1e6, busy_share=busy / 1e6 / wall,
+               launches_per_stage=per_stage,
+               busy_ms_per_stage={k: v / 1e3 for k, v in busy_stage.items()},
+               host_launches=host["kernel"], graph_launches=host["graph"],
+               searchsorted_kernels=n_search)
+    return res
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -1701,6 +1899,12 @@ def main():
             "profiled": branches_path(root, sr_paths, lo, hi, "auto",
                                       oracle, profiled=True)}
         by_path["q01 branches"] = branches["auto"]["launches"]
+        plan, want = full_data(root)
+        full = {"auto": full_path(plan, want, "auto"),
+                "off": full_path(plan, want, "off"),
+                "profiled": full_path(plan, want, "auto", profiled=True),
+                "lineage": full_path(plan, want, "auto", corrupt=True)}
+        by_path["q01 full"] = full["auto"]["launches"]
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
     finally:
@@ -1791,9 +1995,16 @@ def main():
                   f", busy {100 * b['busy_share']:.2f}%, cudaLaunch* per "
                   f"stage {b['launches_per_stage']}" if "busy_share" in b
                   else ""))
+    for k, f in full.items():
+        print(f"q01 full {k}: run {f['wall_s']:.3f} s, stage walls "
+              f"{ {s: round(w, 3) for s, w in f['stage_walls'].items()} }, "
+              f"peak {f['peak_bytes']} bytes" + (
+                  f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                  f"stage {f['launches_per_stage']}" if "busy_share" in f
+                  else ""))
     print(json.dumps({"paths": profiled, "runs": runs,
                       "stage_loop": loop_phases, "branches": branches,
-                      "crc32c": crc}))
+                      "q01_full": full, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
