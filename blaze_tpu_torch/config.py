@@ -154,6 +154,22 @@ AGG_MXU_DECIMAL_SCALE = int_conf(
     "Fixed-point scale probed for float64 sum columns on the window-table "
     "lane (100 = two decimals); a value that fails the exactness verify "
     "re-runs the partition through the scatter dense lane.")
+FUSED_DICT_DEVICE_ENABLE = bool_conf(
+    "auron.tpu.fused.dictDevice", True,
+    "Device lane for utf8 group keys in fused aggregations "
+    "(plan/fused.py _execute_dict_device): every key column "
+    "dictionary-encodes on the host against an accumulated per-key "
+    "dictionary, the device groups by the packed code id into a dense "
+    "table, and the keys decode back through the dictionaries at emit.")
+FUSED_DICT_DEVICE_MAX_SLOTS = int_conf(
+    "auron.tpu.fused.dictDevice.maxSlots", 1 << 22,
+    "Dense code-table ceiling of the dict-device lane; growth past it "
+    "re-runs the partition through the generic AggExec engine.")
+ENCODING_DICT_ENABLE = bool_conf(
+    "auron.tpu.encoding.dict.enable", False,
+    "Dictionary-encode utf8 columns at scan decode (the JAX package's "
+    "DictColumn).  Not ported: the port's scan raises where it is set "
+    "(ROADMAP Queue 1 item 13).")
 STAGE_DEVICE_LOOP_ENABLE = str_conf(
     "auron.tpu.stage.deviceLoop.enable", "auto",
     "Device stage loop (runtime/loop.py): an eligible hash-lane fused "

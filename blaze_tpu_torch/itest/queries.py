@@ -1,21 +1,35 @@
-"""TPC-DS q01 as a plan-IR dict with its pandas oracle (a copy of the
-plan-dict helpers and the `q01` function of blaze_tpu/itest/queries.py).
+"""TPC-DS queries as plan-IR dicts with their pandas oracles (a copy of
+the plan-dict helpers and of `q01`, `q06`, `_brand_revenue`, `q03`,
+`q42`, `q52` and `q55` of blaze_tpu/itest/queries.py).
 
 Fact tables are read from parquet file splits; exchanges are
 `local_exchange` nodes, which plan/stages.py `DagScheduler` cuts into
 stages; aggregations use partial/final pairs as a Spark plan emits them.
-`q01` returns (plan_dict, oracle), the oracle computing the
-expected frame with pandas.
+Each builder returns (plan_dict, oracle), the oracle computing the
+expected frame with pandas; `QUERIES` maps a name to its builder and the
+tables it reads.
 
-q01: customers returning more than 1.2x their store's average (BASELINE
-config #1).  Date keys follow tpcds_data.gen_date_dim: sk = 2450815 +
-day, d_year = 1998 + day // 365.
+  q01  customers returning more than 1.2x their store's average
+       (BASELINE config #1);
+  q06  items above 1.2x their category's average price, counted by
+       store (BASELINE config #2: hash join + group-by);
+  q03, q42, q52, q55  revenue by brand (or category) in one month:
+       date_dim ⨝ store_sales ⨝ item, grouped by utf8 keys.
+
+Date keys follow tpcds_data.gen_date_dim: sk = 2450815 + day, d_year =
+1998 + day // 365, d_moy = (day % 365) // 31 + 1 (at most 12).
+
+q06 averages the price by category as a partial `avg` directly under a
+final one, with no exchange between them, as the reference's plan does.
+Its result is right only while `item` is one file: with item split in n
+files, each file averages on its own and the broadcast build holds n rows
+per category.  Drivers keep item in one file (itest/q06.py).
 """
 
 from __future__ import annotations
 
 import uuid
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import pyarrow as pa
 
@@ -185,3 +199,115 @@ def q01(paths, tables, partitions: int = 2):
         return out.reset_index(drop=True)
 
     return plan, oracle
+
+
+# ---------------------------------------------------------------------------
+# q06
+# ---------------------------------------------------------------------------
+
+def q06(paths, tables, partitions: int = 4):
+    ss, it = tables["store_sales"], tables["item"]
+
+    cat_avg = agg(
+        agg(scan(paths, tables, "item"), [(c("i_category"), "cat")],
+            [("avg", "partial", "avg_price", [c("i_current_price")])]),
+        [(ci(0), "cat")],
+        [("avg", "final", "avg_price", [ci(1), ci(2)])])
+    it_j = join("broadcast_join", scan(paths, tables, "item"), cat_avg,
+                [c("i_category")], [c("cat")])
+    it_flt = filter_(it_j, binop(">", c("i_current_price"),
+                                 binop("*", c("avg_price"),
+                                       lit(1.2, "float64"))))
+    ss_j = join("broadcast_join", scan(paths, tables, "store_sales"),
+                it_flt, [c("ss_item_sk")], [c("i_item_sk")])
+    counted = _partial_final(
+        ss_j, [(c("ss_store_sk"), "store")],
+        [("count", "cnt", [c("ss_sold_date_sk")])], partitions)
+    single = exchange(counted, [ci(0)], 1)
+    plan = {"kind": "sort", "input": single,
+            "specs": [{"expr": ci(0), "descending": False,
+                       "nulls_first": True}]}
+
+    def oracle():
+        ssd, itd = ss.to_pandas(), it.to_pandas()
+        avg = itd.groupby("i_category", as_index=False) \
+            .i_current_price.mean().rename(
+                columns={"i_current_price": "avg_price"})
+        j = itd.merge(avg, on="i_category")
+        sel = j[j.i_current_price > 1.2 * j.avg_price]
+        m = ssd.merge(sel, left_on="ss_item_sk", right_on="i_item_sk")
+        out = (m.groupby("ss_store_sk", as_index=False)
+               .agg(cnt=("ss_sold_date_sk", "count"))
+               .rename(columns={"ss_store_sk": "store"})
+               .sort_values("store"))
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+# ---------------------------------------------------------------------------
+# the brand-revenue family
+# ---------------------------------------------------------------------------
+
+def _brand_revenue(paths, tables, partitions, moy, price_col,
+                   group_cols=("i_brand_id", "i_brand")):
+    """The q03/q42/q52/q55 shape: dd(moy) ⨝ ss ⨝ item, revenue by brand."""
+    ss, it, dd = tables["store_sales"], tables["item"], tables["date_dim"]
+
+    dd_f = filter_(scan(paths, tables, "date_dim"),
+                   binop("==", c("d_moy"), lit(moy, "int32")))
+    j_dd = join("broadcast_join", scan(paths, tables, "store_sales"),
+                dd_f, [c("ss_sold_date_sk")], [c("d_date_sk")])
+    j_it = join("broadcast_join", j_dd, scan(paths, tables, "item"),
+                [c("ss_item_sk")], [c("i_item_sk")])
+    groups = [(c("d_year"), "d_year")] + \
+        [(c(g), g) for g in group_cols]
+    rev = _partial_final(j_it, groups,
+                         [("sum", "revenue", [c(price_col)])], partitions)
+    single = exchange(rev, [ci(0)], 1)
+    n = len(groups)
+    plan = sort_limit(single, [(ci(n), True), (ci(1), False)], 100)
+
+    def oracle():
+        ssd, itd, ddd = (ss.to_pandas(), it.to_pandas(), dd.to_pandas())
+        m = ssd.merge(ddd[ddd.d_moy == moy], left_on="ss_sold_date_sk",
+                      right_on="d_date_sk")
+        m = m.merge(itd, left_on="ss_item_sk", right_on="i_item_sk")
+        out = (m.groupby(["d_year"] + list(group_cols), as_index=False)
+               .agg(revenue=(price_col, "sum")))
+        out = out.sort_values(["revenue", list(out.columns)[1]],
+                              ascending=[False, True])[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+def q03(paths, tables, partitions: int = 2):
+    return _brand_revenue(paths, tables, partitions, 11,
+                          "ss_ext_sales_price")
+
+
+def q42(paths, tables, partitions: int = 2):
+    return _brand_revenue(paths, tables, partitions, 12,
+                          "ss_ext_sales_price", ("i_category",))
+
+
+def q52(paths, tables, partitions: int = 2):
+    return _brand_revenue(paths, tables, partitions, 12,
+                          "ss_ext_sales_price")
+
+
+def q55(paths, tables, partitions: int = 2):
+    return _brand_revenue(paths, tables, partitions, 11,
+                          "ss_sales_price")
+
+
+#: name -> (builder, the tables it reads)
+QUERIES: Dict[str, Tuple[Callable, list]] = {
+    "q01": (q01, ["store_returns", "date_dim", "store", "customer"]),
+    "q03": (q03, ["store_sales", "item", "date_dim"]),
+    "q06": (q06, ["store_sales", "item"]),
+    "q42": (q42, ["store_sales", "item", "date_dim"]),
+    "q52": (q52, ["store_sales", "item", "date_dim"]),
+    "q55": (q55, ["store_sales", "item", "date_dim"]),
+}

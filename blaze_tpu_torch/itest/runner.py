@@ -1,18 +1,42 @@
-"""Result comparison of the integration queries (a copy of
-`compare_frames` and `_cell_equal` of blaze_tpu/itest/runner.py, the
-QueryResultComparator analog): row count and cell equality with a double
-tolerance, order-insensitive.  `same_order` adds the check that two
-frames hold equal rows in the same order.
+"""The integration queries' runner and result comparison (a copy of
+`QueryResult`, `compare_frames`, `_cell_equal` and `run_query` of
+blaze_tpu/itest/runner.py, the QueryRunner / QueryResultComparator
+analogs): row count and cell equality with a double tolerance,
+order-insensitive.  `run_query` runs a plan dict through the port's stage
+DAG (plan/stages.py `DagScheduler.run_collect`) and times it beside its
+oracle.  `same_order` adds the check that two frames hold equal rows in
+the same order.
+
+Not yet here: `normalize_plan` and `check_plan_stability` (the
+PlanStabilityChecker analog).  The reference's goldens hold the plans of
+its single-task local mode, which the port lacks (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
 
 import pandas as pd
 
 DOUBLE_TOL = 1e-6
+
+
+@dataclass
+class QueryResult:
+    name: str
+    rows: int
+    engine_seconds: float
+    oracle_seconds: float
+    passed: bool
+    detail: str = ""
+
+    @property
+    def speedup(self) -> float:
+        return self.oracle_seconds / max(self.engine_seconds, 1e-9)
 
 
 def compare_frames(got: pd.DataFrame, want: pd.DataFrame) -> Optional[str]:
@@ -66,3 +90,20 @@ def same_order(got: pd.DataFrame, want: pd.DataFrame) -> Optional[str]:
             if not _cell_equal(a, b):
                 return f"row {ri} col {ci}: {a!r} != {b!r}"
     return None
+
+
+def run_query(name: str, plan: Dict[str, Any], oracle) -> QueryResult:
+    """Run the plan dict through a fresh DagScheduler (which cleans up
+    after its run) and compare its result with the oracle's frame."""
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    t0 = time.perf_counter()
+    got_t = DagScheduler().run_collect(plan)
+    engine_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    want = oracle()
+    oracle_s = time.perf_counter() - t1
+    got = got_t.to_pandas() if got_t.num_rows else pd.DataFrame(
+        {n: [] for n in got_t.schema.names})
+    err = compare_frames(got, want)
+    return QueryResult(name, got_t.num_rows, engine_s, oracle_s,
+                       err is None, err or "")

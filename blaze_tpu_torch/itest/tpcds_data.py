@@ -1,5 +1,6 @@
-"""Synthetic TPC-DS-shaped tables for q01 (a copy of `gen_store_returns`,
-`gen_date_dim`, `gen_store`, `gen_customer` and `write_parquet_splits` of
+"""Synthetic TPC-DS-shaped tables for q01, q06 and the brand-revenue
+queries (a copy of `gen_store_returns`, `gen_store_sales`, `gen_date_dim`,
+`gen_store`, `gen_customer`, `gen_item` and `write_parquet_splits` of
 blaze_tpu/itest/tpcds_data.py, with the helpers they use).  The same seed
 gives the same values as the JAX package's generator: same columns, types
 and key relationships as TPC-DS, scaled by `scale` (1.0 ~ SF1 row
@@ -13,6 +14,7 @@ import pyarrow as pa
 
 SF1_ROWS = {
     "store_returns": 287_514,
+    "store_sales": 2_880_404,
     "store": 12,
     "customer": 100_000,
     "customer_address": 50_000,
@@ -104,6 +106,55 @@ def gen_store_returns(scale: float, seed: int = 14) -> pa.Table:
         "sr_reason_sk": pa.array(rng.integers(1, 36, n)),
         "sr_net_loss": pa.array(np.round(rng.random(n) * 60, 2)),
     }), "sr_returned_date_sk")
+
+
+def gen_store_sales(scale: float, seed: int = 15) -> pa.Table:
+    n = _rows("store_sales", scale)
+    rng = np.random.default_rng(seed)
+    date_n = min(_rows("date_dim", scale), SALES_DATE_DAYS)
+    return _date_ordered(pa.table({
+        "ss_sold_date_sk": pa.array(
+            rng.integers(2450815, 2450815 + date_n, n)),
+        "ss_customer_sk": pa.array(
+            rng.integers(1, _rows("customer", scale) + 1, n)),
+        "ss_store_sk": pa.array(rng.integers(1, _rows("store", scale) + 1, n)),
+        "ss_item_sk": pa.array(rng.integers(1, _rows("item", scale) + 1, n)),
+        "ss_ext_sales_price": pa.array(np.round(rng.random(n) * 300, 2)),
+        "ss_quantity": pa.array(rng.integers(1, 100, n).astype(np.int32)),
+        "ss_ticket_number": pa.array(np.arange(1, n + 1)),
+        "ss_cdemo_sk": pa.array(
+            rng.integers(1, _rows("customer_demographics", scale) + 1, n)),
+        "ss_promo_sk": pa.array(rng.integers(1, 301, n)),
+        "ss_list_price": pa.array(np.round(rng.random(n) * 320, 2)),
+        "ss_coupon_amt": pa.array(np.round(rng.random(n) * 40, 2)),
+        "ss_sales_price": pa.array(np.round(rng.random(n) * 280, 2)),
+        "ss_net_profit": pa.array(np.round(rng.random(n) * 120 - 20, 2)),
+        "ss_hdemo_sk": pa.array(rng.integers(1, 7_201, n)),
+        "ss_addr_sk": pa.array(
+            rng.integers(1, _rows("customer_address", scale) + 1, n)),
+        "ss_sold_time_sk": pa.array(rng.integers(0, 86_400, n)),
+    }), "ss_sold_date_sk")
+
+
+def gen_item(scale: float, seed: int = 16) -> pa.Table:
+    n = _rows("item", scale)
+    rng = np.random.default_rng(seed)
+    cats = np.array(["Books", "Home", "Sports", "Music", "Electronics"])
+    brands = np.array([f"brand_{i}" for i in range(50)])
+    classes = np.array([f"class_{i}" for i in range(16)])
+    brand_ids = rng.integers(1, 51, n)
+    return pa.table({
+        "i_item_sk": pa.array(np.arange(1, n + 1)),
+        "i_item_id": pa.array([f"I{i:09d}" for i in range(1, n + 1)]),
+        "i_category": pa.array(cats[rng.integers(0, len(cats), n)]),
+        "i_class": pa.array(classes[rng.integers(0, len(classes), n)]),
+        "i_brand_id": pa.array(brand_ids.astype(np.int32)),
+        "i_brand": pa.array(brands[brand_ids - 1]),
+        "i_manager_id": pa.array(rng.integers(1, 100, n).astype(np.int32)),
+        "i_manufact_id": pa.array(
+            rng.integers(1, 1001, n).astype(np.int32)),
+        "i_current_price": pa.array(np.round(rng.random(n) * 100, 2)),
+    })
 
 
 def write_parquet_splits(tables, out_dir: str, partitions: int,

@@ -22,11 +22,19 @@ engine on the batch's device:
     own group (the final stage re-merges);
   * a global aggregation over empty input still emits one row.
 
+utf8 group keys dictionary-encode per operator instance
+(`incremental_dict_codes`: first-seen order, stable across batches) into
+int64 codes on the batch's device, so they sort and segment like integer
+keys; partial batches carry the codes, and keys decode back through the
+dictionaries at emit (and on the pass-through lane), so what leaves the
+operator holds real values.  `count` over a utf8 column counts validity
+only.
+
 Not carried over: the memory manager's accounting, spill and skip-on-spill
 (`update_mem_used`, `spill`, `try_release_pressure`; ROADMAP Queue 1
 item 8), the AQE skip hint and query degradation (item 16) and xla_stats
-notes (item 15).  Dictionary-encoded string keys and host accumulators
-(min/max over strings) raise: they belong to item 13.
+notes (item 15).  Host accumulators (min/max over strings) raise: they
+belong to item 13.
 """
 
 from __future__ import annotations
@@ -39,18 +47,15 @@ import pyarrow as pa
 import torch
 
 from blaze_tpu_torch import config
-from blaze_tpu_torch.batch import ColumnBatch, DeviceColumn, bucket_capacity
+from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn,
+                                   bucket_capacity, to_device)
 from blaze_tpu_torch.device import resolve
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.kernels import compare
 from blaze_tpu_torch.kernels import sort as K
-from blaze_tpu_torch.ops.agg.functions import AggFunction
+from blaze_tpu_torch.ops.agg.functions import AggFunction, CountAgg
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
-from blaze_tpu_torch.schema import Field, Schema, TORCH_TO_NP
-
-_LATER_KEYS = ("string (dictionary-encoded) grouping keys belong to the "
-               "strings/decimals slice of the PyTorch port (ROADMAP Queue 1 "
-               "item 13)")
+from blaze_tpu_torch.schema import Field, INT64, Schema, TORCH_TO_NP
 
 
 class AggMode(enum.Enum):
@@ -119,9 +124,13 @@ class _AggState:
         self.op = op
         self.in_schema = op.children[0].schema
         self.num_keys = len(op._group_exprs)
+        # per utf8 key: the accumulated dictionary (codes are positions);
+        # None for a fixed-width key
+        self.dict_arrays: List[Optional[pa.Array]] = []
         for e, _ in op._group_exprs:
-            if not e.data_type(self.in_schema).is_fixed_width:
-                raise NotImplementedError(_LATER_KEYS)
+            t = e.data_type(self.in_schema)
+            self.dict_arrays.append(None if t.is_fixed_width else
+                                    pa.array([], type=t.to_arrow()))
         for fn, _, _ in op._aggs:
             if fn.is_host:
                 raise NotImplementedError(
@@ -203,11 +212,16 @@ class _AggState:
         sink = _ArrowSink()
         for e, _name in op._group_exprs:
             cv = e.evaluate(cb)
-            sink.add_device(cv.data, cv.validity, n)
+            if cv.is_device:
+                sink.add_device(cv.data, cv.validity, n)
+            else:
+                # utf8 keys leave as their values: the dictionary never
+                # grows on this lane
+                sink.add_host(cv.to_host(n))
         gids = torch.arange(cap, device=cb.device)
         for fn, _mode, _name in op._aggs:
-            args = [(cv.data, cv.validity)
-                    for cv in (c.evaluate(cb) for c in fn.children)]
+            args = [_agg_arg(fn, c.evaluate(cb), cap, cb.device)
+                    for c in fn.children]
             for ad, av in fn.partial_update(args, gids, cap):
                 sink.add_device(ad, av, n)
         out_schema = op.schema.to_arrow()
@@ -244,27 +258,27 @@ class _AggState:
             return None
         cap = batch.capacity
         valid_mask = batch.row_mask()
-        key_vals = [e.evaluate(batch) for e, _ in op._group_exprs]
+        key_dev = self._encode_keys(
+            [e.evaluate(batch) for e, _ in op._group_exprs], batch)
         op.metrics.add("cuda_batches" if valid_mask.device.type == "cuda"
                        else "cpu_batches", 1)
         perm, sorted_valid, gids, num_groups = self._group(
-            [(cv.data, cv.validity, cv.dtype) for cv in key_vals],
-            valid_mask, cap)
+            key_dev, valid_mask, cap)
         if num_groups == 0:
             return None
         sink = _ArrowSink()
-        for cv in key_vals:
-            sd = cv.data.index_select(0, perm)
-            sv = cv.validity.index_select(0, perm) & sorted_valid
+        for data, valid, _dtype in key_dev:
+            sd = data.index_select(0, perm)
+            sv = valid.index_select(0, perm) & sorted_valid
             sink.add_device(*K.segment_first(sd, sv, gids, num_groups),
                             num_groups)
         for fn, mode, _name in op._aggs:
             args = []
             for c in fn.children:
-                cv = c.evaluate(batch)
-                args.append((cv.data.index_select(0, perm),
-                             cv.validity.index_select(0, perm)
-                             & sorted_valid))
+                data, valid = _agg_arg(fn, c.evaluate(batch), cap,
+                                       valid_mask.device)
+                args.append((data.index_select(0, perm),
+                             valid.index_select(0, perm) & sorted_valid))
             if mode in _RAW_MODES:
                 accs = fn.partial_update(args, gids, num_groups)
             else:
@@ -274,6 +288,43 @@ class _AggState:
         arrays = sink.materialize()
         return pa.RecordBatch.from_arrays(
             arrays, schema=self._internal_pa_schema(arrays))
+
+    # ------------------------------------------------------------------
+    # key encoding
+    # ------------------------------------------------------------------
+    def _encode_keys(self, key_vals, batch: ColumnBatch):
+        """[(data, validity, dtype)] per grouping key: fixed-width keys as
+        they are, utf8 keys as int64 dictionary codes on the batch's
+        device."""
+        out = []
+        for i, cv in enumerate(key_vals):
+            if self.dict_arrays[i] is None:
+                out.append((cv.data, cv.validity, cv.dtype))
+                continue
+            codes, valid, self.dict_arrays[i], _grew = \
+                incremental_dict_codes(cv.to_host(batch.num_rows),
+                                       self.dict_arrays[i], batch.capacity)
+            dev = batch.device
+            out.append((to_device(codes, dev), to_device(valid, dev), INT64))
+        return out
+
+    def _decode_keys(self, rb: pa.RecordBatch) -> List[pa.Array]:
+        """The key columns of an internal partial batch with every code
+        column decoded through its dictionary."""
+        import pyarrow.compute as pc
+        out = []
+        for i in range(self.num_keys):
+            col = rb.column(i)
+            dec = self.dict_arrays[i]
+            if dec is None:
+                out.append(col)
+                continue
+            taken = dec.take(col.fill_null(0).cast(pa.int64()))
+            decoded = pc.if_else(col.is_valid(), taken,
+                                 pa.scalar(None, type=dec.type))
+            f = self.op._group_exprs[i][0].data_type(self.in_schema)
+            out.append(decoded.cast(f.to_arrow()))
+        return out
 
     def _internal_pa_schema(self, arrays: List[pa.Array]) -> pa.Schema:
         if self._internal_schema is None:
@@ -371,8 +422,8 @@ class _AggState:
             if n == 0:
                 continue
             sink = _ArrowSink()
-            for i in range(self.num_keys):
-                sink.add_host(rb.column(i))
+            for a in self._decode_keys(rb):
+                sink.add_host(a)
             j = self.num_keys
             for fn, mode, _name in op._aggs:
                 fields = fn.acc_fields(self.in_schema)
@@ -392,6 +443,63 @@ class _AggState:
                       for a, f in zip(sink.materialize(), out_schema)]
             yield ColumnBatch.from_arrow(
                 pa.RecordBatch.from_arrays(arrays, schema=out_schema))
+
+
+def incremental_dict_codes(arr: pa.Array, global_arr: Optional[pa.Array],
+                           cap: int):
+    """Dictionary-encode one batch column against an accumulated global
+    dictionary (first-seen order, stable across batches).  Shared by the
+    generic engine (_AggState._encode_keys) and the fused dict-device lane
+    (plan/fused.py _execute_dict_device), so the two never diverge.
+    Floating keys normalize (-0.0 -> 0.0, NaN -> one canonical bit
+    pattern) before encoding, like Spark's NormalizeFloatingNumbers.
+    Returns (codes int64 np[cap], valid np[cap], new_global_dict, grew)."""
+    import pyarrow.compute as pc
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_floating(arr.type):
+        arr = pc.add(arr, 0.0)  # -0.0 + 0.0 == +0.0
+        nan = pa.scalar(float("nan"), type=arr.type)
+        arr = pc.if_else(pc.is_nan(arr), nan, arr)
+    enc = arr.dictionary_encode()
+    if global_arr is None:
+        global_arr = pa.array([], type=enc.dictionary.type)
+    local = enc.dictionary.cast(global_arr.type)
+    base = len(global_arr)
+    if base:
+        found = pc.index_in(local, value_set=global_arr)
+    else:
+        found = pa.nulls(len(local), type=pa.int32())
+    new_mask = np.asarray(pc.is_null(found))
+    grew = bool(new_mask.any())
+    if grew:
+        new_vals = local.filter(pa.array(new_mask))
+        global_arr = pa.concat_arrays(
+            [global_arr, new_vals]) if base else new_vals
+    # code per local value: existing position, or base + rank-among-new
+    new_rank = np.cumsum(new_mask) - 1
+    found_np = np.asarray(found.fill_null(0), dtype=np.int64)
+    mapping = np.where(new_mask, base + new_rank, found_np)
+    idx = enc.indices
+    valid = np.zeros(cap, dtype=bool)
+    valid[:len(arr)] = np.asarray(idx.is_valid())
+    codes = np.zeros(cap, dtype=np.int64)
+    codes[:len(arr)][valid[:len(arr)]] = mapping[
+        np.asarray(idx.fill_null(0), dtype=np.int64)[valid[:len(arr)]]]
+    return codes, valid, global_arr, grew
+
+
+def _agg_arg(fn: AggFunction, cv, cap: int, device: torch.device):
+    """One aggregate argument as (data, validity) over `cap` rows.
+    count over a utf8 column reads only its validity (as int8 data); any
+    other function over a host value raises (ColVal.to_device)."""
+    if not cv.is_device and isinstance(fn, CountAgg):
+        valid = np.zeros(cap, dtype=bool)
+        valid[:len(cv.array)] = np.asarray(cv.array.is_valid())
+        v = to_device(valid, device)
+        return v.to(torch.int8), v
+    cv = cv.to_device(cap)
+    return cv.data, cv.validity
 
 
 def _host_copies(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:

@@ -6,7 +6,8 @@ follow the JAX package's rules (one multithreaded read for a multi-file
 group, per-file eager reads up to `auron.tpu.scan.eagerFileBytes`, else
 `iter_batches`), so both packages see the same batches.  Predicate
 pruning, partition constants, scan sharing and dictionary encoding
-belong to later slices.
+belong to later slices: a plan built with `auron.tpu.encoding.dict.enable`
+set raises.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ class ParquetScanExec(ExecutionPlan):
             raise NotImplementedError(
                 "parquet predicate pruning and partition columns belong to "
                 "a later slice of the PyTorch port (ROADMAP Queue 1 item 4)")
+        if config.ENCODING_DICT_ENABLE.get():
+            raise NotImplementedError(
+                f"{config.ENCODING_DICT_ENABLE.key}: the scan's dictionary "
+                f"encoder and DictColumn belong to the strings slice of the "
+                f"PyTorch port (ROADMAP Queue 1 item 13)")
         self._file_schema = schema
         self._projection = list(projection) if projection is not None \
             else None

@@ -1,8 +1,8 @@
 """Device group tables (port of the aggregation core of
-blaze_tpu/parallel/stage.py: `HashAggCarry` .. `_identity`, and the dense
-group ids `pack_dense_keys[_i32]` / `unpack_dense_keys`, with the dense
-scatter carry of blaze_tpu/plan/fused.py `_init_carry` /
-`_scatter_into_carry`).
+blaze_tpu/parallel/stage.py: `HashAggCarry` .. `_identity`, the dense
+group ids `pack_dense_keys[_i32]` / `unpack_dense_keys` and a batch's own
+dense table `dense_partial_agg`, with the dense scatter carry of
+blaze_tpu/plan/fused.py `_init_carry` / `_scatter_into_carry`).
 
 `hash_agg_step` inserts one batch: keys hash with xxhash64 (seed 42) to a
 slot, `kernels/hash_update.place_in_carry` places rows by linear probing,
@@ -326,6 +326,55 @@ def unpack_dense_keys(slots, ranges: Sequence[Tuple[int, int]]):
         valid = k < (hi - lo + 1)
         out.append((where(valid, k + lo, 0), valid))
     return out
+
+
+def dense_partial_agg(gid: torch.Tensor, num_slots: int,
+                      agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
+                                                Optional[torch.Tensor]]],
+                      valid_mask: torch.Tensor):
+    """One batch's own dense table: one segmented reduction per
+    accumulator, keyed by a precomputed dense group id; masked rows go to
+    the sentinel slot `num_slots`, which is cut off.  Empty slots hold 0.
+    Returns (accs, acc_valid, slot_occupied)."""
+    g = torch.where(valid_mask, gid.to(torch.int64),
+                    torch.full_like(gid, num_slots, dtype=torch.int64))
+
+    def seg(init, index, values, reduce=None):
+        out = torch.full((num_slots + 1,), init, dtype=values.dtype,
+                         device=values.device)
+        if reduce is None:
+            out.index_add_(0, index, values)
+        else:
+            out.scatter_reduce_(0, index, values, reduce, include_self=True)
+        return out[:num_slots]
+
+    occupied = seg(0, g, valid_mask.to(torch.int32)) > 0
+    accs, avalid = [], []
+    for kind, values, vvalid in agg_specs:
+        vv = (vvalid if vvalid is not None
+              else torch.ones_like(valid_mask)) & valid_mask
+        if kind == "count":
+            accs.append(seg(0, g, vv.to(torch.int64)))
+            avalid.append(torch.ones(num_slots, dtype=torch.bool,
+                                     device=g.device))
+            continue
+        if kind == "sum":
+            dt = (torch.float64 if values.dtype.is_floating_point
+                  else torch.int64)
+            v = values.to(dt)
+            acc = seg(0, g, torch.where(vv, v, torch.zeros_like(v)))
+        elif kind in ("min", "max"):
+            ident = _identity(values.dtype, kind == "max")
+            gm = torch.where(vv, g, torch.full_like(g, num_slots))
+            acc = seg(ident, gm, torch.where(
+                vv, values, torch.full_like(values, ident)),
+                "amin" if kind == "min" else "amax")
+        else:
+            raise ValueError(f"unsupported dense agg kind {kind}")
+        has = seg(0, g, vv.to(torch.int32)) > 0
+        accs.append(torch.where(has, acc, torch.zeros_like(acc)))
+        avalid.append(has)
+    return accs, avalid, occupied
 
 
 def init_dense_carry(kinds: Sequence[str], acc_dtypes: Sequence,

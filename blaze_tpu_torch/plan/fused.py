@@ -2,8 +2,8 @@
 table (port of the dense, window-table and hash lanes of
 blaze_tpu/plan/fused.py).
 
-`fuse_plan` rewrites an eligible `AggExec` (sum/count/min/max over
-fixed-width keys) into `FusedPartialAggExec`.  The filter/project chain
+`fuse_plan` rewrites an eligible `AggExec` (sum/count/min/max) into
+`FusedPartialAggExec`.  The filter/project chain
 between the aggregation and its source is absorbed: each source batch is
 filtered, projected and folded into the group table in one step,
 evaluated eagerly on the device (the JAX package traces the same chain
@@ -23,6 +23,14 @@ into one XLA program).  The lane is chosen at plan time, as in JAX:
     carry.
   * HASH: fixed-width keys without usable bounds.  The open-addressing
     carry of parallel/stage.py, placed by the placement kernel.
+  * DICT: any utf8 key (`auron.tpu.fused.dictDevice`; not over min/max of
+    a float argument).  Every key column dictionary-encodes on the host
+    against a per-key dictionary that grows across batches; the codes
+    pack into a dense group id whose table doubles a key's capacity (and
+    re-lays the carry out) as its dictionary grows.  Past
+    `auron.tpu.fused.dictDevice.maxSlots` the partition re-runs through
+    the generic AggExec.  The JAX package's host Arrow lane, which it
+    takes under host placement, is not ported.
 
 Overflow handling is the JAX package's: exact modes (final, merge,
 complete) double the hash table and rehash; PARTIAL mode emits what it has
@@ -38,9 +46,8 @@ Where the device stage loop is active (`auron.tpu.stage.deviceLoop.enable`:
 source), `execute` takes the loop first (runtime/loop.py: a chunk of
 source batches per CUDA graph replay), as the JAX package does; a
 `StageLoopFallback` (a partial-mode overflow) re-runs the partition
-through the lanes above, counted in `stage_loop_fallback`.  String keys
-and the host Arrow lane belong to later slices and raise
-NotImplementedError.
+through the lanes above, counted in `stage_loop_fallback`.  The loop
+declines utf8 keys.
 """
 
 from __future__ import annotations
@@ -48,24 +55,31 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import pyarrow as pa
 import torch
 
 from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn,
-                                   bucket_capacity)
+                                   bucket_capacity, to_device)
 from blaze_tpu_torch.exprs import BoundReference, PhysicalExpr
 from blaze_tpu_torch.kernels import window_table as WT
 from blaze_tpu_torch.ops.agg import (AggExec, AggMode, CountAgg, MinMaxAgg,
                                      SumAgg)
-from blaze_tpu_torch.ops.agg.exec import build_agg_schema
+from blaze_tpu_torch.ops.agg.exec import (_host_copies, build_agg_schema,
+                                          incremental_dict_codes)
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
 from blaze_tpu_torch.ops.basic import FilterExec, ProjectExec, \
     apply_filter, apply_project
 from blaze_tpu_torch.ops.scan import ParquetScanExec, parquet_metadata
-from blaze_tpu_torch.parallel.stage import (HashAggCarry, hash_agg_step,
+from blaze_tpu_torch.parallel.stage import (HashAggCarry, _identity,
+                                            dense_partial_agg,
+                                            hash_agg_step,
+                                            init_accumulators,
                                             init_dense_carry,
                                             init_hash_carry,
                                             pack_dense_keys,
+                                            pack_dense_keys_i32,
                                             rehash_carry,
                                             scatter_into_dense_carry,
                                             unpack_dense_keys)
@@ -136,16 +150,23 @@ def _try_fuse_agg(node: ExecutionPlan) -> Optional["FusedPartialAggExec"]:
         specs.append((reduce_kind, out_kind, arg))
 
     key_types = [e.data_type(in_schema) for e, _ in groups]
-    if not all(t.is_fixed_width for t in key_types):
-        raise NotImplementedError(
-            "aggregation over string keys (the host Arrow lane and the "
-            "dictionary-code lane) belongs to the strings slice of the "
-            "PyTorch port (ROADMAP Queue 1 item 13)")
+    fixed_keys = all(t.is_fixed_width for t in key_types)
+    if not fixed_keys:
+        # utf8 keys take the dict-device lane (the JAX package's device
+        # placement branch; its host Arrow lane is not ported).  min/max
+        # over float arguments stay with the generic engine: the lane's
+        # elementwise minimum/maximum propagates NaN where Spark's total
+        # order skips it
+        if not all(t.is_fixed_width or t.id == TypeId.UTF8
+                   for t in key_types):
+            return None
+        if not _dict_lane_ok(specs, in_schema):
+            return None
 
     # the dense lane: integer keys with discoverable bounds whose table is
     # not much sparser than the input
     ranges = None
-    if all(t.is_integer for t in key_types):
+    if fixed_keys and all(t.is_integer for t in key_types):
         ranges = _discover_ranges(child, groups)
         if ranges is not None:
             total = _num_slots(ranges)
@@ -164,6 +185,14 @@ def _try_fuse_agg(node: ExecutionPlan) -> Optional["FusedPartialAggExec"]:
     if ranges is not None:
         node._mxu_meta = _plan_mxu_meta(child, specs, ranges, in_schema)
     return node
+
+
+def _dict_lane_ok(specs, in_schema) -> bool:
+    """The dict-device lane's admission (also re-checked at execution)."""
+    return (config.FUSED_DICT_DEVICE_ENABLE.get() and
+            not any(rk in ("min", "max") and arg is not None
+                    and arg.data_type(in_schema).is_floating
+                    for rk, _ok, arg in specs))
 
 
 def _num_slots(ranges) -> int:
@@ -444,6 +473,9 @@ class FusedPartialAggExec(ExecutionPlan):
                 return
             except StageLoopFallback:
                 self.metrics.add("stage_loop_fallback", 1)
+        if self._has_var_keys:
+            yield from self._execute_var_keys(partition)
+            return
         if self._ranges is None:
             yield from self._execute_sorted(partition)
             return
@@ -456,6 +488,34 @@ class FusedPartialAggExec(ExecutionPlan):
                 # its final drain), so the partition re-runs losslessly
                 self.metrics.add("mxu_verify_fallback", 1)
         yield from self._execute_dense(partition)
+
+    @property
+    def _has_var_keys(self) -> bool:
+        return any(not e.data_type(self._in_schema).is_fixed_width
+                   for e, _n in self._group_exprs)
+
+    def _execute_var_keys(self, partition: int) -> BatchIterator:
+        """The dict-device lane; where its code table would pass
+        `maxSlots`, the generic AggExec engine runs the partition instead
+        (the lane emits only at its final drain, so nothing has left
+        yet).  The JAX package would first try its host Arrow lane, which
+        the port does not have."""
+        if not _dict_lane_ok(self._specs, self._in_schema):
+            # the admission changed after fusion: never run the
+            # NaN-propagating fold on float min/max arguments
+            raise RuntimeError(
+                "fused utf8-key aggregation needs the dict-device lane "
+                f"({config.FUSED_DICT_DEVICE_ENABLE.key} changed after "
+                "plan fusion?)")
+        try:
+            yield from self._execute_dict_device(partition)
+        except _DictCapExceeded:
+            self.metrics.add("dict_device_fallback", 1)
+            agg = AggExec(self.children[0], self._group_exprs, self._aggs)
+            # its counters (cuda_batches, partial_skipped, ...) go to this
+            # operator's node, the one the plan's metric tree holds
+            agg.metrics = self.metrics
+            yield from agg.execute(partition)
 
     def _mxu_active(self) -> bool:
         """The window-table lane runs on a CUDA device, as the JAX package
@@ -591,6 +651,104 @@ class FusedPartialAggExec(ExecutionPlan):
                                    [a.index_select(0, slots) for a in accs],
                                    [v.index_select(0, slots) for v in avalid])
 
+    # -- utf8 keys: the dict-device lane -------------------------------------
+    def _execute_dict_device(self, partition: int) -> BatchIterator:
+        """Group by utf8 keys on the device: every key column (fixed-width
+        ones too) dictionary-encodes on the host against an accumulated
+        per-key dictionary; the codes pack into one dense group id, each
+        key's range its power-of-two capacity (from 16) plus a NULL slot,
+        and each batch's own table adds into the carry.  A capacity that
+        doubles re-lays the carry out; keys decode through the
+        dictionaries only at emit."""
+        nkeys = len(self._group_exprs)
+        kinds = tuple(rk for rk, _ok, _a in self._specs)
+        acc_dtypes = self._acc_dtypes()
+        dicts: List[Optional[pa.Array]] = [None] * nkeys
+        caps = [16] * nkeys
+        old_caps = list(caps)
+        limit = config.FUSED_DICT_DEVICE_MAX_SLOTS.get()
+        carry = None  # (accs, acc_valid, occupied) on the batch's device
+        n_batches = 0
+        for batch in self.children[0].execute(partition):
+            self.metrics.add(f"{batch.device.type}_batches")
+            cap = batch.capacity
+            dev = batch.device
+            sel = (batch.row_mask().cpu().numpy()[:batch.num_rows]
+                   if batch.selection is not None else None)
+            kd, kv = [], []
+            grew = False
+            for i, (e, _n) in enumerate(self._group_exprs):
+                arr = e.evaluate(batch).to_host(batch.num_rows)
+                codes, valid, dicts[i] = _global_dict_codes(
+                    arr, dicts[i], cap, sel)
+                while len(dicts[i]) > caps[i]:
+                    caps[i] *= 2
+                    grew = True
+                    self.metrics.add("dict_device_doublings", 1)
+                kd.append(to_device(codes, dev))
+                kv.append(to_device(valid, dev))
+            if _dict_slots(caps) > limit:
+                raise _DictCapExceeded
+            if grew and carry is not None:
+                carry = _relayout_dict_table(carry, kinds, acc_dtypes,
+                                             old_caps, caps)
+                self.metrics.add("dict_device_relayouts", 1)
+            old_caps = list(caps)
+            ad, av = [], []
+            for _rk, _ok, arg in self._specs:
+                if arg is None:
+                    ad.append(None)
+                    av.append(None)
+                else:
+                    v = arg.evaluate(batch).to_device(cap)
+                    ad.append(v.data)
+                    av.append(v.validity)
+            if carry is None:
+                carry = init_dense_carry(kinds, acc_dtypes,
+                                         _dict_slots(caps), dev)
+            carry = _dict_dense_step(carry, caps, kinds, kd, kv, ad, av,
+                                     batch.row_mask())
+            n_batches += 1
+        self.metrics.add("fused_batches", n_batches)
+        self.metrics.add("dict_device_batches", n_batches)
+        if carry is not None:
+            yield from self._emit_dict(carry, caps, dicts)
+
+    def _emit_dict(self, carry, caps, dicts) -> BatchIterator:
+        """The occupied slots in slot order: keys decoded from the slot
+        through the dictionaries, accumulators in one device-to-host
+        copy."""
+        accs, avalid, occupied = carry
+        slots = torch.nonzero(occupied).squeeze(1)
+        count = slots.shape[0]
+        if count == 0:
+            return
+        host = _host_copies([slots] + [a.index_select(0, slots)
+                                       for a in accs]
+                            + [v.index_select(0, slots) for v in avalid])
+        slots_h, nacc = host[0], len(accs)
+        host_accs, host_avalid = host[1:1 + nacc], host[1 + nacc:]
+        decoded = unpack_dense_keys(slots_h, [(0, c - 1) for c in caps])
+        out_arrow = self._out_schema.to_arrow()
+        arrays: List[pa.Array] = []
+        for i, ((code, kvalid), d) in enumerate(zip(decoded, dicts)):
+            idx = pa.array(np.where(kvalid, code, 0), pa.int64(),
+                           mask=~kvalid)  # a NULL code is a NULL key
+            arrays.append(d.take(idx).cast(out_arrow.field(i).type))
+        for i, ((_rk, out_kind, _arg), a, v) in enumerate(
+                zip(self._specs, host_accs, host_avalid), len(dicts)):
+            if out_kind == "count":
+                v = np.ones(count, dtype=bool)
+            arr = pa.array(a, mask=~v)
+            t = out_arrow.field(i).type
+            arrays.append(arr if arr.type.equals(t)
+                          else arr.cast(t, safe=False))
+        rb = pa.RecordBatch.from_arrays(arrays, schema=out_arrow)
+        bs = config.BATCH_SIZE.get()
+        for off in range(0, rb.num_rows, bs):
+            yield ColumnBatch.from_arrow(
+                rb.slice(off, min(bs, rb.num_rows - off)), device=slots.device)
+
     # -- unbounded keys: device open-addressing hash table -----------------
     def _execute_sorted(self, partition: int) -> BatchIterator:
         slots = _pow2(config.ON_DEVICE_AGG_CAPACITY.get())
@@ -709,6 +867,87 @@ class FusedPartialAggExec(ExecutionPlan):
                 valid[:m] = v[off:off + m]
                 out.append(DeviceColumn(f.data_type, data, valid))
             yield ColumnBatch(self._out_schema, out, m)
+
+
+class _DictCapExceeded(Exception):
+    """The dict-device code table would pass maxSlots; the partition
+    re-runs through the generic engine."""
+
+
+def _dict_slots(caps) -> int:
+    """Slots of the dict-device table: each key's range 0..cap-1 plus its
+    NULL slot."""
+    total = 1
+    for c in caps:
+        total *= c + 1
+    return total
+
+
+def _global_dict_codes(arr: pa.Array, global_arr: Optional[pa.Array],
+                       cap: int, sel: Optional[np.ndarray] = None):
+    """The dict-device lane's encoding over the shared incremental encoder
+    (ops/agg/exec.py incremental_dict_codes): int32 codes for
+    pack_dense_keys_i32, with the rows a filter deselected nulled before
+    encoding, so they neither grow the dictionary nor the code table (the
+    mask drops them from the reduction anyway)."""
+    if sel is not None and not sel.all():
+        import pyarrow.compute as pc
+        arr = pc.if_else(pa.array(sel[:len(arr)]), arr,
+                         pa.nulls(len(arr), arr.type))
+    codes, valid, global_arr, _grew = incremental_dict_codes(
+        arr, global_arr, cap)
+    return codes.astype(np.int32), valid, global_arr
+
+
+def _relayout_dict_table(carry, kinds, acc_dtypes, old_caps, new_caps):
+    """Move a dict-code table to the layout of larger key capacities:
+    decode the occupied slots to per-key codes (stride arithmetic), place
+    each under the new strides, and move its accumulators there one to
+    one (codes are unique per slot, nothing merges).  On the carry's
+    device."""
+    accs, avalid, occupied = carry
+    dev = occupied.device
+    occ = torch.nonzero(occupied).squeeze(1)
+    decoded = unpack_dense_keys(occ, [(0, c - 1) for c in old_caps])
+    new_total, new_slot = 1, torch.zeros_like(occ)
+    for (code, kvalid), c in zip(decoded, new_caps):
+        # the NULL slot is code == cap
+        new_slot += torch.where(kvalid, code, c) * new_total
+        new_total *= c + 1
+    fresh_accs, fresh_avalid = init_accumulators(kinds, acc_dtypes,
+                                                 new_total, dev)
+    for fa, a in zip(fresh_accs, accs):
+        fa[new_slot] = a[occ]
+    for fv, v in zip(fresh_avalid, avalid):
+        fv[new_slot] = v[occ]
+    n_occ = torch.zeros(new_total, dtype=torch.bool, device=dev)
+    n_occ[new_slot] = True
+    return fresh_accs, fresh_avalid, n_occ
+
+
+def _dict_dense_step(carry, caps, kinds, kd, kv, ad, av, mask):
+    """One batch into the dict-code table: the packed code id, the batch's
+    own dense table (dense_partial_agg), then an elementwise combine into
+    the carry, in the JAX step's order (the batch's float sums form first
+    and add to the carry once)."""
+    accs, avalid, occupied = carry
+    gid, total = pack_dense_keys_i32(list(zip(kd, kv)),
+                                     [(0, c - 1) for c in caps])
+    b_accs, b_avalid, b_occ = dense_partial_agg(
+        gid, total, list(zip(kinds, ad, av)), mask)
+    out_accs, out_avalid = [], []
+    for kind, ca, cv, ba, bv in zip(kinds, accs, avalid, b_accs, b_avalid):
+        if kind in ("sum", "count"):
+            out_accs.append(ca + ba)  # a batch's empty slots hold 0
+        else:
+            # the batch table zeroes its empty slots: back to the identity
+            # first, or a later batch drags every min/max toward 0
+            ident = _identity(ba.dtype, kind == "max")
+            ba = torch.where(bv, ba, torch.full_like(ba, ident))
+            out_accs.append(torch.minimum(ca, ba) if kind == "min"
+                            else torch.maximum(ca, ba))
+        out_avalid.append(cv | bv)
+    return tuple(out_accs), tuple(out_avalid), occupied | b_occ
 
 
 def _batch_windows(stream, window: int):

@@ -71,13 +71,33 @@ Phases, each printing its own lines; any failure exits non-zero:
      sort-merge join, under auto and off, each held to the pandas oracle
      (the 100 c_customer_id exact and in order); fails unless no batch
      and no join probe ran off the card, the device probe calls equal the
-     probe batches, and placement and radix launched; one run profiled
-     (stage walls, tasks and cudaLaunch* per stage, busy share, top device
-     and host ops, placement and radix on the card as often as counted,
-     one searchsorted kernel per device probe call, peak memory); and a
+     probe batches, and placement and radix launched; one run profiled,
+     each stage under its own profiler with device activity only (stage
+     walls, tasks and cudaLaunch* per stage, busy share, top device ops
+     and CUDA runtime calls, placement and radix on the card as often as
+     counted, one searchsorted kernel per device probe call, peak
+     memory); and a
      lineage probe (one byte of a committed map output flipped: the
      result equal, exactly one map task run twice);
- 11. the paths' profile summary and the kernel table as JSON lines, the
+ 11. q06, q42 and q03 (stage DAG): store_sales at SF10 in 4 files, item
+     and date_dim in one file each, from their seeds, and TPC-DS q06
+     (BASELINE config #2) through the DagScheduler with 4 exchange
+     partitions under auto, off and auto profiled, then q42 and q03 under
+     auto, and q42 once more with auron.tpu.fused.dictDevice.maxSlots
+     64; each with a fresh plan (its broadcast builds run again), held
+     to its pandas oracle (rows in order; sums within compare_frames'
+     1e-6); fails unless 3 stages, no batch and no join probe off the
+     card, the device probe calls equal the probe batches, radix launched
+     (and placement on q06's count by store), q06's average by category
+     ran on the generic engine on the card, q42's and q03's partial and
+     final stages ran on the dict-device lane (q03's brands doubling past
+     16 codes), and the maxSlots run fell back to the generic engine in
+     both; the profiled run as in phase 10;
+ 12. the dict-device lane through dictionary growth on the card: a
+     partial aggregation over 6 batches whose brands grow from 10 to 260,
+     re-laid out 4 times, against the same fold on the CPU (keys and
+     integers exact, float sums within 1e-9);
+ 13. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
@@ -107,8 +127,11 @@ S = 262144                  # auron.tpu.agg.table.capacity
 ROUNDS = 16                 # hash_agg_step probe rounds
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - T0:.1f} s] {name}", flush=True)
 
 
 def time_ms(fn, warmup=3, iters=25):
@@ -1688,20 +1711,17 @@ def full_path(plan, want, mode, profiled=False, corrupt=False):
     """Full q01 through the port's DagScheduler with the stage loop under
     `mode`: 6 stages, the 100 c_customer_id exact and in order against the
     pandas oracle, every batch and every join probe on the card, the
-    kernels launched.  With `profiled`, under torch.profiler: the busy
-    share, cudaLaunch* per stage, the top device and host ops, and
-    placement, radix and the probe's searchsorted run on the card as often
-    as counted.  With `corrupt`, the lineage probe: one byte of the first
-    non-empty map output of stage 0 is flipped after it commits, and
+    kernels launched.  With `profiled`, each stage under torch.profiler
+    (see _dag_profile).  With `corrupt`, the lineage probe: one byte of the
+    first non-empty map output of stage 0 is flipped after it commits, and
     exactly that map task must run twice."""
     import pandas as pd
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest import q01_dag as QD
     from blaze_tpu_torch.itest.runner import compare_frames, same_order
     from blaze_tpu_torch.kernels import join as JK
-    from blaze_tpu_torch.plan.stages import STAGE_RANGE, DagScheduler
+    from blaze_tpu_torch.plan.stages import DagScheduler
 
     label = (f"q01 full {mode}" + (" profiled" if profiled else "")
              + (" lineage probe" if corrupt else ""))
@@ -1709,21 +1729,14 @@ def full_path(plan, want, mode, profiled=False, corrupt=False):
           f"{N_FILES} file splits, {FULL_PARTS} exchange partitions")
     _loop_mode(mode)
     config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
-    sched = (QD.CorruptingScheduler(0) if corrupt else DagScheduler())
+    sched = (QD.CorruptingScheduler(0) if corrupt else
+             _stage_profiling_scheduler() if profiled else DagScheduler())
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     probes0 = dict(JK.probe_calls)
-    if profiled:
-        # the wall ends before the profiler's own teardown
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = sched.run_collect(plan)
-            wall = time.perf_counter() - t0
-    else:
-        t0 = time.perf_counter()
-        out = sched.run_collect(plan)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = sched.run_collect(plan)
+    wall = time.perf_counter() - t0
     launches = _read_launches()
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
     peak = torch.cuda.max_memory_allocated()
@@ -1780,61 +1793,380 @@ def full_path(plan, want, mode, profiled=False, corrupt=False):
            "probe_calls": probes, "peak_bytes": peak,
            "task_runs": {f"{k[0]},{k[1]}": v
                          for k, v in sched.task_runs.items()}}
-    if not profiled:
-        return res
-    stages = [str(sid) for sid in tasks]
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if _on_card(e))
-    per_stage, busy_stage = _per_stage(prof, stages, STAGE_RANGE)
-    host = _host_launches(prof)
+    if profiled:
+        res.update(_dag_profile(sched, label, wall, launches, probes))
+    return res
+
+
+def _stage_profiling_scheduler():
+    """A DagScheduler that runs each stage under its own torch.profiler,
+    device activity only (kernels, copies and the CUDA runtime calls that
+    issue them): a trace with host ops of q06's 880 probe batches holds
+    millions of events, which take minutes to read."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.plan.stages import DagScheduler
+
+    class StageProfiling(DagScheduler):
+        def __init__(self):
+            super().__init__()
+            self.profiles = {}
+
+        def _stage_scope(self, sid):
+            inner = super()._stage_scope(sid)
+
+            @contextlib.contextmanager
+            def scope():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    with inner:
+                        yield
+                self.profiles[sid] = prof
+            return scope()
+    return StageProfiling()
+
+
+def _dag_profile(sched, label, wall, launches, probes):
+    """A DagScheduler run profiled per stage (_stage_profiling_scheduler):
+    the busy share, cudaLaunch* and busy ms per stage, the top device ops
+    and CUDA runtime calls, and placement, radix and the join probe's
+    searchsorted run on the card as often as their wrappers counted."""
+    import torch
+    from blaze_tpu_torch.plan.stages import STAGE_RANGE
+    t0 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    per_stage, busy_stage, graphs = {}, {}, 0
+    by_name, host_calls = {}, {}
+    for sid, prof in sorted(sched.profiles.items()):
+        n_launch = busy_us = 0
+        for e in prof.events():
+            name = e.name
+            us = e.time_range.elapsed_us()
+            if e.device_type == cuda:
+                if getattr(e, "is_user_annotation", False):
+                    continue
+                busy_us += us
+                t, c = by_name.get(name, (0.0, 0))
+                by_name[name] = (t + us, c + 1)
+                continue
+            if name.startswith(STAGE_RANGE):
+                continue
+            t, c = host_calls.get(name, (0.0, 0))
+            host_calls[name] = (t + us, c + 1)
+            n_launch += name.startswith("cudaLaunch")
+            graphs += name.startswith("cudaGraphLaunch")
+        per_stage[str(sid)] = n_launch
+        busy_stage[str(sid)] = busy_us
+    busy = sum(busy_stage.values())
     print(f"profiled wall {wall:.3f} s; device busy {busy / 1e6:.4f} s = "
           f"{100 * busy / 1e6 / wall:.2f}% of the wall")
-    print(f"cudaLaunch* per stage: {per_stage} (all {host['kernel']}, "
-          f"cudaGraphLaunch {host['graph']})")
+    print(f"cudaLaunch* per stage: {per_stage} (all "
+          f"{sum(per_stage.values())}, cudaGraphLaunch {graphs})")
     print("device busy per stage, ms: " + ", ".join(
         f"{st} {us / 1e3:.3f}" for st, us in busy_stage.items()))
-    by_name = {}
-    for e in prof.events():
-        if _on_card(e):
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for kname, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0],
                                 reverse=True)[:12]:
         print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
-    for e in sorted((e for e in prof.key_averages()
-                     if not e.key.startswith(STAGE_RANGE)),
-                    key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
-        print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
-              f"{e.count:6d}  {e.key[:90]}")
+    for kname, (t, c) in sorted(host_calls.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:8]:
+        print(f"  host   {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
+
+    def kernels(pattern):
+        hits = [(t, c) for n, (t, c) in by_name.items() if pattern in n
+                and not n.startswith(("Memcpy", "Memset"))]
+        return sum(t for t, _c in hits), sum(c for _t, c in hits)
+
+    kernel_us = {}
     for kernel in ("hash_placement", "radix_partition"):
         names = KERNEL_NAMES[kernel]
         expected = ({RADIX_KERNELS[k]: c
                      for k, c in launches["radix_kernels"].items()}
                     if kernel == "radix_partition"
                     else {names[0]: launches[kernel]})
+        us = 0.0
         for pattern, want_n in expected.items():
-            _us, n_dev = _device_events(prof, (pattern,))
+            p_us, n_dev = kernels(pattern)
+            us += p_us
             if n_dev != want_n:
                 raise SystemExit(f"{label}: {kernel} ran {n_dev} device "
                                  f"kernels {pattern} where its wrapper "
                                  f"counted {want_n}")
-        print(f"  {kernel}: wrapper launches {launches[kernel]}, the same "
-              f"on the card")
+        calls = launches[kernel]
+        kernel_us[kernel] = us / calls if calls else None
+        print(f"  {kernel}: wrapper launches {calls}, the same on the card"
+              + (f", {us / calls:.2f} us a call" if calls else ""))
     # the join probe's torch ops on the card: one searchsorted kernel per
     # device probe call
-    probe_us, n_search = _device_events(prof, ("searchsorted",))
+    probe_us, n_search = kernels("searchsorted")
     if n_search != probes["cuda"]:
         raise SystemExit(f"{label}: {n_search} searchsorted kernels on the "
                          f"card for {probes['cuda']} device probe calls")
     print(f"  join probe: {probes['cuda']} device probe calls, "
           f"{n_search} searchsorted kernels on the card "
-          f"({probe_us / 1e3:.3f} ms)")
-    res.update(busy_s=busy / 1e6, busy_share=busy / 1e6 / wall,
-               launches_per_stage=per_stage,
-               busy_ms_per_stage={k: v / 1e3 for k, v in busy_stage.items()},
-               host_launches=host["kernel"], graph_launches=host["graph"],
-               searchsorted_kernels=n_search)
+          f"({probe_us / 1e3:.3f} ms); profile read in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(busy_s=busy / 1e6, busy_share=busy / 1e6 / wall,
+                launches_per_stage=per_stage,
+                busy_ms_per_stage={k: v / 1e3 for k, v in busy_stage.items()},
+                host_launches=sum(per_stage.values()), graph_launches=graphs,
+                searchsorted_kernels=n_search, kernel_us_per_call=kernel_us)
+
+
+FAMILY_PARTS = 4            # q06, q42, q03: the exchanges' partitions
+FALLBACK_MAX_SLOTS = 64     # the cap-fallback run's dictDevice.maxSlots
+
+
+def family_data(root):
+    """store_sales, item and date_dim at SF10 from their seeds
+    (store_sales in N_FILES files, item and date_dim one each); for each
+    of q06, q42 and q03 a maker of its plan (each run gets a fresh plan,
+    so its broadcast builds run again rather than come from the cache of
+    the plan's broadcast ids) and its pandas oracle's frame; and the
+    seconds each step took."""
+    from blaze_tpu_torch.itest import q06 as D
+    phase("data: TPC-DS store_sales, item and date_dim at SF10 for q06, "
+          "q42 and q03")
+    t0 = time.perf_counter()
+    tables = D.make_tables(SCALE)
+    t1 = time.perf_counter()
+    paths = D.write_splits(tables, os.path.join(root, "q06"), N_FILES)
+    t2 = time.perf_counter()
+    secs = {"generate": t1 - t0, "write": t2 - t1}
+    print("rows: " + ", ".join(f"{k} {t.num_rows} in {len(paths[k])} "
+                               f"file(s)" for k, t in tables.items())
+          + f"; generated in {secs['generate']:.1f} s, written in "
+          f"{secs['write']:.1f} s")
+    plans = {}
+    for name, (_plan, oracle) in D.plans(paths, tables,
+                                         FAMILY_PARTS).items():
+        t = time.perf_counter()
+        want = oracle()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        plans[name] = (lambda n=name: D.plans(paths, tables, FAMILY_PARTS,
+                                              [n])[n][0], want)
+        print(f"pandas oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return plans, secs
+
+
+def family_path(name, make_plan, want, mode, profiled=False,
+                max_slots=None):
+    """One of q06, q42 and q03 through the port's DagScheduler with the
+    stage loop under `mode`: 3 stages, the rows equal to the pandas
+    oracle's in order, every batch and every join probe on the card, radix
+    launched (and placement on q06's count by store).  q06: its average
+    by category ran on the generic engine on the card.  q42 and q03: the
+    partial and the final stage ran on the dict-device lane, or, with
+    `max_slots`, both fell back to the generic engine.  With `profiled`,
+    each stage under torch.profiler (see _dag_profile)."""
+    import pandas as pd
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import q06 as D
+    from blaze_tpu_torch.itest.q01_dag import stage_counters
+    from blaze_tpu_torch.itest.runner import compare_frames, same_order
+    from blaze_tpu_torch.kernels import join as JK
+    from blaze_tpu_torch.plan.stages import DagScheduler
+
+    label = (f"{name} {mode}" + (" profiled" if profiled else "")
+             + (f" maxSlots {max_slots}" if max_slots else ""))
+    phase(f"main path {label}: TPC-DS {name} through the stage DAG, SF10, "
+          f"{N_FILES} store_sales files, {FAMILY_PARTS} exchange "
+          f"partitions")
+    _loop_mode(mode)
+    config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    if max_slots:
+        config.conf.set(config.FUSED_DICT_DEVICE_MAX_SLOTS.key, max_slots)
+    sched = _stage_profiling_scheduler() if profiled else DagScheduler()
+    plan = make_plan()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    probes0 = dict(JK.probe_calls)
+    try:
+        t0 = time.perf_counter()
+        out = sched.run_collect(plan)
+        wall = time.perf_counter() - t0
+    finally:
+        config.conf.unset(config.FUSED_DICT_DEVICE_MAX_SLOTS.key)
+    launches = _read_launches()
+    probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
+    peak = torch.cuda.max_memory_allocated()
+    got = out.to_pandas() if out.num_rows else pd.DataFrame(
+        {n: [] for n in out.schema.names})
+    counters = stage_counters(sched, D.STAGE_COUNTERS)
+    engine = D.operator_counters(sched, "AggExec",
+                                 ("cuda_batches", "cpu_batches"))
+    tasks = {st.sid: st.num_tasks for st in sched.stages}
+    print(sched.describe())
+    print("stage walls, s (host clock, each ending in a device "
+          "synchronisation): " + ", ".join(
+              f"{sid} {w:.3f}" for sid, w in sorted(sched.stage_walls.items()))
+          + f"; run {wall:.3f} s")
+    for sid in sorted(counters):
+        print(f"  stage {sid} ({tasks[sid]} tasks): "
+              f"{ {k: v for k, v in counters[sid].items() if v} }")
+    print(f"launches: {launches}; join probes {probes}; generic engine "
+          f"batches {engine}; peak {peak} bytes")
+    if len(sched.stages) != 3:
+        raise SystemExit(f"{label}: {len(sched.stages)} stages, expected 3")
+    err = compare_frames(got, want) or same_order(got, want)
+    if not len(got) or err:
+        raise SystemExit(f"{label}: {len(got)} rows against the oracle's "
+                         f"{len(want)}: {err}")
+    print(f"result: {len(got)} rows equal to the pandas oracle, in order "
+          f"(first {got.iloc[0].tolist()})")
+    needed = ["radix_partition"] + (["hash_placement"] if name == "q06"
+                                    else [])
+    for k in needed:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    off_card = {sid: c["cpu_batches"] for sid, c in counters.items()
+                if c["cpu_batches"]}
+    if off_card or probes["cpu"]:
+        raise SystemExit(f"{label}: work off the card: cpu_batches "
+                         f"{off_card}, CPU join probes {probes['cpu']}")
+    probe_batches = sum(c["probe_batches"] for c in counters.values())
+    if probes["cuda"] != probe_batches or probe_batches <= 0:
+        raise SystemExit(f"{label}: {probes['cuda']} device probe calls for "
+                         f"{probe_batches} probe batches")
+    if name == "q06":
+        on_card = sum(c["cuda_batches"] for c in engine.values())
+        if on_card <= 0:
+            raise SystemExit(f"{label}: the average by category did not run "
+                             f"on the card: {engine}")
+    elif max_slots:
+        # each task that fell back: the lane's first batch, then the
+        # generic engine's batches from the start of the partition
+        if any(counters[s]["dict_device_fallback"] <= 0
+               or counters[s]["dict_device_batches"]
+               or counters[s]["cuda_batches"]
+               < 2 * counters[s]["dict_device_fallback"] for s in (0, 1)):
+            raise SystemExit(f"{label}: the dict lane did not fall back to "
+                             f"the generic engine on the card: {counters}")
+    elif any(counters[s]["dict_device_batches"] <= 0
+             or counters[s]["dict_device_fallback"] for s in (0, 1)):
+        raise SystemExit(f"{label}: a string-keyed stage off the dict "
+                         f"lane: {counters}")
+    elif name == "q03" and any(counters[s]["dict_device_doublings"] <= 0
+                               for s in (0, 1)):
+        raise SystemExit(f"{label}: i_brand's dictionary (50 brands) never "
+                         f"grew past 16 codes: {counters}")
+    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
+    leaks = sched.leak_report()
+    if runs or any(leaks.values()):
+        raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
+                         f"scheduler leaked {leaks}")
+    res = {"query": name, "mode": mode, "max_slots": max_slots,
+           "wall_s": wall, "stage_walls": sched.stage_walls,
+           "tasks": tasks, "counters": counters, "engine": engine,
+           "launches": launches, "probe_calls": probes, "peak_bytes": peak}
+    if profiled:
+        res.update(_dag_profile(sched, label, wall, launches, probes))
     return res
+
+
+def _arrow_source(batches, device):
+    """Fixed Arrow batches as port batches on `device` (one partition):
+    the relayout probe's source."""
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.ops.base import ExecutionPlan
+    from blaze_tpu_torch.schema import Schema
+
+    class Source(ExecutionPlan):
+        @property
+        def schema(self):
+            return Schema.from_arrow(batches[0].schema)
+
+        def execute(self, partition):
+            for rb in batches:
+                yield ColumnBatch.from_arrow(rb, device=device)
+    return Source()
+
+
+def dict_relayout_probe(dev):
+    """The dict-device lane on the card through key growth: a partial sum,
+    count and min/max by (brand, store) over 6 batches of 32,768 rows
+    whose brands grow from 10 to 260 (the brand key's capacity doubles 16
+    -> 32 -> ... -> 512 with a carry in place, re-laying the table out
+    each time), against the same fold on the CPU: keys, counts and
+    integers exact, float sums within 1e-9 relative."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from blaze_tpu_torch.exprs import BoundReference
+    from blaze_tpu_torch.ops.agg import AggExec, AggMode, make_agg
+    from blaze_tpu_torch.plan.fused import FusedPartialAggExec, fuse_plan
+    phase("dict-device lane on the card: dictionary growth re-lays the "
+          "table out, against the same fold on the CPU")
+    rng = np.random.default_rng(61)
+    batches = []
+    for b in range(6):
+        n = N
+        brands = np.array([f"brand_{i}" for i in range(10 + 50 * b)])
+        batches.append(pa.record_batch({
+            "brand": pa.array(brands[rng.integers(0, len(brands), n)],
+                              mask=rng.random(n) < 0.01),
+            "store": pa.array(rng.integers(1, 13, n)),
+            "price": pa.array(np.round(rng.random(n) * 300, 2),
+                              mask=rng.random(n) < 0.05),
+            "qty": pa.array(rng.integers(1, 100, n).astype(np.int32))}))
+    fns = [("sum", 2), ("count", 2), ("min", 3), ("max", 3), ("sum", 3)]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        src = _arrow_source(batches, d)
+        agg = fuse_plan(AggExec(
+            src, [(BoundReference(0), "brand"), (BoundReference(1), "store")],
+            [(make_agg(fn, [BoundReference(c)]), AggMode.PARTIAL, f"a{j}")
+             for j, (fn, c) in enumerate(fns)]))
+        if not isinstance(agg, FusedPartialAggExec):
+            raise SystemExit("relayout probe: the dict lane was not planned")
+        t0 = time.perf_counter()
+        rows = [b.to_arrow() for b in agg.execute(0)]
+        secs = time.perf_counter() - t0
+        out.append((pa.Table.from_batches(rows).combine_chunks(),
+                    dict(agg.metrics.values), secs))
+    (got, m, secs), (want, cm, _) = out
+    if m.get(f"{dev.type}_batches") != len(batches) or \
+            m.get("dict_device_relayouts", 0) < 3 or \
+            m.get("dict_device_relayouts") != cm.get("dict_device_relayouts"):
+        raise SystemExit(f"relayout probe: metrics {m} (CPU {cm})")
+    if got.num_rows != want.num_rows or got.schema != want.schema:
+        raise SystemExit("relayout probe: shape differs from the CPU's")
+    max_rel = 0.0
+    for col in got.schema.names:
+        a, b = got[col], want[col]
+        if pa.types.is_floating(a.type):
+            ok, rel = _sums_close(got, want, col)
+            max_rel = max(max_rel, rel)
+            if not ok or rel > 1e-9:
+                raise SystemExit(f"relayout probe: {col} off by {rel}")
+        elif not a.equals(b):
+            raise SystemExit(f"relayout probe: column {col} differs")
+    print(f"{got.num_rows} groups equal to the CPU fold (float sums within "
+          f"{max_rel:.3g} relative); {m['dict_device_relayouts']} relayouts,"
+          f" {m['dict_device_doublings']} doublings, "
+          f"{m['dict_device_batches']} batches on the card in "
+          f"{secs:.3f} s")
+    return {"groups": got.num_rows, "max_rel": max_rel, "seconds": secs,
+            "relayouts": m["dict_device_relayouts"],
+            "doublings": m["dict_device_doublings"]}
+
+
+def family_phase(root):
+    """q06 (BASELINE config #2) under auto, off and auto profiled, then q42
+    and q03 under auto, and q42 with a small maxSlots (the generic
+    engine's fallback: its 17 x 17 codes pass 64), over one SF10 data
+    set."""
+    plans, secs = family_data(root)
+    q06_plan, q06_want = plans["q06"]
+    runs = {"q06 auto": family_path("q06", q06_plan, q06_want, "auto"),
+            "q06 off": family_path("q06", q06_plan, q06_want, "off"),
+            "q06 profiled": family_path("q06", q06_plan, q06_want, "auto",
+                                        profiled=True)}
+    for name in ("q42", "q03"):
+        runs[f"{name} auto"] = family_path(name, *plans[name], "auto")
+    runs["q42 fallback"] = family_path("q42", *plans["q42"], "auto",
+                                       max_slots=FALLBACK_MAX_SLOTS)
+    return {"data_s": secs, "runs": runs}
 
 
 def pq_rows(path):
@@ -1905,6 +2237,10 @@ def main():
                 "profiled": full_path(plan, want, "auto", profiled=True),
                 "lineage": full_path(plan, want, "auto", corrupt=True)}
         by_path["q01 full"] = full["auto"]["launches"]
+        family = family_phase(root)
+        for name in ("q06", "q42", "q03"):
+            by_path[name] = family["runs"][f"{name} auto"]["launches"]
+        relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
     finally:
@@ -2002,9 +2338,19 @@ def main():
                   f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
                   f"stage {f['launches_per_stage']}" if "busy_share" in f
                   else ""))
+    print("q06 family data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in family["data_s"].items()))
+    for k, f in family["runs"].items():
+        print(f"{k}: run {f['wall_s']:.3f} s, stage walls "
+              f"{ {s: round(w, 3) for s, w in f['stage_walls'].items()} }, "
+              f"peak {f['peak_bytes']} bytes" + (
+                  f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                  f"stage {f['launches_per_stage']}" if "busy_share" in f
+                  else ""))
     print(json.dumps({"paths": profiled, "runs": runs,
                       "stage_loop": loop_phases, "branches": branches,
-                      "q01_full": full, "crc32c": crc}))
+                      "q01_full": full, "q06_family": family,
+                      "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

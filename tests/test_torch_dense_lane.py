@@ -25,9 +25,14 @@ SCHEMA_D = {"fields": [
     {"name": "amt", "type": {"id": "float64"}, "nullable": True},
     {"name": "qty", "type": {"id": "int64"}, "nullable": True},
 ]}
+# io.prefetch off: a JAX lane that falls back mid-stream abandons its scan,
+# whose prefetch thread then blocks for the rest of the process (and
+# tests/test_prefetch.py, run later in the same worker, counts the live
+# prefetch threads)
 JAX_ONLY = {"auron.tpu.fused.hostVectorized": False,
             "auron.tpu.stage.deviceLoop.enable": "off",
-            "auron.tpu.kernels.pallas": "off"}
+            "auron.tpu.kernels.pallas": "off",
+            "auron.tpu.io.prefetch": False}
 FORCE = "auron.tpu.mxuAgg.force"
 
 

@@ -2,8 +2,9 @@
 picks the device and CUDA without a card raises; CPU tensors take the
 plain versions; the kernel wrappers validate their operands and a missing
 toolchain raises instead of falling back; bounded keys take the dense lane
-as in the JAX package, and lanes the port lacks (string keys) raise
-NotImplementedError instead of rerouting."""
+as in the JAX package, string keys take the dict-device lane, and what
+the port lacks (the scan's dictionary encoder) raises NotImplementedError
+instead of rerouting."""
 
 import copy
 
@@ -124,5 +125,20 @@ def test_lanes_outside_the_slice_raise(tmp_path, device_key):
     dense = fuse_plan(_agg_plan(tmp_path, 50)).children[0]
     assert isinstance(dense, FusedPartialAggExec)
     assert dense.fused_mode == "dense" and dense._mxu_meta is not None
-    with pytest.raises(NotImplementedError, match="string keys"):
-        fuse_plan(_agg_plan(tmp_path, 100_000, keys=("s_name",)))
+    # a utf8 key: the dict-device lane, or the generic engine with the
+    # lane off
+    var = fuse_plan(_agg_plan(tmp_path, 100_000, keys=("s_name",)))
+    assert isinstance(var.children[0], FusedPartialAggExec)
+    assert var.children[0]._has_var_keys
+    config.conf.set(config.FUSED_DICT_DEVICE_ENABLE.key, False)
+    try:
+        off = fuse_plan(_agg_plan(tmp_path, 100_000, keys=("s_name",)))
+        assert type(off.children[0]).__name__ == "AggExec"
+    finally:
+        config.conf.unset(config.FUSED_DICT_DEVICE_ENABLE.key)
+    config.conf.set(config.ENCODING_DICT_ENABLE.key, True)
+    try:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            _agg_plan(tmp_path, 100_000, keys=("s_name",))
+    finally:
+        config.conf.unset(config.ENCODING_DICT_ENABLE.key)

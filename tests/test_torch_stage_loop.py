@@ -36,12 +36,17 @@ CAPACITY = "auron.tpu.agg.table.capacity"
 @pytest.fixture
 def loop_on():
     jconf.conf.set("auron.tpu.fused.hostVectorized", False)
+    # io.prefetch off: the JAX loop's fallback abandons its scan, whose
+    # prefetch thread then blocks for the rest of the process (and
+    # tests/test_prefetch.py, run later in the same worker, counts the
+    # live prefetch threads)
+    jconf.conf.set("auron.tpu.io.prefetch", False)
     for c in (jconf, tconf):
         c.conf.set(LOOP, "on")
     tconf.conf.set(tconf.TORCH_DEVICE.key, "cpu")
     yield
     for k in ("auron.tpu.fused.hostVectorized", "auron.tpu.kernels.pallas",
-              LOOP, CHUNK, BATCH, CAPACITY):
+              "auron.tpu.io.prefetch", LOOP, CHUNK, BATCH, CAPACITY):
         jconf.conf.unset(k)
     for k in (LOOP, CHUNK, BATCH, CAPACITY, tconf.TORCH_DEVICE.key):
         tconf.conf.unset(k)
