@@ -1,10 +1,16 @@
-"""Expressions of the PyTorch port: column, literal, and the binary
-comparisons, AND/OR and arithmetic over fixed-width types; utf8 columns
-and literals evaluate on the host, where `==` and `!=` compare them."""
+"""Expressions of the PyTorch port: column, literal, the binary
+comparisons, AND/OR and arithmetic over fixed-width types, and the
+conditional expressions (null tests, NOT, IF, CASE WHEN, COALESCE,
+IN-list); utf8 columns and literals evaluate on the host, where `==`,
+`!=` and IN compare them."""
 
 from blaze_tpu_torch.exprs.base import (BoundReference, ColVal, Literal,
                                         PhysicalExpr)
 from blaze_tpu_torch.exprs.binary import BinaryExpr
+from blaze_tpu_torch.exprs.conditional import (CaseWhen, Coalesce, If,
+                                               InList, IsNotNull, IsNull,
+                                               Not)
 
-__all__ = ["BinaryExpr", "BoundReference", "ColVal", "Literal",
+__all__ = ["BinaryExpr", "BoundReference", "CaseWhen", "Coalesce", "ColVal",
+           "If", "InList", "IsNotNull", "IsNull", "Literal", "Not",
            "PhysicalExpr"]

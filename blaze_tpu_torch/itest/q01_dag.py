@@ -19,13 +19,8 @@ from typing import Dict, Optional, Tuple
 from blaze_tpu_torch.plan.stages import DagScheduler
 
 
-def make_tables(scale: float) -> Dict:
-    """q01's four tables at `scale` from their generators' seeds."""
-    from blaze_tpu_torch.itest import tpcds_data as T
-    return {"store_returns": T.gen_store_returns(scale),
-            "date_dim": T.gen_date_dim(scale),
-            "store": T.gen_store(scale),
-            "customer": T.gen_customer(scale)}
+#: q01's four tables (itest/tpcds_data.py `make_tables`)
+TABLES = ("store_returns", "date_dim", "store", "customer")
 
 
 def corrupt_block(data_file: str, index_file: str) -> Optional[int]:

@@ -1,6 +1,6 @@
 """TPC-DS q06 and the brand-revenue queries (q03, q42, q52, q55) through
-the port's stage DAG (plan/stages.py): their tables at a scale, the file
-splits and the plans with their oracles.
+the port's stage DAG (plan/stages.py): the tables they read, the
+counters a run is checked by, and the per-operator counters of a run.
 
 Every one of them groups by a utf8 key somewhere: q06 averages the item
 price by `i_category` (the generic AggExec engine: avg is not fused) and
@@ -10,17 +10,15 @@ i_brand) or (d_year, i_category) on the fused dict-device lane, in the
 partial and in the final stage.
 
 store_sales is split into `n_files` files; item and date_dim stay one
-file each.  q06 needs item in one file: its category average is a partial
-`avg` directly under a final one with no exchange between them (the
-reference's plan, itest/queries.py), so each file of a split item would
-average on its own.
+file each (itest/tpcds_data.py `write_splits`).  q06 needs item in one
+file: its category average is a partial `avg` directly under a final one
+with no exchange between them (the reference's plan, itest/queries.py),
+so each file of a split item would average on its own.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
-
-from blaze_tpu_torch.itest import queries as Q
+from typing import Dict
 
 #: operator counters a q06-family run is checked by (itest/q01_dag.py
 #: stage_counters sums them per stage)
@@ -32,32 +30,9 @@ STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                   "partial_skipped", "passthrough_rows",
                   "sort_device_runs")
 
-#: the fact table; every other table is a dimension and stays one file
-FACT = "store_sales"
-
-
-def make_tables(scale: float, names: List[str] = ("store_sales", "item",
-                                                  "date_dim")) -> Dict:
-    """The named tables at `scale` from their generators' seeds."""
-    from blaze_tpu_torch.itest import tpcds_data as T
-    return {n: getattr(T, "gen_" + n)(scale) for n in names}
-
-
-def write_splits(tables: Dict, out_dir: str, n_files: int) -> Dict:
-    """store_sales in `n_files` parquet files, every other table in one
-    (write_parquet_splits' layout)."""
-    from blaze_tpu_torch.itest.tpcds_data import write_parquet_splits
-    facts = {k: t for k, t in tables.items() if k == FACT}
-    dims = {k: t for k, t in tables.items() if k != FACT}
-    paths = write_parquet_splits(facts, out_dir, n_files)
-    paths.update(write_parquet_splits(dims, out_dir, 1))
-    return paths
-
-
-def plans(paths: Dict, tables: Dict, partitions: int,
-          names: List[str] = ("q06", "q42", "q03")) -> Dict:
-    """name -> (plan dict, oracle) for each query in `names`."""
-    return {n: Q.QUERIES[n][0](paths, tables, partitions) for n in names}
+#: the tables q06, q42 and q03 read, and the queries run over them
+TABLES = ("store_sales", "item", "date_dim")
+QUERY_NAMES = ("q06", "q42", "q03")
 
 
 def operator_counters(sched, op_name: str, names) -> Dict[int, Dict]:

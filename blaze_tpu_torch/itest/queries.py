@@ -1,20 +1,27 @@
 """TPC-DS queries as plan-IR dicts with their pandas oracles (a copy of
 the plan-dict helpers and of `q01`, `q06`, `_brand_revenue`, `q03`,
-`q42`, `q52` and `q55` of blaze_tpu/itest/queries.py).
+`q42`, `q52`, `q55`, `q17` and `q18` of blaze_tpu/itest/queries.py).
 
 Fact tables are read from parquet file splits; exchanges are
 `local_exchange` nodes, which plan/stages.py `DagScheduler` cuts into
 stages; aggregations use partial/final pairs as a Spark plan emits them.
 Each builder returns (plan_dict, oracle), the oracle computing the
 expected frame with pandas; `QUERIES` maps a name to its builder and the
-tables it reads.
+tables it reads, and `plans` builds several at once.
 
   q01  customers returning more than 1.2x their store's average
        (BASELINE config #1);
   q06  items above 1.2x their category's average price, counted by
        store (BASELINE config #2: hash join + group-by);
   q03, q42, q52, q55  revenue by brand (or category) in one month:
-       date_dim ⨝ store_sales ⨝ item, grouped by utf8 keys.
+       date_dim ⨝ store_sales ⨝ item, grouped by utf8 keys;
+  q17  store_sales ⨝ store_returns ⨝ catalog_sales through two shuffled
+       hash joins on two-column keys, each table in its own date window,
+       counts and averages by (i_item_id, s_state) (BASELINE config #3);
+  q18  catalog sales joined to demographics, customer, address (an IN
+       list) and item, averaged over ROLLUP(i_item_id, ca_country,
+       ca_state, ca_county): an Expand into five grouping sets
+       (BASELINE config #3).
 
 Date keys follow tpcds_data.gen_date_dim: sk = 2450815 + day, d_year =
 1998 + day // 365, d_moy = (day % 365) // 31 + 1 (at most 12).
@@ -303,11 +310,228 @@ def q55(paths, tables, partitions: int = 2):
 
 
 #: name -> (builder, the tables it reads)
+# ---------------------------------------------------------------------------
+# q17 shape: ss -> sr -> cs with three date roles, grouped stats
+# ---------------------------------------------------------------------------
+
+SS_WINDOW = _day_range(730, 820)      # Q1 2000
+SR_CS_WINDOW = _day_range(730, 1003)  # Q1-Q3 2000
+
+
+def q17(paths, tables, partitions: int = 4):
+    ss, sr, cs = (tables["store_sales"], tables["store_returns"],
+                  tables["catalog_sales"])
+    st, it = tables["store"], tables["item"]
+
+    ss_f = filter_(scan(paths, tables, "store_sales"),
+                   binop(">=", c("ss_sold_date_sk"), lit(SS_WINDOW[0])),
+                   binop("<=", c("ss_sold_date_sk"), lit(SS_WINDOW[1])))
+    sr_f = filter_(scan(paths, tables, "store_returns"),
+                   binop(">=", c("sr_returned_date_sk"),
+                         lit(SR_CS_WINDOW[0])),
+                   binop("<=", c("sr_returned_date_sk"),
+                         lit(SR_CS_WINDOW[1])))
+    cs_f = filter_(scan(paths, tables, "catalog_sales"),
+                   binop(">=", c("cs_sold_date_sk"), lit(SR_CS_WINDOW[0])),
+                   binop("<=", c("cs_sold_date_sk"), lit(SR_CS_WINDOW[1])))
+
+    ss_ex = exchange(ss_f, [c("ss_ticket_number"), c("ss_item_sk")],
+                     partitions)
+    sr_ex = exchange(sr_f, [c("sr_ticket_number"), c("sr_item_sk")],
+                     partitions)
+    ss_sr = join("hash_join", ss_ex, sr_ex,
+                 [c("ss_ticket_number"), c("ss_item_sk")],
+                 [c("sr_ticket_number"), c("sr_item_sk")])
+
+    left_ex = exchange(ss_sr, [c("sr_customer_sk"), c("sr_item_sk")],
+                       partitions)
+    cs_ex = exchange(cs_f, [c("cs_bill_customer_sk"), c("cs_item_sk")],
+                     partitions)
+    three = join("hash_join", left_ex, cs_ex,
+                 [c("sr_customer_sk"), c("sr_item_sk")],
+                 [c("cs_bill_customer_sk"), c("cs_item_sk")])
+
+    j_it = join("broadcast_join", three, scan(paths, tables, "item"),
+                [c("ss_item_sk")], [c("i_item_sk")])
+    j_st = join("broadcast_join", j_it, scan(paths, tables, "store"),
+                [c("ss_store_sk")], [c("s_store_sk")])
+
+    stats = _partial_final(
+        j_st,
+        [(c("i_item_id"), "i_item_id"), (c("s_state"), "s_state")],
+        [("count", "store_sales_cnt", [c("ss_quantity")]),
+         ("avg", "store_sales_avg", [c("ss_quantity")]),
+         ("count", "store_returns_cnt", [c("sr_return_quantity")]),
+         ("avg", "store_returns_avg", [c("sr_return_quantity")]),
+         ("count", "catalog_sales_cnt", [c("cs_quantity")]),
+         ("avg", "catalog_sales_avg", [c("cs_quantity")])],
+        partitions)
+    single = exchange(stats, [ci(0)], 1)
+    plan = sort_limit(single, [(ci(0), False), (ci(1), False)], 100)
+
+    def oracle():
+        ssd, srd, csd = ss.to_pandas(), sr.to_pandas(), cs.to_pandas()
+        std, itd = st.to_pandas(), it.to_pandas()
+        ssd = ssd[(ssd.ss_sold_date_sk >= SS_WINDOW[0]) &
+                  (ssd.ss_sold_date_sk <= SS_WINDOW[1])]
+        srd = srd[(srd.sr_returned_date_sk >= SR_CS_WINDOW[0]) &
+                  (srd.sr_returned_date_sk <= SR_CS_WINDOW[1])]
+        csd = csd[(csd.cs_sold_date_sk >= SR_CS_WINDOW[0]) &
+                  (csd.cs_sold_date_sk <= SR_CS_WINDOW[1])]
+        m = ssd.merge(srd, left_on=["ss_ticket_number", "ss_item_sk"],
+                      right_on=["sr_ticket_number", "sr_item_sk"])
+        m = m.dropna(subset=["sr_customer_sk"]).merge(
+            csd, left_on=["sr_customer_sk", "sr_item_sk"],
+            right_on=["cs_bill_customer_sk", "cs_item_sk"])
+        m = m.merge(itd, left_on="ss_item_sk", right_on="i_item_sk")
+        m = m.merge(std, left_on="ss_store_sk", right_on="s_store_sk")
+        out = m.groupby(["i_item_id", "s_state"], as_index=False).agg(
+            store_sales_cnt=("ss_quantity", "count"),
+            store_sales_avg=("ss_quantity", "mean"),
+            store_returns_cnt=("sr_return_quantity", "count"),
+            store_returns_avg=("sr_return_quantity", "mean"),
+            catalog_sales_cnt=("cs_quantity", "count"),
+            catalog_sales_avg=("cs_quantity", "mean"))
+        out = out.sort_values(["i_item_id", "s_state"])[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+# ---------------------------------------------------------------------------
+# q18 shape: demographics joins + ROLLUP via Expand grouping sets
+# ---------------------------------------------------------------------------
+
+Y1998 = _day_range(0, 364)
+Q18_STATES = ["TX", "OH", "IL"]
+
+
+Q18_COLS = ["i_item_id", "ca_country", "ca_state", "ca_county"]
+
+
+def q18_sets(tables) -> "pd.DataFrame":
+    """q18's oracle before its sort and limit: all five grouping sets of
+    the ROLLUP, one frame per set in the order g_id 0, 1, 3, 7, 15,
+    concatenated (the reference oracle's `concat`)."""
+    import pandas as pd
+    csd = tables["catalog_sales"].to_pandas()
+    cdd = tables["customer_demographics"].to_pandas()
+    cud, cad = tables["customer"].to_pandas(), \
+        tables["customer_address"].to_pandas()
+    itd = tables["item"].to_pandas()
+    csd = csd[(csd.cs_sold_date_sk >= Y1998[0]) &
+              (csd.cs_sold_date_sk <= Y1998[1])]
+    cdd = cdd[(cdd.cd_gender == "F") &
+              (cdd.cd_education_status == "Unknown")]
+    m = csd.merge(cdd, left_on="cs_bill_cdemo_sk", right_on="cd_demo_sk")
+    m = m.merge(cud, left_on="cs_bill_customer_sk",
+                right_on="c_customer_sk")
+    m = m.merge(cad[cad.ca_state.isin(Q18_STATES)],
+                left_on="c_current_addr_sk", right_on="ca_address_sk")
+    m = m.merge(itd, left_on="cs_item_sk", right_on="i_item_sk")
+    frames = []
+    cols = Q18_COLS
+    for kept, gid in ((4, 0), (3, 1), (2, 3), (1, 7), (0, 15)):
+        keys = cols[:kept]
+        if keys:
+            g = m.groupby(keys, as_index=False, dropna=False).agg(
+                agg1=("cs_quantity", "mean"),
+                agg2=("cs_list_price", "mean"),
+                agg3=("cs_coupon_amt", "mean"),
+                agg4=("cs_net_profit", "mean"))
+        else:
+            g = pd.DataFrame({
+                "agg1": [m.cs_quantity.mean()],
+                "agg2": [m.cs_list_price.mean()],
+                "agg3": [m.cs_coupon_amt.mean()],
+                "agg4": [m.cs_net_profit.mean()]})
+        for col_name in cols[kept:]:
+            g[col_name] = None
+        g["g_id"] = gid
+        frames.append(g[cols + ["g_id", "agg1", "agg2", "agg3",
+                                "agg4"]])
+    return pd.concat(frames, ignore_index=True)
+
+
+def q18(paths, tables, partitions: int = 4):
+    cs_f = filter_(scan(paths, tables, "catalog_sales"),
+                   binop(">=", c("cs_sold_date_sk"), lit(Y1998[0])),
+                   binop("<=", c("cs_sold_date_sk"), lit(Y1998[1])))
+    cd_f = filter_(scan(paths, tables, "customer_demographics"),
+                   binop("==", c("cd_gender"), lit("F", "utf8")),
+                   binop("==", c("cd_education_status"),
+                         lit("Unknown", "utf8")))
+    j_cd = join("broadcast_join", cs_f, cd_f,
+                [c("cs_bill_cdemo_sk")], [c("cd_demo_sk")])
+
+    cs_ex = exchange(j_cd, [c("cs_bill_customer_sk")], partitions)
+    cu_ex = exchange(scan(paths, tables, "customer"),
+                     [c("c_customer_sk")], partitions)
+    j_cu = join("hash_join", cs_ex, cu_ex,
+                [c("cs_bill_customer_sk")], [c("c_customer_sk")])
+
+    ca_f = filter_(scan(paths, tables, "customer_address"),
+                   {"kind": "in_list", "child": c("ca_state"),
+                    "values": Q18_STATES, "negated": False})
+    j_ca = join("broadcast_join", j_cu, ca_f,
+                [c("c_current_addr_sk")], [c("ca_address_sk")])
+    j_it = join("broadcast_join", j_ca, scan(paths, tables, "item"),
+                [c("cs_item_sk")], [c("i_item_sk")])
+
+    # ROLLUP(i_item_id, ca_country, ca_state, ca_county): 5 grouping sets
+    # (ref expand_exec.rs:506 fan-out; Spark emits Expand + grouping id)
+    nul = {"kind": "literal", "value": None, "type": {"id": "utf8"}}
+    grp = [c("i_item_id"), c("ca_country"), c("ca_state"), c("ca_county")]
+    aggs_src = [c("cs_quantity"), c("cs_list_price"), c("cs_coupon_amt"),
+                c("cs_net_profit")]
+    projections = []
+    for kept, gid in ((4, 0), (3, 1), (2, 3), (1, 7), (0, 15)):
+        row = [grp[i] if i < kept else nul for i in range(4)]
+        row.append(lit(gid))
+        row.extend(aggs_src)
+        projections.append(row)
+    expanded = {"kind": "expand", "input": j_it,
+                "projections": projections,
+                "names": ["i_item_id", "ca_country", "ca_state",
+                          "ca_county", "g_id", "cs_quantity",
+                          "cs_list_price", "cs_coupon_amt",
+                          "cs_net_profit"]}
+
+    stats = _partial_final(
+        expanded,
+        [(ci(0), "i_item_id"), (ci(1), "ca_country"), (ci(2), "ca_state"),
+         (ci(3), "ca_county"), (ci(4), "g_id")],
+        [("avg", "agg1", [ci(5)]), ("avg", "agg2", [ci(6)]),
+         ("avg", "agg3", [ci(7)]), ("avg", "agg4", [ci(8)])],
+        partitions)
+    single = exchange(stats, [ci(0)], 1)
+    plan = sort_limit(single,
+                      [(ci(4), False), (ci(0), False), (ci(1), False),
+                       (ci(2), False), (ci(3), False)], 100)
+
+    def oracle():
+        out = q18_sets(tables)
+        out = out.sort_values(["g_id"] + Q18_COLS)[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
 QUERIES: Dict[str, Tuple[Callable, list]] = {
     "q01": (q01, ["store_returns", "date_dim", "store", "customer"]),
+    "q17": (q17, ["store_sales", "store_returns", "catalog_sales",
+                  "store", "item"]),
+    "q18": (q18, ["catalog_sales", "customer_demographics", "customer",
+                  "customer_address", "item"]),
     "q03": (q03, ["store_sales", "item", "date_dim"]),
     "q06": (q06, ["store_sales", "item"]),
     "q42": (q42, ["store_sales", "item", "date_dim"]),
     "q52": (q52, ["store_sales", "item", "date_dim"]),
     "q55": (q55, ["store_sales", "item", "date_dim"]),
 }
+
+
+def plans(paths: Dict, tables: Dict, partitions: int,
+          names: List[str]) -> Dict:
+    """name -> (plan dict, oracle) for each query in `names`."""
+    return {n: QUERIES[n][0](paths, tables, partitions) for n in names}

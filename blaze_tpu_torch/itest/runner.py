@@ -5,7 +5,8 @@ analogs): row count and cell equality with a double tolerance,
 order-insensitive.  `run_query` runs a plan dict through the port's stage
 DAG (plan/stages.py `DagScheduler.run_collect`) and times it beside its
 oracle.  `same_order` adds the check that two frames hold equal rows in
-the same order.
+the same order; both compare float columns as arrays.  `frame` turns a
+result table into pandas.
 
 Not yet here: `normalize_plan` and `check_plan_stability` (the
 PlanStabilityChecker analog).  The reference's goldens hold the plans of
@@ -18,9 +19,11 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import pandas as pd
+from pandas.api.types import is_float_dtype
 
 DOUBLE_TOL = 1e-6
 
@@ -39,9 +42,10 @@ class QueryResult:
         return self.oracle_seconds / max(self.engine_seconds, 1e-9)
 
 
-def compare_frames(got: pd.DataFrame, want: pd.DataFrame) -> Optional[str]:
-    """Row-count + cell equality with double tolerance, order-insensitive
-    (QueryResultComparator semantics)."""
+def compare_frames(got: pd.DataFrame, want: pd.DataFrame,
+                   rel: float = DOUBLE_TOL) -> Optional[str]:
+    """Row-count + cell equality with double tolerance `rel`,
+    order-insensitive (QueryResultComparator semantics)."""
     if len(got) != len(want):
         return f"row count mismatch: got {len(got)} want {len(want)}"
     if got.shape[1] != want.shape[1]:
@@ -52,17 +56,14 @@ def compare_frames(got: pd.DataFrame, want: pd.DataFrame) -> Optional[str]:
     w.columns = list(range(w.shape[1]))
     g = g.sort_values(by=list(range(g.shape[1]))).reset_index(drop=True)
     w = w.sort_values(by=list(range(w.shape[1]))).reset_index(drop=True)
-    for ci in range(g.shape[1]):
-        gc, wc = g[ci], w[ci]
-        for ri in range(len(g)):
-            a, b = gc.iloc[ri], wc.iloc[ri]
-            if _cell_equal(a, b):
-                continue
-            return f"cell mismatch at row {ri} col {ci}: {a!r} != {b!r}"
-    return None
+    diff = _first_difference(g, w, rel)
+    if diff is None:
+        return None
+    ri, ci, a, b = diff
+    return f"cell mismatch at row {ri} col {ci}: {a!r} != {b!r}"
 
 
-def _cell_equal(a, b) -> bool:
+def _cell_equal(a, b, rel: float = DOUBLE_TOL) -> bool:
     a_null = a is None or (isinstance(a, float) and math.isnan(a)) or a is pd.NA
     b_null = b is None or (isinstance(b, float) and math.isnan(b)) or b is pd.NA
     if a_null or b_null:
@@ -75,21 +76,59 @@ def _cell_equal(a, b) -> bool:
             # exact match only: inf <= tol*inf would otherwise pass ANY
             # value against an infinity
             return fa == fb
-        return abs(fa - fb) <= DOUBLE_TOL * max(1.0, abs(fa), abs(fb))
+        return abs(fa - fb) <= rel * max(1.0, abs(fa), abs(fb))
     return a == b
 
 
-def same_order(got: pd.DataFrame, want: pd.DataFrame) -> Optional[str]:
-    """None when the two frames hold equal cells row by row in the same
-    order (compare_frames' cell rule), else the first difference."""
+def _first_difference(got: pd.DataFrame, want: pd.DataFrame, rel: float
+                      ) -> Optional[Tuple[int, int, Any, Any]]:
+    """(row, column, got's cell, want's cell) of the first cell, column by
+    column, where two frames of one shape differ by _cell_equal's rule,
+    else None.  Two float columns are compared as arrays by the same
+    rule; any other pair cell by cell."""
+    for ci in range(got.shape[1]):
+        gc, wc = got.iloc[:, ci], want.iloc[:, ci]
+        if is_float_dtype(gc) and is_float_dtype(wc):
+            a = gc.to_numpy(dtype=np.float64)
+            b = wc.to_numpy(dtype=np.float64)
+            finite = np.isfinite(a) & np.isfinite(b)
+            with np.errstate(invalid="ignore"):
+                close = np.abs(a - b) <= rel * np.maximum(
+                    1.0, np.maximum(np.abs(a), np.abs(b)))
+            # an infinity equals only itself, a NaN (null) only a NaN
+            ok = (a == b) | (np.isnan(a) & np.isnan(b)) | (finite & close)
+            bad = np.flatnonzero(~ok)
+        else:
+            bad = [ri for ri, (a, b) in enumerate(zip(gc.tolist(),
+                                                      wc.tolist()))
+                   if not _cell_equal(a, b, rel)]
+        if len(bad):
+            ri = int(bad[0])
+            return ri, ci, gc.iloc[ri], wc.iloc[ri]
+    return None
+
+
+def same_order(got: pd.DataFrame, want: pd.DataFrame,
+               rel: float = DOUBLE_TOL) -> Optional[str]:
+    """None when the two frames have the same columns and hold equal
+    cells row by row in the same order (compare_frames' cell rule with
+    tolerance `rel`), else the first difference."""
     if got.shape != want.shape:
         return f"shape mismatch: got {got.shape} want {want.shape}"
-    for ri in range(len(got)):
-        for ci in range(got.shape[1]):
-            a, b = got.iloc[ri, ci], want.iloc[ri, ci]
-            if not _cell_equal(a, b):
-                return f"row {ri} col {ci}: {a!r} != {b!r}"
-    return None
+    if list(got.columns) != list(want.columns):
+        return f"columns: got {list(got.columns)} want {list(want.columns)}"
+    diff = _first_difference(got, want, rel)
+    if diff is None:
+        return None
+    ri, ci, a, b = diff
+    return f"row {ri} col {ci}: {a!r} != {b!r}"
+
+
+def frame(t) -> pd.DataFrame:
+    """A result table (pyarrow) as pandas, with its columns even when it
+    has no row."""
+    return t.to_pandas() if t.num_rows else pd.DataFrame(
+        {n: [] for n in t.schema.names})
 
 
 def run_query(name: str, plan: Dict[str, Any], oracle) -> QueryResult:
@@ -102,8 +141,6 @@ def run_query(name: str, plan: Dict[str, Any], oracle) -> QueryResult:
     t1 = time.perf_counter()
     want = oracle()
     oracle_s = time.perf_counter() - t1
-    got = got_t.to_pandas() if got_t.num_rows else pd.DataFrame(
-        {n: [] for n in got_t.schema.names})
-    err = compare_frames(got, want)
+    err = compare_frames(frame(got_t), want)
     return QueryResult(name, got_t.num_rows, engine_s, oracle_s,
                        err is None, err or "")

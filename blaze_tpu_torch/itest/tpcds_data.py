@@ -1,10 +1,12 @@
-"""Synthetic TPC-DS-shaped tables for q01, q06 and the brand-revenue
-queries (a copy of `gen_store_returns`, `gen_store_sales`, `gen_date_dim`,
-`gen_store`, `gen_customer`, `gen_item` and `write_parquet_splits` of
-blaze_tpu/itest/tpcds_data.py, with the helpers they use).  The same seed
-gives the same values as the JAX package's generator: same columns, types
-and key relationships as TPC-DS, scaled by `scale` (1.0 ~ SF1 row
-counts).  Nothing is downloaded.
+"""Synthetic TPC-DS-shaped tables for q01, q06, the brand-revenue queries,
+q17 and q18 (a copy of `gen_store_returns`, `gen_store_sales`,
+`gen_catalog_sales`, `gen_date_dim`, `gen_store`, `gen_customer`,
+`gen_customer_demographics`, `gen_customer_address`, `gen_item` and
+`write_parquet_splits` of blaze_tpu/itest/tpcds_data.py, with the helpers
+they use), and `make_tables` and `write_splits` for the query modules.
+The same seed gives the same values as the JAX package's generator: same
+columns, types and key relationships as TPC-DS, scaled by `scale` (1.0 ~
+SF1 row counts).  Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -15,13 +17,19 @@ import pyarrow as pa
 SF1_ROWS = {
     "store_returns": 287_514,
     "store_sales": 2_880_404,
+    "catalog_sales": 1_441_548,
     "store": 12,
     "customer": 100_000,
     "customer_address": 50_000,
     "customer_demographics": 1_920_800,
     "date_dim": 73_049,
     "item": 18_000,
+    "warehouse": 5,
 }
+
+#: the fact tables split into several files; every other table is a
+#: dimension and stays one file
+FACTS = ("store_sales", "store_returns", "catalog_sales")
 
 SALES_DATE_DAYS = 1826  # TPC-DS facts span ~5 years (1998-2002)
 
@@ -34,7 +42,7 @@ def _date_ordered(tbl: pa.Table, date_col: str) -> pa.Table:
 
 def _rows(name: str, scale: float) -> int:
     base = SF1_ROWS[name]
-    if name in ("store", "date_dim"):
+    if name in ("store", "date_dim", "warehouse"):
         return base  # dimension tables do not scale
     if name == "customer_demographics":
         # fixed-size cross-product dimension in TPC-DS
@@ -136,6 +144,72 @@ def gen_store_sales(scale: float, seed: int = 15) -> pa.Table:
     }), "ss_sold_date_sk")
 
 
+def gen_catalog_sales(scale: float, seed: int = 17) -> pa.Table:
+    n = _rows("catalog_sales", scale)
+    rng = np.random.default_rng(seed)
+    date_n = min(_rows("date_dim", scale), SALES_DATE_DAYS)
+    sold = rng.integers(2450815, 2450815 + date_n, n)
+    return _date_ordered(pa.table({
+        "cs_sold_date_sk": pa.array(sold),
+        "cs_bill_customer_sk": pa.array(
+            rng.integers(1, _rows("customer", scale) + 1, n)),
+        "cs_bill_cdemo_sk": pa.array(
+            rng.integers(1, _rows("customer_demographics", scale) + 1, n)),
+        "cs_item_sk": pa.array(rng.integers(1, _rows("item", scale) + 1, n)),
+        "cs_quantity": pa.array(rng.integers(1, 100, n).astype(np.int32)),
+        "cs_list_price": pa.array(np.round(rng.random(n) * 300, 2)),
+        "cs_coupon_amt": pa.array(np.round(rng.random(n) * 50, 2)),
+        "cs_sales_price": pa.array(np.round(rng.random(n) * 250, 2)),
+        "cs_net_profit": pa.array(np.round(rng.random(n) * 100 - 20, 2)),
+        "cs_promo_sk": pa.array(rng.integers(1, 301, n)),
+        "cs_ext_sales_price": pa.array(np.round(rng.random(n) * 280, 2)),
+        "cs_ship_date_sk": pa.array(sold + rng.integers(1, 150, n)),
+        "cs_warehouse_sk": pa.array(
+            rng.integers(1, _rows("warehouse", scale) + 1, n)),
+        "cs_order_number": pa.array(rng.integers(1, max(1, n // 2) + 1,
+                                                 n)),
+        "cs_ship_mode_sk": pa.array(rng.integers(1, 21, n)),
+        "cs_call_center_sk": pa.array(rng.integers(1, 7, n)),
+    }), "cs_sold_date_sk")
+
+
+def gen_customer_demographics(scale: float, seed: int = 20) -> pa.Table:
+    n = _rows("customer_demographics", scale)
+    rng = np.random.default_rng(seed)
+    genders = np.array(["M", "F"])
+    edu = np.array(["Primary", "Secondary", "College", "2 yr Degree",
+                    "4 yr Degree", "Advanced Degree", "Unknown"])
+    return pa.table({
+        "cd_demo_sk": pa.array(np.arange(1, n + 1)),
+        "cd_gender": pa.array(genders[rng.integers(0, 2, n)]),
+        "cd_education_status": pa.array(edu[rng.integers(0, len(edu), n)]),
+        "cd_dep_count": pa.array(rng.integers(0, 7, n).astype(np.int32)),
+        "cd_marital_status": pa.array(
+            np.array(["S", "M", "D", "W", "U"])[rng.integers(0, 5, n)]),
+    })
+
+
+def gen_customer_address(scale: float, seed: int = 21) -> pa.Table:
+    n = _rows("customer_address", scale)
+    rng = np.random.default_rng(seed)
+    states = np.array(["TN", "CA", "NY", "TX", "WA", "GA", "IL", "IN",
+                       "OH", "NE"])
+    counties = np.array([f"county_{i}" for i in range(40)])
+    return pa.table({
+        "ca_address_sk": pa.array(np.arange(1, n + 1)),
+        "ca_state": pa.array(states[rng.integers(0, len(states), n)]),
+        "ca_city": pa.array(
+            np.array([f"city_{i}" for i in range(60)])[
+                rng.integers(0, 60, n)]),
+        "ca_county": pa.array(counties[rng.integers(0, len(counties), n)]),
+        "ca_country": pa.array(np.array(["United States"]).repeat(n)),
+        "ca_zip": pa.array(np.char.zfill(
+            rng.integers(0, 100000, n).astype(str), 5)),
+        "ca_gmt_offset": pa.array(
+            rng.integers(-8, -4, n).astype(np.int32)),
+    })
+
+
 def gen_item(scale: float, seed: int = 16) -> pa.Table:
     n = _rows("item", scale)
     rng = np.random.default_rng(seed)
@@ -178,4 +252,19 @@ def write_parquet_splits(tables, out_dir: str, partitions: int,
                            row_group_size=row_group_size)
             groups.append([p])
         paths[name] = groups
+    return paths
+
+
+def make_tables(scale: float, names) -> dict:
+    """The named tables at `scale` from their generators' seeds."""
+    return {n: globals()["gen_" + n](scale) for n in names}
+
+
+def write_splits(tables, out_dir: str, n_files: int) -> dict:
+    """The fact tables (FACTS) in `n_files` parquet files each, every
+    other table in one (write_parquet_splits' layout)."""
+    facts = {k: t for k, t in tables.items() if k in FACTS}
+    dims = {k: t for k, t in tables.items() if k not in FACTS}
+    paths = write_parquet_splits(facts, out_dir, n_files)
+    paths.update(write_parquet_splits(dims, out_dir, 1))
     return paths

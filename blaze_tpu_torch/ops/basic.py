@@ -1,5 +1,5 @@
-"""Filter, Project and Limit (port of FilterExec/ProjectExec/LimitExec,
-blaze_tpu/ops/basic.py).
+"""Filter, Project, Limit and Expand (port of FilterExec, ProjectExec,
+LimitExec and ExpandExec, blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
 compacts; CoalesceStream re-batches.  On the q01 path both operators are
@@ -122,3 +122,44 @@ class LimitExec(ExecutionPlan):
             else:
                 yield _take_range(batch, 0, remaining)
                 break
+
+
+class ExpandExec(ExecutionPlan):
+    """Grouping-sets fan-out (a ROLLUP or CUBE): each input batch goes
+    through K projection lists, batch by batch and projection by
+    projection within a batch, into one coalesced stream.  The output
+    schema is the first projection's; the others must match it (a null
+    utf8 literal is a host all-null column, an int64 literal a device
+    column)."""
+
+    def __init__(self, child: ExecutionPlan,
+                 projections: Sequence[Sequence[PhysicalExpr]],
+                 names: Sequence[str]):
+        super().__init__([child])
+        self._projections = [list(p) for p in projections]
+        self._names = list(names)
+        self._out_schema: Optional[Schema] = None
+
+    @property
+    def schema(self) -> Schema:
+        if self._out_schema is None:
+            in_schema = self.children[0].schema
+            self._out_schema = Schema([
+                Field(n, e.data_type(in_schema)) for n, e in
+                zip(self._names, self._projections[0])])
+        return self._out_schema
+
+    def execute(self, partition: int) -> BatchIterator:
+        """Counters: `output_rows`, and the projected batches by device
+        (`cuda_batches` / `cpu_batches`)."""
+        out_schema = self.schema
+
+        def gen():
+            for batch in self.children[0].execute(partition):
+                self.metrics.add("output_rows", batch.selected_count()
+                                 * len(self._projections))
+                for exprs in self._projections:
+                    out = apply_project(batch, exprs, out_schema)
+                    self.metrics.add(f"{out.device.type}_batches")
+                    yield out
+        return iter(CoalesceStream(gen(), metrics=self.metrics))

@@ -370,6 +370,7 @@ class BaseJoinExec(ExecutionPlan):
                                         np.full(len(un), -1, dtype=np.int64)])
         if not len(p_idx):
             return
+        self.metrics.add("output_rows", len(p_idx))
         yield self._materialize(probe_rb, jmap, p_idx, b_idx, probe_is_left)
 
     def _apply_filter(self, probe_rb, jmap: JoinMap, p_idx, b_idx,

@@ -1,6 +1,7 @@
 """Expression decoding: IR dicts -> PhysicalExpr trees (port of the part of
-blaze_tpu/plan/exprs.py the port uses: column, literal and binary, and
-sort specs).
+blaze_tpu/plan/exprs.py the port uses: column, literal, binary, the
+conditional kinds is_null, is_not_null, not, case, if, coalesce and
+in_list, and sort specs).
 
 Constant folding of all-literal subtrees (the JAX package's exprs/fold.py)
 is not carried over: it changes no result, and this slice's filters
@@ -11,10 +12,14 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from blaze_tpu_torch.exprs import BinaryExpr, BoundReference, Literal, \
-    PhysicalExpr
+from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
+                                   Coalesce, If, InList, IsNotNull, IsNull,
+                                   Literal, Not, PhysicalExpr)
 from blaze_tpu_torch.plan.types import type_from_dict
 from blaze_tpu_torch.schema import Schema
+
+
+_UNARY = {"is_null": IsNull, "is_not_null": IsNotNull, "not": Not}
 
 
 def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
@@ -33,10 +38,29 @@ def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
     if k == "binary":
         return BinaryExpr(d["op"], expr_from_dict(d["l"], schema),
                           expr_from_dict(d["r"], schema))
+    if k in _UNARY:
+        return _UNARY[k](expr_from_dict(d["child"], schema))
+    if k == "case":
+        branches = tuple((expr_from_dict(w, schema),
+                          expr_from_dict(t, schema))
+                         for w, t in d["branches"])
+        other = (expr_from_dict(d["else"], schema)
+                 if d.get("else") is not None else None)
+        return CaseWhen(branches, other)
+    if k == "if":
+        return If(expr_from_dict(d["cond"], schema),
+                  expr_from_dict(d["then"], schema),
+                  expr_from_dict(d["else"], schema))
+    if k == "coalesce":
+        return Coalesce(tuple(expr_from_dict(a, schema) for a in d["args"]))
+    if k == "in_list":
+        return InList(expr_from_dict(d["child"], schema),
+                      tuple(d["values"]), d.get("negated", False))
     raise NotImplementedError(
         f"expression kind {k!r} belongs to a later slice of the PyTorch port "
-        f"(ROADMAP Queue 1 item 3); this slice decodes column, literal and "
-        f"binary")
+        f"(ROADMAP Queue 1 item 3 for cast, item 13 for the string and "
+        f"scalar functions); this slice decodes column, literal, binary, "
+        f"is_null, is_not_null, not, case, if, coalesce and in_list")
 
 
 def sort_spec_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None):

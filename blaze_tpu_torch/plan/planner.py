@@ -2,9 +2,9 @@
 blaze_tpu/plan/planner.py this slice uses).
 
 Node kinds: parquet_scan, filter, project, hash_agg, sort_agg, sort,
-limit, shuffle_writer, ipc_reader, broadcast_join, sort_merge_join,
-hash_join and broadcast_join_build_hash_map.  Every other kind raises
-NotImplementedError naming the slice it belongs to.
+limit, expand, shuffle_writer, ipc_reader, broadcast_join,
+sort_merge_join, hash_join and broadcast_join_build_hash_map.  Every
+other kind raises NotImplementedError naming the slice it belongs to.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
 from blaze_tpu_torch.ops.base import ExecutionPlan
-from blaze_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
+from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec, LimitExec,
+                                      ProjectExec)
 from blaze_tpu_torch.ops.joins import (BroadcastJoinExec, BuildHashMapExec,
                                        JoinType, ShuffledHashJoinExec,
                                        SortMergeJoinExec)
@@ -48,7 +49,7 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return _join_from_dict(d)
 
     if k not in ("filter", "project", "hash_agg", "sort_agg", "sort",
-                 "limit", "shuffle_writer",
+                 "limit", "expand", "shuffle_writer",
                  "broadcast_join_build_hash_map"):
         raise NotImplementedError(
             f"plan node kind {k!r} belongs to a later slice of the PyTorch "
@@ -67,6 +68,9 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return SortExec(child, specs, fetch=d.get("fetch"))
     if k == "limit":
         return LimitExec(child, d["limit"], offset=d.get("offset", 0))
+    if k == "expand":
+        return ExpandExec(child, [[expr_from_dict(e, in_schema) for e in p]
+                                  for p in d["projections"]], d["names"])
     if k == "broadcast_join_build_hash_map":
         return BuildHashMapExec(child, [expr_from_dict(e, in_schema)
                                         for e in d["keys"]])

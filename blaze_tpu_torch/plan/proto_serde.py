@@ -7,9 +7,11 @@ the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
 ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
 shuffle_writer, the joins (sort_merge_join, hash_join, broadcast_join,
 with join type, build side, broadcast_id / cached_build_hash_map_id and
-join_filter) and broadcast_join_build_hash_map; expressions: column,
-bound_reference, literal, binary (comparisons, and/or, arithmetic) and
-the sort expression of a sort node; partitionings: single and hash.
+join_filter), broadcast_join_build_hash_map and expand; expressions:
+column, bound_reference, literal, binary (comparisons, and/or,
+arithmetic), is_null, is_not_null, not, case (an `if` encodes as a case
+with one branch), coalesce (a scalar function), in_list and the sort
+expression of a sort node; partitionings: single and hash.
 Every other variant raises NotImplementedError; a keyless broadcast join
 (the wire's nested-loop join) belongs to bnlj.py, not yet ported.
 
@@ -172,6 +174,40 @@ def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
         return {"kind": "binary", "op": op,
                 "l": expr_from_proto(e.binary_expr.l),
                 "r": expr_from_proto(e.binary_expr.r)}
+    if kind == "is_null_expr":
+        return {"kind": "is_null",
+                "child": expr_from_proto(e.is_null_expr.expr)}
+    if kind == "is_not_null_expr":
+        return {"kind": "is_not_null",
+                "child": expr_from_proto(e.is_not_null_expr.expr)}
+    if kind == "not_expr":
+        return {"kind": "not", "child": expr_from_proto(e.not_expr.expr)}
+    if kind == "case_":
+        c = e.case_
+        operand = expr_from_proto(c.expr) if c.HasField("expr") else None
+        branches = []
+        for wt in c.when_then_expr:
+            w = expr_from_proto(wt.when_expr)
+            if operand is not None:
+                w = {"kind": "binary", "op": "==", "l": operand, "r": w}
+            branches.append([w, expr_from_proto(wt.then_expr)])
+        out: Dict[str, Any] = {"kind": "case", "branches": branches}
+        if c.HasField("else_expr"):
+            out["else"] = expr_from_proto(c.else_expr)
+        return out
+    if kind == "in_list":
+        values = []
+        for v in e.in_list.list:
+            if v.WhichOneof("ExprType") != "literal":
+                raise ValueError("in_list values must be literals")
+            values.append(scalar_from_proto(v.literal)[0])
+        return {"kind": "in_list",
+                "child": expr_from_proto(e.in_list.expr),
+                "values": values, "negated": e.in_list.negated}
+    if kind == "scalar_function" and \
+            e.scalar_function.fun == pb.Coalesce:
+        return {"kind": "coalesce",
+                "args": [expr_from_proto(a) for a in e.scalar_function.args]}
     raise NotImplementedError(f"expression {kind!r} {_LATER}")
 
 
@@ -195,7 +231,57 @@ def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
         e.binary_expr.l.CopyFrom(expr_to_proto(d["l"]))
         e.binary_expr.r.CopyFrom(expr_to_proto(d["r"]))
         return e
+    if k == "is_null":
+        e.is_null_expr.expr.CopyFrom(expr_to_proto(d["child"]))
+        return e
+    if k == "is_not_null":
+        e.is_not_null_expr.expr.CopyFrom(expr_to_proto(d["child"]))
+        return e
+    if k == "not":
+        e.not_expr.expr.CopyFrom(expr_to_proto(d["child"]))
+        return e
+    if k == "case":
+        for w, t in d["branches"]:
+            wt = e.case_.when_then_expr.add()
+            wt.when_expr.CopyFrom(expr_to_proto(w))
+            wt.then_expr.CopyFrom(expr_to_proto(t))
+        if d.get("else") is not None:
+            e.case_.else_expr.CopyFrom(expr_to_proto(d["else"]))
+        return e
+    if k == "if":
+        # if(c, a, b) is case [(c, a)] else b on the wire
+        wt = e.case_.when_then_expr.add()
+        wt.when_expr.CopyFrom(expr_to_proto(d["cond"]))
+        wt.then_expr.CopyFrom(expr_to_proto(d["then"]))
+        e.case_.else_expr.CopyFrom(expr_to_proto(d["else"]))
+        return e
+    if k == "coalesce":
+        e.scalar_function.fun = pb.Coalesce
+        e.scalar_function.name = "coalesce"
+        for a in d["args"]:
+            e.scalar_function.args.append(expr_to_proto(a))
+        return e
+    if k == "in_list":
+        e.in_list.expr.CopyFrom(expr_to_proto(d["child"]))
+        e.in_list.negated = d.get("negated", False)
+        for v in d["values"]:
+            e.in_list.list.add().literal.CopyFrom(
+                scalar_to_proto(v, _value_type(v)))
+        return e
     raise NotImplementedError(f"expression kind {k!r} {_LATER}")
+
+
+def _value_type(v: Any) -> Dict[str, Any]:
+    """The type an in_list member travels as (the JAX package's rule)."""
+    if isinstance(v, bool):
+        return {"id": "bool"}
+    if isinstance(v, int):
+        return {"id": "int64"}
+    if isinstance(v, float):
+        return {"id": "float64"}
+    if isinstance(v, bytes):
+        return {"id": "binary"}
+    return {"id": "utf8"}
 
 
 def sort_spec_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
@@ -322,6 +408,12 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
         return {"kind": "broadcast_join_build_hash_map",
                 "input": plan_from_proto(b.input),
                 "keys": [expr_from_proto(e) for e in b.keys]}
+    if kind == "expand":
+        ex = n.expand
+        return {"kind": "expand", "input": plan_from_proto(ex.input),
+                "projections": [[expr_from_proto(e) for e in p.expr]
+                                for p in ex.projections],
+                "names": [f.name for f in ex.schema.columns]}
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
 
 
@@ -469,6 +561,15 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
             plan_to_proto(d["input"]))
         for e in d["keys"]:
             n.broadcast_join_build_hash_map.keys.append(expr_to_proto(e))
+        return n
+    if k == "expand":
+        n.expand.input.CopyFrom(plan_to_proto(d["input"]))
+        for proj in d["projections"]:
+            p = n.expand.projections.add()
+            for e in proj:
+                p.expr.append(expr_to_proto(e))
+        for name in d["names"]:
+            n.expand.schema.columns.add(name=name)
         return n
     raise NotImplementedError(f"plan kind {k!r} {_LATER}")
 

@@ -21,7 +21,7 @@ from blaze_tpu_torch import config as tconf
 from blaze_tpu_torch.itest import q01_dag as QD
 from blaze_tpu_torch.itest import queries as TQ
 from blaze_tpu_torch.itest.runner import compare_frames, same_order
-from blaze_tpu_torch.itest.tpcds_data import write_parquet_splits
+from blaze_tpu_torch.itest.tpcds_data import make_tables, write_parquet_splits
 from blaze_tpu_torch.plan.stages import DagScheduler
 
 SCALE = 0.2
@@ -44,7 +44,7 @@ def confs():
 @pytest.fixture(scope="module")
 def q01(tmp_path_factory):
     """The plan, the pandas oracle's frame and the JAX DagScheduler's."""
-    tables = QD.make_tables(SCALE)
+    tables = make_tables(SCALE, QD.TABLES)
     paths = write_parquet_splits(tables, str(tmp_path_factory.mktemp("q01")),
                                  PARTS)
     plan, oracle = TQ.q01(paths, tables, partitions=PARTS)
@@ -87,8 +87,8 @@ def test_generators_equal_the_jax_package(name):
 
 def test_write_parquet_splits_equals_the_jax_package(tmp_path):
     from blaze_tpu.itest.tpcds_data import write_parquet_splits as jsplit
-    tables = {"store": QD.make_tables(0.01)["store"],
-              "customer": QD.make_tables(0.2)["customer"]}
+    tables = {**make_tables(0.01, ["store"]),
+              **make_tables(0.2, ["customer"])}
     got = write_parquet_splits(tables, str(tmp_path / "t"), 3)
     want = jsplit(tables, str(tmp_path / "j"), 3)
     assert [len(got[k]) for k in tables] == [len(want[k]) for k in tables] \

@@ -28,6 +28,7 @@ import pytest
 from blaze_tpu_torch import config as tconf
 from blaze_tpu_torch.itest import q06 as D
 from blaze_tpu_torch.itest import queries as TQ
+from blaze_tpu_torch.itest import tpcds_data as TT
 from blaze_tpu_torch.itest.q01_dag import stage_counters
 from blaze_tpu_torch.itest.runner import (QueryResult, compare_frames,
                                           run_query, same_order)
@@ -73,8 +74,8 @@ def _jax_run(plan, single_task_bytes=0):
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    tables = D.make_tables(SCALE)
-    paths = D.write_splits(tables, str(tmp_path_factory.mktemp("q06")),
+    tables = TT.make_tables(SCALE, D.TABLES)
+    paths = TT.write_splits(tables, str(tmp_path_factory.mktemp("q06")),
                            PARTS)
     return tables, paths
 
@@ -84,7 +85,7 @@ def runs(data):
     """name -> (plan, the oracle's frame, the JAX DagScheduler's frame)."""
     tables, paths = data
     out = {}
-    for name, (plan, oracle) in D.plans(paths, tables, PARTS,
+    for name, (plan, oracle) in TQ.plans(paths, tables, PARTS,
                                         NAMES).items():
         out[name] = (plan, oracle(), _jax_run(plan))
     return out
@@ -93,7 +94,6 @@ def runs(data):
 @pytest.mark.parametrize("name", ["store_sales", "item"])
 def test_generators_equal_the_jax_package(name):
     from blaze_tpu.itest import tpcds_data as JT
-    from blaze_tpu_torch.itest import tpcds_data as TT
     fn = "gen_" + name
     assert getattr(TT, fn)(SCALE).equals(getattr(JT, fn)(SCALE))
     assert TT.SF1_ROWS[name] == JT.SF1_ROWS[name]
@@ -139,8 +139,8 @@ def test_query_equals_the_oracle_and_the_jax_scheduler(runs, name, loop):
 
 def _q06_with_item_in_two_files(tmp_path):
     """q06 at scale 0.1 with item written as two files of half each."""
-    tables = D.make_tables(0.1, ["store_sales", "item"])
-    paths = D.write_splits(tables, str(tmp_path), PARTS)
+    tables = TT.make_tables(0.1, ["store_sales", "item"])
+    paths = TT.write_splits(tables, str(tmp_path), PARTS)
     item, half = tables["item"], tables["item"].num_rows // 2
     files = []
     for i, part in enumerate((item.slice(0, half), item.slice(half))):
