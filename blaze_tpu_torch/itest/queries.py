@@ -1,6 +1,7 @@
 """TPC-DS queries as plan-IR dicts with their pandas oracles (a copy of
 the plan-dict helpers and of `q01`, `q06`, `_brand_revenue`, `q03`,
-`q42`, `q52`, `q55`, `q17` and `q18` of blaze_tpu/itest/queries.py).
+`q42`, `q52`, `q55`, `q17`, `q18`, `q95`, `_ratio_over_window`, `q12`,
+`q20`, `q98`, `q51` and `q67` of blaze_tpu/itest/queries.py).
 
 Fact tables are read from parquet file splits; exchanges are
 `local_exchange` nodes, which plan/stages.py `DagScheduler` cuts into
@@ -21,7 +22,17 @@ tables it reads, and `plans` builds several at once.
   q18  catalog sales joined to demographics, customer, address (an IN
        list) and item, averaged over ROLLUP(i_item_id, ca_country,
        ca_state, ca_county): an Expand into five grouping sets
-       (BASELINE config #3).
+       (BASELINE config #3);
+  q95  web orders shipped from more than one warehouse and never
+       returned: EXISTS as a semi join with a `!=` join filter and NOT
+       EXISTS as an anti join, both shuffled on the order number, then a
+       per-order sum and one global row (BASELINE config #4);
+  q12, q20, q98  revenue by item in a 31-day window and its share of the
+       item's class total, a whole-partition window sum;
+  q51  running sums of daily web and store revenue per item (a running
+       window sum each), joined by a full outer sort-merge join;
+  q67  ROLLUP(category, class) of store revenue, then rank() within the
+       category, kept to rank 10.
 
 Date keys follow tpcds_data.gen_date_dim: sk = 2450815 + day, d_year =
 1998 + day // 365, d_moy = (day % 365) // 31 + 1 (at most 12).
@@ -517,6 +528,314 @@ def q18(paths, tables, partitions: int = 4):
     return plan, oracle
 
 
+
+# ---------------------------------------------------------------------------
+# q95 shape: EXISTS (filtered semi join) + NOT EXISTS (anti join)
+# ---------------------------------------------------------------------------
+
+Q95_WINDOW = _day_range(761, 821)
+
+
+def q95(paths, tables, partitions: int = 4):
+    ws, wr, ca = (tables["web_sales"], tables["web_returns"],
+                  tables["customer_address"])
+
+    ws1 = filter_(scan(paths, tables, "web_sales"),
+                  binop(">=", c("ws_ship_date_sk"), lit(Q95_WINDOW[0])),
+                  binop("<=", c("ws_ship_date_sk"), lit(Q95_WINDOW[1])),
+                  binop("<=", c("ws_web_site_sk"), lit(2)))
+    ca_f = filter_(scan(paths, tables, "customer_address"),
+                   binop("==", c("ca_state"), lit("IL", "utf8")))
+    ws1 = join("broadcast_join", ws1, ca_f,
+               [c("ws_ship_addr_sk")], [c("ca_address_sk")])
+    ws1 = project(ws1,
+                  [c("ws_order_number"), c("ws_warehouse_sk"),
+                   c("ws_ext_ship_cost"), c("ws_net_profit")],
+                  ["ws_order_number", "ws_warehouse_sk",
+                   "ws_ext_ship_cost", "ws_net_profit"])
+    ws1_ex = exchange(ws1, [ci(0)], partitions)
+
+    ws_all = project(scan(paths, tables, "web_sales"),
+                     [c("ws_order_number"), c("ws_warehouse_sk")],
+                     ["wh_order_number", "wh_warehouse_sk"])
+    ws_all_ex = exchange(ws_all, [ci(0)], partitions)
+
+    # EXISTS ws2 with same order, different warehouse: semi join with a
+    # joined-schema filter (left 4 cols + right 2 cols)
+    semi = join("hash_join", ws1_ex, ws_all_ex, [ci(0)], [ci(0)],
+                jt="left_semi",
+                flt=binop("!=", ci(1), ci(5)))
+
+    wr_ex = exchange(project(scan(paths, tables, "web_returns"),
+                             [c("wr_order_number")], ["wr_order_number"]),
+                     [ci(0)], partitions)
+    anti = join("hash_join", semi, wr_ex, [ci(0)], [ci(0)],
+                jt="left_anti")
+
+    # per-order sums (orders are co-partitioned after the exchange), then
+    # one global row: count(distinct order) = count of per-order groups
+    per_order = agg(
+        agg(anti, [(ci(0), "ws_order_number")],
+            [("sum", "partial", "ship_cost", [ci(2)]),
+             ("sum", "partial", "net_profit", [ci(3)])]),
+        [(ci(0), "ws_order_number")],
+        [("sum", "final", "ship_cost", [ci(1)]),
+         ("sum", "final", "net_profit", [ci(2)])])
+    single = exchange(per_order, [ci(0)], 1)
+    totals = agg(
+        agg(single, [],
+            [("count", "partial", "order_count", [ci(0)]),
+             ("sum", "partial", "total_ship_cost", [ci(1)]),
+             ("sum", "partial", "total_net_profit", [ci(2)])]),
+        [],
+        [("count", "final", "order_count", [ci(0)]),
+         ("sum", "final", "total_ship_cost", [ci(1)]),
+         ("sum", "final", "total_net_profit", [ci(2)])])
+    plan = totals
+
+    def oracle():
+        import pandas as pd
+        wsd, wrd, cad = ws.to_pandas(), wr.to_pandas(), ca.to_pandas()
+        f = wsd[(wsd.ws_ship_date_sk >= Q95_WINDOW[0]) &
+                (wsd.ws_ship_date_sk <= Q95_WINDOW[1]) &
+                (wsd.ws_web_site_sk <= 2)]
+        f = f.merge(cad[cad.ca_state == "IL"],
+                    left_on="ws_ship_addr_sk", right_on="ca_address_sk")
+        # EXISTS: some ws row of the same order with a different warehouse
+        wh_sets = wsd.groupby("ws_order_number").ws_warehouse_sk \
+            .agg(lambda s: set(s))
+        def qualifies(row):
+            whs = wh_sets.get(row.ws_order_number, set())
+            return bool(whs - {row.ws_warehouse_sk})
+        if len(f):
+            f = f[f.apply(qualifies, axis=1)]
+        f = f[~f.ws_order_number.isin(set(wrd.wr_order_number))]
+        # SQL SUM over zero rows is NULL, not pandas' 0.0
+        return pd.DataFrame({
+            "order_count": [f.ws_order_number.nunique()],
+            "total_ship_cost": [f.ws_ext_ship_cost.sum() if len(f)
+                                else None],
+            "total_net_profit": [f.ws_net_profit.sum() if len(f)
+                                 else None]})
+
+    return plan, oracle
+
+
+# ---------------------------------------------------------------------------
+# the window family: ratio to a class total, cumulative sums, rank
+# ---------------------------------------------------------------------------
+
+def _ratio_over_window(paths, tables, partitions, fact, date_col,
+                       item_col, price_col, window):
+    """The q12/q20/q98 shape: revenue by item, plus each item's share of
+    its class total via an UNBOUNDED window aggregate."""
+    ft, it = tables[fact], tables["item"]
+
+    f = filter_(scan(paths, tables, fact),
+                binop(">=", c(date_col), lit(window[0])),
+                binop("<=", c(date_col), lit(window[1])))
+    j = join("broadcast_join", f, scan(paths, tables, "item"),
+             [c(item_col)], [c("i_item_sk")])
+    rev = _partial_final(
+        j, [(c("i_item_id"), "i_item_id"), (c("i_class"), "i_class")],
+        [("sum", "itemrevenue", [c(price_col)])], partitions)
+    # co-locate each class in one partition, sort, whole-partition window
+    ex = exchange(rev, [ci(1)], 1)
+    srt = {"kind": "sort", "input": ex,
+           "specs": [{"expr": ci(1), "descending": False,
+                      "nulls_first": True},
+                     {"expr": ci(0), "descending": False,
+                      "nulls_first": True}]}
+    win = {"kind": "window", "input": srt,
+           "functions": [{"kind": "agg", "fn": "sum",
+                          "name": "classrevenue", "running": False,
+                          "args": [ci(2)]}],
+           "partition_by": [ci(1)], "order_by": []}
+    plan = project(
+        win,
+        [ci(0), ci(1), ci(2),
+         binop("/", binop("*", ci(2), lit(100.0, "float64")), ci(3))],
+        ["i_item_id", "i_class", "itemrevenue", "revenueratio"])
+
+    def oracle():
+        fd, itd = ft.to_pandas(), it.to_pandas()
+        m = fd[(fd[date_col] >= window[0]) & (fd[date_col] <= window[1])]
+        m = m.merge(itd, left_on=item_col, right_on="i_item_sk")
+        out = (m.groupby(["i_item_id", "i_class"], as_index=False)
+               .agg(itemrevenue=(price_col, "sum")))
+        out["revenueratio"] = out.itemrevenue * 100.0 / \
+            out.groupby("i_class").itemrevenue.transform("sum")
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+Q12_WINDOW = _day_range(730, 760)
+
+
+def q12(paths, tables, partitions: int = 2):
+    return _ratio_over_window(paths, tables, partitions, "web_sales",
+                              "ws_sold_date_sk", "ws_item_sk",
+                              "ws_ext_sales_price", Q12_WINDOW)
+
+
+def q20(paths, tables, partitions: int = 2):
+    return _ratio_over_window(paths, tables, partitions, "catalog_sales",
+                              "cs_sold_date_sk", "cs_item_sk",
+                              "cs_sales_price", Q12_WINDOW)
+
+
+def q98(paths, tables, partitions: int = 2):
+    return _ratio_over_window(paths, tables, partitions, "store_sales",
+                              "ss_sold_date_sk", "ss_item_sk",
+                              "ss_ext_sales_price", Q12_WINDOW)
+
+
+Q51_WINDOW = _day_range(700, 760)
+
+
+def q51(paths, tables, partitions: int = 2):
+    """Cumulative web vs store revenue per item/date (FULL OUTER join of
+    two windowed streams — the q51 shape with max-over-cumulative)."""
+    ws, ss = tables["web_sales"], tables["store_sales"]
+
+    def daily(fact, date_col, item_col, price_col):
+        f = filter_(scan(paths, tables, fact),
+                    binop(">=", c(date_col), lit(Q51_WINDOW[0])),
+                    binop("<=", c(date_col), lit(Q51_WINDOW[1])))
+        d = _partial_final(
+            f, [(c(item_col), "item_sk"), (c(date_col), "date_sk")],
+            [("sum", "rev", [c(price_col)])], partitions)
+        ex = exchange(d, [ci(0)], 1)
+        srt = {"kind": "sort", "input": ex,
+               "specs": [{"expr": ci(0), "descending": False,
+                          "nulls_first": True},
+                         {"expr": ci(1), "descending": False,
+                          "nulls_first": True}]}
+        return {"kind": "window", "input": srt,
+                "functions": [{"kind": "agg", "fn": "sum",
+                               "name": "cume", "running": True,
+                               "args": [ci(2)]}],
+                "partition_by": [ci(0)],
+                "order_by": [{"expr": ci(1), "descending": False,
+                              "nulls_first": True}]}
+
+    web = daily("web_sales", "ws_sold_date_sk", "ws_item_sk",
+                "ws_ext_sales_price")
+    store = daily("store_sales", "ss_sold_date_sk", "ss_item_sk",
+                  "ss_ext_sales_price")
+    j = join("sort_merge_join", web, store, [ci(0), ci(1)],
+             [ci(0), ci(1)], jt="full")
+    flt = filter_(j, binop(">", ci(3), {"kind": "coalesce",
+                                        "args": [ci(7), lit(0.0,
+                                                            "float64")]}))
+    plan = sort_limit(flt, [(ci(0), False), (ci(1), False)], 100)
+
+    def oracle():
+        wsd, ssd = ws.to_pandas(), ss.to_pandas()
+
+        def cume(fd, date_col, item_col, price_col):
+            f = fd[(fd[date_col] >= Q51_WINDOW[0]) &
+                   (fd[date_col] <= Q51_WINDOW[1])]
+            d = (f.groupby([item_col, date_col], as_index=False)
+                 .agg(rev=(price_col, "sum"))
+                 .rename(columns={item_col: "item_sk",
+                                  date_col: "date_sk"}))
+            d = d.sort_values(["item_sk", "date_sk"])
+            d["cume"] = d.groupby("item_sk").rev.cumsum()
+            return d
+
+        w = cume(wsd, "ws_sold_date_sk", "ws_item_sk",
+                 "ws_ext_sales_price").rename(columns={
+                     "item_sk": "item_w", "date_sk": "date_w",
+                     "rev": "rev_w", "cume": "cume_w"})
+        s = cume(ssd, "ss_sold_date_sk", "ss_item_sk",
+                 "ss_ext_sales_price").rename(columns={
+                     "item_sk": "item_s", "date_sk": "date_s",
+                     "rev": "rev_s", "cume": "cume_s"})
+        # FULL join keeps both key sets (8 columns), like the engine plan
+        m = w.merge(s, left_on=["item_w", "date_w"],
+                    right_on=["item_s", "date_s"], how="outer")
+        m = m[m.cume_w > m.cume_s.fillna(0.0)]
+        out = m[["item_w", "date_w", "rev_w", "cume_w",
+                 "item_s", "date_s", "rev_s", "cume_s"]]
+        out = out.sort_values(["item_w", "date_w"])[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+def q67(paths, tables, partitions: int = 2):
+    """Rollup(category, class) of store revenue + rank() within category
+    by revenue desc, rank <= 10 (the q67 shape: Expand + window rank)."""
+    ss, it, dd = tables["store_sales"], tables["item"], tables["date_dim"]
+
+    dd_f = filter_(scan(paths, tables, "date_dim"),
+                   binop("==", c("d_year"), lit(1999, "int32")))
+    j_dd = join("broadcast_join", scan(paths, tables, "store_sales"),
+                dd_f, [c("ss_sold_date_sk")], [c("d_date_sk")])
+    j_it = join("broadcast_join", j_dd, scan(paths, tables, "item"),
+                [c("ss_item_sk")], [c("i_item_sk")])
+    nul = {"kind": "literal", "value": None, "type": {"id": "utf8"}}
+    projections = []
+    for kept, gid in ((2, 0), (1, 1), (0, 3)):
+        row = [c("i_category") if kept >= 1 else nul,
+               c("i_class") if kept >= 2 else nul,
+               lit(gid), c("ss_ext_sales_price")]
+        projections.append(row)
+    expanded = {"kind": "expand", "input": j_it,
+                "projections": projections,
+                "names": ["i_category", "i_class", "g_id",
+                          "ss_ext_sales_price"]}
+    rev = _partial_final(
+        expanded,
+        [(ci(0), "i_category"), (ci(1), "i_class"), (ci(2), "g_id")],
+        [("sum", "sumsales", [ci(3)])], partitions)
+    ex = exchange(rev, [ci(0)], 1)
+    srt = {"kind": "sort", "input": ex,
+           "specs": [{"expr": ci(0), "descending": False,
+                      "nulls_first": True},
+                     {"expr": ci(3), "descending": True,
+                      "nulls_first": False}]}
+    win = {"kind": "window", "input": srt,
+           "functions": [{"kind": "rank", "name": "rk"}],
+           "partition_by": [ci(0)],
+           "order_by": [{"expr": ci(3), "descending": True,
+                         "nulls_first": False}]}
+    flt = filter_(win, binop("<=", ci(4), lit(10)))
+    plan = sort_limit(flt, [(ci(0), False), (ci(4), False)], 100)
+
+    def oracle():
+        import pandas as pd
+        ssd, itd, ddd = ss.to_pandas(), it.to_pandas(), dd.to_pandas()
+        m = ssd.merge(ddd[ddd.d_year == 1999],
+                      left_on="ss_sold_date_sk", right_on="d_date_sk")
+        m = m.merge(itd, left_on="ss_item_sk", right_on="i_item_sk")
+        frames = []
+        for kept, gid in ((2, 0), (1, 1), (0, 3)):
+            keys = ["i_category", "i_class"][:kept] if kept else []
+            if keys:
+                g = m.groupby(keys, as_index=False, dropna=False).agg(
+                    sumsales=("ss_ext_sales_price", "sum"))
+            else:
+                g = pd.DataFrame(
+                    {"sumsales": [m.ss_ext_sales_price.sum()]})
+            for col_name in ["i_category", "i_class"][kept:]:
+                g[col_name] = None
+            g["g_id"] = gid
+            frames.append(g[["i_category", "i_class", "g_id",
+                             "sumsales"]])
+        allf = pd.concat(frames, ignore_index=True)
+        allf["rk"] = (allf.sort_values("sumsales", ascending=False)
+                      .groupby("i_category", dropna=False)
+                      .sumsales.rank(method="min", ascending=False))
+        allf = allf[allf.rk <= 10]
+        out = allf.sort_values(["i_category", "rk"])[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
 QUERIES: Dict[str, Tuple[Callable, list]] = {
     "q01": (q01, ["store_returns", "date_dim", "store", "customer"]),
     "q17": (q17, ["store_sales", "store_returns", "catalog_sales",
@@ -528,6 +847,12 @@ QUERIES: Dict[str, Tuple[Callable, list]] = {
     "q42": (q42, ["store_sales", "item", "date_dim"]),
     "q52": (q52, ["store_sales", "item", "date_dim"]),
     "q55": (q55, ["store_sales", "item", "date_dim"]),
+    "q95": (q95, ["web_sales", "web_returns", "customer_address"]),
+    "q12": (q12, ["web_sales", "item"]),
+    "q20": (q20, ["catalog_sales", "item"]),
+    "q98": (q98, ["store_sales", "item"]),
+    "q51": (q51, ["web_sales", "store_sales"]),
+    "q67": (q67, ["store_sales", "item", "date_dim"]),
 }
 
 

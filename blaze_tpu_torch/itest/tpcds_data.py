@@ -1,6 +1,7 @@
 """Synthetic TPC-DS-shaped tables for q01, q06, the brand-revenue queries,
-q17 and q18 (a copy of `gen_store_returns`, `gen_store_sales`,
-`gen_catalog_sales`, `gen_date_dim`, `gen_store`, `gen_customer`,
+q17, q18, q95 and the window queries (a copy of `gen_store_returns`,
+`gen_store_sales`, `gen_catalog_sales`, `gen_web_sales`,
+`gen_web_returns`, `gen_date_dim`, `gen_store`, `gen_customer`,
 `gen_customer_demographics`, `gen_customer_address`, `gen_item` and
 `write_parquet_splits` of blaze_tpu/itest/tpcds_data.py, with the helpers
 they use), and `make_tables` and `write_splits` for the query modules.
@@ -18,6 +19,8 @@ SF1_ROWS = {
     "store_returns": 287_514,
     "store_sales": 2_880_404,
     "catalog_sales": 1_441_548,
+    "web_sales": 719_384,
+    "web_returns": 71_763,
     "store": 12,
     "customer": 100_000,
     "customer_address": 50_000,
@@ -29,7 +32,8 @@ SF1_ROWS = {
 
 #: the fact tables split into several files; every other table is a
 #: dimension and stays one file
-FACTS = ("store_sales", "store_returns", "catalog_sales")
+FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
+         "web_returns")
 
 SALES_DATE_DAYS = 1826  # TPC-DS facts span ~5 years (1998-2002)
 
@@ -171,6 +175,51 @@ def gen_catalog_sales(scale: float, seed: int = 17) -> pa.Table:
         "cs_ship_mode_sk": pa.array(rng.integers(1, 21, n)),
         "cs_call_center_sk": pa.array(rng.integers(1, 7, n)),
     }), "cs_sold_date_sk")
+
+
+def gen_web_sales(scale: float, seed: int = 18) -> pa.Table:
+    n = _rows("web_sales", scale)
+    rng = np.random.default_rng(seed)
+    date_n = min(_rows("date_dim", scale), SALES_DATE_DAYS)
+    n_orders = max(1, n // 3)  # ~3 line items per order
+    return _date_ordered(pa.table({
+        "ws_ship_date_sk": pa.array(
+            rng.integers(2450815, 2450815 + date_n, n)),
+        "ws_ship_addr_sk": pa.array(
+            rng.integers(1, _rows("customer_address", scale) + 1, n)),
+        "ws_web_site_sk": pa.array(rng.integers(1, 31, n)),
+        "ws_order_number": pa.array(rng.integers(1, n_orders + 1, n)),
+        "ws_warehouse_sk": pa.array(
+            rng.integers(1, _rows("warehouse", scale) + 1, n)),
+        "ws_ext_ship_cost": pa.array(np.round(rng.random(n) * 100, 2)),
+        "ws_net_profit": pa.array(np.round(rng.random(n) * 200 - 40, 2)),
+        "ws_sold_date_sk": pa.array(
+            rng.integers(2450815, 2450815 + date_n, n)),
+        "ws_item_sk": pa.array(rng.integers(1, _rows("item", scale) + 1, n)),
+        "ws_ext_sales_price": pa.array(np.round(rng.random(n) * 300, 2)),
+        "ws_bill_customer_sk": pa.array(
+            rng.integers(1, _rows("customer", scale) + 1, n)),
+        "ws_quantity": pa.array(rng.integers(1, 100, n).astype(np.int32)),
+        "ws_sales_price": pa.array(np.round(rng.random(n) * 260, 2)),
+    }), "ws_sold_date_sk")
+
+
+def gen_web_returns(scale: float, seed: int = 19) -> pa.Table:
+    n = _rows("web_returns", scale)
+    rng = np.random.default_rng(seed)
+    n_orders = max(1, _rows("web_sales", scale) // 3)
+    date_n = min(_rows("date_dim", scale), SALES_DATE_DAYS)
+    return _date_ordered(pa.table({
+        "wr_order_number": pa.array(rng.integers(1, n_orders + 1, n)),
+        "wr_return_amt": pa.array(np.round(rng.random(n) * 80, 2)),
+        "wr_item_sk": pa.array(rng.integers(1, _rows("item", scale) + 1, n)),
+        "wr_returning_customer_sk": pa.array(
+            rng.integers(1, _rows("customer", scale) + 1, n)),
+        "wr_returned_date_sk": pa.array(
+            rng.integers(2450815, 2450815 + date_n, n)),
+        "wr_reason_sk": pa.array(rng.integers(1, 36, n)),
+        "wr_net_loss": pa.array(np.round(rng.random(n) * 50, 2)),
+    }), "wr_returned_date_sk")
 
 
 def gen_customer_demographics(scale: float, seed: int = 20) -> pa.Table:

@@ -335,16 +335,12 @@ class BaseJoinExec(ExecutionPlan):
             # NOT IN over a non-empty list: a NULL probe key is UNKNOWN
             keep = np.nonzero((match_count == 0)
                               & ~any_null.cpu().numpy())[0]
-            if len(keep):
-                yield ColumnBatch.from_arrow(
-                    probe_rb.take(pa.array(keep, type=pa.int64())))
+            yield from self._emit_probe_rows(probe_rb, keep)
             return
         if probe_semi or probe_anti:
             keep = np.nonzero(match_count > 0 if probe_semi
                               else match_count == 0)[0]
-            if len(keep):
-                yield ColumnBatch.from_arrow(
-                    probe_rb.take(pa.array(keep, type=pa.int64())))
+            yield from self._emit_probe_rows(probe_rb, keep)
             return
         if jt in (JoinType.LEFT_SEMI, JoinType.RIGHT_SEMI,
                   JoinType.LEFT_ANTI, JoinType.RIGHT_ANTI):
@@ -354,6 +350,7 @@ class BaseJoinExec(ExecutionPlan):
         if jt == JoinType.EXISTENCE:
             arrays = list(probe_rb.columns) + \
                 [pa.array(match_count > 0, type=pa.bool_())]
+            self.metrics.add("output_rows", n)
             yield ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
                 arrays, schema=self.schema.to_arrow()))
             return
@@ -372,6 +369,15 @@ class BaseJoinExec(ExecutionPlan):
             return
         self.metrics.add("output_rows", len(p_idx))
         yield self._materialize(probe_rb, jmap, p_idx, b_idx, probe_is_left)
+
+    def _emit_probe_rows(self, probe_rb: pa.RecordBatch, keep: np.ndarray
+                         ) -> Iterator[ColumnBatch]:
+        """The probe rows at `keep` (a semi or anti join's output),
+        counted in `output_rows`."""
+        self.metrics.add("output_rows", len(keep))
+        if len(keep):
+            yield ColumnBatch.from_arrow(
+                probe_rb.take(pa.array(keep, type=pa.int64())))
 
     def _apply_filter(self, probe_rb, jmap: JoinMap, p_idx, b_idx,
                       probe_is_left) -> np.ndarray:
@@ -429,6 +435,7 @@ class BaseJoinExec(ExecutionPlan):
         if build_semi or build_anti:
             want = jmap.matched if build_semi else ~jmap.matched
             idx = np.nonzero(want)[0]
+            self.metrics.add("output_rows", len(idx))
             if len(idx):
                 rb = jmap.table.take(pa.array(idx, type=pa.int64())) \
                     .combine_chunks()
@@ -439,6 +446,7 @@ class BaseJoinExec(ExecutionPlan):
         idx = np.nonzero(~jmap.matched)[0]
         if not len(idx):
             return
+        self.metrics.add("output_rows", len(idx))
         bt = jmap.table.take(pa.array(idx, type=pa.int64()))
         probe_schema = self.children[0 if probe_is_left else 1].schema
         null_probe = [pa.nulls(len(idx), f.data_type.to_arrow())
@@ -483,25 +491,19 @@ class SortMergeJoinExec(BaseJoinExec):
         return SortExec(child, [(k, False, True) for k in keys])
 
     def execute(self, partition: int) -> BatchIterator:
-        from blaze_tpu_torch.ops.joins.smj import MergeJoiner, _RunCursor
-
-        def arrow_stream(plan):
-            for b in plan.execute(partition):
-                rb = b.compact().to_arrow()
-                if rb.num_rows:
-                    yield rb
-
-        joiner = MergeJoiner(self.children[0].schema,
-                             self.children[1].schema, self.schema,
-                             self.join_type, self.join_filter,
-                             self._existence_col)
-        lcur = _RunCursor(arrow_stream(self._sorted_child(0)),
-                          self.left_keys, self.children[0].schema)
-        rcur = _RunCursor(arrow_stream(self._sorted_child(1)),
-                          self.right_keys, self.children[1].schema)
+        """Counter: `output_rows`."""
+        from blaze_tpu_torch.ops.joins.smj import MergeJoiner, _Side
 
         def gen():
-            for rb in joiner.join(lcur, rcur):
+            joiner = MergeJoiner(self.children[0].schema,
+                                 self.children[1].schema, self.schema,
+                                 self.join_type, self.join_filter)
+            left, right = (
+                _Side(self._sorted_child(i).execute(partition),
+                      self.left_keys if i == 0 else self.right_keys,
+                      self.children[i].schema) for i in (0, 1))
+            for rb in joiner.join(left, right):
+                self.metrics.add("output_rows", rb.num_rows)
                 yield ColumnBatch.from_arrow(rb)
         return iter(CoalesceStream(gen(), metrics=self.metrics))
 

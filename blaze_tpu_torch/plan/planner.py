@@ -2,9 +2,10 @@
 blaze_tpu/plan/planner.py this slice uses).
 
 Node kinds: parquet_scan, filter, project, hash_agg, sort_agg, sort,
-limit, expand, shuffle_writer, ipc_reader, broadcast_join,
+limit, expand, window, shuffle_writer, ipc_reader, broadcast_join,
 sort_merge_join, hash_join and broadcast_join_build_hash_map.  Every
-other kind raises NotImplementedError naming the slice it belongs to.
+other kind (generate, the nested-loop join, union, ...) raises
+NotImplementedError naming the slice it belongs to.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from blaze_tpu_torch.ops.joins import (BroadcastJoinExec, BuildHashMapExec,
                                        SortMergeJoinExec)
 from blaze_tpu_torch.ops.scan import ParquetScanExec
 from blaze_tpu_torch.ops.sort import SortExec
+from blaze_tpu_torch.ops.window import (LeadLagFunc, NthValueFunc, RankFunc,
+                                        WindowAggFunc, WindowExec,
+                                        WindowRankType)
 from blaze_tpu_torch.plan.exprs import expr_from_dict, sort_spec_from_dict
 from blaze_tpu_torch.plan.types import schema_from_dict
 from blaze_tpu_torch.schema import Schema
@@ -49,11 +53,12 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return _join_from_dict(d)
 
     if k not in ("filter", "project", "hash_agg", "sort_agg", "sort",
-                 "limit", "expand", "shuffle_writer",
+                 "limit", "expand", "window", "shuffle_writer",
                  "broadcast_join_build_hash_map"):
+        item = "12" if k == "generate" else "3"
         raise NotImplementedError(
             f"plan node kind {k!r} belongs to a later slice of the PyTorch "
-            f"port (ROADMAP Queue 1 item 3)")
+            f"port (ROADMAP Queue 1 item {item})")
     child = create_plan(d["input"])
     in_schema = child.schema
 
@@ -71,6 +76,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k == "expand":
         return ExpandExec(child, [[expr_from_dict(e, in_schema) for e in p]
                                   for p in d["projections"]], d["names"])
+    if k == "window":
+        return _window_from_dict(d, child)
     if k == "broadcast_join_build_hash_map":
         return BuildHashMapExec(child, [expr_from_dict(e, in_schema)
                                         for e in d["keys"]])
@@ -113,6 +120,36 @@ def _join_from_dict(d: Dict[str, Any]) -> ExecutionPlan:
         if isinstance(build, BuildHashMapExec):
             build.cache_id = d["broadcast_id"]
     return cls(left, right, lkeys, rkeys, jt, **kw)
+
+
+def _window_from_dict(d: Dict[str, Any], child: ExecutionPlan) -> WindowExec:
+    in_schema = child.schema
+    funcs = []
+    for w in d["functions"]:
+        wk = w["kind"]
+        if wk in [t.value for t in WindowRankType]:
+            funcs.append(RankFunc(w["name"], WindowRankType(wk)))
+        elif wk in ("lead", "lag"):
+            off = w.get("offset", 1)
+            funcs.append(LeadLagFunc(
+                w["name"], expr_from_dict(w["expr"], in_schema),
+                off if wk == "lead" else -off, w.get("default")))
+        elif wk == "nth_value":
+            funcs.append(NthValueFunc(
+                w["name"], expr_from_dict(w["expr"], in_schema),
+                w.get("n", 1), ignore_nulls=w.get("ignore_nulls", False)))
+        elif wk == "agg":
+            children = [expr_from_dict(c, in_schema)
+                        for c in w.get("args", [])]
+            funcs.append(WindowAggFunc(w["name"], make_agg(w["fn"], children),
+                                       running=w.get("running", True)))
+        else:
+            raise ValueError(f"unknown window function kind {wk!r}")
+    part = [expr_from_dict(e, in_schema) for e in d.get("partition_by", [])]
+    order = [sort_spec_from_dict(s, in_schema)
+             for s in d.get("order_by", [])]
+    return WindowExec(child, funcs, part, order,
+                      group_limit=d.get("group_limit"))
 
 
 def partitioning_from_dict(d: Dict[str, Any],

@@ -7,7 +7,9 @@ the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
 ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
 shuffle_writer, the joins (sort_merge_join, hash_join, broadcast_join,
 with join type, build side, broadcast_id / cached_build_hash_map_id and
-join_filter), broadcast_join_build_hash_map and expand; expressions:
+join_filter), broadcast_join_build_hash_map, expand and window (the rank
+family, lead/lag, nth_value and aggregates, with group_limit);
+expressions:
 column, bound_reference, literal, binary (comparisons, and/or,
 arithmetic), is_null, is_not_null, not, case (an `if` encodes as a case
 with one branch), coalesce (a scalar function), in_list and the sort
@@ -141,6 +143,12 @@ _BINOP_ENCODE = {v: k for k, v in _BINOP_DECODE.items()}
 _AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
                   pb.AVG: "avg", pb.COUNT: "count"}
 _AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
+
+_WINDOW_RANK_DECODE = {
+    pb.ROW_NUMBER: "row_number", pb.RANK: "rank", pb.DENSE_RANK: "dense_rank",
+    pb.PERCENT_RANK: "percent_rank", pb.CUME_DIST: "cume_dist",
+}
+_WINDOW_RANK_ENCODE = {v: k for k, v in _WINDOW_RANK_DECODE.items()}
 
 _JOIN_TYPE_DECODE = {
     pb.INNER: "inner", pb.LEFT: "left", pb.RIGHT: "right", pb.FULL: "full",
@@ -414,6 +422,8 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
                 "projections": [[expr_from_proto(e) for e in p.expr]
                                 for p in ex.projections],
                 "names": [f.name for f in ex.schema.columns]}
+    if kind == "window":
+        return _window_from_proto(n.window)
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
 
 
@@ -446,6 +456,55 @@ def _join_from_proto(kind: str, n: pb.PhysicalPlanNode) -> Dict[str, Any]:
     else:  # sort_merge_join
         if node.HasField("filter"):
             d["join_filter"] = expr_from_proto(node.filter.expression)
+    return d
+
+
+def _window_from_proto(w: pb.WindowExecNode) -> Dict[str, Any]:
+    funcs = []
+    for we in w.window_expr:
+        name = we.field.name
+        if we.func_type == pb.Agg:
+            fn_name = _AGG_FN_DECODE.get(we.agg_func)
+            if fn_name is None:
+                raise ValueError(f"unsupported window agg {we.agg_func}")
+            funcs.append({"kind": "agg", "fn": fn_name, "name": name,
+                          "args": [expr_from_proto(c) for c in we.children]})
+            continue
+        wf = we.window_func
+        if wf in _WINDOW_RANK_DECODE:
+            funcs.append({"kind": _WINDOW_RANK_DECODE[wf], "name": name})
+        elif wf == pb.LEAD:
+            entry = {"kind": "lead", "name": name,
+                     "expr": expr_from_proto(we.children[0])}
+            if len(we.children) > 1:
+                off, _ = scalar_from_proto(we.children[1].literal)
+                entry["offset"] = off
+                if off is not None and off < 0:  # a lag is a negative lead
+                    entry["kind"] = "lag"
+                    entry["offset"] = -off
+            if len(we.children) > 2:
+                entry["default"], _ = scalar_from_proto(
+                    we.children[2].literal)
+            funcs.append(entry)
+        elif wf in (pb.NTH_VALUE, pb.NTH_VALUE_IGNORE_NULLS):
+            entry = {"kind": "nth_value", "name": name,
+                     "expr": expr_from_proto(we.children[0])}
+            if len(we.children) > 1:
+                entry["n"], _ = scalar_from_proto(we.children[1].literal)
+            if wf == pb.NTH_VALUE_IGNORE_NULLS:
+                entry["ignore_nulls"] = True
+            funcs.append(entry)
+        else:
+            raise ValueError(f"unsupported window function {wf}")
+    d: Dict[str, Any] = {"kind": "window",
+                         "input": plan_from_proto(w.input),
+                         "functions": funcs,
+                         "partition_by": [expr_from_proto(e)
+                                          for e in w.partition_spec],
+                         "order_by": [sort_spec_from_proto(e)
+                                      for e in w.order_spec]}
+    if w.HasField("group_limit"):
+        d["group_limit"] = int(w.group_limit.k)
     return d
 
 
@@ -571,7 +630,66 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         for name in d["names"]:
             n.expand.schema.columns.add(name=name)
         return n
+    if k == "window":
+        return _window_to_proto(d)
     raise NotImplementedError(f"plan kind {k!r} {_LATER}")
+
+
+def _window_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
+    n = pb.PhysicalPlanNode()
+    w = n.window
+    w.input.CopyFrom(plan_to_proto(d["input"]))
+    for f in d["functions"]:
+        we = w.window_expr.add()
+        we.field.name = f["name"]
+        fk = f["kind"]
+        if fk == "agg":
+            if f.get("running") is False and d.get("order_by"):
+                # the wire carries no frame: an empty order_spec means the
+                # whole partition, so a whole-partition agg WITH an order
+                # would decode as a running one
+                raise ValueError(
+                    "whole-partition window agg frame with order_by has "
+                    "no wire encoding; drop order_by (partition-sorted "
+                    "input still groups correctly)")
+            we.func_type = pb.Agg
+            we.agg_func = _AGG_FN_ENCODE[f["fn"]]
+            for c in f.get("args", []):
+                we.children.append(expr_to_proto(c))
+        elif fk in _WINDOW_RANK_ENCODE:
+            we.func_type = pb.Window
+            we.window_func = _WINDOW_RANK_ENCODE[fk]
+        elif fk in ("lead", "lag"):
+            we.func_type = pb.Window
+            we.window_func = pb.LEAD
+            we.children.append(expr_to_proto(f["expr"]))
+            off = f.get("offset", 1)
+            if fk == "lag":
+                off = -off
+            we.children.append(expr_to_proto(
+                {"kind": "literal", "value": off, "type": {"id": "int64"}}))
+            if f.get("default") is not None:
+                we.children.append(expr_to_proto(
+                    {"kind": "literal", "value": f["default"],
+                     "type": _value_type(f["default"])}))
+        elif fk == "nth_value":
+            we.func_type = pb.Window
+            we.window_func = (pb.NTH_VALUE_IGNORE_NULLS
+                              if f.get("ignore_nulls") else pb.NTH_VALUE)
+            we.children.append(expr_to_proto(f["expr"]))
+            we.children.append(expr_to_proto(
+                {"kind": "literal", "value": f.get("n", 1),
+                 "type": {"id": "int64"}}))
+        else:
+            raise ValueError(f"cannot encode window function {fk!r}")
+    for e in d.get("partition_by", []):
+        w.partition_spec.append(expr_to_proto(e))
+    for s in d.get("order_by", []):
+        w.order_spec.append(sort_spec_to_proto(s))
+    if d.get("group_limit") is not None:
+        w.group_limit.k = d["group_limit"]
+    w.output_window_cols = True
+    return n
 
 
 def _join_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:

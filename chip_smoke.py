@@ -111,11 +111,31 @@ Phases, each printing its own lines; any failure exits non-zero:
      and both of q17's shuffled hash joins probing on the card; prints
      stage walls, tasks, peak memory, data and oracle seconds, joined
      and expanded rows; the profiled run as in phase 10;
- 13. the dict-device lane through dictionary growth on the card: a
+ 13. q95 and windows (stage DAG, BASELINE config #4 and the window
+     operator): web_sales and web_returns at SF10 from their seeds (4
+     files each), the other tables from phases 11 and 12; q95 (EXISTS as
+     a shuffled semi join with a `!=` filter, NOT EXISTS as a shuffled
+     anti join, web_sales hashed whole into the semi join's exchange)
+     under auto, off and auto profiled; q12, q20, q98 (a whole-partition
+     window sum), q51 (running window sums joined by a full outer
+     sort-merge join) and q67 (rank() over ROLLUP totals) under auto, and
+     q51 profiled; 4 exchange partitions, a fresh plan each, held to the
+     pandas frame in the plan's order (floats within 1e-9 relative);
+     fails unless the reference's stage count, no batch and no join probe
+     off the card, device probe calls equal to probe batches, radix
+     launched and every grouping it made exact against its plain
+     version, every eager placement (q95's per-order sums under off)
+     exact against its plain version, q95's semi and anti joins each
+     removing rows and keeping some, and every WindowExec batch on the
+     card; prints stage walls, tasks, peak memory, data and oracle
+     seconds, q95's rows after each join, and for the profiled runs the
+     busy share, cudaLaunch* per stage and the cumulative scans' device
+     time;
+ 14. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 14. the paths' profile summary and the kernel table as JSON lines, the
+ 15. the paths' profile summary and the kernel table as JSON lines, the
      card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
@@ -124,6 +144,7 @@ exits non-zero where torch sees none.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1941,7 +1962,8 @@ def _profiled(run, label):
 def _dag_profile(sched, label, wall, launches, probes):
     """A DagScheduler run profiled per stage (_stage_profiling_scheduler):
     the busy share, cudaLaunch* and busy ms per stage, the top device ops
-    and CUDA runtime calls, and placement, radix and the join probe's
+    and CUDA runtime calls, the device ms of torch's cumulative scans
+    (cummax, cummin, cumsum), and placement, radix and the join probe's
     searchsorted run on the card as often as their wrappers counted
     (_count_on_card)."""
     import torch
@@ -2018,6 +2040,14 @@ def _dag_profile(sched, label, wall, launches, probes):
     _count_on_card(profs, label, f"{n_search} searchsorted kernels on "
                    f"the card for {probes['cuda']} device probe calls",
                    n_search, probes["cuda"])
+    # torch's cummax, cummin and cumsum kernels are its "scan" kernels
+    # (the template arguments of other kernels may name a scan too)
+    scans = {n: t for n, (t, _c) in by_name.items()
+             if "scan" in n.split("<")[0].lower()}
+    print(f"  cumulative scans: {sum(scans.values()) / 1e3:.3f} ms of "
+          f"{busy / 1e3:.3f} ms device time: " + "; ".join(
+              f"{t / 1e3:.3f} ms {n[:70]}" for n, t in
+              sorted(scans.items(), key=lambda kv: -kv[1])))
     print(f"  join probe: {probes['cuda']} device probe calls, "
           f"{n_search} searchsorted kernels on the card "
           f"({probe_us / 1e3:.3f} ms); profile read in "
@@ -2027,7 +2057,8 @@ def _dag_profile(sched, label, wall, launches, probes):
                 launches_per_stage=per_stage,
                 busy_ms_per_stage={k: v / 1e3 for k, v in busy_stage.items()},
                 host_launches=sum(per_stage.values()), graph_launches=graphs,
-                searchsorted_kernels=n_search, kernel_us_per_call=kernel_us)
+                searchsorted_kernels=n_search, kernel_us_per_call=kernel_us,
+                scan_ms=sum(scans.values()) / 1e3)
 
 
 FAMILY_PARTS = 4            # q06, q42, q03: the exchanges' partitions
@@ -2346,7 +2377,7 @@ def q17_q18_data(root, fam_tables, fam_paths):
         runs[name] = ((lambda m=make: m()[0]), want)
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
-    return runs, secs, k
+    return runs, secs, k, tables, paths
 
 
 def _rollup_nulls(got):
@@ -2419,6 +2450,66 @@ class _RecordedGroupings:
         print(f"{label}: {len(shapes)} radix groupings on the card, each "
               f"exact against the plain version on its pids (rows, P): "
               f"{shapes}")
+        return shapes
+
+
+class _RecordedPlacements:
+    """Within a `with` block, every eager call of kernels/hash_update.py
+    `place_in_carry` on the card (outside a CUDA graph capture, where a
+    call only records a graph node) is recorded: copies of its operands
+    before the call, what it returned, and the `used` flags and key limbs
+    it left.  `check` replays each call's operands through the plain
+    version and holds every output exact."""
+
+    def __enter__(self):
+        import torch
+        from blaze_tpu_torch.kernels import hash_update as HU
+        self.calls, self._real = [], HU.place_in_carry
+
+        def recording(h, limbs, mask, used, tab, probe_rounds,
+                      rollback=False, scratch=None):
+            eager = h.is_cuda and not torch.cuda.is_current_stream_capturing()
+            before = tuple(t.clone() for t in (h, limbs, mask, used, tab)) \
+                if eager else None
+            got = self._real(h, limbs, mask, used, tab, probe_rounds,
+                             rollback, scratch)
+            if eager:
+                self.calls.append((before, probe_rounds, rollback,
+                                   tuple(g.clone() for g in got),
+                                   used.clone(), tab.clone()))
+            return got
+        HU.place_in_carry = recording
+        return self
+
+    def __exit__(self, *exc):
+        from blaze_tpu_torch.kernels import hash_update as HU
+        HU.place_in_carry = self._real
+        return False
+
+    def check(self, label):
+        """Fails unless each recorded call's outputs, `used` and limbs
+        equal the plain version's on the same operands; returns the calls'
+        (rows, limbs, slots, masked rows)."""
+        import torch
+        from blaze_tpu_torch.kernels import hash_update as HU
+        shapes = []
+        for (h, limbs, mask, used, tab), rounds, rollback, got, used_after, \
+                tab_after in self.calls:
+            ref = HU.place_in_carry_plain(h, limbs, mask, used, tab, rounds,
+                                          rollback)
+            exact = (all(torch.equal(a.long(), b.long())
+                         for a, b in zip(got, ref))
+                     and torch.equal(used, used_after)
+                     and torch.equal(tab, tab_after))
+            if not exact:
+                raise SystemExit(f"{label}: placement of {h.shape[0]} rows "
+                                 f"into {tab.shape[1]} slots disagrees with "
+                                 f"its plain version")
+            shapes.append((h.shape[0], limbs.shape[0], tab.shape[1],
+                           int(mask.sum())))
+        print(f"{label}: {len(shapes)} eager placements on the card, each "
+              f"exact against the plain version on its operands (rows, "
+              f"limbs, slots, masked rows): {shapes}")
         return shapes
 
 
@@ -2554,8 +2645,9 @@ def q17_q18_phase(root, fam_tables, fam_paths):
     """q18 (BASELINE config #3's rollup) under auto, off and auto
     profiled, q18 over all five grouping sets under auto, then q17 under
     auto on the generator's tables (an empty result, as the oracle's) and
-    on its linked copy."""
-    runs, secs, k = q17_q18_data(root, fam_tables, fam_paths)
+    on its linked copy.  Returns the phase's results, and its tables and
+    paths (the q06 phase's among them) for the next phase."""
+    runs, secs, k, tables, paths = q17_q18_data(root, fam_tables, fam_paths)
     out = {"q18 auto": q17_q18_path("q18", *runs["q18"], "auto"),
            "q18 off": q17_q18_path("q18", *runs["q18"], "off"),
            "q18 profiled": _profiled(lambda: q17_q18_path(
@@ -2564,7 +2656,188 @@ def q17_q18_phase(root, fam_tables, fam_paths):
                "q18 all sets", *runs["q18 all sets"], "auto")}
     for name in ("q17", "q17 linked"):
         out[f"{name} auto"] = q17_q18_path(name, *runs[name], "auto")
-    return {"data_s": secs, "linked_rows": k, "runs": out}
+    return {"data_s": secs, "linked_rows": k, "runs": out}, tables, paths
+
+
+Q95W_PARTS = 4              # q95 and the window queries' exchanges
+
+
+def q95_windows_data(root, tables, paths):
+    """The tables of q95 and the window queries at SF10 from their
+    seeds: web_sales and web_returns generated and written here (in
+    N_FILES files each), store_sales, catalog_sales, item, date_dim and
+    customer_address as the earlier phases wrote them (`tables` and
+    `paths` hold them, by name); for each query a
+    maker of a fresh plan and its pandas frame; and the seconds each step
+    took."""
+    from blaze_tpu_torch.itest import q95_windows as D
+    from blaze_tpu_torch.itest import queries as Q
+    from blaze_tpu_torch.itest import tpcds_data as T
+    phase("data: TPC-DS web_sales and web_returns at SF10 for q95, q12 and "
+          "q51 (store_sales, catalog_sales, item, date_dim and "
+          "customer_address from the earlier phases)")
+    t0 = time.perf_counter()
+    made = ("web_sales", "web_returns")
+    tables = dict({n: tables[n] for n in D.TABLES if n not in made},
+                  **T.make_tables(SCALE, made))
+    t1 = time.perf_counter()
+    paths = dict({n: paths[n] for n in D.TABLES if n not in made},
+                 **T.write_splits({n: tables[n] for n in made},
+                                  os.path.join(root, "q95_windows"),
+                                  N_FILES))
+    t2 = time.perf_counter()
+    secs = {"generate": t1 - t0, "write": t2 - t1}
+    print("rows: " + ", ".join(f"{n} {tables[n].num_rows} in "
+                               f"{len(paths[n])} file(s)" for n in D.TABLES)
+          + f"; generated in {secs['generate']:.1f} s, written in "
+          f"{secs['write']:.1f} s")
+    runs = {}
+    for name in D.QUERIES:
+        def make(n=name):
+            return Q.plans(paths, tables, Q95W_PARTS, [n])[n]
+        t = time.perf_counter()
+        want = make()[1]()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        runs[name] = ((lambda m=make: m()[0]), want)
+        print(f"pandas oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return runs, secs
+
+
+def q95_windows_path(name, make_plan, want, mode, profiled=False):
+    """q95 or a window query through the port's DagScheduler with the
+    stage loop under `mode`, with a fresh plan: the stage count of the
+    reference's split, the rows equal to the pandas frame in the plan's
+    order (itest/q95_windows.py in_plan_order), floats within 1e-9
+    relative; every batch and every join probe on the card (device probe
+    calls = probe batches), radix launched and each of its groupings
+    exact against the plain version on the pids the shuffle writer gave
+    it (_RecordedGroupings).  q95: the semi join (EXISTS) and the anti join
+    (NOT EXISTS) each emit fewer rows than they take in, and more than 0;
+    its per-order sums take the fused hash lane on the card, and each of
+    its eager placements equals the plain version on its operands
+    (_RecordedPlacements; under `off` every placement is eager).  The window queries: every WindowExec batch on the card.
+    With `profiled`, each stage under torch.profiler (see _dag_profile)."""
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import q06 as F
+    from blaze_tpu_torch.itest import q95_windows as D
+    from blaze_tpu_torch.itest.q01_dag import stage_counters
+    from blaze_tpu_torch.itest.runner import frame, same_order
+    from blaze_tpu_torch.kernels import join as JK
+    from blaze_tpu_torch.plan.stages import DagScheduler
+
+    label = f"{name} {mode}" + (" profiled" if profiled else "")
+    phase(f"main path {label}: TPC-DS {name} through the stage DAG, SF10, "
+          f"{N_FILES} files a fact table, {Q95W_PARTS} exchange partitions")
+    _loop_mode(mode)
+    config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    sched = _stage_profiling_scheduler() if profiled else DagScheduler()
+    plan = make_plan()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    probes0 = dict(JK.probe_calls)
+    # q95's placements are held to the plain version; q51's 1,400 a run
+    # (its map-side sums, the hash lane of q06's count by store) would
+    # keep a copy of the table each
+    recorded = _RecordedPlacements() if name == "q95" else \
+        contextlib.nullcontext()
+    with _RecordedGroupings() as groupings, recorded as placements:
+        t0 = time.perf_counter()
+        out = sched.run_collect(plan)
+        wall = time.perf_counter() - t0
+    launches = _read_launches()
+    probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
+    peak = torch.cuda.max_memory_allocated()
+    got = frame(out)
+    counters = stage_counters(sched, D.STAGE_COUNTERS)
+    ops = {op: F.operator_counters(sched, op, keys) for op, keys in (
+        ("WindowExec", ("cuda_batches", "cpu_batches", "output_rows")),
+        ("SortMergeJoinExec", ("output_rows",)),
+        ("AggExec", ("cuda_batches", "cpu_batches")))}
+    ops = {op: {sid: c for sid, c in per.items() if any(c.values())}
+           for op, per in ops.items()}
+    tasks = {st.sid: st.num_tasks for st in sched.stages}
+    print(sched.describe())
+    print("stage walls, s (host clock, each ending in a device "
+          "synchronisation): " + ", ".join(
+              f"{sid} {w:.3f}" for sid, w in sorted(sched.stage_walls.items()))
+          + f"; run {wall:.3f} s")
+    for sid in sorted(counters):
+        print(f"  stage {sid} ({tasks[sid]} tasks): "
+              f"{ {k: v for k, v in counters[sid].items() if v} }")
+    print(f"launches: {launches}; join probes {probes}; peak {peak} bytes")
+    print(f"per operator and stage: {ops}")
+    if len(sched.stages) != D.STAGES[name]:
+        raise SystemExit(f"{label}: {len(sched.stages)} stages, expected "
+                         f"{D.STAGES[name]}")
+    err = same_order(*D.in_plan_order(name, got, want), 1e-9)
+    if err or not len(got):
+        raise SystemExit(f"{label}: {len(got)} rows against the oracle's "
+                         f"{len(want)}: {err}")
+    print(f"result: {len(got)} rows equal to the pandas oracle, in order "
+          f"(first {got.iloc[0].tolist()})")
+    if launches["radix_partition"] <= 0:
+        raise SystemExit(f"{label}: radix was never launched")
+    shapes = groupings.check(label, launches["radix_partition"])
+    placed = placements.check(label) if placements else None
+    if placed is not None and mode == "off" and \
+            len(placed) != launches["hash_placement"]:
+        raise SystemExit(f"{label}: {len(placed)} eager placements recorded "
+                         f"for {launches['hash_placement']} counted")
+    off_card = {sid: c["cpu_batches"] for sid, c in counters.items()
+                if c["cpu_batches"]}
+    if off_card or probes["cpu"]:
+        raise SystemExit(f"{label}: work off the card: cpu_batches "
+                         f"{off_card}, CPU join probes {probes['cpu']}")
+    probe_batches = sum(c["probe_batches"] for c in counters.values())
+    if probes["cuda"] != probe_batches:
+        raise SystemExit(f"{label}: {probes['cuda']} device probe calls for "
+                         f"{probe_batches} probe batches")
+    res = {"query": name, "mode": mode, "wall_s": wall, "rows": len(got),
+           "stage_walls": sched.stage_walls, "tasks": tasks,
+           "counters": counters, "operators": ops, "launches": launches,
+           "probe_calls": probes, "peak_bytes": peak,
+           "radix_groupings": shapes, "placements": placed}
+    if name == "q95":
+        rows = D.q95_join_rows(sched)
+        print(f"q95 rows after each join: {rows}")
+        if launches["hash_placement"] <= 0:
+            raise SystemExit(f"{label}: the per-order sums never launched "
+                             f"placement")
+        if not D.joins_cut(rows):
+            raise SystemExit(f"{label}: the semi and anti joins must each "
+                             f"remove rows and keep some: {rows}")
+        res["join_rows"] = rows
+    else:
+        windows = ops["WindowExec"]
+        if not windows or any(c["cpu_batches"] or c["cuda_batches"] <= 0
+                              for c in windows.values()):
+            raise SystemExit(f"{label}: WindowExec batches off the card: "
+                             f"{windows}")
+    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
+    leaks = sched.leak_report()
+    if runs or any(leaks.values()):
+        raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
+                         f"scheduler leaked {leaks}")
+    if profiled:
+        res.update(_dag_profile(sched, label, wall, launches, probes))
+    return res
+
+
+def q95_windows_phase(root, tables, paths):
+    """q95 (BASELINE config #4) under auto, off and auto profiled, then
+    q12, q20, q98, q51 and q67 under auto and q51 once more profiled."""
+    runs, secs = q95_windows_data(root, tables, paths)
+    out = {"q95 auto": q95_windows_path("q95", *runs["q95"], "auto"),
+           "q95 off": q95_windows_path("q95", *runs["q95"], "off"),
+           "q95 profiled": _profiled(lambda: q95_windows_path(
+               "q95", *runs["q95"], "auto", profiled=True), "q95")}
+    for name in ("q12", "q20", "q98", "q51", "q67"):
+        out[f"{name} auto"] = q95_windows_path(name, *runs[name], "auto")
+    out["q51 profiled"] = _profiled(lambda: q95_windows_path(
+        "q51", *runs["q51"], "auto", profiled=True), "q51")
+    return {"data_s": secs, "runs": out}
 
 
 def pq_rows(path):
@@ -2640,10 +2913,14 @@ def main():
         family, fam_tables, fam_paths = family_phase(root)
         for name in ("q06", "q42", "q03"):
             by_path[name] = family["runs"][f"{name} auto"]["launches"]
-        q17_q18 = q17_q18_phase(root, fam_tables, fam_paths)
-        del fam_tables
+        q17_q18, tables, paths = q17_q18_phase(root, fam_tables, fam_paths)
         for name in ("q18", "q17", "q17 linked"):
             by_path[name] = q17_q18["runs"][f"{name} auto"]["launches"]
+        q95_windows = q95_windows_phase(root, dict(fam_tables, **tables),
+                                        dict(fam_paths, **paths))
+        del fam_tables, tables
+        for name in ("q95", "q12", "q20", "q98", "q51", "q67"):
+            by_path[name] = q95_windows["runs"][f"{name} auto"]["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -2767,10 +3044,22 @@ def main():
                   f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
                   f"stage {f['launches_per_stage']}" if "busy_share" in f
                   else ""))
+    print("q95/windows data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in q95_windows["data_s"].items()))
+    for k, f in q95_windows["runs"].items():
+        print(f"{k}: run {f['wall_s']:.3f} s, {f['rows']} rows, stage walls "
+              f"{ {s: round(w, 3) for s, w in f['stage_walls'].items()} }, "
+              f"tasks {f['tasks']}, peak {f['peak_bytes']} bytes, radix "
+              f"groupings (rows, P) {f['radix_groupings']}"
+              + (f", join rows {f['join_rows']}" if "join_rows" in f else "")
+              + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                 f"stage {f['launches_per_stage']}, cumulative scans "
+                 f"{f['scan_ms']:.3f} of {1e3 * f['busy_s']:.3f} device ms"
+                 if "busy_share" in f else ""))
     print(json.dumps({"paths": profiled, "runs": runs,
                       "stage_loop": loop_phases, "branches": branches,
                       "q01_full": full, "q06_family": family,
-                      "q17_q18": q17_q18,
+                      "q17_q18": q17_q18, "q95_windows": q95_windows,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -318,12 +318,163 @@ def test_sort_merge_join_same_rows_in_order(sides, jt, key):
     _assert_same_rows(got, want)
 
 
+@pytest.mark.parametrize("jt", JOIN_TYPES)
+def test_sort_merge_join_two_keys_and_a_filter(sides, jt):
+    """The merge over a two-column key (the int key, then the float key
+    with NaN, -0.0 and NULLs) with a join filter over both sides: the run
+    walk's rows and order."""
+    one = dict(sides, left=dict(sides["left"], file_groups=[
+        [f for g in sides["left"]["file_groups"] for f in g]]))
+    d = _join("sort_merge_join", one, jt, "k")
+    d["left_keys"].append({"kind": "column", "name": "lf"})
+    d["right_keys"].append({"kind": "column", "name": "rf"})
+    d["join_filter"] = {"kind": "binary", "op": "<",
+                        "l": {"kind": "column", "index": 2},
+                        "r": {"kind": "column", "index": 6}}
+    got, want = _run_both(d)
+    _assert_same_rows(got, want)
+
+
+@pytest.fixture(scope="module")
+def hot(tmp_path_factory):
+    """One hot key: 64 left and 4,000 right rows share key 5, among 60
+    rows a side of keys 0-9 with NULLs, in shuffled order."""
+    root = tmp_path_factory.mktemp("hot")
+    rng = np.random.default_rng(2028)
+    paths = {}
+    for prefix, name, n_hot in (("l", "left", 64), ("r", "right", 4000)):
+        k = np.concatenate([np.full(n_hot, 5), rng.integers(0, 10, 60)])
+        perm = rng.permutation(len(k))
+        tbl = pa.table({
+            f"{prefix}k": pa.array(k[perm], mask=(perm >= n_hot + 50)),
+            f"{prefix}v": pa.array(rng.integers(0, 1000, len(k))),
+        })
+        p = str(root / f"{name}.parquet")
+        pq.write_table(tbl, p, row_group_size=500)
+        paths[name] = {"kind": "parquet_scan", "schema": _schema_d(tbl),
+                       "file_groups": [[p]]}
+    return paths
+
+
+def _lit(v):
+    return {"kind": "literal", "value": v, "type": {"id": "int64"}}
+
+
+@pytest.mark.parametrize("jt", ["inner", "full", "left_semi", "existence"])
+def test_sort_merge_join_hot_key_in_bounded_memory(hot, jt):
+    """A key run of 64 x 4,000 rows (256,000 candidate pairs) at a batch
+    size of 256, through a join filter ((lv + rv) % 8 == 0): rows and
+    order equal the JAX cursor's; a second run emits no batch of twice the
+    batch size (the coalescing stream's bound), and the host arrays the
+    merge holds at once (numpy's, as tracemalloc sees them) stay under
+    1 MiB, where one int64 array over the candidate pairs is 2 MB."""
+    import tracemalloc
+    from blaze_tpu.plan import create_plan as jcreate
+    from blaze_tpu_torch.plan import create_plan as tcreate
+    d = _join("sort_merge_join", hot, jt, "k")
+    col = lambda i: {"kind": "column", "index": i}  # noqa: E731
+    d["join_filter"] = {
+        "kind": "binary", "op": "==", "r": _lit(0),
+        "l": {"kind": "binary", "op": "%", "r": _lit(8),
+              "l": {"kind": "binary", "op": "+", "l": col(1),
+                    "r": col(3)}}}
+    got, want = _run_both(d)
+    assert got.column_names == want.column_names
+    assert got.num_rows == want.num_rows > 64
+    for name in got.column_names:
+        assert got.column(name).equals(want.column(name)), name
+    plan = tcreate(d)
+    rows = 0
+    tracemalloc.start()
+    try:
+        for p in range(plan.num_partitions):
+            for b in plan.execute(p):
+                assert b.num_rows < 2 * BATCH
+                rows += b.selected_count()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert rows == want.num_rows
+    assert peak < 1 << 20, peak
+
+
+@pytest.mark.parametrize("jt", ["full", "left_anti"])
+def test_merge_reads_its_sides_a_batch_at_a_time(jt):
+    """The merge of two sorted inputs of 40 batches each emits its first
+    rows after reading a few of their batches, and holds no more than two
+    batches of a side at once."""
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import BoundReference
+    from blaze_tpu_torch.ops.joins.exec import JoinType
+    from blaze_tpu_torch.ops.joins.smj import MergeJoiner, _Side
+    from blaze_tpu_torch.schema import Schema
+    rng = np.random.default_rng(7)
+    read = {"left": 0, "right": 0}
+
+    def side(name, step):
+        keys = np.sort(rng.integers(0, 40 * BATCH // step, 40 * BATCH))
+        tbl = pa.table({name[0] + "k": keys,
+                        name[0] + "v": np.arange(len(keys))})
+        for rb in tbl.to_batches(max_chunksize=BATCH):
+            read[name] += 1
+            yield ColumnBatch.from_arrow(rb)
+
+    schemas = [Schema.from_arrow(pa.schema([(p + "k", pa.int64()),
+                                             (p + "v", pa.int64())]))
+               for p in "lr"]
+    out = Schema.from_arrow(pa.schema(
+        [f.to_arrow() for s in (schemas if jt == "full" else schemas[:1])
+         for f in s]))
+    left = _Side(side("left", 2), [BoundReference(0)], schemas[0])
+    right = _Side(side("right", 3), [BoundReference(0)], schemas[1])
+    joiner = MergeJoiner(schemas[0], schemas[1], out, JoinType(jt), None)
+    stream = joiner.join(left, right)
+    next(stream)
+    assert read["left"] <= 2 and read["right"] <= 2
+    held = 0
+    for _ in stream:
+        held = max(held, left.num_rows, right.num_rows)
+    assert read == {"left": 40, "right": 40}
+    assert held <= 2 * BATCH
+
+
+def test_smj_walk_script_at_a_small_scale(capsys):
+    """`python -m blaze_tpu_torch.itest.smj_walk` at 0.2% of q51's rows
+    on the CPU: both runs give the full outer join's row count, the same
+    rows in order."""
+    import json
+    from blaze_tpu_torch.itest import smj_walk
+    assert smj_walk.main(["--scale", "0.002", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_rows_in_order"]
+    assert [r["rows"] for r in out["runs"]] == [
+        int(smj_walk.OUT_ROWS * 0.002)] * 2
+
+
 @pytest.mark.parametrize("jt", ["inner", "full", "left_anti"])
 def test_shuffled_hash_join_same_rows_in_order(sides, jt):
     one = dict(sides, left=dict(sides["left"], file_groups=[
         [f for g in sides["left"]["file_groups"] for f in g]]))
     got, want = _run_both(_join("hash_join", one, jt, "k"))
     _assert_same_rows(got, want)
+
+
+@pytest.mark.parametrize("kind", ["broadcast_join", "hash_join",
+                                  "sort_merge_join"])
+@pytest.mark.parametrize("jt", ["left_semi", "left_anti", "existence",
+                                "full"])
+def test_joins_count_the_rows_they_emit(sides, kind, jt):
+    """`output_rows` of a semi, anti, existence and full join equals the
+    rows it emits, and the JAX operator's output length."""
+    from blaze_tpu.plan import create_plan as jcreate
+    from blaze_tpu_torch.plan import create_plan as tcreate
+    one = dict(sides, left=dict(sides["left"], file_groups=[
+        [f for g in sides["left"]["file_groups"] for f in g]]))
+    d = _join(kind, one, jt, "k")
+    plan = tcreate(d)
+    got = _collect(plan)
+    assert plan.metrics.values["output_rows"] == got.num_rows \
+        == _collect(jcreate(d)).num_rows > 0
 
 
 def test_broadcast_join_with_filter_and_utf8_key(sides):

@@ -140,7 +140,7 @@ def test_generators_equal_the_jax_package(name):
 
 def test_splits_and_the_linked_copy(data):
     tables, paths, linked, lpaths, k = data
-    for n in TT.FACTS:
+    for n in set(TT.FACTS) & set(D.TABLES):
         assert len(paths[n]) == N_FILES
     for n in ("store", "item", "customer", "customer_demographics",
               "customer_address"):
