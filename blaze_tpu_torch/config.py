@@ -222,6 +222,18 @@ SHUFFLE_CHECKSUM_ENABLE = bool_conf(
     "auron.tpu.shuffle.checksum", True,
     "CRC32C checksum on every shuffle IPC frame (4 bytes/frame, verified "
     "on read); a mismatch raises ShuffleChecksumError.")
+COLUMN_PRUNING_ENABLE = bool_conf(
+    "auron.tpu.columnPruning", True,
+    "Column-pruning pass over each task's decoded plan "
+    "(plan/column_pruning.py): scans narrow to the columns referenced "
+    "above them.  Plans from Spark arrive pruned already; this recovers "
+    "the behavior for directly-authored IR.")
+COLLAPSE_FILTER_PROJECT = bool_conf(
+    "auron.tpu.plan.collapseFilterProject", True,
+    "Planner rewrite (plan/planner.py collapse_filter_project): merge "
+    "adjacent Filter->Project chains into one FilterProjectExec and "
+    "Project->Project into a single Project by substituting bound "
+    "references.")
 TORCH_DEVICE = str_conf(
     "auron.torch.device", "cuda",
     "Device the PyTorch port runs on: `cuda` (the default; raises when no "

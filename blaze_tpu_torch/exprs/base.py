@@ -55,9 +55,15 @@ class ColVal:
                 f"(ROADMAP Queue 1 item 13)")
         return self
 
-    def to_column(self, capacity: int):
+    def to_column(self, capacity: int, device: torch.device):
+        """The value as a batch column.  A fixed-width value computed on
+        the host (a utf8 comparison's bools) is uploaded: fixed-width
+        columns live on the device, as in the JAX package."""
         if self.is_device:
             return DeviceColumn(self.dtype, self.data, self.validity)
+        if self.dtype.is_fixed_width:
+            return DeviceColumn.from_arrow(self.array, self.dtype, capacity,
+                                           device)
         return HostColumn(self.dtype, self.array)
 
     def as_mask(self, batch: ColumnBatch) -> torch.Tensor:

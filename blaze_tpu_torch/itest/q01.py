@@ -33,12 +33,12 @@ STAGE_RANGE = "stage "
 #: input batches by device type, its partial-skip switches and its table
 #: doublings, and the device stage loop's (runtime/loop.py: tasks folded,
 #: steps, batches, source rows, regrows, fallbacks to the staged path,
-#: graphs captured)
+#: graphs captured), and the bytes its scans decoded
 STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "partial_skipped",
                   "table_grown", "stage_loop_tasks", "stage_loop_chunks",
                   "stage_loop_batches", "stage_loop_rows",
                   "stage_loop_regrows", "stage_loop_fallback",
-                  "stage_loop_graph_captures")
+                  "stage_loop_graph_captures", "io_bytes")
 
 SR_SCHEMA_D = {"fields": [
     {"name": "sr_returned_date_sk", "type": {"id": "int64"},

@@ -28,7 +28,7 @@ STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                   "fused_batches",
                   "stage_loop_tasks", "stage_loop_fallback",
                   "partial_skipped", "passthrough_rows",
-                  "sort_device_runs")
+                  "sort_device_runs", "io_bytes")
 
 #: the tables q06, q42 and q03 read, and the queries run over them
 TABLES = ("store_sales", "item", "date_dim")

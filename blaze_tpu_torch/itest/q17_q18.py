@@ -47,7 +47,7 @@ STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                   "fused_batches", "dict_device_batches",
                   "dict_device_fallback", "stage_loop_tasks",
                   "stage_loop_fallback", "partial_skipped",
-                  "passthrough_rows", "sort_device_runs")
+                  "passthrough_rows", "sort_device_runs", "io_bytes")
 
 #: the grouping ids of q18's five grouping sets
 Q18_GIDS = (0, 1, 3, 7, 15)

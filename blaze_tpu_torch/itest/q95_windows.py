@@ -47,7 +47,7 @@ STAGES = {"q95": 5, "q12": 3, "q20": 3, "q98": 3, "q51": 5, "q67": 3}
 STAGE_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                   "fused_batches", "dict_device_batches",
                   "stage_loop_tasks", "stage_loop_fallback",
-                  "sort_device_runs", "output_rows")
+                  "sort_device_runs", "output_rows", "io_bytes")
 
 
 def _nodes_named(node: MetricNode, name: str) -> List[MetricNode]:

@@ -1,7 +1,8 @@
 """TPC-DS queries as plan-IR dicts with their pandas oracles (a copy of
-the plan-dict helpers and of `q01`, `q06`, `_brand_revenue`, `q03`,
+the plan-dict helpers and of every query builder of
+blaze_tpu/itest/queries.py: `q01`, `q06`, `_brand_revenue`, `q03`,
 `q42`, `q52`, `q55`, `q17`, `q18`, `q95`, `_ratio_over_window`, `q12`,
-`q20`, `q98`, `q51` and `q67` of blaze_tpu/itest/queries.py).
+`q20`, `q98`, `q51`, `q67`, `q07`, `q19` and `gq1`).
 
 Fact tables are read from parquet file splits; exchanges are
 `local_exchange` nodes, which plan/stages.py `DagScheduler` cuts into
@@ -32,7 +33,13 @@ tables it reads, and `plans` builds several at once.
   q51  running sums of daily web and store revenue per item (a running
        window sum each), joined by a full outer sort-merge join;
   q67  ROLLUP(category, class) of store revenue, then rank() within the
-       category, kept to rank 10.
+       category, kept to rank 10;
+  q19  brand revenue through date, item, customer (a shuffled hash
+       join), address and store joins, sorted by a descending sum;
+  q07  store sales of men with a college education in 2000 under an
+       e-mail-less promotion: four broadcasts, four averages by item;
+  gq1  posexplode of each web session's list of clicked items, renamed,
+       joined to item, clicks counted by category.
 
 Date keys follow tpcds_data.gen_date_dim: sk = 2450815 + day, d_year =
 1998 + day // 365, d_moy = (day % 365) // 31 + 1 (at most 12).
@@ -836,6 +843,147 @@ def q67(paths, tables, partitions: int = 2):
     return plan, oracle
 
 
+def q07(paths, tables, partitions: int = 4):
+    """ss ⨝ cd(gender/edu) ⨝ dd ⨝ item ⨝ promotion, avg stats by item."""
+    ss, cd, it = (tables["store_sales"], tables["customer_demographics"],
+                  tables["item"])
+    pr, dd = tables["promotion"], tables["date_dim"]
+
+    cd_f = filter_(scan(paths, tables, "customer_demographics"),
+                   binop("==", c("cd_gender"), lit("M", "utf8")),
+                   binop("==", c("cd_education_status"),
+                         lit("College", "utf8")))
+    j_cd = join("broadcast_join", scan(paths, tables, "store_sales"),
+                cd_f, [c("ss_cdemo_sk")], [c("cd_demo_sk")])
+    dd_f = filter_(scan(paths, tables, "date_dim"),
+                   binop("==", c("d_year"), lit(2000, "int32")))
+    j_dd = join("broadcast_join", j_cd, dd_f,
+                [c("ss_sold_date_sk")], [c("d_date_sk")])
+    pr_f = filter_(scan(paths, tables, "promotion"),
+                   binop("==", c("p_channel_email"), lit("N", "utf8")))
+    j_pr = join("broadcast_join", j_dd, pr_f,
+                [c("ss_promo_sk")], [c("p_promo_sk")])
+    j_it = join("broadcast_join", j_pr, scan(paths, tables, "item"),
+                [c("ss_item_sk")], [c("i_item_sk")])
+    stats = _partial_final(
+        j_it, [(c("i_item_id"), "i_item_id")],
+        [("avg", "agg1", [c("ss_quantity")]),
+         ("avg", "agg2", [c("ss_list_price")]),
+         ("avg", "agg3", [c("ss_coupon_amt")]),
+         ("avg", "agg4", [c("ss_sales_price")])], partitions)
+    single = exchange(stats, [ci(0)], 1)
+    plan = sort_limit(single, [(ci(0), False)], 100)
+
+    def oracle():
+        ssd, cdd, itd = ss.to_pandas(), cd.to_pandas(), it.to_pandas()
+        prd, ddd = pr.to_pandas(), dd.to_pandas()
+        m = ssd.merge(cdd[(cdd.cd_gender == "M") &
+                          (cdd.cd_education_status == "College")],
+                      left_on="ss_cdemo_sk", right_on="cd_demo_sk")
+        m = m.merge(ddd[ddd.d_year == 2000], left_on="ss_sold_date_sk",
+                    right_on="d_date_sk")
+        m = m.merge(prd[prd.p_channel_email == "N"],
+                    left_on="ss_promo_sk", right_on="p_promo_sk")
+        m = m.merge(itd, left_on="ss_item_sk", right_on="i_item_sk")
+        out = m.groupby("i_item_id", as_index=False).agg(
+            agg1=("ss_quantity", "mean"), agg2=("ss_list_price", "mean"),
+            agg3=("ss_coupon_amt", "mean"),
+            agg4=("ss_sales_price", "mean"))
+        return out.sort_values("i_item_id")[:100].reset_index(drop=True)
+
+    return plan, oracle
+
+
+def q19(paths, tables, partitions: int = 2):
+    """Brand revenue through customer/address joins (q19 shape without
+    the manager filter; exercises the 4-join chain)."""
+    ss, it, dd = tables["store_sales"], tables["item"], tables["date_dim"]
+    cu, ca, st = (tables["customer"], tables["customer_address"],
+                  tables["store"])
+
+    dd_f = filter_(scan(paths, tables, "date_dim"),
+                   binop("==", c("d_year"), lit(1999, "int32")),
+                   binop("==", c("d_moy"), lit(11, "int32")))
+    j_dd = join("broadcast_join", scan(paths, tables, "store_sales"),
+                dd_f, [c("ss_sold_date_sk")], [c("d_date_sk")])
+    j_it = join("broadcast_join", j_dd, scan(paths, tables, "item"),
+                [c("ss_item_sk")], [c("i_item_sk")])
+    cs_ex = exchange(j_it, [c("ss_customer_sk")], partitions)
+    cu_ex = exchange(scan(paths, tables, "customer"),
+                     [c("c_customer_sk")], partitions)
+    j_cu = join("hash_join", cs_ex, cu_ex, [c("ss_customer_sk")],
+                [c("c_customer_sk")])
+    j_ca = join("broadcast_join", j_cu,
+                scan(paths, tables, "customer_address"),
+                [c("c_current_addr_sk")], [c("ca_address_sk")])
+    j_st = join("broadcast_join", j_ca, scan(paths, tables, "store"),
+                [c("ss_store_sk")], [c("s_store_sk")])
+    rev = _partial_final(
+        j_st, [(c("i_brand_id"), "brand_id"), (c("i_brand"), "brand")],
+        [("sum", "ext_price", [c("ss_ext_sales_price")])], partitions)
+    single = exchange(rev, [ci(0)], 1)
+    plan = sort_limit(single, [(ci(2), True), (ci(0), False)], 100)
+
+    def oracle():
+        ssd, itd, ddd = ss.to_pandas(), it.to_pandas(), dd.to_pandas()
+        cud, cad, std = cu.to_pandas(), ca.to_pandas(), st.to_pandas()
+        m = ssd.merge(ddd[(ddd.d_year == 1999) & (ddd.d_moy == 11)],
+                      left_on="ss_sold_date_sk", right_on="d_date_sk")
+        m = m.merge(itd, left_on="ss_item_sk", right_on="i_item_sk")
+        m = m.merge(cud, left_on="ss_customer_sk",
+                    right_on="c_customer_sk")
+        m = m.merge(cad, left_on="c_current_addr_sk",
+                    right_on="ca_address_sk")
+        m = m.merge(std, left_on="ss_store_sk", right_on="s_store_sk")
+        out = (m.groupby(["i_brand_id", "i_brand"], as_index=False)
+               .agg(ext_price=("ss_ext_sales_price", "sum")))
+        out = out.sort_values(["ext_price", "i_brand_id"],
+                              ascending=[False, True])[:100]
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
+def gq1(paths, tables, partitions: int = 2):
+    """Generate-bearing workload: posexplode the clickstream list column,
+    join items, count clicks by category (exercises inventory row 19
+    through the integration harness)."""
+    wc, it = tables["web_clickstreams"], tables["item"]
+
+    gen = {"kind": "generate",
+           "input": scan(paths, tables, "web_clickstreams"),
+           "generator": {"kind": "posexplode",
+                         "child": c("wc_clicked_items"), "outer": False},
+           "required_cols": [0]}
+    renamed = {"kind": "rename_columns", "input": gen,
+               "names": ["wc_session_sk", "pos", "item_sk"]}
+    j = join("broadcast_join", renamed, scan(paths, tables, "item"),
+             [ci(2)], [c("i_item_sk")])
+    counted = _partial_final(
+        j, [(c("i_category"), "i_category")],
+        [("count", "clicks", [ci(0)])], partitions)
+    single = exchange(counted, [ci(0)], 1)
+    plan = sort_limit(single, [(ci(0), False)], 100)
+
+    def oracle():
+        import pandas as pd
+        wcd = wc.to_pandas()
+        itd = it.to_pandas()
+        rows = []
+        for _sess, items in zip(wcd.wc_session_sk,
+                                wcd.wc_clicked_items):
+            if items is not None:
+                rows.extend(items)
+        e = pd.DataFrame({"item_sk": rows})
+        m = e.merge(itd, left_on="item_sk", right_on="i_item_sk")
+        out = (m.groupby("i_category", as_index=False)
+               .agg(clicks=("item_sk", "count"))
+               .sort_values("i_category"))
+        return out.reset_index(drop=True)
+
+    return plan, oracle
+
+
 QUERIES: Dict[str, Tuple[Callable, list]] = {
     "q01": (q01, ["store_returns", "date_dim", "store", "customer"]),
     "q17": (q17, ["store_sales", "store_returns", "catalog_sales",
@@ -853,6 +1001,11 @@ QUERIES: Dict[str, Tuple[Callable, list]] = {
     "q98": (q98, ["store_sales", "item"]),
     "q51": (q51, ["web_sales", "store_sales"]),
     "q67": (q67, ["store_sales", "item", "date_dim"]),
+    "q19": (q19, ["store_sales", "item", "date_dim", "customer",
+                  "customer_address", "store"]),
+    "q07": (q07, ["store_sales", "customer_demographics", "item",
+                  "promotion", "date_dim"]),
+    "gq1": (gq1, ["web_clickstreams", "item"]),
 }
 
 

@@ -1,8 +1,8 @@
-"""Synthetic TPC-DS-shaped tables for q01, q06, the brand-revenue queries,
-q17, q18, q95 and the window queries (a copy of `gen_store_returns`,
-`gen_store_sales`, `gen_catalog_sales`, `gen_web_sales`,
-`gen_web_returns`, `gen_date_dim`, `gen_store`, `gen_customer`,
-`gen_customer_demographics`, `gen_customer_address`, `gen_item` and
+"""Synthetic TPC-DS-shaped tables for the queries of itest/queries.py (a
+copy of `gen_store_returns`, `gen_store_sales`, `gen_catalog_sales`,
+`gen_web_sales`, `gen_web_returns`, `gen_date_dim`, `gen_store`,
+`gen_customer`, `gen_customer_demographics`, `gen_customer_address`,
+`gen_item`, `gen_promotion`, `gen_web_clickstreams` and
 `write_parquet_splits` of blaze_tpu/itest/tpcds_data.py, with the helpers
 they use), and `make_tables` and `write_splits` for the query modules.
 The same seed gives the same values as the JAX package's generator: same
@@ -28,12 +28,14 @@ SF1_ROWS = {
     "date_dim": 73_049,
     "item": 18_000,
     "warehouse": 5,
+    "promotion": 300,
+    "web_clickstreams": 50_000,
 }
 
 #: the fact tables split into several files; every other table is a
 #: dimension and stays one file
 FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
-         "web_returns")
+         "web_returns", "web_clickstreams")
 
 SALES_DATE_DAYS = 1826  # TPC-DS facts span ~5 years (1998-2002)
 
@@ -46,7 +48,7 @@ def _date_ordered(tbl: pa.Table, date_col: str) -> pa.Table:
 
 def _rows(name: str, scale: float) -> int:
     base = SF1_ROWS[name]
-    if name in ("store", "date_dim", "warehouse"):
+    if name in ("store", "date_dim", "warehouse", "promotion"):
         return base  # dimension tables do not scale
     if name == "customer_demographics":
         # fixed-size cross-product dimension in TPC-DS
@@ -277,6 +279,35 @@ def gen_item(scale: float, seed: int = 16) -> pa.Table:
         "i_manufact_id": pa.array(
             rng.integers(1, 1001, n).astype(np.int32)),
         "i_current_price": pa.array(np.round(rng.random(n) * 100, 2)),
+    })
+
+
+def gen_promotion(scale: float, seed: int = 22) -> pa.Table:
+    n = _rows("promotion", scale)
+    rng = np.random.default_rng(seed)
+    yn = np.array(["Y", "N"])
+    return pa.table({
+        "p_promo_sk": pa.array(np.arange(1, n + 1)),
+        "p_channel_email": pa.array(yn[rng.integers(0, 2, n)]),
+        "p_channel_event": pa.array(yn[rng.integers(0, 2, n)]),
+    })
+
+
+def gen_web_clickstreams(scale: float, seed: int = 23) -> pa.Table:
+    """Sessions with a LIST column of 0-5 clicked item keys (TPC-DS has
+    no list column; gq1 explodes this one)."""
+    n = _rows("web_clickstreams", scale)
+    rng = np.random.default_rng(seed)
+    n_items = _rows("item", scale)
+    lengths = rng.integers(0, 6, n)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    values = rng.integers(1, n_items + 1, int(offsets[-1]))
+    pages = pa.ListArray.from_arrays(pa.array(offsets, type=pa.int32()),
+                                     pa.array(values, type=pa.int64()))
+    return pa.table({
+        "wc_session_sk": pa.array(np.arange(1, n + 1)),
+        "wc_clicked_items": pages,
     })
 
 

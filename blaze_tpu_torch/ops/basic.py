@@ -1,10 +1,14 @@
-"""Filter, Project, Limit and Expand (port of FilterExec, ProjectExec,
-LimitExec and ExpandExec, blaze_tpu/ops/basic.py).
+"""Filter, Project, FilterProject, Limit, RenameColumns and Expand (port
+of FilterExec, ProjectExec, FilterProjectExec, LimitExec,
+RenameColumnsExec and ExpandExec, blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
 compacts; CoalesceStream re-batches.  On the q01 path both operators are
 absorbed into the fused aggregation (plan/fused.py), which evaluates the
-same expressions inside its step.
+same expressions inside its step.  `FilterProjectExec` is the planner's
+collapse of a Filter under a Project (plan/planner.py
+`collapse_filter_project`): it filters, projects and re-batches, so its
+batches are the ones the two operators would emit.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ def apply_filter(batch: ColumnBatch,
 def apply_project(batch: ColumnBatch, exprs: Sequence[PhysicalExpr],
                   out_schema: Schema) -> ColumnBatch:
     cap = batch.capacity
-    cols = [e.evaluate(batch).to_column(cap) for e in exprs]
+    cols = [e.evaluate(batch).to_column(cap, batch.device) for e in exprs]
     return ColumnBatch(out_schema, cols, batch.num_rows, batch.selection)
 
 
@@ -77,6 +81,57 @@ class ProjectExec(ExecutionPlan):
         out_schema = self.schema
         for batch in self.children[0].execute(partition):
             yield apply_project(batch, self._exprs, out_schema)
+
+
+class FilterProjectExec(ExecutionPlan):
+    """A filter and the projection above it in one operator."""
+
+    def __init__(self, child: ExecutionPlan,
+                 predicates: Sequence[PhysicalExpr],
+                 exprs: Sequence[PhysicalExpr], names: Sequence[str]):
+        super().__init__([child])
+        self._predicates = list(predicates)
+        self._exprs = list(exprs)
+        self._names = list(names)
+        self._out_schema: Optional[Schema] = None
+
+    @property
+    def schema(self) -> Schema:
+        if self._out_schema is None:
+            in_schema = self.children[0].schema
+            self._out_schema = Schema([
+                Field(n, e.data_type(in_schema)) for n, e in
+                zip(self._names, self._exprs)])
+        return self._out_schema
+
+    def execute(self, partition: int) -> BatchIterator:
+        out_schema = self.schema
+
+        def gen():
+            for batch in self.children[0].execute(partition):
+                yield apply_project(apply_filter(batch, self._predicates),
+                                    self._exprs, out_schema)
+        return iter(CoalesceStream(gen(), metrics=self.metrics))
+
+
+class RenameColumnsExec(ExecutionPlan):
+    """The child's columns under new names (types and nullability
+    kept)."""
+
+    def __init__(self, child: ExecutionPlan, names: Sequence[str]):
+        super().__init__([child])
+        self._names = list(names)
+
+    @property
+    def schema(self) -> Schema:
+        return Schema([Field(n, f.data_type, f.nullable)
+                       for n, f in zip(self._names, self.children[0].schema)])
+
+    def execute(self, partition: int) -> BatchIterator:
+        out_schema = self.schema
+        for batch in self.children[0].execute(partition):
+            yield ColumnBatch(out_schema, batch.columns, batch.num_rows,
+                              batch.selection)
 
 
 def _take_range(batch: ColumnBatch, start: int, stop: int) -> ColumnBatch:

@@ -69,8 +69,9 @@ from blaze_tpu_torch.ops.agg import (AggExec, AggMode, CountAgg, MinMaxAgg,
 from blaze_tpu_torch.ops.agg.exec import (_host_copies, build_agg_schema,
                                           incremental_dict_codes)
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
-from blaze_tpu_torch.ops.basic import FilterExec, ProjectExec, \
-    apply_filter, apply_project
+from blaze_tpu_torch.ops.basic import (FilterExec, FilterProjectExec,
+                                      ProjectExec, apply_filter,
+                                      apply_project)
 from blaze_tpu_torch.ops.scan import ParquetScanExec, parquet_metadata
 from blaze_tpu_torch.parallel.stage import (HashAggCarry, _identity,
                                             dense_partial_agg,
@@ -103,7 +104,7 @@ def fuse_plan(plan: ExecutionPlan) -> ExecutionPlan:
 # eligibility + bounds discovery
 # ---------------------------------------------------------------------------
 
-_FUSABLE_CHAIN = (FilterExec, ProjectExec)
+_FUSABLE_CHAIN = (FilterExec, ProjectExec, FilterProjectExec)
 
 
 def _try_fuse_agg(node: ExecutionPlan) -> Optional["FusedPartialAggExec"]:
@@ -203,8 +204,8 @@ def _num_slots(ranges) -> int:
 
 
 def _absorbable_chain(child: ExecutionPlan):
-    """Peel Filter/Project off the agg's child.  Returns (source_plan,
-    chain_steps) with chain_steps in source -> agg order."""
+    """Peel Filter/Project/FilterProject off the agg's child.  Returns
+    (source_plan, chain_steps) with chain_steps in source -> agg order."""
     steps = []
     node = child
     while True:
@@ -212,6 +213,11 @@ def _absorbable_chain(child: ExecutionPlan):
             steps.append(("filter", node._predicates, None, None))
         elif isinstance(node, ProjectExec):
             steps.append(("project", None, node._exprs, node.schema))
+        elif isinstance(node, FilterProjectExec):
+            # appended top-down; the reverse below restores filter, then
+            # project
+            steps.append(("project", None, node._exprs, node.schema))
+            steps.append(("filter", node._predicates, None, None))
         else:
             break
         node = node.children[0]
@@ -257,7 +263,7 @@ def _column_bounds(node: ExecutionPlan, expr: PhysicalExpr,
         if isinstance(node, FilterExec):
             node = node.children[0]
             continue
-        if isinstance(node, ProjectExec):
+        if isinstance(node, (ProjectExec, FilterProjectExec)):
             if expr.index >= len(node._exprs):
                 return None
             expr = node._exprs[expr.index]

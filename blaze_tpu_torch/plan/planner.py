@@ -1,11 +1,13 @@
-"""Physical planner: plan IR dicts -> operator trees (port of the part of
-blaze_tpu/plan/planner.py this slice uses).
+"""Physical planner: plan IR dicts -> operator trees, and the per-task
+plan rewrite `collapse_filter_project` (port of the part of
+blaze_tpu/plan/planner.py the port uses).
 
-Node kinds: parquet_scan, filter, project, hash_agg, sort_agg, sort,
-limit, expand, window, shuffle_writer, ipc_reader, broadcast_join,
+Node kinds: parquet_scan, filter, project, filter_project, hash_agg,
+sort_agg, sort, limit, rename_columns, expand, window, generate (explode
+and posexplode), shuffle_writer, ipc_reader, broadcast_join,
 sort_merge_join, hash_join and broadcast_join_build_hash_map.  Every
-other kind (generate, the nested-loop join, union, ...) raises
-NotImplementedError naming the slice it belongs to.
+other kind (union, the nested-loop join, ...) raises NotImplementedError
+naming the ROADMAP item it belongs to.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
 from blaze_tpu_torch.ops.base import ExecutionPlan
-from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec, LimitExec,
-                                      ProjectExec)
+from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec,
+                                      FilterProjectExec, LimitExec,
+                                      ProjectExec, RenameColumnsExec)
+from blaze_tpu_torch.ops.generate import ExplodeGenerator, GenerateExec
 from blaze_tpu_torch.ops.joins import (BroadcastJoinExec, BuildHashMapExec,
                                        JoinType, ShuffledHashJoinExec,
                                        SortMergeJoinExec)
@@ -31,6 +35,18 @@ from blaze_tpu_torch.schema import Schema
 from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
                                      Partitioning, ShuffleWriterExec,
                                      SinglePartitioning)
+
+
+#: node kinds of the JAX planner the port does not plan yet, with the
+#: ROADMAP item each belongs to
+_LATER_KINDS = {
+    **dict.fromkeys(("union", "coalesce_batches", "empty_partitions",
+                     "debug", "memory_scan", "ffi_reader"), "item 4"),
+    "broadcast_nested_loop_join": "item 11",
+    "local_exchange": "item 8 (the single-task local mode)",
+    **dict.fromkeys(("parquet_sink", "orc_sink", "ipc_writer", "orc_scan",
+                     "kafka_scan", "rss_shuffle_writer"), "item 16"),
+}
 
 
 def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
@@ -52,13 +68,15 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k in ("sort_merge_join", "hash_join", "broadcast_join"):
         return _join_from_dict(d)
 
-    if k not in ("filter", "project", "hash_agg", "sort_agg", "sort",
-                 "limit", "expand", "window", "shuffle_writer",
-                 "broadcast_join_build_hash_map"):
-        item = "12" if k == "generate" else "3"
+    if k in _LATER_KINDS:
         raise NotImplementedError(
             f"plan node kind {k!r} belongs to a later slice of the PyTorch "
-            f"port (ROADMAP Queue 1 item {item})")
+            f"port (ROADMAP {_LATER_KINDS[k]})")
+    if k not in ("filter", "project", "filter_project", "hash_agg",
+                 "sort_agg", "sort", "limit", "rename_columns", "expand",
+                 "window", "generate", "shuffle_writer",
+                 "broadcast_join_build_hash_map"):
+        raise ValueError(f"unknown plan node kind {k!r}")
     child = create_plan(d["input"])
     in_schema = child.schema
 
@@ -68,6 +86,14 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k == "project":
         return ProjectExec(child, [expr_from_dict(e, in_schema)
                                    for e in d["exprs"]], d["names"])
+    if k == "filter_project":
+        return FilterProjectExec(
+            child, [expr_from_dict(p, in_schema) for p in d["predicates"]],
+            [expr_from_dict(e, in_schema) for e in d["exprs"]], d["names"])
+    if k == "rename_columns":
+        return RenameColumnsExec(child, d["names"])
+    if k == "generate":
+        return _generate_from_dict(d, child)
     if k == "sort":
         specs = [sort_spec_from_dict(s, in_schema) for s in d["specs"]]
         return SortExec(child, specs, fetch=d.get("fetch"))
@@ -122,6 +148,29 @@ def _join_from_dict(d: Dict[str, Any]) -> ExecutionPlan:
     return cls(left, right, lkeys, rkeys, jt, **kw)
 
 
+def _generate_from_dict(d: Dict[str, Any],
+                        child: ExecutionPlan) -> GenerateExec:
+    in_schema = child.schema
+    g = d["generator"]
+    gk = g["kind"]
+    if gk in ("explode", "posexplode"):
+        gen = ExplodeGenerator(expr_from_dict(g["child"], in_schema),
+                               position=(gk == "posexplode"),
+                               outer=g.get("outer", False))
+    elif gk in ("json_tuple", "udtf"):
+        item = "item 13" if gk == "json_tuple" else "item 16"
+        raise NotImplementedError(
+            f"the {gk} generator belongs to a later slice of the PyTorch "
+            f"port (ROADMAP Queue 1 {item})")
+    else:
+        raise ValueError(f"unknown generator kind {gk!r}")
+    required = d.get("required_cols")
+    if required is None and d.get("required_child_output") is not None:
+        required = [in_schema.index_of(nm)
+                    for nm in d["required_child_output"]]
+    return GenerateExec(child, gen, required)
+
+
 def _window_from_dict(d: Dict[str, Any], child: ExecutionPlan) -> WindowExec:
     in_schema = child.schema
     funcs = []
@@ -150,6 +199,93 @@ def _window_from_dict(d: Dict[str, Any], child: ExecutionPlan) -> WindowExec:
              for s in d.get("order_by", [])]
     return WindowExec(child, funcs, part, order,
                       group_limit=d.get("group_limit"))
+
+
+def collapse_filter_project(node: ExecutionPlan) -> ExecutionPlan:
+    """Per-task plan rewrite: merge each Filter under a Project into one
+    `FilterProjectExec`, and a Project over a Project into one Project by
+    substituting the inner expressions for the outer's column references.
+    Runs before prune_columns and fuse_plan, which both read
+    FilterProjectExec.  Off under `auron.tpu.plan.collapseFilterProject`
+    = false."""
+    from blaze_tpu_torch import config
+    if not config.COLLAPSE_FILTER_PROJECT.get():
+        return node
+    return _collapse(node)
+
+
+def _collapse(node: ExecutionPlan) -> ExecutionPlan:
+    kids = node.children
+    for i, c in enumerate(kids):
+        kids[i] = _collapse(c)
+    if isinstance(node, ProjectExec):
+        child = node.children[0]
+        if isinstance(child, FilterExec):
+            return FilterProjectExec(child.children[0], child._predicates,
+                                     node._exprs, node._names)
+        if isinstance(child, ProjectExec):
+            merged = _substitute_all(node._exprs, child._exprs)
+            if merged is not None:
+                return ProjectExec(child.children[0], merged, node._names)
+    return node
+
+
+def _pure(e) -> bool:
+    """Whether `e` may be duplicated when an inner projection substitutes
+    into several outer references: it and every child are among the
+    value-only expression classes the port has."""
+    from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
+                                       Coalesce, If, InList, IsNotNull,
+                                       IsNull, Literal, Not)
+    ok = (BoundReference, Literal, BinaryExpr, Not, IsNull, IsNotNull, If,
+          CaseWhen, Coalesce, InList)
+    return isinstance(e, ok) and all(_pure(c) for c in e.children())
+
+
+def _substitute_all(outer, inner):
+    """The outer expressions rewritten over the inner projection's input,
+    or None to leave the two projections apart."""
+    if not all(_pure(e) for e in inner):
+        return None
+    from blaze_tpu_torch.exprs import BoundReference
+
+    def subst(e):
+        if isinstance(e, BoundReference):
+            return inner[e.index]
+        return map_children(e, subst)
+
+    try:
+        return [subst(e) for e in outer]
+    except (TypeError, IndexError):
+        return None
+
+
+def map_children(e, fn):
+    """`e` rebuilt with `fn` applied to each direct expression child (a
+    field, or an element of a tuple or list field, as CaseWhen's
+    branches); TypeError for an expression that is not a dataclass."""
+    import dataclasses
+
+    from blaze_tpu_torch.exprs import PhysicalExpr
+    if not dataclasses.is_dataclass(e):
+        raise TypeError(f"cannot rebuild {type(e).__name__}")
+
+    def one(v):
+        if isinstance(v, PhysicalExpr):
+            return fn(v)
+        if isinstance(v, tuple):
+            return tuple(one(x) for x in v)
+        if isinstance(v, list):
+            return [one(x) for x in v]
+        return v
+
+    changes = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        nv = one(v)
+        if nv is not v:
+            changes[f.name] = nv
+    return dataclasses.replace(e, **changes) if changes else e
 
 
 def partitioning_from_dict(d: Dict[str, Any],

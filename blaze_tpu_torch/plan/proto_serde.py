@@ -7,8 +7,10 @@ the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
 ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
 shuffle_writer, the joins (sort_merge_join, hash_join, broadcast_join,
 with join type, build side, broadcast_id / cached_build_hash_map_id and
-join_filter), broadcast_join_build_hash_map, expand and window (the rank
-family, lead/lag, nth_value and aggregates, with group_limit);
+join_filter), broadcast_join_build_hash_map, expand, window (the rank
+family, lead/lag, nth_value and aggregates, with group_limit),
+rename_columns and generate (explode and posexplode, the kept columns by
+name); types: the fixed-width ones, utf8, binary and list;
 expressions:
 column, bound_reference, literal, binary (comparisons, and/or,
 arithmetic), is_null, is_not_null, not, case (an `if` encodes as a case
@@ -63,6 +65,9 @@ def type_from_proto(at: pb.ArrowType) -> Dict[str, Any]:
     if kind == "DECIMAL":
         return {"id": "decimal", "precision": int(at.DECIMAL.whole),
                 "scale": int(at.DECIMAL.fractional)}
+    if kind in ("LIST", "LARGE_LIST"):
+        lst = at.LIST if kind == "LIST" else at.LARGE_LIST
+        return {"id": "list", "children": [field_from_proto(lst.field_type)]}
     raise NotImplementedError(f"ArrowType {kind!r} {_LATER}")
 
 
@@ -78,6 +83,9 @@ def type_to_proto(t: Dict[str, Any]) -> pb.ArrowType:
     if tid == "decimal":
         out.DECIMAL.whole = t.get("precision", 0)
         out.DECIMAL.fractional = t.get("scale", 0)
+        return out
+    if tid == "list":
+        out.LIST.field_type.CopyFrom(field_to_proto(t["children"][0]))
         return out
     raise NotImplementedError(f"type {tid!r} {_LATER}")
 
@@ -424,7 +432,26 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
                 "names": [f.name for f in ex.schema.columns]}
     if kind == "window":
         return _window_from_proto(n.window)
+    if kind == "rename_columns":
+        return {"kind": "rename_columns",
+                "input": plan_from_proto(n.rename_columns.input),
+                "names": list(n.rename_columns.renamed_column_names)}
+    if kind == "generate":
+        return _generate_from_proto(n.generate)
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
+
+
+def _generate_from_proto(g: pb.GenerateExecNode) -> Dict[str, Any]:
+    func = g.generator.func
+    if func not in (pb.Explode, pb.PosExplode):
+        raise NotImplementedError(
+            f"generator {pb.GenerateFunction.Name(func)} belongs to a later "
+            f"slice of the PyTorch port (ROADMAP Queue 1 items 13 and 16)")
+    gen = {"kind": "explode" if func == pb.Explode else "posexplode",
+           "child": expr_from_proto(g.generator.child[0]), "outer": g.outer}
+    return {"kind": "generate", "input": plan_from_proto(g.input),
+            "generator": gen,
+            "required_child_output": list(g.required_child_output)}
 
 
 def _join_from_proto(kind: str, n: pb.PhysicalPlanNode) -> Dict[str, Any]:
@@ -632,7 +659,66 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         return n
     if k == "window":
         return _window_to_proto(d)
+    if k == "rename_columns":
+        n.rename_columns.input.CopyFrom(plan_to_proto(d["input"]))
+        for name in d["names"]:
+            n.rename_columns.renamed_column_names.append(name)
+        return n
+    if k == "generate":
+        return _generate_to_proto(d)
     raise NotImplementedError(f"plan kind {k!r} {_LATER}")
+
+
+def _generate_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
+    n = pb.PhysicalPlanNode()
+    g = n.generate
+    g.input.CopyFrom(plan_to_proto(d["input"]))
+    gen = d["generator"]
+    gk = gen["kind"]
+    if gk not in ("explode", "posexplode"):
+        raise NotImplementedError(
+            f"the {gk} generator belongs to a later slice of the PyTorch "
+            f"port (ROADMAP Queue 1 items 13 and 16)")
+    g.generator.func = pb.Explode if gk == "explode" else pb.PosExplode
+    g.generator.child.append(expr_to_proto(gen["child"]))
+    g.outer = gen.get("outer", False)
+    req_names = d.get("required_child_output")
+    if req_names is None:
+        # the wire carries the kept columns by NAME: an index list
+        # translates through the child's output names, and no list keeps
+        # them all; a duplicated name cannot ride it and raises
+        names = _output_names_of(d["input"])
+        if d.get("required_cols") is not None:
+            req_names = [names[i] for i in d["required_cols"]]
+        else:
+            req_names = list(names)
+        dupes = {x for x in req_names if names.count(x) > 1}
+        if dupes:
+            raise ValueError(
+                f"generate required columns {sorted(dupes)} are "
+                f"ambiguous duplicate names; the wire carries names: "
+                f"rename the child columns first")
+    for name in req_names:
+        g.required_child_output.append(name)
+    return n
+
+
+def _output_names_of(d: Dict[str, Any]) -> List[str]:
+    """The output column names of a plan dict, without building its
+    operators where the dict says them; the planner otherwise."""
+    k = d.get("kind")
+    if k == "parquet_scan":
+        if d.get("projection"):
+            return list(d["projection"])
+        return [f["name"] for f in d["schema"]["fields"]]
+    if k == "ipc_reader":
+        return [f["name"] for f in d["schema"]["fields"]]
+    if k in ("project", "filter_project", "rename_columns", "expand"):
+        return list(d["names"])
+    if k in ("filter", "limit", "sort", "local_exchange"):
+        return _output_names_of(d["input"])
+    from blaze_tpu_torch.plan.planner import create_plan
+    return [f.name for f in create_plan(d).schema]
 
 
 def _window_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:

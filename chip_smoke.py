@@ -130,13 +130,35 @@ Phases, each printing its own lines; any failure exits non-zero:
      card; prints stage walls, tasks, peak memory, data and oracle
      seconds, q95's rows after each join, and for the profiled runs the
      busy share, cudaLaunch* per stage and the cumulative scans' device
-     time;
- 14. the dict-device lane through dictionary growth on the card: a
+     time; then q67 (its store_sales scan under an Expand, which no
+     pruning requirement crosses) and q98 (its scan narrowed to 3 of 16
+     columns) once more with auron.tpu.columnPruning false, both runs'
+     walls and io_bytes printed, the rows equal to the same pandas frame
+     both ways;
+ 14. q19, q07 and gq1 (stage DAG): promotion (300 rows) and
+     web_clickstreams (500,000 sessions with a list of 0-5 clicked items
+     each, 4 files) at SF10 from their seeds, the other tables from
+     phases 11 and 12; q19 (two broadcasts, a shuffled hash join to
+     customer, two more broadcasts), q07 (four broadcasts, four averages
+     by item id) and gq1 (posexplode of the list on the host, renamed,
+     a broadcast to item) under auto, q07 under off, and each profiled;
+     4 exchange partitions, a fresh plan each, held to the pandas frame
+     in order (floats within 1e-9 relative); fails unless the
+     reference's stage count, no batch and no join probe off the card,
+     device probe calls equal to probe batches, radix launched and every
+     grouping exact against its plain version, every eager placement
+     exact against its plain version, every join keeping rows and gq1's
+     generator emitting one row per click; prints stage walls, tasks,
+     peak memory, data and oracle seconds, io_bytes and the rows out of
+     each join and generator;
+ 15. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 15. the paths' profile summary and the kernel table as JSON lines, the
-     card's name and power limit, and the result line.
+ 16. the paths' profile summary (with io_bytes per stage of every path:
+     every task prunes its scans' columns and collapses Filter->Project
+     chains, as the JAX package does) and the kernel table as JSON lines,
+     the card's name and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
 exits non-zero where torch sees none.
@@ -1728,7 +1750,7 @@ def branches_oracle(sr_paths, lo, hi):
 FULL_PARTS = 16             # q01 full: the exchanges' partitions
 FULL_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                  "stage_loop_tasks", "stage_loop_fallback",
-                 "partial_skipped", "sort_device_runs")
+                 "partial_skipped", "sort_device_runs", "io_bytes")
 
 
 def full_data(root):
@@ -2704,59 +2726,57 @@ def q95_windows_data(root, tables, paths):
     return runs, secs
 
 
-def q95_windows_path(name, make_plan, want, mode, profiled=False):
-    """q95 or a window query through the port's DagScheduler with the
-    stage loop under `mode`, with a fresh plan: the stage count of the
-    reference's split, the rows equal to the pandas frame in the plan's
-    order (itest/q95_windows.py in_plan_order), floats within 1e-9
-    relative; every batch and every join probe on the card (device probe
-    calls = probe batches), radix launched and each of its groupings
-    exact against the plain version on the pids the shuffle writer gave
-    it (_RecordedGroupings).  q95: the semi join (EXISTS) and the anti join
-    (NOT EXISTS) each emit fewer rows than they take in, and more than 0;
-    its per-order sums take the fused hash lane on the card, and each of
-    its eager placements equals the plain version on its operands
-    (_RecordedPlacements; under `off` every placement is eager).  The window queries: every WindowExec batch on the card.
-    With `profiled`, each stage under torch.profiler (see _dag_profile)."""
+def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
+               pruning=True, record_placements=True):
+    """One run of query `name` of the itest module D through the
+    port's DagScheduler with the stage loop under `mode`, with a fresh
+    plan, and the checks every such path shares: the stage count of the
+    reference's split (D.STAGES), the rows equal to the pandas frame in
+    the plan's order (D.in_plan_order), floats within 1e-9 relative;
+    every batch and every join probe on the card (device probe calls =
+    probe batches); radix launched and each of its groupings exact
+    against the plain version on the pids the shuffle writer gave it
+    (_RecordedGroupings); with `record_placements`, each eager placement
+    exact against the plain version on its operands (_RecordedPlacements;
+    under `off` every placement is eager, so as many as counted); every
+    task run once and nothing leaked.  `pruning` false runs with
+    auron.tpu.columnPruning off (every scan reads every column of its
+    file).  Returns (the run's result dict, the scheduler); the caller
+    adds its own checks, then the profile (`profiled`: each stage under
+    torch.profiler, _dag_profile)."""
     import torch
     from blaze_tpu_torch import config
-    from blaze_tpu_torch.itest import q06 as F
-    from blaze_tpu_torch.itest import q95_windows as D
     from blaze_tpu_torch.itest.q01_dag import stage_counters
     from blaze_tpu_torch.itest.runner import frame, same_order
     from blaze_tpu_torch.kernels import join as JK
     from blaze_tpu_torch.plan.stages import DagScheduler
 
-    label = f"{name} {mode}" + (" profiled" if profiled else "")
+    label = f"{name} {mode}" + (" profiled" if profiled else "") + (
+        "" if pruning else " unpruned")
     phase(f"main path {label}: TPC-DS {name} through the stage DAG, SF10, "
-          f"{N_FILES} files a fact table, {Q95W_PARTS} exchange partitions")
+          f"{N_FILES} files a fact table, {parts} exchange partitions")
     _loop_mode(mode)
     config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    config.conf.set(config.COLUMN_PRUNING_ENABLE.key, pruning)
     sched = _stage_profiling_scheduler() if profiled else DagScheduler()
     plan = make_plan()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     probes0 = dict(JK.probe_calls)
-    # q95's placements are held to the plain version; q51's 1,400 a run
-    # (its map-side sums, the hash lane of q06's count by store) would
-    # keep a copy of the table each
-    recorded = _RecordedPlacements() if name == "q95" else \
+    recorded = _RecordedPlacements() if record_placements else \
         contextlib.nullcontext()
-    with _RecordedGroupings() as groupings, recorded as placements:
-        t0 = time.perf_counter()
-        out = sched.run_collect(plan)
-        wall = time.perf_counter() - t0
+    try:
+        with _RecordedGroupings() as groupings, recorded as placements:
+            t0 = time.perf_counter()
+            out = sched.run_collect(plan)
+            wall = time.perf_counter() - t0
+    finally:
+        config.conf.unset(config.COLUMN_PRUNING_ENABLE.key)
     launches = _read_launches()
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
     peak = torch.cuda.max_memory_allocated()
     got = frame(out)
     counters = stage_counters(sched, D.STAGE_COUNTERS)
-    ops = {op: F.operator_counters(sched, op, keys) for op, keys in (
-        ("WindowExec", ("cuda_batches", "cpu_batches", "output_rows")),
-        ("SortMergeJoinExec", ("output_rows",)),
-        ("AggExec", ("cuda_batches", "cpu_batches")))}
-    ops = {op: {sid: c for sid, c in per.items() if any(c.values())}
-           for op, per in ops.items()}
     tasks = {st.sid: st.num_tasks for st in sched.stages}
     print(sched.describe())
     print("stage walls, s (host clock, each ending in a device "
@@ -2767,7 +2787,6 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False):
         print(f"  stage {sid} ({tasks[sid]} tasks): "
               f"{ {k: v for k, v in counters[sid].items() if v} }")
     print(f"launches: {launches}; join probes {probes}; peak {peak} bytes")
-    print(f"per operator and stage: {ops}")
     if len(sched.stages) != D.STAGES[name]:
         raise SystemExit(f"{label}: {len(sched.stages)} stages, expected "
                          f"{D.STAGES[name]}")
@@ -2794,11 +2813,44 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False):
     if probes["cuda"] != probe_batches:
         raise SystemExit(f"{label}: {probes['cuda']} device probe calls for "
                          f"{probe_batches} probe batches")
-    res = {"query": name, "mode": mode, "wall_s": wall, "rows": len(got),
+    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
+    leaks = sched.leak_report()
+    if runs or any(leaks.values()):
+        raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
+                         f"scheduler leaked {leaks}")
+    res = {"query": name, "mode": mode, "pruning": pruning, "label": label,
+           "wall_s": wall, "rows": len(got),
            "stage_walls": sched.stage_walls, "tasks": tasks,
-           "counters": counters, "operators": ops, "launches": launches,
+           "counters": counters, "launches": launches,
            "probe_calls": probes, "peak_bytes": peak,
            "radix_groupings": shapes, "placements": placed}
+    return res, sched
+
+
+def q95_windows_path(name, make_plan, want, mode, profiled=False,
+                     pruning=True):
+    """q95 or a window query through `_dag_query` (itest/q95_windows.py).
+    q95: the semi join (EXISTS) and the anti join (NOT EXISTS) each emit
+    fewer rows than they take in, and more than 0; its per-order sums
+    take the fused hash lane on the card, and each of its eager
+    placements equals the plain version on its operands (q51's 1,400 a
+    run, its map-side sums, are not recorded: each would keep a copy of
+    the table).  The window queries: every WindowExec batch on the
+    card."""
+    from blaze_tpu_torch.itest import q06 as F
+    from blaze_tpu_torch.itest import q95_windows as D
+    res, sched = _dag_query(D, name, make_plan, want, mode, Q95W_PARTS,
+                            profiled, pruning,
+                            record_placements=(name == "q95"))
+    label, launches = res["label"], res["launches"]
+    ops = {op: F.operator_counters(sched, op, keys) for op, keys in (
+        ("WindowExec", ("cuda_batches", "cpu_batches", "output_rows")),
+        ("SortMergeJoinExec", ("output_rows",)),
+        ("AggExec", ("cuda_batches", "cpu_batches")))}
+    ops = {op: {sid: c for sid, c in per.items() if any(c.values())}
+           for op, per in ops.items()}
+    print(f"per operator and stage: {ops}")
+    res["operators"] = ops
     if name == "q95":
         rows = D.q95_join_rows(sched)
         print(f"q95 rows after each join: {rows}")
@@ -2815,13 +2867,9 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False):
                               for c in windows.values()):
             raise SystemExit(f"{label}: WindowExec batches off the card: "
                              f"{windows}")
-    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
-    leaks = sched.leak_report()
-    if runs or any(leaks.values()):
-        raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
-                         f"scheduler leaked {leaks}")
     if profiled:
-        res.update(_dag_profile(sched, label, wall, launches, probes))
+        res.update(_dag_profile(sched, label, res["wall_s"], launches,
+                                res["probe_calls"]))
     return res
 
 
@@ -2837,7 +2885,114 @@ def q95_windows_phase(root, tables, paths):
         out[f"{name} auto"] = q95_windows_path(name, *runs[name], "auto")
     out["q51 profiled"] = _profiled(lambda: q95_windows_path(
         "q51", *runs["q51"], "auto", profiled=True), "q51")
+    # the pruning pass on and off in one start: q67's store_sales scan (16
+    # columns, under an Expand, which no requirement crosses) and q98's
+    # (narrowed to 3), each equal to the same pandas frame both ways
+    for name in ("q67", "q98"):
+        out[f"{name} unpruned"] = q95_windows_path(name, *runs[name], "auto",
+                                                   pruning=False)
+        on, off = out[f"{name} auto"], out[f"{name} unpruned"]
+        print(f"{name}: pruned run {on['wall_s']:.3f} s, io_bytes "
+              f"{_io_bytes(on)}; unpruned run {off['wall_s']:.3f} s, "
+              f"io_bytes {_io_bytes(off)}; rows {on['rows']} and "
+              f"{off['rows']}, both equal to the pandas frame in order")
     return {"data_s": secs, "runs": out}
+
+
+def _io_bytes(res):
+    """`io_bytes` by stage: the Arrow bytes of the batches its scans
+    decoded and its shuffle reads returned."""
+    return {sid: c["io_bytes"] for sid, c in sorted(res["counters"].items())}
+
+
+QNEW_PARTS = 4              # q19, q07 and gq1: the exchanges' partitions
+
+
+def q19_q07_gq1_data(root, tables, paths):
+    """The tables of q19, q07 and gq1 at SF10 from their seeds: promotion
+    (300 rows, one file) and web_clickstreams (500,000 sessions with a
+    list of clicked items each, N_FILES files) generated and written
+    here; store_sales, item, date_dim, customer, customer_address,
+    customer_demographics and store as the earlier phases wrote them
+    (`tables` and `paths` hold them, by name); for each query a maker of
+    a fresh plan and its pandas frame; the clicks gq1 must explode; and
+    the seconds each step took."""
+    import pyarrow.compute as pc
+    from blaze_tpu_torch.itest import q19_q07_gq1 as D
+    from blaze_tpu_torch.itest import queries as Q
+    from blaze_tpu_torch.itest import tpcds_data as T
+    phase("data: TPC-DS promotion and web_clickstreams at SF10 for q19, q07 "
+          "and gq1 (the other tables from the earlier phases)")
+    t0 = time.perf_counter()
+    made = ("promotion", "web_clickstreams")
+    tables = dict({n: tables[n] for n in D.TABLES if n not in made},
+                  **T.make_tables(SCALE, made))
+    t1 = time.perf_counter()
+    paths = dict({n: paths[n] for n in D.TABLES if n not in made},
+                 **T.write_splits({n: tables[n] for n in made},
+                                  os.path.join(root, "q19_q07_gq1"),
+                                  N_FILES))
+    t2 = time.perf_counter()
+    secs = {"generate": t1 - t0, "write": t2 - t1}
+    clicks = int(pc.sum(pc.list_value_length(
+        tables["web_clickstreams"].column("wc_clicked_items"))).as_py())
+    print("rows: " + ", ".join(f"{n} {tables[n].num_rows} in "
+                               f"{len(paths[n])} file(s)" for n in D.TABLES)
+          + f"; {clicks} clicks; generated in {secs['generate']:.1f} s, "
+          f"written in {secs['write']:.1f} s")
+    runs = {}
+    for name in D.QUERIES:
+        def make(n=name):
+            return Q.plans(paths, tables, QNEW_PARTS, [n])[n]
+        t = time.perf_counter()
+        want = make()[1]()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        runs[name] = ((lambda m=make: m()[0]), want)
+        print(f"pandas oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return runs, secs, clicks
+
+
+def q19_q07_gq1_path(name, make_plan, want, mode, clicks, profiled=False):
+    """q19, q07 or gq1 through `_dag_query` (itest/q19_q07_gq1.py), every
+    eager placement recorded: some join probes on the card, every join
+    keeps rows, and gq1's generator emits one row per click."""
+    from blaze_tpu_torch.itest import q19_q07_gq1 as D
+    res, sched = _dag_query(D, name, make_plan, want, mode, QNEW_PARTS,
+                            profiled)
+    label = res["label"]
+    rows = D.operator_rows(sched)
+    print(f"rows out of each join and generator (stage by stage, parents "
+          f"first): {rows}")
+    res["operator_rows"] = rows
+    if res["probe_calls"]["cuda"] <= 0:
+        raise SystemExit(f"{label}: no join probed on the card")
+    if not rows or any(r <= 0 for v in rows.values() for r in v):
+        raise SystemExit(f"{label}: a join or generator emitted no row: "
+                         f"{rows}")
+    if name == "gq1" and rows.get("GenerateExec") != [clicks]:
+        raise SystemExit(f"{label}: the generator emitted "
+                         f"{rows.get('GenerateExec')} rows for {clicks} "
+                         f"clicks")
+    if profiled:
+        res.update(_dag_profile(sched, label, res["wall_s"],
+                                res["launches"], res["probe_calls"]))
+    return res
+
+
+def q19_q07_gq1_phase(root, tables, paths):
+    """q19, q07 and gq1 under auto, q07 under off, then each once more
+    under auto, profiled."""
+    from blaze_tpu_torch.itest.q19_q07_gq1 import QUERIES
+    runs, secs, clicks = q19_q07_gq1_data(root, tables, paths)
+    out = {f"{n} auto": q19_q07_gq1_path(n, *runs[n], "auto", clicks)
+           for n in QUERIES}
+    out["q07 off"] = q19_q07_gq1_path("q07", *runs["q07"], "off", clicks)
+    for n in QUERIES:
+        out[f"{n} profiled"] = _profiled(
+            lambda n=n: q19_q07_gq1_path(n, *runs[n], "auto", clicks,
+                                         profiled=True), n)
+    return {"data_s": secs, "clicks": clicks, "runs": out}
 
 
 def pq_rows(path):
@@ -2916,11 +3071,16 @@ def main():
         q17_q18, tables, paths = q17_q18_phase(root, fam_tables, fam_paths)
         for name in ("q18", "q17", "q17 linked"):
             by_path[name] = q17_q18["runs"][f"{name} auto"]["launches"]
-        q95_windows = q95_windows_phase(root, dict(fam_tables, **tables),
-                                        dict(fam_paths, **paths))
+        all_tables = dict(fam_tables, **tables)
+        all_paths = dict(fam_paths, **paths)
         del fam_tables, tables
+        q95_windows = q95_windows_phase(root, all_tables, all_paths)
         for name in ("q95", "q12", "q20", "q98", "q51", "q67"):
             by_path[name] = q95_windows["runs"][f"{name} auto"]["launches"]
+        q19_q07_gq1 = q19_q07_gq1_phase(root, all_tables, all_paths)
+        del all_tables
+        for name in ("q19", "q07", "gq1"):
+            by_path[name] = q19_q07_gq1["runs"][f"{name} auto"]["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -3056,10 +3216,37 @@ def main():
                  f"stage {f['launches_per_stage']}, cumulative scans "
                  f"{f['scan_ms']:.3f} of {1e3 * f['busy_s']:.3f} device ms"
                  if "busy_share" in f else ""))
+    print("q19/q07/gq1 data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in q19_q07_gq1["data_s"].items())
+        + f"; {q19_q07_gq1['clicks']} clicks")
+    for k, f in q19_q07_gq1["runs"].items():
+        print(f"{k}: run {f['wall_s']:.3f} s, {f['rows']} rows, stage walls "
+              f"{ {s: round(w, 3) for s, w in f['stage_walls'].items()} }, "
+              f"tasks {f['tasks']}, peak {f['peak_bytes']} bytes, join and "
+              f"generate rows {f['operator_rows']}, radix groupings (rows, "
+              f"P) {f['radix_groupings']}, eager placements "
+              f"{len(f['placements'])}"
+              + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                 f"stage {f['launches_per_stage']}"
+                 if "busy_share" in f else ""))
+    # io_bytes by stage on every path, now that every task prunes
+    io_bytes = {k: {st: r["counters"][st]["io_bytes"]
+                      for st in ("map", "reduce")} for k, r in runs.items()}
+    io_bytes.update({f"q01 branches {k}": {
+        st: c["io_bytes"] for st, c in b["counters"].items()}
+        for k, b in branches.items()})
+    for group, prefix in ((full, "q01 full "), (family["runs"], ""),
+                          (q17_q18["runs"], ""), (q95_windows["runs"], ""),
+                          (q19_q07_gq1["runs"], "")):
+        io_bytes.update({prefix + k: _io_bytes(r)
+                         for k, r in group.items()})
+    print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
+          "bytes): " + "; ".join(f"{k} {v}" for k, v in io_bytes.items()))
     print(json.dumps({"paths": profiled, "runs": runs,
                       "stage_loop": loop_phases, "branches": branches,
                       "q01_full": full, "q06_family": family,
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
+                      "q19_q07_gq1": q19_q07_gq1, "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
