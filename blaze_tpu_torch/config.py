@@ -199,7 +199,11 @@ PARTIAL_AGG_SKIPPING_MIN_ROWS = int_conf(
 ANSI_ENABLED = bool_conf(
     "spark.sql.ansi.enabled", False,
     "ANSI SQL mode: integral division or modulo by zero and integer "
-    "overflow in + - * / raise instead of giving NULL or wrapping.")
+    "overflow in + - * / raise instead of giving NULL or wrapping, and a "
+    "Cast raises on input it cannot convert (TryCast still gives NULL).")
+CAST_TRIM_STRING = bool_conf(
+    "auron.cast.trimString", True,
+    "Trim whitespace before string->numeric/date casts (Spark behavior).")
 SCAN_EAGER_FILE_BYTES = int_conf(
     "auron.tpu.scan.eagerFileBytes", 128 << 20,
     "Local parquet files up to this size decode eagerly per file; larger "
@@ -245,10 +249,9 @@ TORCH_DEVICE = str_conf(
 DAG_SINGLE_TASK_BYTES = int_conf(
     "auron.tpu.dag.singleTaskBytes", 64 << 20,
     "Queries whose total file-scan input is at or below this run as ONE "
-    "task with in-process exchanges in the JAX package (the Spark-AQE "
-    "coalesce-to-one-partition analog).  The port has no local mode yet "
-    "(ROADMAP Queue 1 item 8): where it would apply, DagScheduler raises.  "
-    "0 disables it.")
+    "task with in-process exchanges (plan/stages.py `_run_single_task`, "
+    "the Spark-AQE coalesce-to-one-partition analog); larger ones run "
+    "staged.  0 disables it.")
 TASK_MAX_ATTEMPTS = int_conf(
     "auron.tpu.task.maxAttempts", 4,
     "Bounded per-task attempts for retryable failures (transient IO, a "

@@ -59,12 +59,13 @@ def _nodes_named(node: MetricNode, name: str) -> List[MetricNode]:
     return out
 
 
-def operator_rows(sched) -> Dict[str, List[int]]:
-    """Operator -> the `output_rows` of each of its nodes, summed over
-    the tasks of a stage, stage by stage and in a stage parents before
-    children (a chain of joins reads from the last join down)."""
+def operator_rows(sched, ops=ROW_OPERATORS) -> Dict[str, List[int]]:
+    """Operator (of `ops`) -> the `output_rows` of each of its nodes,
+    summed over the tasks of a stage, stage by stage and in a stage
+    parents before children (a chain of joins reads from the last join
+    down)."""
     out: Dict[str, List[int]] = {}
-    for op in ROW_OPERATORS:
+    for op in ops:
         rows = []
         for _sid, tree in sorted(sched.stage_metrics.items()):
             rows += [n.values.get("output_rows", 0)

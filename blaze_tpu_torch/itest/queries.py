@@ -1009,6 +1009,11 @@ QUERIES: Dict[str, Tuple[Callable, list]] = {
 }
 
 
+#: the queries of this module; importing the itest package adds the
+#: breadth of queries_ext.py and queries_ext2.py to QUERIES
+BASE_QUERIES = tuple(QUERIES)
+
+
 def plans(paths: Dict, tables: Dict, partitions: int,
           names: List[str]) -> Dict:
     """name -> (plan dict, oracle) for each query in `names`."""

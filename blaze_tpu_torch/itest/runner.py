@@ -1,22 +1,23 @@
 """The integration queries' runner and result comparison (a copy of
-`QueryResult`, `compare_frames`, `_cell_equal` and `run_query` of
-blaze_tpu/itest/runner.py, the QueryRunner / QueryResultComparator
-analogs): row count and cell equality with a double tolerance,
-order-insensitive.  `run_query` runs a plan dict through the port's stage
-DAG (plan/stages.py `DagScheduler.run_collect`) and times it beside its
-oracle.  `same_order` adds the check that two frames hold equal rows in
-the same order; both compare float columns as arrays.  `frame` turns a
-result table into pandas.
-
-Not yet here: `normalize_plan` and `check_plan_stability` (the
-PlanStabilityChecker analog).  The reference's goldens hold the plans of
-its single-task local mode, which the port lacks (ROADMAP Queue 1
-item 8).
+`QueryResult`, `compare_frames`, `_cell_equal`, `run_query`,
+`normalize_plan` and `check_plan_stability` of
+blaze_tpu/itest/runner.py, the QueryRunner / QueryResultComparator /
+PlanStabilityChecker analogs): row count and cell equality with a double
+tolerance, order-insensitive.  `run_query` runs a plan dict through the
+port's stage DAG (plan/stages.py `DagScheduler.run_collect`) and times it
+beside its oracle.  `same_order` adds the check that two frames hold
+equal rows in the same order; both compare float columns as arrays.
+`frame` turns a result table into pandas.  `check_plan_stability` holds a
+planned tree's text (`ExecutionPlan.pretty`, normalized) to a golden
+file; it never writes one: a missing golden is a failure.
 """
 
 from __future__ import annotations
 
+import difflib
 import math
+import os
+import re
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -144,3 +145,37 @@ def run_query(name: str, plan: Dict[str, Any], oracle) -> QueryResult:
     err = compare_frames(frame(got_t), want)
     return QueryResult(name, got_t.num_rows, engine_s, oracle_s,
                        err is None, err or "")
+
+
+# -- plan stability (the PlanStabilityChecker analog) -------------------------
+
+_NORMALIZERS = [
+    (re.compile(r"0x[0-9a-f]+"), "<addr>"),
+    (re.compile(r"/[\w/.-]*/(blaze-[\w.-]+)"), r"<tmp>/\1"),
+    (re.compile(r"shuffle://[0-9a-f]+"), "shuffle://<id>"),
+    (re.compile(r"bhj-\d+"), "bhj-<id>"),
+]
+
+
+def normalize_plan(plan) -> str:
+    """The operator tree's text with addresses, scratch paths and
+    generated ids masked."""
+    text = plan.pretty()
+    for pat, repl in _NORMALIZERS:
+        text = pat.sub(repl, text)
+    return text.strip() + "\n"
+
+
+def check_plan_stability(plan, golden_path: str) -> Optional[str]:
+    """None when the normalized tree equals the golden file, else a
+    unified diff (or the reason the golden cannot be read)."""
+    if not os.path.exists(golden_path):
+        return f"no golden at {golden_path}"
+    text = normalize_plan(plan)
+    with open(golden_path) as f:
+        want = f.read()
+    if text == want:
+        return None
+    return "".join(difflib.unified_diff(
+        want.splitlines(keepends=True), text.splitlines(keepends=True),
+        "golden", "current"))

@@ -1,9 +1,12 @@
-"""Synthetic TPC-DS-shaped tables for the queries of itest/queries.py (a
-copy of `gen_store_returns`, `gen_store_sales`, `gen_catalog_sales`,
-`gen_web_sales`, `gen_web_returns`, `gen_date_dim`, `gen_store`,
-`gen_customer`, `gen_customer_demographics`, `gen_customer_address`,
-`gen_item`, `gen_promotion`, `gen_web_clickstreams` and
-`write_parquet_splits` of blaze_tpu/itest/tpcds_data.py, with the helpers
+"""Synthetic TPC-DS-shaped tables for the queries of itest/queries.py,
+queries_ext.py and queries_ext2.py (a copy of every generator of
+blaze_tpu/itest/tpcds_data.py: `gen_store_returns`, `gen_store_sales`,
+`gen_catalog_sales`, `gen_catalog_returns`, `gen_web_sales`,
+`gen_web_returns`, `gen_inventory`, `gen_date_dim`, `gen_time_dim`,
+`gen_store`, `gen_warehouse`, `gen_customer`,
+`gen_customer_demographics`, `gen_household_demographics`,
+`gen_customer_address`, `gen_item`, `gen_promotion`, `gen_reason`,
+`gen_web_clickstreams`, and `write_parquet_splits`, with the helpers
 they use), and `make_tables` and `write_splits` for the query modules.
 The same seed gives the same values as the JAX package's generator: same
 columns, types and key relationships as TPC-DS, scaled by `scale` (1.0 ~
@@ -16,6 +19,10 @@ import numpy as np
 import pyarrow as pa
 
 SF1_ROWS = {
+    "inventory": 783_000,
+    "household_demographics": 7_200,
+    "time_dim": 86_400,
+    "reason": 35,
     "store_returns": 287_514,
     "store_sales": 2_880_404,
     "catalog_sales": 1_441_548,
@@ -34,8 +41,8 @@ SF1_ROWS = {
 
 #: the fact tables split into several files; every other table is a
 #: dimension and stays one file
-FACTS = ("store_sales", "store_returns", "catalog_sales", "web_sales",
-         "web_returns", "web_clickstreams")
+FACTS = ("store_sales", "store_returns", "catalog_sales", "catalog_returns",
+         "web_sales", "web_returns", "inventory", "web_clickstreams")
 
 SALES_DATE_DAYS = 1826  # TPC-DS facts span ~5 years (1998-2002)
 
@@ -48,7 +55,8 @@ def _date_ordered(tbl: pa.Table, date_col: str) -> pa.Table:
 
 def _rows(name: str, scale: float) -> int:
     base = SF1_ROWS[name]
-    if name in ("store", "date_dim", "warehouse", "promotion"):
+    if name in ("store", "date_dim", "warehouse", "promotion",
+                "household_demographics", "time_dim", "reason"):
         return base  # dimension tables do not scale
     if name == "customer_demographics":
         # fixed-size cross-product dimension in TPC-DS
@@ -177,6 +185,25 @@ def gen_catalog_sales(scale: float, seed: int = 17) -> pa.Table:
         "cs_ship_mode_sk": pa.array(rng.integers(1, 21, n)),
         "cs_call_center_sk": pa.array(rng.integers(1, 7, n)),
     }), "cs_sold_date_sk")
+
+
+def gen_catalog_returns(scale: float, seed: int = 28) -> pa.Table:
+    n = max(1, int(144_067 * scale))
+    rng = np.random.default_rng(seed)
+    cs_n = _rows("catalog_sales", scale)
+    date_n = min(_rows("date_dim", scale), SALES_DATE_DAYS)
+    return _date_ordered(pa.table({
+        "cr_order_number": pa.array(
+            rng.integers(1, max(1, cs_n // 2) + 1, n)),
+        "cr_return_amount": pa.array(np.round(rng.random(n) * 90, 2)),
+        "cr_item_sk": pa.array(rng.integers(1, _rows("item", scale) + 1, n)),
+        "cr_returning_customer_sk": pa.array(
+            rng.integers(1, _rows("customer", scale) + 1, n)),
+        "cr_returned_date_sk": pa.array(
+            rng.integers(2450815, 2450815 + date_n, n)),
+        "cr_call_center_sk": pa.array(rng.integers(1, 7, n)),
+        "cr_net_loss": pa.array(np.round(rng.random(n) * 70, 2)),
+    }), "cr_returned_date_sk")
 
 
 def gen_web_sales(scale: float, seed: int = 18) -> pa.Table:
@@ -308,6 +335,67 @@ def gen_web_clickstreams(scale: float, seed: int = 23) -> pa.Table:
     return pa.table({
         "wc_session_sk": pa.array(np.arange(1, n + 1)),
         "wc_clicked_items": pages,
+    })
+
+
+def gen_inventory(scale: float, seed: int = 29) -> pa.Table:
+    """Weekly on-hand snapshots (TPC-DS inventory): one row per
+    (week, item-sample, warehouse); dsdgen emits them in date order."""
+    n = _rows("inventory", scale)
+    rng = np.random.default_rng(seed)
+    week_starts = np.arange(0, SALES_DATE_DAYS, 7)
+    return _date_ordered(pa.table({
+        "inv_date_sk": pa.array(
+            2450815 + week_starts[rng.integers(0, len(week_starts), n)]),
+        "inv_item_sk": pa.array(
+            rng.integers(1, _rows("item", scale) + 1, n)),
+        "inv_warehouse_sk": pa.array(
+            rng.integers(1, _rows("warehouse", scale) + 1, n)),
+        "inv_quantity_on_hand": pa.array(
+            rng.integers(0, 1000, n).astype(np.int32)),
+    }), "inv_date_sk")
+
+
+def gen_warehouse(scale: float, seed: int = 27) -> pa.Table:
+    n = _rows("warehouse", scale)
+    return pa.table({
+        "w_warehouse_sk": pa.array(np.arange(1, n + 1)),
+        "w_warehouse_name": pa.array([f"warehouse_{i}"
+                                      for i in range(1, n + 1)]),
+        "w_state": pa.array(np.array(["TN", "CA", "NY", "TX", "WA"])
+                            [np.arange(n) % 5]),
+    })
+
+
+def gen_household_demographics(scale: float, seed: int = 24) -> pa.Table:
+    n = _rows("household_demographics", scale)
+    rng = np.random.default_rng(seed)
+    pot = np.array([">10000", "5001-10000", "1001-5000", "501-1000",
+                    "0-500", "Unknown"])
+    return pa.table({
+        "hd_demo_sk": pa.array(np.arange(1, n + 1)),
+        "hd_dep_count": pa.array(rng.integers(0, 10, n).astype(np.int32)),
+        "hd_vehicle_count": pa.array(
+            rng.integers(-1, 5, n).astype(np.int32)),
+        "hd_buy_potential": pa.array(pot[rng.integers(0, len(pot), n)]),
+    })
+
+
+def gen_time_dim(scale: float, seed: int = 25) -> pa.Table:
+    n = _rows("time_dim", scale)
+    t = np.arange(n)
+    return pa.table({
+        "t_time_sk": pa.array(t),
+        "t_hour": pa.array((t // 3600).astype(np.int32)),
+        "t_minute": pa.array(((t % 3600) // 60).astype(np.int32)),
+    })
+
+
+def gen_reason(scale: float, seed: int = 26) -> pa.Table:
+    n = _rows("reason", scale)
+    return pa.table({
+        "r_reason_sk": pa.array(np.arange(1, n + 1)),
+        "r_reason_desc": pa.array([f"reason {i}" for i in range(1, n + 1)]),
     })
 
 

@@ -67,6 +67,18 @@ class ExecutionPlan:
             if cb.num_rows:
                 yield cb.to_arrow()
 
+    def execute_collect(self) -> ColumnBatch:
+        """Every partition's batches, concatenated (the local mode's and
+        the tests' collector)."""
+        out = []
+        for p in range(self.num_partitions):
+            out.extend(self.execute(p))
+        if not out:
+            import pyarrow as pa
+            return ColumnBatch.from_arrow(pa.Table.from_batches(
+                [], schema=self.schema.to_arrow()))
+        return ColumnBatch.concat(out)
+
     def collect_metrics(self) -> MetricNode:
         node = MetricNode(name=type(self).__name__,
                           values=dict(self.metrics.values))
@@ -79,6 +91,14 @@ class ExecutionPlan:
             return head
         inner = ", ".join(repr(c) for c in self._children)
         return f"{head}({inner})"
+
+    def pretty(self, indent: int = 0) -> str:
+        """The tree, one operator class a line, two spaces a level (the
+        text the plan-stability goldens hold)."""
+        lines = ["  " * indent + type(self).__name__]
+        for c in self._children:
+            lines.append(c.pretty(indent + 1))
+        return "\n".join(lines)
 
 
 class CoalesceStream:

@@ -1,6 +1,6 @@
-"""Filter, Project, FilterProject, Limit, RenameColumns and Expand (port
-of FilterExec, ProjectExec, FilterProjectExec, LimitExec,
-RenameColumnsExec and ExpandExec, blaze_tpu/ops/basic.py).
+"""Filter, Project, FilterProject, Limit, Union, RenameColumns and Expand
+(port of FilterExec, ProjectExec, FilterProjectExec, LimitExec,
+UnionExec, RenameColumnsExec and ExpandExec, blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
 compacts; CoalesceStream re-batches.  On the q01 path both operators are
@@ -112,6 +112,28 @@ class FilterProjectExec(ExecutionPlan):
                 yield apply_project(apply_filter(batch, self._predicates),
                                     self._exprs, out_schema)
         return iter(CoalesceStream(gen(), metrics=self.metrics))
+
+
+class UnionExec(ExecutionPlan):
+    """Concatenates its children partition by partition: output
+    partition p is every child's partition p, in child order, where the
+    child has one (ref union_exec.rs)."""
+
+    def __init__(self, children: Sequence[ExecutionPlan]):
+        super().__init__(children)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    @property
+    def num_partitions(self) -> int:
+        return max(c.num_partitions for c in self.children)
+
+    def execute(self, partition: int) -> BatchIterator:
+        for child in self.children:
+            if partition < child.num_partitions:
+                yield from child.execute(partition)
 
 
 class RenameColumnsExec(ExecutionPlan):

@@ -17,14 +17,13 @@ This is the route the JAX package takes under device placement
 `_pa_join`, `_acero_sorted`, the join-key runtime filter and the
 direct-address join) and the shuffled hash join's `smjfallback` branch
 are not ported (ROADMAP Queue 1 item 11 follow-ups); keyless
-(nested-loop) joins belong to `bnlj.py`, not ported either.
+(nested-loop) joins are `bnlj.py`'s.
 """
 
 from __future__ import annotations
 
 import enum
 import itertools
-from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,12 +35,10 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import ColumnBatch
 from blaze_tpu_torch.bridge.resource import get_or_create
 from blaze_tpu_torch.exprs import BoundReference, PhysicalExpr
-from blaze_tpu_torch.exprs.base import ColVal
 from blaze_tpu_torch.kernels import hashing as H
 from blaze_tpu_torch.ops.base import BatchIterator, CoalesceStream, \
     ExecutionPlan
-from blaze_tpu_torch.schema import BOOL, FLOAT64, INT64, DataType, Field, \
-    Schema
+from blaze_tpu_torch.schema import BOOL, FLOAT64, INT64, Field, Schema
 
 # process-unique default broadcast ids (see BroadcastJoinExec.__init__)
 _local_bid = itertools.count()
@@ -87,31 +84,12 @@ def _device_hash_keys(batch: ColumnBatch, key_exprs: Sequence[PhysicalExpr]
     return h[:n], any_null[:n], key_arrays
 
 
-@dataclass(frozen=True, repr=False)
-class _Widen(PhysicalExpr):
-    """A numeric key widened to int64 or float64 (the Cast that Spark's
-    analyzer inserts between join keys of different numeric types)."""
-
-    child: PhysicalExpr
-    dtype: DataType
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema: Schema) -> DataType:
-        return self.dtype
-
-    def evaluate(self, batch: ColumnBatch) -> ColVal:
-        v = self.child.evaluate(batch)
-        return ColVal(self.dtype, v.data.to(self.dtype.torch_dtype()),
-                      v.validity)
-
-
 def promote_join_key_exprs(lkeys, rkeys, lschema, rschema):
     """Widen mismatched numeric join-key pairs to a common type
-    (int/int -> int64, a numeric mix -> float64), so both sides hash and
-    compare one type: xxhash64 hashes int32 and int64 of equal value
-    differently."""
+    (int/int -> int64, a numeric mix -> float64) by a Cast, as Spark's
+    analyzer does, so both sides hash and compare one type: xxhash64
+    hashes int32 and int64 of equal value differently."""
+    from blaze_tpu_torch.exprs.cast import Cast
     out_l, out_r = [], []
     for le, re in zip(lkeys, rkeys):
         lt = le.data_type(lschema)
@@ -129,8 +107,8 @@ def promote_join_key_exprs(lkeys, rkeys, lschema, rschema):
             out_l.append(le)
             out_r.append(re)
             continue
-        out_l.append(le if lt.id == common.id else _Widen(le, common))
-        out_r.append(re if rt.id == common.id else _Widen(re, common))
+        out_l.append(le if lt.id == common.id else Cast(le, common))
+        out_r.append(re if rt.id == common.id else Cast(re, common))
     return out_l, out_r
 
 
@@ -230,9 +208,9 @@ class BaseJoinExec(ExecutionPlan):
         super().__init__([left, right])
         assert build_side in ("left", "right")
         if not left_keys:
-            raise NotImplementedError(
-                "keyless (nested-loop) joins belong to bnlj.py, not yet "
-                "ported (ROADMAP Queue 1 item 11)")
+            raise ValueError(
+                "an equi-join needs keys; a keyless join is a "
+                "broadcast_nested_loop_join (ops/joins/bnlj.py)")
         self.left_keys, self.right_keys = promote_join_key_exprs(
             list(left_keys), list(right_keys), left.schema, right.schema)
         self.join_type = join_type

@@ -209,7 +209,7 @@ def _prune_join(plan, required: Optional[Set[int]]):
                   null_aware_anti=plan.null_aware_anti)
     if isinstance(plan, BroadcastJoinExec):
         kwargs["broadcast_id"] = plan._broadcast_id
-    # the keys as the join holds them (a widened key keeps its _Widen); the
+    # the keys as the join holds them (a widened key keeps its Cast); the
     # rebuilt join promotes them again, which leaves equal types alone
     new = type(plan)(lchild, rchild,
                      [rewrite_expr(k, lm) for k in plan.left_keys],

@@ -1,7 +1,7 @@
 """Expression decoding: IR dicts -> PhysicalExpr trees (port of the part of
 blaze_tpu/plan/exprs.py the port uses: column, literal, binary, the
 conditional kinds is_null, is_not_null, not, case, if, coalesce and
-in_list, and sort specs).
+in_list, cast and try_cast, and sort specs).
 
 Constant folding of all-literal subtrees (the JAX package's exprs/fold.py)
 is not carried over: it changes no result, and this slice's filters
@@ -13,8 +13,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
-                                   Coalesce, If, InList, IsNotNull, IsNull,
-                                   Literal, Not, PhysicalExpr)
+                                   Cast, Coalesce, If, InList, IsNotNull,
+                                   IsNull, Literal, Not, PhysicalExpr,
+                                   TryCast)
 from blaze_tpu_torch.plan.types import type_from_dict
 from blaze_tpu_torch.schema import Schema
 
@@ -56,11 +57,15 @@ def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
     if k == "in_list":
         return InList(expr_from_dict(d["child"], schema),
                       tuple(d["values"]), d.get("negated", False))
+    if k in ("cast", "try_cast"):
+        cls = Cast if k == "cast" else TryCast
+        return cls(expr_from_dict(d["child"], schema),
+                   type_from_dict(d["type"]))
     raise NotImplementedError(
         f"expression kind {k!r} belongs to a later slice of the PyTorch port "
-        f"(ROADMAP Queue 1 item 3 for cast, item 13 for the string and "
-        f"scalar functions); this slice decodes column, literal, binary, "
-        f"is_null, is_not_null, not, case, if, coalesce and in_list")
+        f"(ROADMAP Queue 1 item 13 for the string and scalar functions); "
+        f"this slice decodes column, literal, binary, is_null, is_not_null, "
+        f"not, case, if, coalesce, in_list, cast and try_cast")
 
 
 def sort_spec_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None):

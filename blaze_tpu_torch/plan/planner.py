@@ -3,11 +3,12 @@ plan rewrite `collapse_filter_project` (port of the part of
 blaze_tpu/plan/planner.py the port uses).
 
 Node kinds: parquet_scan, filter, project, filter_project, hash_agg,
-sort_agg, sort, limit, rename_columns, expand, window, generate (explode
-and posexplode), shuffle_writer, ipc_reader, broadcast_join,
-sort_merge_join, hash_join and broadcast_join_build_hash_map.  Every
-other kind (union, the nested-loop join, ...) raises NotImplementedError
-naming the ROADMAP item it belongs to.
+sort_agg, sort, limit, union, rename_columns, expand, window, generate
+(explode and posexplode), shuffle_writer, local_exchange (an in-process
+`LocalShuffleExchange`), ipc_reader, broadcast_join, sort_merge_join,
+hash_join, broadcast_nested_loop_join and broadcast_join_build_hash_map.
+Every other kind raises NotImplementedError naming the ROADMAP item it
+belongs to.
 """
 
 from __future__ import annotations
@@ -19,10 +20,13 @@ from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
 from blaze_tpu_torch.ops.base import ExecutionPlan
 from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec,
                                       FilterProjectExec, LimitExec,
-                                      ProjectExec, RenameColumnsExec)
+                                      ProjectExec, RenameColumnsExec,
+                                      UnionExec)
 from blaze_tpu_torch.ops.generate import ExplodeGenerator, GenerateExec
-from blaze_tpu_torch.ops.joins import (BroadcastJoinExec, BuildHashMapExec,
-                                       JoinType, ShuffledHashJoinExec,
+from blaze_tpu_torch.ops.joins import (BroadcastJoinExec,
+                                       BroadcastNestedLoopJoinExec,
+                                       BuildHashMapExec, JoinType,
+                                       ShuffledHashJoinExec,
                                        SortMergeJoinExec)
 from blaze_tpu_torch.ops.scan import ParquetScanExec
 from blaze_tpu_torch.ops.sort import SortExec
@@ -33,17 +37,15 @@ from blaze_tpu_torch.plan.exprs import expr_from_dict, sort_spec_from_dict
 from blaze_tpu_torch.plan.types import schema_from_dict
 from blaze_tpu_torch.schema import Schema
 from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
-                                     Partitioning, ShuffleWriterExec,
-                                     SinglePartitioning)
+                                     LocalShuffleExchange, Partitioning,
+                                     ShuffleWriterExec, SinglePartitioning)
 
 
 #: node kinds of the JAX planner the port does not plan yet, with the
 #: ROADMAP item each belongs to
 _LATER_KINDS = {
-    **dict.fromkeys(("union", "coalesce_batches", "empty_partitions",
-                     "debug", "memory_scan", "ffi_reader"), "item 4"),
-    "broadcast_nested_loop_join": "item 11",
-    "local_exchange": "item 8 (the single-task local mode)",
+    **dict.fromkeys(("coalesce_batches", "empty_partitions", "debug",
+                     "memory_scan", "ffi_reader"), "item 4"),
     **dict.fromkeys(("parquet_sink", "orc_sink", "ipc_writer", "orc_scan",
                      "kafka_scan", "rss_shuffle_writer"), "item 16"),
 }
@@ -67,6 +69,16 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
 
     if k in ("sort_merge_join", "hash_join", "broadcast_join"):
         return _join_from_dict(d)
+    if k == "broadcast_nested_loop_join":
+        flt = (expr_from_dict(d["join_filter"])
+               if d.get("join_filter") else None)  # on the joined schema
+        return BroadcastNestedLoopJoinExec(
+            create_plan(d["left"]), create_plan(d["right"]),
+            JoinType(d.get("join_type", "inner")),
+            build_side=d.get("build_side", "right"), join_filter=flt,
+            broadcast_id=d.get("broadcast_id"))
+    if k == "union":
+        return UnionExec([create_plan(c) for c in d["inputs"]])
 
     if k in _LATER_KINDS:
         raise NotImplementedError(
@@ -74,7 +86,7 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
             f"port (ROADMAP {_LATER_KINDS[k]})")
     if k not in ("filter", "project", "filter_project", "hash_agg",
                  "sort_agg", "sort", "limit", "rename_columns", "expand",
-                 "window", "generate", "shuffle_writer",
+                 "window", "generate", "shuffle_writer", "local_exchange",
                  "broadcast_join_build_hash_map"):
         raise ValueError(f"unknown plan node kind {k!r}")
     child = create_plan(d["input"])
@@ -120,6 +132,9 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
                 else AggExecMode.SORT_AGG)
         return AggExec(child, groups, aggs, mode)
     part = partitioning_from_dict(d["partitioning"], in_schema)
+    if k == "local_exchange":
+        return LocalShuffleExchange(child, part,
+                                    stage_id=d.get("stage_id", 0))
     return ShuffleWriterExec(child, part, d["data_file"], d["index_file"])
 
 
@@ -235,10 +250,10 @@ def _pure(e) -> bool:
     into several outer references: it and every child are among the
     value-only expression classes the port has."""
     from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
-                                       Coalesce, If, InList, IsNotNull,
-                                       IsNull, Literal, Not)
+                                       Cast, Coalesce, If, InList,
+                                       IsNotNull, IsNull, Literal, Not)
     ok = (BoundReference, Literal, BinaryExpr, Not, IsNull, IsNotNull, If,
-          CaseWhen, Coalesce, InList)
+          CaseWhen, Coalesce, InList, Cast)
     return isinstance(e, ok) and all(_pure(c) for c in e.children())
 
 

@@ -5,19 +5,20 @@ Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
 `create_plan` reads, with the same dict vocabulary as the JAX package, so
 the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
 ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
-shuffle_writer, the joins (sort_merge_join, hash_join, broadcast_join,
-with join type, build side, broadcast_id / cached_build_hash_map_id and
-join_filter), broadcast_join_build_hash_map, expand, window (the rank
-family, lead/lag, nth_value and aggregates, with group_limit),
+union, shuffle_writer, the joins (sort_merge_join, hash_join,
+broadcast_join, with join type, build side, broadcast_id /
+cached_build_hash_map_id and join_filter), the nested-loop join (a
+KEYLESS broadcast_join on the wire, its inner filter lifted into a
+filter node above it), broadcast_join_build_hash_map, expand, window
+(the rank family, lead/lag, nth_value and aggregates, with group_limit),
 rename_columns and generate (explode and posexplode, the kept columns by
 name); types: the fixed-width ones, utf8, binary and list;
 expressions:
 column, bound_reference, literal, binary (comparisons, and/or,
 arithmetic), is_null, is_not_null, not, case (an `if` encodes as a case
-with one branch), coalesce (a scalar function), in_list and the sort
-expression of a sort node; partitionings: single and hash.
-Every other variant raises NotImplementedError; a keyless broadcast join
-(the wire's nested-loop join) belongs to bnlj.py, not yet ported.
+with one branch), coalesce (a scalar function), in_list, cast, try_cast
+and the sort expression of a sort node; partitionings: single and hash.
+Every other variant raises NotImplementedError.
 
 `ScalarValue` follows the reference encoding: a one-batch Arrow IPC stream
 whose column 0 row 0 is the value.
@@ -220,6 +221,10 @@ def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
         return {"kind": "in_list",
                 "child": expr_from_proto(e.in_list.expr),
                 "values": values, "negated": e.in_list.negated}
+    if kind in ("cast", "try_cast"):
+        node = e.cast if kind == "cast" else e.try_cast
+        return {"kind": kind, "child": expr_from_proto(node.expr),
+                "type": type_from_proto(node.arrow_type)}
     if kind == "scalar_function" and \
             e.scalar_function.fun == pb.Coalesce:
         return {"kind": "coalesce",
@@ -276,6 +281,11 @@ def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
         e.scalar_function.name = "coalesce"
         for a in d["args"]:
             e.scalar_function.args.append(expr_to_proto(a))
+        return e
+    if k in ("cast", "try_cast"):
+        node = e.cast if k == "cast" else e.try_cast
+        node.expr.CopyFrom(expr_to_proto(d["child"]))
+        node.arrow_type.CopyFrom(type_to_proto(d["type"]))
         return e
     if k == "in_list":
         e.in_list.expr.CopyFrom(expr_to_proto(d["child"]))
@@ -415,6 +425,13 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
         if n.limit.offset:
             d["offset"] = int(n.limit.offset)
         return d
+    if kind == "union":
+        return {"kind": "union",
+                "inputs": [plan_from_proto(i.input) for i in n.union.input],
+                "input_partitions": [int(i.partition)
+                                     for i in n.union.input],
+                "num_partitions": int(n.union.num_partitions),
+                "cur_partition": int(n.union.cur_partition)}
     if kind == "agg":
         return _agg_from_proto(n.agg)
     if kind in ("sort_merge_join", "hash_join", "broadcast_join"):
@@ -456,10 +473,6 @@ def _generate_from_proto(g: pb.GenerateExecNode) -> Dict[str, Any]:
 
 def _join_from_proto(kind: str, n: pb.PhysicalPlanNode) -> Dict[str, Any]:
     node = getattr(n, kind)
-    if kind == "broadcast_join" and not node.on:
-        raise NotImplementedError(
-            "a keyless broadcast join (nested-loop join) belongs to "
-            "bnlj.py, not yet ported (ROADMAP Queue 1 item 11)")
     d: Dict[str, Any] = {
         "kind": kind,
         "left": plan_from_proto(node.left),
@@ -480,6 +493,10 @@ def _join_from_proto(kind: str, n: pb.PhysicalPlanNode) -> Dict[str, Any]:
             d["broadcast_id"] = node.cached_build_hash_map_id
         if node.is_null_aware_anti_join:
             d["null_aware_anti"] = True
+        if not node.on:
+            # a keyless broadcast join is the nested-loop join (see
+            # plan_to_proto)
+            d["kind"] = "broadcast_nested_loop_join"
     else:  # sort_merge_join
         if node.HasField("filter"):
             d["join_filter"] = expr_from_proto(node.filter.expression)
@@ -638,10 +655,40 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         n.limit.limit = d["limit"]
         n.limit.offset = d.get("offset", 0)
         return n
+    if k == "union":
+        for i, child in enumerate(d["inputs"]):
+            inp = n.union.input.add()
+            inp.input.CopyFrom(plan_to_proto(child))
+            parts = d.get("input_partitions")
+            inp.partition = parts[i] if parts else 0
+        n.union.num_partitions = d.get("num_partitions", 1)
+        n.union.cur_partition = d.get("cur_partition", 0)
+        return n
     if k in ("hash_agg", "sort_agg"):
         return _agg_to_proto(d)
     if k in ("sort_merge_join", "hash_join", "broadcast_join"):
         return _join_to_proto(d)
+    if k == "broadcast_nested_loop_join":
+        # no wire node of its own (auron.proto PhysicalPlanType): a
+        # KEYLESS broadcast_join is the nested-loop join, and decoding
+        # reverses it.  That node has no filter field; for an inner join
+        # a condition is a filter over the cross product, so it is lifted
+        # into one; an outer join's would change which rows are
+        # null-extended, and raises
+        filt = d.get("join_filter")
+        if filt is not None and d.get("join_type", "inner") != "inner":
+            raise ValueError(
+                "outer broadcast_nested_loop_join with a join_filter "
+                "has no wire encoding (lifting would change "
+                "null-extension semantics)")
+        bare = {key: v for key, v in d.items() if key != "join_filter"}
+        inner = _join_to_proto(dict(bare, kind="broadcast_join",
+                                    left_keys=[], right_keys=[]))
+        if filt is None:
+            return inner
+        n.filter.input.CopyFrom(inner)
+        n.filter.expr.append(expr_to_proto(filt))
+        return n
     if k == "broadcast_join_build_hash_map":
         n.broadcast_join_build_hash_map.input.CopyFrom(
             plan_to_proto(d["input"]))
@@ -781,10 +828,6 @@ def _window_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
 def _join_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
     n = pb.PhysicalPlanNode()
     k = d["kind"]
-    if not d["left_keys"]:
-        raise NotImplementedError(
-            "a keyless join (nested-loop join) belongs to bnlj.py, not yet "
-            "ported (ROADMAP Queue 1 item 11)")
     node = getattr(n, k)
     node.left.CopyFrom(plan_to_proto(d["left"]))
     node.right.CopyFrom(plan_to_proto(d["right"]))

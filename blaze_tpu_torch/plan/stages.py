@@ -6,13 +6,26 @@ around the engine: it takes ONE plan-IR dict holding `local_exchange`
 nodes, cuts it into stages, and runs every task of every stage as
 protobuf TaskDefinition bytes through the port's NativeExecutionRuntime.
 
-Cutting rules (`split`, `_split_node`):
+Two modes (`exec_mode`), as in the JAX scheduler:
+  * "local": a query whose file scans total at most
+    `auron.tpu.dag.singleTaskBytes` (64 MiB by default;
+    `_scan_input_bytes`) runs as ONE task in this process
+    (`_run_single_task`): the plan is built, collapsed, pruned and fused
+    as a task's plan is, and each `local_exchange` runs as a
+    `LocalShuffleExchange` (shuffle/exchange.py), whose files are removed
+    after the run.  Its metrics are stage 0's.  A plan the local mode
+    cannot build raises; it never drops back to the staged route;
+  * "staged": everything larger, and everything when the key is 0.
+
+Cutting rules of the staged route (`split`, `_split_node`):
   * a `local_exchange` makes its child a producer stage whose per-task plan
     is wrapped in a `shuffle_writer` (per-map `.data`/`.index` files); the
     consumer reads an `ipc_reader` bound to the producer's block map;
   * subtrees are not shared: a subtree referenced twice makes two stages;
+    a union's `inputs` are walked like any child;
   * a scan carries ONE file group per task on the wire, except under a
-    broadcast build side, where every task sees every file (`_per_task`).
+    broadcast build side (of a broadcast join or a nested-loop join),
+    where every task sees every file (`_per_task`).
 
 Lineage recovery: a bad block raises FetchFailedError naming the producer
 stage and map task; `run_collect` re-runs exactly that map task
@@ -25,13 +38,10 @@ Each stage runs inside a `torch.profiler.record_function` range named
 `STAGE_RANGE + str(sid)` and ends in a device synchronisation;
 `stage_walls` holds its host-clock seconds.
 
-Not ported, each raising where the JAX scheduler would take it:
-  * the single-task local mode (`auron.tpu.dag.singleTaskBytes`, 64 MiB by
-    default) needs column pruning, `collapse_filter_project` and the local
-    shuffle exchange (ROADMAP Queue 1 item 8): set the key to 0;
-  * the device-exchange, remote-shuffle, adaptive, subplan-cache,
-    statistics, history, worker-pool and speculation branches (items 14,
-    15 and 16): a conf key that turns one on raises.
+Not ported, each raising where the JAX scheduler would take it: the
+device-exchange, remote-shuffle, adaptive, subplan-cache, statistics,
+history, worker-pool and speculation branches (ROADMAP items 14, 15 and
+16): a conf key that turns one on raises.
 """
 
 from __future__ import annotations
@@ -72,11 +82,6 @@ class Stage:
 def _check_ported_branches() -> None:
     """Raise where a conf key turns on a scheduler branch the port lacks."""
     from blaze_tpu_torch import config
-    if config.DAG_SINGLE_TASK_BYTES.get() > 0:
-        raise NotImplementedError(
-            f"{config.DAG_SINGLE_TASK_BYTES.key} > 0: the single-task local "
-            f"mode needs column pruning, collapse_filter_project and the "
-            f"local shuffle exchange (ROADMAP Queue 1 item 8); set it to 0")
     for key, item in config.UNPORTED_SCHEDULER_KEYS.items():
         raw = config.conf.get_raw(key)
         if raw is not None and raw.strip().lower() not in (
@@ -109,6 +114,7 @@ class DagScheduler:
         # sid -> host seconds of the stage's last run, ending in a device
         # synchronisation
         self.stage_walls: Dict[int, float] = {}
+        self.exec_mode: Optional[str] = None  # "local" | "staged"
 
     def _record_task_metrics(self, sid: int, tree: MetricNode) -> None:
         self.stage_metrics.setdefault(
@@ -150,6 +156,13 @@ class DagScheduler:
             if isinstance(val, dict) and "kind" in val:
                 out[key], sub = self._split_node(val)
                 deps.extend(sub)
+            elif key == "inputs" and isinstance(val, list):  # union
+                subs = []
+                for v in val:
+                    nv, sub = self._split_node(v)
+                    subs.append(nv)
+                    deps.extend(sub)
+                out[key] = subs
         return out, deps
 
     @staticmethod
@@ -183,7 +196,7 @@ class DagScheduler:
                     new_groups[task] = list(groups[task])
             out["file_groups"] = new_groups
             return out
-        if k == "broadcast_join":
+        if k in ("broadcast_join", "broadcast_nested_loop_join"):
             build = d.get("build_side", "right")
             for side in ("left", "right"):
                 out[side] = self._per_task(d[side], task, n_tasks,
@@ -197,6 +210,9 @@ class DagScheduler:
         for key, val in d.items():
             if isinstance(val, dict) and "kind" in val:
                 out[key] = self._per_task(val, task, n_tasks, in_broadcast)
+            elif key == "inputs" and isinstance(val, list):
+                out[key] = [self._per_task(v, task, n_tasks, in_broadcast)
+                            for v in val]
         return out
 
     # -- execution ---------------------------------------------------------
@@ -325,8 +341,62 @@ class DagScheduler:
         self._stage_outputs[stage.sid][ff.map_id] = self._read_map_output(
             stage, ff.map_id, int(part.get("num_partitions", 1)))
 
+    # -- the single-task local mode -----------------------------------------
+
+    @staticmethod
+    def _scan_input_bytes(plan: Dict[str, Any]) -> int:
+        """Total bytes of the files behind every scan of the plan; a file
+        that cannot be stat'ed gives a sentinel above any threshold."""
+        total = 0
+        stack = [plan]
+        while stack:
+            d = stack.pop()
+            if not isinstance(d, dict):
+                continue
+            if d.get("kind") in _SCAN_KINDS:
+                for group in d.get("file_groups", []):
+                    for p in group:
+                        try:
+                            total += os.path.getsize(p)
+                        except (OSError, TypeError):
+                            return 1 << 62
+            for v in d.values():
+                if isinstance(v, dict):
+                    stack.append(v)
+                elif isinstance(v, list):
+                    stack.extend(x for x in v if isinstance(x, dict))
+        return total
+
+    def _run_single_task(self, plan: Dict[str, Any]) -> pa.Table:
+        """The whole query as one task in this process, its exchanges
+        `LocalShuffleExchange`s (the analog of Spark AQE's local shuffle
+        reader on small queries, where per-stage fixed costs dominate);
+        nothing crosses the wire.  The tree is built as a task's is
+        (collapse, prune, fuse); its metrics are stage 0's."""
+        from blaze_tpu_torch.bridge.context import TaskContext, task_scope
+        from blaze_tpu_torch.plan import create_plan
+        from blaze_tpu_torch.plan.column_pruning import prune_columns
+        from blaze_tpu_torch.plan.fused import fuse_plan
+        from blaze_tpu_torch.plan.planner import collapse_filter_project
+        from blaze_tpu_torch.shuffle import LocalShuffleExchange
+
+        node = fuse_plan(prune_columns(
+            collapse_filter_project(create_plan(plan))))
+        try:
+            with self._stage_scope(0), task_scope(TaskContext()):
+                out = node.execute_collect().to_arrow()
+        finally:
+            self._record_task_metrics(0, node.collect_metrics())
+            stack = [node]
+            while stack:
+                n = stack.pop()
+                if isinstance(n, LocalShuffleExchange):
+                    n.cleanup()
+                stack.extend(n.children)
+        return pa.Table.from_batches([out])
+
     def run_collect(self, plan: Dict[str, Any]) -> pa.Table:
-        """Execute the whole DAG; returns the result stage's output."""
+        """Execute the whole query; returns the result stage's output."""
         return self._run_collect(plan)
 
     def _run_collect(self, plan: Dict[str, Any]) -> pa.Table:
@@ -339,6 +409,15 @@ class DagScheduler:
         self.stage_metrics = {}  # an instance may be reused per query
         self.stage_walls = {}
         self.task_runs = {}
+        threshold = config.DAG_SINGLE_TASK_BYTES.get()
+        if threshold > 0 and self._scan_input_bytes(plan) <= threshold:
+            self.exec_mode = "local"
+            self.stages = []
+            try:
+                return self._run_single_task(plan)
+            finally:
+                self.cleanup()
+        self.exec_mode = "staged"
         os.makedirs(self._dir, exist_ok=True)
         stages = self.split(plan)
         stages_by_id = {st.sid: st for st in stages}

@@ -1,7 +1,9 @@
 """Shuffle of the PyTorch port: hash partitioning, the framed IPC format,
-the map-side writer and the reduce-side reader."""
+the map-side writer, the reduce-side reader and the in-process
+exchange."""
 
-from blaze_tpu_torch.shuffle.exchange import read_index_file
+from blaze_tpu_torch.shuffle.exchange import (LocalShuffleExchange,
+                                              read_index_file)
 from blaze_tpu_torch.shuffle.partitioning import (HashPartitioning,
                                                   Partitioning,
                                                   SinglePartitioning)
@@ -9,5 +11,5 @@ from blaze_tpu_torch.shuffle.reader import FileSegmentBlock, IpcReaderExec
 from blaze_tpu_torch.shuffle.writer import ShuffleWriterExec
 
 __all__ = ["FileSegmentBlock", "HashPartitioning", "IpcReaderExec",
-           "Partitioning", "ShuffleWriterExec", "SinglePartitioning",
+           "LocalShuffleExchange", "Partitioning", "ShuffleWriterExec", "SinglePartitioning",
            "read_index_file"]

@@ -50,10 +50,15 @@ class ShuffleRepartitioner:
         if batch.num_rows == 0:
             return
         current_task().check_running()
-        if self.partitioning.num_partitions > 1:
-            self._pids.append(self.partitioning.partition_ids(batch))
         rb = batch.to_arrow()
-        # names only, as the JAX package stages them: every field nullable
+        if self.partitioning.num_partitions == 1:
+            # one reduce partition: the batch as it is, as the JAX
+            # package stages it (its schema's nullability kept)
+            self._staged.append(rb)
+            return
+        self._pids.append(self.partitioning.partition_ids(batch))
+        # names only, as the JAX package stages rows beside their pids:
+        # every field nullable
         self._staged.append(pa.RecordBatch.from_arrays(
             list(rb.columns), names=list(rb.schema.names)))
 

@@ -130,11 +130,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      card; prints stage walls, tasks, peak memory, data and oracle
      seconds, q95's rows after each join, and for the profiled runs the
      busy share, cudaLaunch* per stage and the cumulative scans' device
-     time; then q67 (its store_sales scan under an Expand, which no
-     pruning requirement crosses) and q98 (its scan narrowed to 3 of 16
-     columns) once more with auron.tpu.columnPruning false, both runs'
-     walls and io_bytes printed, the rows equal to the same pandas frame
-     both ways;
+     time;
  14. q19, q07 and gq1 (stage DAG): promotion (300 rows) and
      web_clickstreams (500,000 sessions with a list of 0-5 clicked items
      each, 4 files) at SF10 from their seeds, the other tables from
@@ -151,11 +147,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      generator emitting one row per click; prints stage walls, tasks,
      peak memory, data and oracle seconds, io_bytes and the rows out of
      each join and generator;
- 15. the dict-device lane through dictionary growth on the card: a
+ 15. breadth (the single-task local mode, Union, Cast and the
+     nested-loop join): catalog_returns (4 files), reason and time_dim at
+     SF10 from their seeds, the other tables from phases 10-13; the
+     local-mode query (the first of q84 and q41 whose scans fit the
+     default auron.tpu.dag.singleTaskBytes, 64 MiB, at SF10) under the
+     default (one local task) and with the key at 0 (staged), the same
+     rows in the same order both ways; full q01 as one local task (the
+     key one byte above its scan bytes, which exceed the default); q05
+     (a Union of the three channels' sales and returns), q93 (Casts in a
+     left join's measures) and q90 (a ratio of two global counts through
+     a nested-loop join) under the default, staged at SF10; q05 once more
+     profiled stage by stage; 4 exchange partitions, a fresh plan each,
+     held to the pandas frame as a set (floats within 1e-9 relative);
+     fails unless each run's exec_mode, no batch and no join probe off
+     the card, device probe calls equal to probe batches, every radix
+     grouping exact against its plain version as many times as the
+     wrapper counted, every eager placement exact against its plain
+     version (q93's are not recorded, as q51's), q01's local run launching
+     radix and placement, and q90's nested-loop join emitting rows;
+     prints each run's wall, exec_mode, stages, scan bytes, io_bytes and
+     rows after each join;
+ 16. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 16. the paths' profile summary (with io_bytes per stage of every path:
+ 17. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does) and the kernel table as JSON lines,
      the card's name and power limit, and the result line.
@@ -1755,8 +1772,8 @@ FULL_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
 
 def full_data(root):
     """q01's four tables at SF10 from their seeds, written as
-    write_parquet_splits(..., 4) writes them, and the pandas oracle's
-    frame."""
+    write_parquet_splits(..., 4) writes them, the plan, the pandas
+    oracle's frame and a maker of a fresh plan (new broadcast ids)."""
     from blaze_tpu_torch.itest import q01_dag as QD
     from blaze_tpu_torch.itest import queries as Q
     from blaze_tpu_torch.itest.tpcds_data import (make_tables,
@@ -1774,7 +1791,8 @@ def full_data(root):
                                f"file(s)" for k, t in tables.items())
           + f" ({t1 - t0:.1f} s); pandas oracle {time.perf_counter() - t1:.1f}"
           f" s, {len(want)} rows")
-    return plan, want
+    return plan, want, lambda: Q.q01(paths, tables,
+                                     partitions=FULL_PARTS)[0]
 
 
 def full_path(plan, want, mode, profiled=False, corrupt=False):
@@ -2723,11 +2741,11 @@ def q95_windows_data(root, tables, paths):
         runs[name] = ((lambda m=make: m()[0]), want)
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
-    return runs, secs
+    return runs, secs, tables, paths
 
 
 def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
-               pruning=True, record_placements=True):
+               record_placements=True):
     """One run of query `name` of the itest module D through the
     port's DagScheduler with the stage loop under `mode`, with a fresh
     plan, and the checks every such path shares: the stage count of the
@@ -2739,9 +2757,8 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     (_RecordedGroupings); with `record_placements`, each eager placement
     exact against the plain version on its operands (_RecordedPlacements;
     under `off` every placement is eager, so as many as counted); every
-    task run once and nothing leaked.  `pruning` false runs with
-    auron.tpu.columnPruning off (every scan reads every column of its
-    file).  Returns (the run's result dict, the scheduler); the caller
+    task run once and nothing leaked.  Returns (the run's result dict,
+    the scheduler); the caller
     adds its own checks, then the profile (`profiled`: each stage under
     torch.profiler, _dag_profile)."""
     import torch
@@ -2751,13 +2768,11 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     from blaze_tpu_torch.kernels import join as JK
     from blaze_tpu_torch.plan.stages import DagScheduler
 
-    label = f"{name} {mode}" + (" profiled" if profiled else "") + (
-        "" if pruning else " unpruned")
+    label = f"{name} {mode}" + (" profiled" if profiled else "")
     phase(f"main path {label}: TPC-DS {name} through the stage DAG, SF10, "
           f"{N_FILES} files a fact table, {parts} exchange partitions")
     _loop_mode(mode)
     config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
-    config.conf.set(config.COLUMN_PRUNING_ENABLE.key, pruning)
     sched = _stage_profiling_scheduler() if profiled else DagScheduler()
     plan = make_plan()
     torch.cuda.reset_peak_memory_stats()
@@ -2765,13 +2780,10 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     probes0 = dict(JK.probe_calls)
     recorded = _RecordedPlacements() if record_placements else \
         contextlib.nullcontext()
-    try:
-        with _RecordedGroupings() as groupings, recorded as placements:
-            t0 = time.perf_counter()
-            out = sched.run_collect(plan)
-            wall = time.perf_counter() - t0
-    finally:
-        config.conf.unset(config.COLUMN_PRUNING_ENABLE.key)
+    with _RecordedGroupings() as groupings, recorded as placements:
+        t0 = time.perf_counter()
+        out = sched.run_collect(plan)
+        wall = time.perf_counter() - t0
     launches = _read_launches()
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
     peak = torch.cuda.max_memory_allocated()
@@ -2818,7 +2830,7 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     if runs or any(leaks.values()):
         raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
                          f"scheduler leaked {leaks}")
-    res = {"query": name, "mode": mode, "pruning": pruning, "label": label,
+    res = {"query": name, "mode": mode, "label": label,
            "wall_s": wall, "rows": len(got),
            "stage_walls": sched.stage_walls, "tasks": tasks,
            "counters": counters, "launches": launches,
@@ -2827,8 +2839,7 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     return res, sched
 
 
-def q95_windows_path(name, make_plan, want, mode, profiled=False,
-                     pruning=True):
+def q95_windows_path(name, make_plan, want, mode, profiled=False):
     """q95 or a window query through `_dag_query` (itest/q95_windows.py).
     q95: the semi join (EXISTS) and the anti join (NOT EXISTS) each emit
     fewer rows than they take in, and more than 0; its per-order sums
@@ -2840,8 +2851,7 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False,
     from blaze_tpu_torch.itest import q06 as F
     from blaze_tpu_torch.itest import q95_windows as D
     res, sched = _dag_query(D, name, make_plan, want, mode, Q95W_PARTS,
-                            profiled, pruning,
-                            record_placements=(name == "q95"))
+                            profiled, record_placements=(name == "q95"))
     label, launches = res["label"], res["launches"]
     ops = {op: F.operator_counters(sched, op, keys) for op, keys in (
         ("WindowExec", ("cuda_batches", "cpu_batches", "output_rows")),
@@ -2875,8 +2885,10 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False,
 
 def q95_windows_phase(root, tables, paths):
     """q95 (BASELINE config #4) under auto, off and auto profiled, then
-    q12, q20, q98, q51 and q67 under auto and q51 once more profiled."""
-    runs, secs = q95_windows_data(root, tables, paths)
+    q12, q20, q98, q51 and q67 under auto and q51 once more profiled;
+    returns the runs, and the tables and file paths (web_sales and
+    web_returns among them), which the breadth phase reads again."""
+    runs, secs, tables, paths = q95_windows_data(root, tables, paths)
     out = {"q95 auto": q95_windows_path("q95", *runs["q95"], "auto"),
            "q95 off": q95_windows_path("q95", *runs["q95"], "off"),
            "q95 profiled": _profiled(lambda: q95_windows_path(
@@ -2885,18 +2897,7 @@ def q95_windows_phase(root, tables, paths):
         out[f"{name} auto"] = q95_windows_path(name, *runs[name], "auto")
     out["q51 profiled"] = _profiled(lambda: q95_windows_path(
         "q51", *runs["q51"], "auto", profiled=True), "q51")
-    # the pruning pass on and off in one start: q67's store_sales scan (16
-    # columns, under an Expand, which no requirement crosses) and q98's
-    # (narrowed to 3), each equal to the same pandas frame both ways
-    for name in ("q67", "q98"):
-        out[f"{name} unpruned"] = q95_windows_path(name, *runs[name], "auto",
-                                                   pruning=False)
-        on, off = out[f"{name} auto"], out[f"{name} unpruned"]
-        print(f"{name}: pruned run {on['wall_s']:.3f} s, io_bytes "
-              f"{_io_bytes(on)}; unpruned run {off['wall_s']:.3f} s, "
-              f"io_bytes {_io_bytes(off)}; rows {on['rows']} and "
-              f"{off['rows']}, both equal to the pandas frame in order")
-    return {"data_s": secs, "runs": out}
+    return {"data_s": secs, "runs": out}, tables, paths
 
 
 def _io_bytes(res):
@@ -2995,6 +2996,226 @@ def q19_q07_gq1_phase(root, tables, paths):
     return {"data_s": secs, "clicks": clicks, "runs": out}
 
 
+BREADTH_PARTS = 4           # the breadth phase: the exchanges' partitions
+#: the local-mode query: the first whose scans total at most the default
+#: auron.tpu.dag.singleTaskBytes at SF10
+LOCAL_CANDIDATES = ("q84", "q41")
+#: the new shapes: Union, Cast and the nested-loop join
+BREADTH_SHAPES = {"q05": "Union", "q93": "Cast",
+                  "q90": "the nested-loop join"}
+BREADTH_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
+                    "io_bytes")
+BREADTH_JOINS = ("BroadcastJoinExec", "ShuffledHashJoinExec",
+                 "SortMergeJoinExec", "BroadcastNestedLoopJoinExec")
+
+
+def breadth_data(root, tables, paths):
+    """The tables of the breadth phase's queries at SF10 from their
+    seeds: those no earlier phase wrote (catalog_returns in N_FILES
+    files, reason and time_dim in one) generated and written here, every
+    other one as the earlier phases wrote it (`tables` and `paths` hold
+    them, by name); for each query a maker of a fresh plan and its
+    pandas frame; and the seconds each step took."""
+    from blaze_tpu_torch.itest import queries as Q
+    from blaze_tpu_torch.itest import tpcds_data as T
+    names = LOCAL_CANDIDATES + tuple(BREADTH_SHAPES)
+    needed = sorted({t for n in names for t in Q.QUERIES[n][1]})
+    made = [n for n in needed if n not in tables]
+    phase(f"data: TPC-DS {', '.join(made)} at SF10 for the breadth phase "
+          f"({', '.join(n for n in needed if n not in made)} from the "
+          f"earlier phases)")
+    t0 = time.perf_counter()
+    tables = dict({n: tables[n] for n in needed if n not in made},
+                  **T.make_tables(SCALE, made))
+    t1 = time.perf_counter()
+    paths = dict({n: paths[n] for n in needed if n not in made},
+                 **T.write_splits({n: tables[n] for n in made},
+                                  os.path.join(root, "breadth"), N_FILES))
+    t2 = time.perf_counter()
+    secs = {"generate": t1 - t0, "write": t2 - t1}
+    print("rows: " + ", ".join(f"{n} {tables[n].num_rows} in "
+                               f"{len(paths[n])} file(s)" for n in needed)
+          + f"; generated in {secs['generate']:.1f} s, written in "
+          f"{secs['write']:.1f} s")
+    runs = {}
+    for name in names:
+        def make(n=name):
+            return Q.plans(paths, tables, BREADTH_PARTS, [n])[n]
+        t = time.perf_counter()
+        want = make()[1]()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        runs[name] = ((lambda m=make: m()[0]), want)
+        print(f"pandas oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return runs, secs
+
+
+def breadth_path(name, make_plan, want, single_task_bytes, expect,
+                 profiled=False, record_placements=True):
+    """One run of query `name` through the port's DagScheduler with the
+    stage loop under auto, a fresh plan, and auron.tpu.dag.singleTaskBytes
+    at `single_task_bytes` (None: its default, 64 MiB): fails unless its
+    `exec_mode` is `expect`, its rows equal the pandas frame as a set
+    (floats within 1e-9 relative), every batch and every join probe on
+    the card (device probe calls = probe batches), every radix grouping
+    exact against the plain version on its pids, as many as the wrapper
+    counted (_RecordedGroupings), with `record_placements` every eager
+    placement exact against the plain version on its operands
+    (_RecordedPlacements), every task run once and nothing leaked.
+    Returns (the run's result dict, the result frame); with `profiled`,
+    each stage under torch.profiler (_dag_profile)."""
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest.q01_dag import stage_counters
+    from blaze_tpu_torch.itest.q19_q07_gq1 import operator_rows
+    from blaze_tpu_torch.itest.runner import compare_frames, frame
+    from blaze_tpu_torch.kernels import join as JK
+    from blaze_tpu_torch.plan.stages import DagScheduler
+
+    stb = ("default" if single_task_bytes is None else single_task_bytes)
+    label = f"{name} {expect}" + (" profiled" if profiled else "")
+    phase(f"breadth {label}: TPC-DS {name} through DagScheduler, SF10, "
+          f"auron.tpu.dag.singleTaskBytes {stb}")
+    _loop_mode("auto")
+    if single_task_bytes is None:
+        config.conf.unset(config.DAG_SINGLE_TASK_BYTES.key)
+    else:
+        config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, single_task_bytes)
+    sched = _stage_profiling_scheduler() if profiled else DagScheduler()
+    plan = make_plan()
+    scan_bytes = DagScheduler._scan_input_bytes(plan)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    probes0 = dict(JK.probe_calls)
+    recorded = _RecordedPlacements() if record_placements else \
+        contextlib.nullcontext()
+    try:
+        with _RecordedGroupings() as groupings, recorded as placements:
+            t0 = time.perf_counter()
+            out = sched.run_collect(plan)
+            wall = time.perf_counter() - t0
+    finally:
+        config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    launches = _read_launches()
+    probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
+    peak = torch.cuda.max_memory_allocated()
+    got = frame(out)
+    counters = stage_counters(sched, BREADTH_COUNTERS)
+    tasks = {st.sid: st.num_tasks for st in sched.stages}
+    joins = operator_rows(sched, BREADTH_JOINS)
+    print(f"exec_mode {sched.exec_mode}; scans {scan_bytes} bytes; "
+          f"{len(sched.stages)} stages")
+    if sched.stages:
+        print(sched.describe())
+    print("stage walls, s (host clock, each ending in a device "
+          "synchronisation): " + ", ".join(
+              f"{sid} {w:.3f}" for sid, w in sorted(sched.stage_walls.items()))
+          + f"; run {wall:.3f} s")
+    for sid in sorted(counters):
+        print(f"  stage {sid} ({tasks.get(sid, 1)} tasks): "
+              f"{ {k: v for k, v in counters[sid].items() if v} }")
+    print(f"rows out of each join (stage by stage, parents first): {joins}")
+    print(f"launches: {launches}; join probes {probes}; peak {peak} bytes")
+    if sched.exec_mode != expect:
+        raise SystemExit(f"{label}: exec_mode {sched.exec_mode}, expected "
+                         f"{expect}")
+    err = compare_frames(got, want, 1e-9)
+    if err or not len(got):
+        raise SystemExit(f"{label}: {len(got)} rows against the oracle's "
+                         f"{len(want)}: {err}")
+    print(f"result: {len(got)} rows equal to the pandas oracle (first "
+          f"{got.iloc[0].tolist()})")
+    shapes = groupings.check(label, launches["radix_partition"])
+    placed = placements.check(label) if placements else None
+    off_card = {sid: c["cpu_batches"] for sid, c in counters.items()
+                if c["cpu_batches"]}
+    if off_card or probes["cpu"]:
+        raise SystemExit(f"{label}: work off the card: cpu_batches "
+                         f"{off_card}, CPU join probes {probes['cpu']}")
+    if not (sum(c["cuda_batches"] for c in counters.values())
+            or probes["cuda"]):
+        raise SystemExit(f"{label}: no batch counted on the card and no "
+                         f"join probed there")
+    probe_batches = sum(c["probe_batches"] for c in counters.values())
+    if probes["cuda"] != probe_batches:
+        raise SystemExit(f"{label}: {probes['cuda']} device probe calls for "
+                         f"{probe_batches} probe batches")
+    runs = {k: v for k, v in sched.task_runs.items() if v != 1}
+    leaks = sched.leak_report()
+    if runs or any(leaks.values()):
+        raise SystemExit(f"{label}: tasks ran more than once {runs} or the "
+                         f"scheduler leaked {leaks}")
+    res = {"query": name, "label": label, "exec_mode": sched.exec_mode,
+           "single_task_bytes": stb, "scan_bytes": scan_bytes,
+           "wall_s": wall, "rows": len(got), "stages": len(sched.stages),
+           "stage_walls": sched.stage_walls, "tasks": tasks,
+           "counters": counters, "join_rows": joins, "launches": launches,
+           "probe_calls": probes, "peak_bytes": peak,
+           "radix_groupings": shapes,
+           "placements": None if placed is None else len(placed)}
+    if profiled:
+        res.update(_dag_profile(sched, label, wall, launches, probes))
+    return res, got
+
+
+def breadth_phase(root, tables, paths, make_q01, q01_want):
+    """The local mode at SF10: a query whose scans fit the default
+    auron.tpu.dag.singleTaskBytes under the default (local) and with the
+    key at 0 (staged), the same rows in the same order both ways; full
+    q01 as one local task (the key just above its scan bytes), radix and
+    placement launched; then the new shapes under the default settings
+    (staged at SF10): q05 (Union), q93 (Cast) and q90 (the nested-loop
+    join), and q05 once more profiled stage by stage."""
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest.runner import same_order
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    runs, secs = breadth_data(root, tables, paths)
+    default = config.DAG_SINGLE_TASK_BYTES.default
+    sizes = {n: DagScheduler._scan_input_bytes(runs[n][0]())
+             for n in LOCAL_CANDIDATES}
+    local = next((n for n in LOCAL_CANDIDATES if sizes[n] <= default), None)
+    print(f"scan bytes at SF10: {sizes}; the default singleTaskBytes "
+          f"{default}: the local-mode query is {local}")
+    if local is None:
+        raise SystemExit(f"breadth: none of {LOCAL_CANDIDATES} fits the "
+                         f"local mode at SF10: {sizes}")
+    out = {}
+    out[f"{local} local"], got_local = breadth_path(
+        local, *runs[local], None, "local")
+    out[f"{local} staged"], got_staged = breadth_path(
+        local, *runs[local], 0, "staged")
+    err = same_order(got_local, got_staged, 1e-9)
+    if err:
+        raise SystemExit(f"breadth {local}: local and staged runs differ: "
+                         f"{err}")
+    print(f"{local}: the local and the staged run give the same "
+          f"{len(got_local)} rows in the same order")
+    q01_bytes = DagScheduler._scan_input_bytes(make_q01())
+    if q01_bytes <= default:
+        raise SystemExit(f"breadth: q01's scans ({q01_bytes} bytes) fit the "
+                         f"default singleTaskBytes: the full q01 phase would "
+                         f"not be staged under the default")
+    out["q01 local"], _ = breadth_path("q01", make_q01, q01_want,
+                                       q01_bytes + 1, "local")
+    for k in ("hash_placement", "radix_partition"):
+        if out["q01 local"]["launches"][k] <= 0:
+            raise SystemExit(f"breadth q01 local: kernel {k} was never "
+                             f"launched")
+    for name in BREADTH_SHAPES:
+        # q93's 2,700 map-side placements a run are not recorded: each
+        # would keep a copy of the table (as q51's in phase 13)
+        out[f"{name} staged"], _ = breadth_path(
+            name, *runs[name], None, "staged",
+            record_placements=(name != "q93"))
+    if not out["q90 staged"]["join_rows"].get(
+            "BroadcastNestedLoopJoinExec"):
+        raise SystemExit("breadth q90: no nested-loop join rows")
+    out["q05 profiled"] = _profiled(lambda: breadth_path(
+        "q05", *runs["q05"], None, "staged", profiled=True)[0], "q05")
+    return {"data_s": secs, "scan_bytes": dict(sizes, q01=q01_bytes),
+            "local_query": local, "runs": out}
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -3058,12 +3279,12 @@ def main():
                 root, sr_paths, lo, hi, "auto", oracle, profiled=True),
                 "q01 branches")}
         by_path["q01 branches"] = branches["auto"]["launches"]
-        plan, want = full_data(root)
-        full = {"auto": full_path(plan, want, "auto"),
-                "off": full_path(plan, want, "off"),
+        plan, q01_want, make_q01 = full_data(root)
+        full = {"auto": full_path(plan, q01_want, "auto"),
+                "off": full_path(plan, q01_want, "off"),
                 "profiled": _profiled(lambda: full_path(
-                    plan, want, "auto", profiled=True), "q01 full"),
-                "lineage": full_path(plan, want, "auto", corrupt=True)}
+                    plan, q01_want, "auto", profiled=True), "q01 full"),
+                "lineage": full_path(plan, q01_want, "auto", corrupt=True)}
         by_path["q01 full"] = full["auto"]["launches"]
         family, fam_tables, fam_paths = family_phase(root)
         for name in ("q06", "q42", "q03"):
@@ -3074,13 +3295,22 @@ def main():
         all_tables = dict(fam_tables, **tables)
         all_paths = dict(fam_paths, **paths)
         del fam_tables, tables
-        q95_windows = q95_windows_phase(root, all_tables, all_paths)
+        q95_windows, tables, paths = q95_windows_phase(root, all_tables,
+                                                        all_paths)
+        all_tables.update(tables)
+        all_paths.update(paths)
+        del tables
         for name in ("q95", "q12", "q20", "q98", "q51", "q67"):
             by_path[name] = q95_windows["runs"][f"{name} auto"]["launches"]
         q19_q07_gq1 = q19_q07_gq1_phase(root, all_tables, all_paths)
-        del all_tables
         for name in ("q19", "q07", "gq1"):
             by_path[name] = q19_q07_gq1["runs"][f"{name} auto"]["launches"]
+        breadth = breadth_phase(root, all_tables, all_paths, make_q01,
+                                q01_want)
+        del all_tables
+        for k, r in breadth["runs"].items():
+            if "profiled" not in k:
+                by_path[k] = r["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -3229,6 +3459,19 @@ def main():
               + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
                  f"stage {f['launches_per_stage']}"
                  if "busy_share" in f else ""))
+    print("breadth data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in breadth["data_s"].items())
+        + f"; scan bytes {breadth['scan_bytes']}")
+    for k, f in breadth["runs"].items():
+        print(f"{k}: run {f['wall_s']:.3f} s, {f['exec_mode']}, "
+              f"{f['stages']} stages, {f['rows']} rows, stage walls "
+              f"{ {s_: round(w, 3) for s_, w in f['stage_walls'].items()} }, "
+              f"tasks {f['tasks']}, peak {f['peak_bytes']} bytes, join rows "
+              f"{f['join_rows']}, radix groupings (rows, P) "
+              f"{f['radix_groupings']}, eager placements {f['placements']}"
+              + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                 f"stage {f['launches_per_stage']}"
+                 if "busy_share" in f else ""))
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -3237,7 +3480,8 @@ def main():
         for k, b in branches.items()})
     for group, prefix in ((full, "q01 full "), (family["runs"], ""),
                           (q17_q18["runs"], ""), (q95_windows["runs"], ""),
-                          (q19_q07_gq1["runs"], "")):
+                          (q19_q07_gq1["runs"], ""),
+                          (breadth["runs"], "breadth ")):
         io_bytes.update({prefix + k: _io_bytes(r)
                          for k, r in group.items()})
     print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
@@ -3246,7 +3490,8 @@ def main():
                       "stage_loop": loop_phases, "branches": branches,
                       "q01_full": full, "q06_family": family,
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
-                      "q19_q07_gq1": q19_q07_gq1, "io_bytes": io_bytes,
+                      "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
+                      "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

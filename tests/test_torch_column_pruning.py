@@ -3,12 +3,16 @@
 runtime that runs them before `fuse_plan`) against the JAX package's
 (blaze_tpu/plan/planner.py, blaze_tpu/plan/column_pruning.py).
 
-  * parity: every stage of every query of the port's `QUERIES`, and the
-    task plans of itest/q01.py, itest/rollup.py and itest/q01_branches.py,
+  * parity: every stage of every query of the port's `QUERIES` (the 100
+    of itest/queries.py, queries_ext.py and queries_ext2.py; q45 plans
+    `substring`, ROADMAP item 13, and is marked xfail), and the task
+    plans of itest/q01.py, itest/rollup.py and itest/q01_branches.py,
     encoded as TaskDefinition bytes and decoded in both packages: after
     `prune_columns(collapse_filter_project(...))` the two trees have the
-    same node kinds in tree order and the same scan projections;
-  * on and off: each query through the port's DagScheduler gives the same
+    same node kinds in tree order and the same scan projections (a union
+    and a nested-loop join are barriers in both);
+  * on and off: each query of itest/queries.py (`BASE_QUERIES`) through
+    the port's DagScheduler gives the same
     rows, and every map output the same `.data` and `.index` bytes, with
     `auron.tpu.columnPruning` true and false; where a stage's scan
     narrows, the stage reads fewer `io_bytes`; off, no scan narrows;
@@ -143,7 +147,11 @@ def _itest_task_defs(name, paths, tmp_path):
         sr, lo, hi, str(tmp_path), N_FILES, PARTS)]
 
 
-PARITY = list(TQ.QUERIES) + ["q01 inner", "rollup", "q01 branches"]
+#: every query and driver plan; q45 plans `substring` (ROADMAP item 13)
+PARITY = [pytest.param(n, marks=pytest.mark.xfail(
+              strict=True, raises=NotImplementedError, reason="item 13"))
+          if n == "q45" else n for n in TQ.QUERIES] + [
+    "q01 inner", "rollup", "q01 branches"]
 
 
 @pytest.mark.parametrize("name", PARITY)
@@ -235,7 +243,7 @@ def _run(plan, pruning: bool):
     return got, sched, stage_counters(sched, ("io_bytes",))
 
 
-@pytest.mark.parametrize("name", list(TQ.QUERIES))
+@pytest.mark.parametrize("name", TQ.BASE_QUERIES)
 def test_pruning_on_and_off_give_the_same_rows_and_bytes(data, name):
     tables, paths = data
     plan, _ = TQ.plans(paths, tables, PARTS, [name])[name]
@@ -476,6 +484,6 @@ def test_pruned_join_keeps_its_widened_key(tmp_path):
     join = pruned.children[0]
     assert [f.name for f in join.children[0].schema] == ["a", "b"]
     assert [f.name for f in join.children[1].schema] == ["a64"]
-    assert type(join.left_keys[0]).__name__ == "_Widen"
+    assert type(join.left_keys[0]).__name__ == "Cast"
     got = pa.Table.from_batches(list(pruned.arrow_batches(0)))
     assert got.num_rows > 0 and got.equals(want)

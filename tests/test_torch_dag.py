@@ -4,9 +4,9 @@ DagScheduler on the same plan and data (scale 0.2, 2 file splits, 2
 exchange partitions), with task retry (bridge/tasks.py) and lineage
 recovery.
 
-Both schedulers run with `auron.tpu.dag.singleTaskBytes` = 0: the JAX
-package would otherwise run so small a query as one local task, a mode
-the port does not have (its DagScheduler raises, naming ROADMAP item 8).
+Both schedulers run with `auron.tpu.dag.singleTaskBytes` = 0: both
+would otherwise run so small a query as one local task
+(tests/test_torch_local_mode.py holds that mode).
 
 Tolerance: exact.  The 100 c_customer_id of q01 are compared in order,
 with the device stage loop off (the staged executor) and forced on."""
@@ -299,7 +299,7 @@ def test_a_bad_index_is_a_fetch_failure(tmp_path):
     ("auron.tpu.shuffle.service", "/tmp/rss"),
     ("auron.tpu.aqe.enable", "true"),
     ("auron.tpu.shuffle.device", "on"),
-    ("auron.tpu.dag.singleTaskBytes", "1048576")])
+    ("auron.tpu.stats.enable", "true")])
 def test_unported_scheduler_branches_raise(q01, key, value):
     plan, _, _ = q01
     tconf.conf.set(key, value)

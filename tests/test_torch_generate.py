@@ -259,10 +259,10 @@ def test_json_tuple_raises_naming_its_item(tmp_path):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("union", "item 4"), ("coalesce_batches", "item 4"),
+    ("ffi_reader", "item 4"), ("coalesce_batches", "item 4"),
     ("empty_partitions", "item 4"), ("debug", "item 4"),
-    ("memory_scan", "item 4"), ("broadcast_nested_loop_join", "item 11"),
-    ("local_exchange", "item 8"), ("parquet_sink", "item 16"),
+    ("memory_scan", "item 4"), ("orc_scan", "item 16"),
+    ("ipc_writer", "item 16"), ("parquet_sink", "item 16"),
     ("kafka_scan", "item 16"), ("rss_shuffle_writer", "item 16")])
 def test_unported_kinds_name_their_item(kind, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

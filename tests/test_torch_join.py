@@ -532,8 +532,24 @@ def test_join_wire_round_trip(sides, case):
 
 
 def test_keyless_join_raises_naming_bnlj(sides):
+    """A keyless broadcast join is the wire's nested-loop join: the port
+    encodes it to the JAX package's bytes and both decode it as a
+    broadcast_nested_loop_join (ops/joins/bnlj.py), while an equi-join
+    operator built with no keys raises, naming that node."""
+    from blaze_tpu.plan import proto_serde as JS
+    from blaze_tpu_torch.ops.joins import BroadcastJoinExec, JoinType
+    from blaze_tpu_torch.plan import create_plan
     from blaze_tpu_torch.plan import proto_serde as TS
     d = _join("broadcast_join", sides, "inner", "k")
     d["left_keys"], d["right_keys"] = [], []
-    with pytest.raises(NotImplementedError, match="bnlj"):
-        TS.plan_to_proto(d)
+    for k in ("left", "right"):  # the wire carries one file group per task
+        d[k] = dict(d[k], file_groups=[d[k]["file_groups"][0]])
+    tbytes = TS.plan_to_proto(d).SerializeToString()
+    assert tbytes == JS.plan_to_proto(d).SerializeToString()
+    got = TS.plan_from_proto(TS.pb.PhysicalPlanNode.FromString(tbytes))
+    assert got == JS.plan_from_proto(JS.pb.PhysicalPlanNode.FromString(
+        tbytes))
+    assert got["kind"] == "broadcast_nested_loop_join"
+    left, right = create_plan(d["left"]), create_plan(d["right"])
+    with pytest.raises(ValueError, match="broadcast_nested_loop_join"):
+        BroadcastJoinExec(left, right, [], [], JoinType.INNER)

@@ -9,9 +9,9 @@ category on the generic engine, the brand-revenue queries sum revenue by
 brand (or category) on the fused dict-device lane in both the partial and
 the final stage.
 
-Both schedulers run with `auron.tpu.dag.singleTaskBytes` = 0 (the JAX
-package would otherwise run so small a query as one local task, a mode
-the port lacks), and the JAX package with
+Both schedulers run with `auron.tpu.dag.singleTaskBytes` = 0 (both
+would otherwise run so small a query as one local task; the two-file
+q06 case runs the local mode of each too), and the JAX package with
 `blaze_tpu.bridge.placement.host_resident` patched to False: the route it
 takes on a device (its dict-device lane, not its host Arrow lane).  The
 port runs with the stage loop `off`, `auto` (on the CPU: no loop) and
@@ -153,14 +153,15 @@ def _q06_with_item_in_two_files(tmp_path):
 
 def test_q06_with_item_in_two_files(tmp_path):
     """The reference's q06 averages by category as a partial avg directly
-    under a final one (blaze_tpu/itest/queries.py:217-221).  In the JAX
-    package's single-task local mode each item file is a partition that
-    averages on its own, so the broadcast build holds a row per category
-    and file, and the counts double (19,059 against 9,537 in the first
-    cell).  Through the stage DAG a broadcast build reads every file in
-    one partition, and both packages equal the oracle.  The port has no
-    local mode (it raises), so it cannot take the route where the fault
-    lives."""
+    under a final one (blaze_tpu/itest/queries.py:217-221).  In the
+    single-task local mode each item file is a partition that averages on
+    its own, so the broadcast build holds a row per category and file,
+    and the counts double (19,059 against 9,537 in the first cell).
+    Through the stage DAG a broadcast build reads every file in one
+    partition, and both packages equal the oracle.  The fault lives in
+    the reference itest's plan, not in the engine: the port's local mode
+    runs the same plan to the same doubled counts, with the same rows in
+    the same order as the JAX local mode."""
     paths, tables = _q06_with_item_in_two_files(tmp_path)
     plan, oracle = TQ.q06(paths, tables, PARTS)
     want = oracle()
@@ -174,9 +175,12 @@ def test_q06_with_item_in_two_files(tmp_path):
     got = _frame(DagScheduler().run_collect(plan))
     assert compare_frames(dag, want) is None
     assert same_order(got, dag) is None
-    tconf.conf.set(tconf.DAG_SINGLE_TASK_BYTES.key, 64 << 20)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DagScheduler().run_collect(TQ.q06(paths, tables, PARTS)[0])
+    tconf.conf.unset(tconf.DAG_SINGLE_TASK_BYTES.key)  # the default
+    sched = DagScheduler()
+    port_local = _frame(sched.run_collect(TQ.q06(paths, tables, PARTS)[0]))
+    assert sched.exec_mode == "local"
+    assert same_order(port_local, local) is None
+    assert (port_local.cnt > 1.9 * want.cnt).all()
 
 
 def test_run_query_behaves_as_the_jax_runner(runs, data):

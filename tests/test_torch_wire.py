@@ -67,8 +67,8 @@ def test_same_bytes_decode_to_equal_dicts(i):
 
 
 def test_out_of_slice_nodes_raise():
-    td = {"plan": {"kind": "union",
-                   "inputs": [q01.stage2_td(0, 2)["plan"]["input"]] * 2}}
+    td = {"plan": {"kind": "coalesce_batches", "batch_size": 1024,
+                   "input": q01.stage2_td(0, 2)["plan"]["input"]}}
     with pytest.raises(NotImplementedError, match="later slice"):
         TP.task_definition_to_bytes(td)
     data = JP.task_definition_to_bytes(td)
