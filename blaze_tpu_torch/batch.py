@@ -83,7 +83,7 @@ def _arrow_fixed_values(arr: pa.Array, dtype: DataType) -> np.ndarray:
     """The data buffer of a fixed-width Arrow array as numpy."""
     if dtype.id == TypeId.DECIMAL:
         raise NotImplementedError(
-            "decimal columns run in the strings/decimals slice of the "
+            "decimal columns run in the decimal slice of the "
             "PyTorch port (ROADMAP Queue 1 item 13)")
     if dtype.id == TypeId.TIMESTAMP_MICROS and pa.types.is_timestamp(arr.type) \
             and arr.type.unit != "us":

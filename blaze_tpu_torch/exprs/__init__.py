@@ -1,9 +1,11 @@
 """Expressions of the PyTorch port: column, literal, the binary
-comparisons, AND/OR and arithmetic over fixed-width types, and the
-conditional expressions (null tests, NOT, IF, CASE WHEN, COALESCE,
-IN-list) and Cast/TryCast; utf8 columns and literals evaluate on the
-host, where `==`, `!=` and IN compare them and string casts parse or
-format them."""
+operators, the conditional expressions (null tests, NOT, IF, CASE WHEN,
+COALESCE, IN-list), Cast/TryCast, the string predicates (LIKE, RLIKE,
+starts/ends with, contains) and Spark's special expressions (ids, rand,
+nested access, named_struct, scalar subqueries).  Fixed-width values
+evaluate as torch ops on the batch's device; variable-width values stay
+Arrow arrays on the host.  The scalar functions are in
+`blaze_tpu_torch.funcs`."""
 
 from blaze_tpu_torch.exprs.base import (BoundReference, ColVal, Literal,
                                         PhysicalExpr)
@@ -12,7 +14,17 @@ from blaze_tpu_torch.exprs.cast import Cast, TryCast
 from blaze_tpu_torch.exprs.conditional import (CaseWhen, Coalesce, If,
                                                InList, IsNotNull, IsNull,
                                                Not)
+from blaze_tpu_torch.exprs.special import (GetIndexedField, GetMapValue,
+                                           MonotonicallyIncreasingId,
+                                           NamedStruct, Rand, RowNum,
+                                           ScalarSubqueryWrapper,
+                                           SparkPartitionId)
+from blaze_tpu_torch.exprs.strings import Like, RLike, StringPredicate
 
 __all__ = ["BinaryExpr", "BoundReference", "CaseWhen", "Cast", "Coalesce",
-           "ColVal", "If", "InList", "IsNotNull", "IsNull", "Literal", "Not",
-           "PhysicalExpr", "TryCast"]
+           "ColVal", "GetIndexedField", "GetMapValue", "If", "InList",
+           "IsNotNull", "IsNull", "Like", "Literal",
+           "MonotonicallyIncreasingId", "NamedStruct", "Not",
+           "PhysicalExpr", "RLike", "Rand", "RowNum",
+           "ScalarSubqueryWrapper", "SparkPartitionId", "StringPredicate",
+           "TryCast"]

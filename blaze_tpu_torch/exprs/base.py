@@ -6,10 +6,13 @@ as in the JAX package:
 
   * device form: a (data, validity) pair of tensors over the batch's
     capacity, for fixed-width values;
-  * host form: an Arrow array of exactly `num_rows`, for utf8 values (a
-    utf8 column or literal).
+  * host form: an Arrow array of exactly `num_rows`, for variable-width
+    values (utf8, binary, list, struct, map) and for fixed-width values
+    a host function computed (a string length, a predicate's bools).
 
-Decimal values belong to the strings/decimals slice (ROADMAP item 13).
+A value evaluated from a `Literal` is marked `literal`, so a function can
+take a constant argument without reading every row.  Decimal values
+belong to the decimal slice (ROADMAP Queue 1 item 13, second part).
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn, HostColumn,
                                    to_device)
 from blaze_tpu_torch.schema import DataType, Schema, TypeId
 
+#: the message of everything that waits for decimal columns
+DECIMAL_LATER = ("decimal values belong to the decimal slice of the PyTorch "
+                 "port (ROADMAP Queue 1 item 13, decimals: batch.py decimal "
+                 "columns, kernels/decimal128.py, exprs/decimal_arith.py)")
+
 
 @dataclass
 class ColVal:
@@ -35,10 +43,24 @@ class ColVal:
     data: Optional[torch.Tensor] = None      # (capacity,) device form
     validity: Optional[torch.Tensor] = None  # (capacity,) bool
     array: Optional[pa.Array] = None         # num_rows long, host form
+    literal: bool = False                    # evaluated from a Literal
 
     @property
     def is_device(self) -> bool:
         return self.data is not None
+
+    @staticmethod
+    def device(dtype: DataType, data: torch.Tensor,
+               validity: Optional[torch.Tensor] = None) -> "ColVal":
+        """Device form; no validity means every row is valid."""
+        if validity is None:
+            validity = torch.ones(data.shape[0], dtype=torch.bool,
+                                  device=data.device)
+        return ColVal(dtype, data, validity)
+
+    @staticmethod
+    def host(dtype: DataType, array: pa.Array) -> "ColVal":
+        return ColVal(dtype, array=array)
 
     def to_host(self, num_rows: int) -> pa.Array:
         """The first `num_rows` values as an Arrow array (a device copy
@@ -48,12 +70,24 @@ class ColVal:
         return DeviceColumn(self.dtype, self.data,
                             self.validity).to_arrow(num_rows)
 
-    def to_device(self, capacity: int) -> "ColVal":
-        if not self.is_device:
-            raise NotImplementedError(
-                f"{self.dtype} values stay on the host in the PyTorch port "
-                f"(ROADMAP Queue 1 item 13)")
-        return self
+    def to_device(self, capacity: int,
+                  device: Optional[torch.device] = None) -> "ColVal":
+        """The device form: a fixed-width host value is uploaded, padded
+        to `capacity`, onto `device` (the configured one when None)."""
+        if self.is_device:
+            return self
+        if self.dtype.id == TypeId.DECIMAL:
+            raise NotImplementedError(DECIMAL_LATER)
+        if not self.dtype.is_fixed_width:
+            raise TypeError(f"{self.dtype} values have no device form")
+        if device is None:
+            from blaze_tpu_torch.device import resolve
+            device = resolve()
+        arr = self.array
+        if not arr.type.equals(self.dtype.to_arrow()):
+            arr = arr.cast(self.dtype.to_arrow())
+        dc = DeviceColumn.from_arrow(arr, self.dtype, capacity, device)
+        return ColVal(self.dtype, dc.data, dc.validity, literal=self.literal)
 
     def to_column(self, capacity: int, device: torch.device):
         """The value as a batch column.  A fixed-width value computed on
@@ -62,8 +96,8 @@ class ColVal:
         if self.is_device:
             return DeviceColumn(self.dtype, self.data, self.validity)
         if self.dtype.is_fixed_width:
-            return DeviceColumn.from_arrow(self.array, self.dtype, capacity,
-                                           device)
+            v = self.to_device(capacity, device)
+            return DeviceColumn(self.dtype, v.data, v.validity)
         return HostColumn(self.dtype, self.array)
 
     def as_mask(self, batch: ColumnBatch) -> torch.Tensor:
@@ -116,8 +150,9 @@ class BoundReference(PhysicalExpr):
 
 @dataclass(frozen=True, repr=False)
 class Literal(PhysicalExpr):
-    """Scalar literal of a fixed-width type (device form) or utf8 (host
-    form, `num_rows` copies, as the JAX package evaluates it)."""
+    """Scalar literal of a fixed-width type (device form) or of a
+    variable-width one (host form, `num_rows` copies, as the JAX package
+    evaluates it)."""
 
     value: Any
     dtype: DataType
@@ -126,22 +161,23 @@ class Literal(PhysicalExpr):
         return self.dtype
 
     def evaluate(self, batch: ColumnBatch) -> ColVal:
-        if self.dtype.id == TypeId.UTF8:
+        if self.dtype.id == TypeId.DECIMAL:
+            raise NotImplementedError(DECIMAL_LATER)
+        if not self.dtype.is_fixed_width:
             return ColVal(self.dtype, array=pa.array(
-                [self.value] * batch.num_rows, type=pa.string()))
-        if not self.dtype.is_fixed_width or self.dtype.id.value == "decimal":
-            raise NotImplementedError(
-                f"{self.dtype} literals belong to the strings/decimals "
-                f"slice of the PyTorch port (ROADMAP Queue 1 item 13)")
+                [self.value] * batch.num_rows, type=self.dtype.to_arrow()),
+                literal=True)
         cap = batch.capacity
         dev = batch.device
         dt = self.dtype.torch_dtype()
         if self.value is None:
             return ColVal(self.dtype, torch.zeros(cap, dtype=dt, device=dev),
-                          torch.zeros(cap, dtype=torch.bool, device=dev))
+                          torch.zeros(cap, dtype=torch.bool, device=dev),
+                          literal=True)
         return ColVal(self.dtype,
                       torch.full((cap,), self.value, dtype=dt, device=dev),
-                      torch.ones(cap, dtype=torch.bool, device=dev))
+                      torch.ones(cap, dtype=torch.bool, device=dev),
+                      literal=True)
 
     def __repr__(self):
         return f"lit({self.value!r})"

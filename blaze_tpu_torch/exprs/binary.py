@@ -1,5 +1,5 @@
-"""Binary operators with Spark null semantics (port of the fixed-width part
-of blaze_tpu/exprs/binary.py).
+"""Binary operators with Spark null semantics (port of
+blaze_tpu/exprs/binary.py but its decimal and dictionary-code branches).
 
   * comparisons `== != < <= > >=` promote mismatched widths like the JAX
     package (the widest type wins); the result is NULL where either side
@@ -7,17 +7,23 @@ of blaze_tpu/exprs/binary.py).
     NULL <=> NULL and NaN <=> NaN as true;
   * AND/OR are Kleene three-valued logic: FALSE AND NULL is FALSE,
     TRUE OR NULL is TRUE;
-  * arithmetic `+ - * / %` promotes the same way; NULL in, NULL out;
-    integers wrap; `/` and `%` by zero give NULL for every numeric type
-    (non-ANSI Spark); integral `/` truncates toward zero and `%` takes the
-    dividend's sign (Java).  Under `spark.sql.ansi.enabled` a selected
-    row that divides by zero or overflows an integer raises instead.
+  * arithmetic `+ - * / % pmod` promotes the same way; NULL in, NULL out;
+    integers wrap; `/`, `%` and `pmod` by zero give NULL for every
+    numeric type (non-ANSI Spark); integral `/` truncates toward zero,
+    `%` takes the dividend's sign (Java) and `pmod` is Spark's Pmod
+    (r = x % y, then (r + y) % y where r < 0); under
+    `spark.sql.ansi.enabled` a selected row that divides by zero or
+    overflows an integer raises instead;
+  * bitwise `& | ^ << >>` over integers; a shift count is taken modulo
+    the width and `>>` keeps the sign, as Java does.
 
-A utf8 operand (host form: an Arrow array) takes the host-operand branch
-of the JAX package: `==` and `!=` run on the host through Arrow's
-kernels, NULL in, NULL out (q01's `s_state = 'TN'`).  The other operators
-over utf8, and decimal operands, belong to the strings/decimals slice and
-raise NotImplementedError.
+Variable-width operands (host form: Arrow arrays) take the JAX
+package's host branch: the six comparisons and `<=>` run on the host
+through Arrow's kernels, which order utf8 by its bytes, unsigned, as
+Spark does (q08's `ca_zip < '20000'`).  An AND/OR whose side is a host
+bool (a string predicate's result) uploads it and runs the Kleene logic
+on the device.  Decimal operands wait for the decimal slice and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,39 +31,35 @@ from __future__ import annotations
 import operator
 from dataclasses import dataclass
 
+import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
 from blaze_tpu_torch import config
-from blaze_tpu_torch.batch import ColumnBatch, DeviceColumn
-from blaze_tpu_torch.exprs.base import ColVal, PhysicalExpr
+from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.exprs.base import DECIMAL_LATER, ColVal, PhysicalExpr
 from blaze_tpu_torch.kernels.compare import null_aware_eq
 from blaze_tpu_torch.schema import BOOL, DataType, Schema, TypeId, _BY_TORCH
 
 _CMP = {"==": operator.eq, "!=": operator.ne, "<": operator.lt,
         "<=": operator.le, ">": operator.gt, ">=": operator.ge}
 _BOOLEAN = {"and", "or"}
-_ARITH = {"+", "-", "*", "/", "%"}
+_ARITH = {"+", "-", "*", "/", "%", "pmod", "&", "|", "^", "<<", ">>"}
+_HOST_CMP = {"==": pc.equal, "!=": pc.not_equal, "<": pc.less,
+             "<=": pc.less_equal, ">": pc.greater, ">=": pc.greater_equal}
 
 
 def _check_op(op: str) -> None:
     if op not in _CMP and op not in _BOOLEAN and op not in _ARITH \
             and op != "<=>":
-        raise NotImplementedError(
-            f"binary operator {op!r} belongs to a later slice of the "
-            f"PyTorch port (ROADMAP Queue 1 item 3); the port has "
-            f"== != < <= > >= <=> and or + - * / %")
+        raise ValueError(f"unknown binary operator {op!r}")
 
 
 def _check_operand(t: DataType) -> None:
     if t.id == TypeId.DECIMAL:
-        raise NotImplementedError(
-            "decimal operands belong to the strings/decimals slice of the "
-            "PyTorch port (ROADMAP Queue 1 item 13)")
+        raise NotImplementedError(DECIMAL_LATER)
     if not t.is_fixed_width:
-        raise NotImplementedError(
-            f"{t} operands belong to the strings/decimals slice of the "
-            f"PyTorch port (ROADMAP Queue 1 item 13)")
+        raise TypeError(f"{t} operands have no arithmetic")
 
 
 def arith_type(lt: DataType, rt: DataType) -> DataType:
@@ -89,9 +91,12 @@ class BinaryExpr(PhysicalExpr):
     def evaluate(self, batch: ColumnBatch) -> ColVal:
         a = self.left.evaluate(batch)
         b = self.right.evaluate(batch)
-        if self.op in _BOOLEAN:
-            # a utf8 comparison's bool result crosses to the device
-            a, b = (_bool_on_device(v, batch) for v in (a, b))
+        # an untyped NULL takes the other side's type (BOOL under AND/OR)
+        a, b = _typed_null(a, b, self.op, batch), _typed_null(b, a, self.op,
+                                                              batch)
+        # a fixed-width value a host function computed (a string
+        # predicate's bools, a length) crosses to the device
+        a, b = (_fixed_on_device(v, batch) for v in (a, b))
         if not (a.is_device and b.is_device):
             return self._evaluate_host(batch, a, b)
         for side in (a, b):
@@ -105,36 +110,48 @@ class BinaryExpr(PhysicalExpr):
         if self.op in _CMP:
             return _compare(self.op, a, b)
         out = _arith(self.op, a, b, arith_type(a.dtype, b.dtype))
-        if config.ANSI_ENABLED.get():
+        if config.ANSI_ENABLED.get() and self.op in ("+", "-", "*", "/",
+                                                     "%", "pmod"):
             _ansi_arith_check(self.op, batch, a, b, out)
         return out
 
     def _evaluate_host(self, batch: ColumnBatch, a: ColVal,
                        b: ColVal) -> ColVal:
-        """utf8 `==`/`!=` on host Arrow arrays (the JAX package's
-        `_evaluate_host`)."""
-        fns = {"==": pc.equal, "!=": pc.not_equal}
+        """Comparisons with a host operand on host Arrow arrays (the JAX
+        package's `_evaluate_host`)."""
         for side in (a, b):
-            if side.dtype.id != TypeId.UTF8:
-                _check_operand(side.dtype)
-        if self.op not in fns:
-            raise NotImplementedError(
-                f"utf8 operator {self.op!r} belongs to the strings slice "
-                f"of the PyTorch port (ROADMAP Queue 1 item 13); the port "
-                f"has == and !=")
+            if side.dtype.id == TypeId.DECIMAL:
+                raise NotImplementedError(DECIMAL_LATER)
         n = batch.num_rows
-        return ColVal(BOOL, array=fns[self.op](a.to_host(n), b.to_host(n)))
+        ha, hb = a.to_host(n), b.to_host(n)
+        if self.op in _HOST_CMP:
+            return ColVal(BOOL, array=_HOST_CMP[self.op](ha, hb))
+        if self.op == "<=>":
+            eq = pc.equal(ha, hb)
+            both_null = pc.and_(pc.is_null(ha), pc.is_null(hb))
+            return ColVal(BOOL, array=pc.or_kleene(
+                eq.fill_null(False), both_null).fill_null(False))
+        raise TypeError(f"operator {self.op!r} over {a.dtype} and "
+                        f"{b.dtype}: strings concatenate with concat()")
 
     def __repr__(self):
         return f"({self.left!r} {self.op} {self.right!r})"
 
 
-def _bool_on_device(v: ColVal, batch: ColumnBatch) -> ColVal:
-    if v.is_device or v.dtype.id != TypeId.BOOL:
+def _typed_null(v: ColVal, other: ColVal, op: str,
+                batch: ColumnBatch) -> ColVal:
+    if v.dtype.id != TypeId.NULL:
         return v
-    dc = DeviceColumn.from_arrow(v.array, BOOL, batch.capacity,
-                                 batch.device)
-    return ColVal(BOOL, dc.data, dc.validity)
+    t = BOOL if op in _BOOLEAN or other.dtype.id == TypeId.NULL \
+        else other.dtype
+    return ColVal(t, array=pa.nulls(batch.num_rows, type=t.to_arrow()))
+
+
+def _fixed_on_device(v: ColVal, batch: ColumnBatch) -> ColVal:
+    if v.is_device or not v.dtype.is_fixed_width or \
+            v.dtype.id == TypeId.DECIMAL:
+        return v
+    return v.to_device(batch.capacity, batch.device)
 
 
 def _promote(a: ColVal, b: ColVal):
@@ -166,7 +183,7 @@ def _arith(op: str, a: ColVal, b: ColVal, out_dtype: DataType) -> ColVal:
     x, y = _promote(a, b)
     valid = a.validity & b.validity
     is_float = x.dtype.is_floating_point
-    if op in ("/", "%"):
+    if op in ("/", "%", "pmod"):
         # Spark DivModLike: a zero divisor gives NULL for every numeric
         # type (non-ANSI), a double one included
         zero = y == 0
@@ -185,7 +202,7 @@ def _arith(op: str, a: ColVal, b: ColVal, out_dtype: DataType) -> ColVal:
             # truncating integral division, as Java
             q = torch.div(x.abs(), y.abs(), rounding_mode="floor")
             data = torch.where((x < 0) ^ (y < 0), -q, q)
-    else:
+    elif op == "%":
         if is_float:
             data = torch.where(torch.isfinite(y) | torch.isnan(y),
                                x - torch.trunc(x / y) * y, x)
@@ -194,6 +211,19 @@ def _arith(op: str, a: ColVal, b: ColVal, out_dtype: DataType) -> ColVal:
             # Java %: the sign follows the dividend
             r = x.abs() % y.abs()
             data = torch.where(x < 0, -r, r)
+    elif op == "pmod":
+        # Spark Pmod, not a floor modulo: a non-negative remainder stays
+        # for a negative divisor (pmod(7, -3) = 1, pmod(-7, -3) = -1);
+        # torch.fmod is Java's % for integers and floats alike
+        r = torch.fmod(x, y)
+        data = torch.where(r < 0, torch.fmod(r + y, y), r)
+    elif op in ("<<", ">>"):
+        n = y.to(x.dtype) & (x.element_size() * 8 - 1)
+        data = (torch.bitwise_left_shift(x, n) if op == "<<"
+                else torch.bitwise_right_shift(x, n))
+    else:
+        data = {"&": torch.bitwise_and, "|": torch.bitwise_or,
+                "^": torch.bitwise_xor}[op](x, y)
     data = data.to(out_dtype.torch_dtype())
     data = torch.where(valid, data, torch.zeros_like(data))
     return ColVal(out_dtype, data, valid)
@@ -205,14 +235,15 @@ def _ansi_arith_check(op: str, batch: ColumnBatch, a: ColVal, b: ColVal,
     integer overflow in + - * / raises ARITHMETIC_OVERFLOW, for selected
     rows only (one device sync per check)."""
     both = a.validity & b.validity & batch.row_mask()
-    if op in ("/", "%"):
+    if op in ("/", "%", "pmod"):
         # a row valid on both sides but NULL in the result divided by 0
         if bool((both & ~out.validity).any()):
             raise ValueError(
                 "[DIVIDE_BY_ZERO] division by zero (ANSI mode; use "
                 "try_divide or nullif to tolerate)")
     dt = out.data.dtype
-    if dt.is_floating_point or dt == torch.bool or op == "%":
+    if dt.is_floating_point or dt == torch.bool or \
+            op not in ("+", "-", "*", "/"):
         return
     x, y, r = a.data.to(dt), b.data.to(dt), out.data
     int_min = torch.iinfo(dt).min

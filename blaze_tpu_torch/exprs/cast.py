@@ -6,7 +6,7 @@ over pyarrow with Spark's parsing and display rules, as in the
 reference: `_parse_string` (trim, invalid input -> NULL; integral casts
 by `_spark_to_integer`, dates by `_spark_to_date`) and `_format_string`
 (`_spark_str`); a fixed-width result crosses back to the batch's device.
-Decimals belong to the strings/decimals slice (ROADMAP Queue 1 item 13)
+Decimals belong to the decimal slice (ROADMAP Queue 1 item 13)
 and raise.
 
 ANSI mode (`spark.sql.ansi.enabled`): a Cast raises on input it cannot
@@ -52,7 +52,7 @@ class Cast(PhysicalExpr):
         if TypeId.DECIMAL in (src.id, self.to.id):
             raise NotImplementedError(
                 f"cast {src} -> {self.to}: decimal casts belong to the "
-                f"strings/decimals slice of the PyTorch port (ROADMAP "
+                f"decimal slice of the PyTorch port (ROADMAP "
                 f"Queue 1 item 13)")
         ansi = self.ansi_capable and config.ANSI_ENABLED.get()
         if v.is_device and self.to.is_fixed_width:

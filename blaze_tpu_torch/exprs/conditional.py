@@ -111,7 +111,7 @@ class CaseWhen(PhysicalExpr):
             return self._evaluate_host(batch, dtype)
         cap, dev, dt = batch.capacity, batch.device, dtype.torch_dtype()
         if self.otherwise is not None:
-            acc = self.otherwise.evaluate(batch).to_device(cap)
+            acc = self.otherwise.evaluate(batch).to_device(cap, batch.device)
             data, valid = acc.data.to(dt), acc.validity
         else:
             data = torch.zeros(cap, dtype=dt, device=dev)
@@ -119,7 +119,7 @@ class CaseWhen(PhysicalExpr):
         taken = torch.zeros(cap, dtype=torch.bool, device=dev)
         for pred_e, val_e in self.branches:
             hit = pred_e.evaluate(batch).as_mask(batch) & ~taken
-            val = val_e.evaluate(batch).to_device(cap)
+            val = val_e.evaluate(batch).to_device(cap, batch.device)
             data = torch.where(hit, val.data.to(dt), data)
             valid = torch.where(hit, val.validity, valid)
             taken = taken | hit
@@ -184,10 +184,10 @@ class Coalesce(PhysicalExpr):
                 out = pc.coalesce(out, e.evaluate(batch).to_host(n))
             return ColVal(dtype, array=out)
         cap, dt = batch.capacity, dtype.torch_dtype()
-        acc = self.args[0].evaluate(batch).to_device(cap)
+        acc = self.args[0].evaluate(batch).to_device(cap, batch.device)
         data, valid = acc.data.to(dt), acc.validity
         for e in self.args[1:]:
-            v = e.evaluate(batch).to_device(cap)
+            v = e.evaluate(batch).to_device(cap, batch.device)
             data = torch.where(~valid & v.validity, v.data.to(dt), data)
             valid = valid | v.validity
         return ColVal(dtype, data, valid)

@@ -37,7 +37,7 @@ from blaze_tpu_torch import config
 
 #: queries that need a piece of a later slice, with the ROADMAP item
 #: their NotImplementedError names
-LATER = {"q08": "item 13", "q45": "item 13"}
+LATER: Dict[str, str] = {}
 
 def q49_frame(tables) -> "pd.DataFrame":
     """q49's expected frame under Spark's division: an order's return

@@ -10,7 +10,7 @@ Spark semantics, as in the reference:
   * date32 <-> timestamp_us: days * 86_400_000_000; numeric <->
     timestamp scales by seconds.
 
-Decimal columns belong to the strings/decimals slice (ROADMAP Queue 1
+Decimal columns belong to the decimal slice (ROADMAP Queue 1
 item 13): a cast from or to a decimal raises, as a decimal column does at
 `batch.py`.  String casts run at the host boundary (exprs/cast.py).
 """
@@ -45,7 +45,7 @@ def cast_column(data: torch.Tensor, validity: Optional[torch.Tensor],
     if TypeId.DECIMAL in (src.id, dst.id):
         raise NotImplementedError(
             f"cast {src} -> {dst}: decimal casts belong to the "
-            f"strings/decimals slice of the PyTorch port (ROADMAP Queue 1 "
+            f"decimal slice of the PyTorch port (ROADMAP Queue 1 "
             f"item 13)")
     if src.id == dst.id:
         return data, validity

@@ -318,7 +318,7 @@ def _hash_fixed_column(values, validity, dtype_id: str, seeds, algo: str):
         h = fn(byte_mat, lengths, seeds)
     elif dtype_id == "decimal":
         raise NotImplementedError(
-            "hashing decimal keys belongs to the strings/decimals slice of "
+            "hashing decimal keys belongs to the decimal slice of "
             "the PyTorch port (ROADMAP Queue 1 item 13)")
     else:
         raise TypeError(f"unsupported fixed-width type for hashing: {dtype_id}")

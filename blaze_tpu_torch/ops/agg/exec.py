@@ -28,13 +28,14 @@ int64 codes on the batch's device, so they sort and segment like integer
 keys; partial batches carry the codes, and keys decode back through the
 dictionaries at emit (and on the pass-through lane), so what leaves the
 operator holds real values.  `count` over a utf8 column counts validity
-only.
+only.  A host accumulator (collect_*, combine_unique, min/max over
+strings) folds the batch's Arrow values with the group ids in row order
+on the host, beside the device accumulators.
 
 Not carried over: the memory manager's accounting, spill and skip-on-spill
 (`update_mem_used`, `spill`, `try_release_pressure`; ROADMAP Queue 1
 item 8), the AQE skip hint and query degradation (item 16) and xla_stats
-notes (item 15).  Host accumulators (min/max over strings) raise: they
-belong to item 13.
+notes (item 15).
 """
 
 from __future__ import annotations
@@ -131,12 +132,6 @@ class _AggState:
             t = e.data_type(self.in_schema)
             self.dict_arrays.append(None if t.is_fixed_width else
                                     pa.array([], type=t.to_arrow()))
-        for fn, _, _ in op._aggs:
-            if fn.is_host:
-                raise NotImplementedError(
-                    f"{fn.name} over {fn.input_type} is a host accumulator "
-                    f"in the JAX package; it belongs to the strings/decimals "
-                    f"slice of the PyTorch port (ROADMAP Queue 1 item 13)")
         self.buffer: List[pa.RecordBatch] = []
         self.skipping = False
         self.rows_seen = 0
@@ -177,10 +172,12 @@ class _AggState:
 
     def _skip_eligible(self) -> bool:
         """Pass-through keeps the semantics only for keyed all-PARTIAL
-        aggregations: merge and final stages must keep grouping."""
+        device aggregations: host accumulators, merge and final stages
+        must keep grouping."""
         return (bool(self.op._aggs)
                 and all(m == AggMode.PARTIAL for _, m, _ in self.op._aggs)
-                and self.num_keys > 0)
+                and self.num_keys > 0
+                and not any(fn.is_host for fn, _, _ in self.op._aggs))
 
     def _should_skip_partials(self) -> bool:
         if self._probe_done or not self._skip_eligible():
@@ -272,7 +269,19 @@ class _AggState:
             sv = valid.index_select(0, perm) & sorted_valid
             sink.add_device(*K.segment_first(sd, sv, gids, num_groups),
                             num_groups)
+        host_gids = None
         for fn, mode, _name in op._aggs:
+            if fn.is_host:
+                if host_gids is None:
+                    host_gids = _row_order_gids(perm, gids, num_groups,
+                                                batch.num_rows)
+                args_host = [c.evaluate(batch).to_host(batch.num_rows)
+                             for c in fn.children]
+                fold = fn.host_update if mode in _RAW_MODES \
+                    else fn.host_merge
+                for a in fold(args_host, host_gids, num_groups):
+                    sink.add_host(a)
+                continue
             args = []
             for c in fn.children:
                 data, valid = _agg_arg(fn, c.evaluate(batch), cap,
@@ -367,8 +376,19 @@ class _AggState:
             sink.add_device(*K.segment_first(sd, sv, gids, num_groups),
                             num_groups)
         j = self.num_keys
+        host_gids = None
         for fn, _mode, _name in self.op._aggs:
             nacc = len(fn.acc_fields(self.in_schema))
+            if fn.is_host:
+                if host_gids is None:
+                    host_gids = _row_order_gids(perm, gids, num_groups,
+                                                rb.num_rows)
+                for a in fn.host_merge([rb.column(j + t)
+                                        for t in range(nacc)],
+                                       host_gids, num_groups):
+                    sink.add_host(a)
+                j += nacc
+                continue
             args = []
             for col in cb.columns[j:j + nacc]:
                 args.append((col.data.index_select(0, perm),
@@ -396,6 +416,12 @@ class _AggState:
         dev = resolve()
         out_arrays: List[pa.Array] = []
         for fn, _mode, _name in self.op._aggs:
+            if fn.is_host:
+                # group id 1 is past the one segment: an empty fold
+                out_arrays.extend(fn.host_update(
+                    [pa.nulls(1, c.data_type(self.in_schema).to_arrow())
+                     for c in fn.children], np.array([1]), 1))
+                continue
             args = []
             for c in fn.children or [None]:
                 dt = (c.data_type(self.in_schema).torch_dtype()
@@ -427,7 +453,10 @@ class _AggState:
             j = self.num_keys
             for fn, mode, _name in op._aggs:
                 fields = fn.acc_fields(self.in_schema)
-                if mode in (AggMode.FINAL, AggMode.COMPLETE):
+                if mode in (AggMode.FINAL, AggMode.COMPLETE) and fn.is_host:
+                    sink.add_host(fn.host_eval(
+                        [rb.column(j + t) for t in range(len(fields))]))
+                elif mode in (AggMode.FINAL, AggMode.COMPLETE):
                     cap = bucket_capacity(n)
                     accs = []
                     for t, f in enumerate(fields):
@@ -489,16 +518,27 @@ def incremental_dict_codes(arr: pa.Array, global_arr: Optional[pa.Array],
     return codes, valid, global_arr, grew
 
 
+def _row_order_gids(perm: torch.Tensor, gids: torch.Tensor,
+                    num_groups: int, num_rows: int) -> np.ndarray:
+    """Group ids in the batch's row order, for the host accumulators:
+    `gids` are in sorted order (`perm`); a row in no group gets
+    `num_groups`."""
+    out = np.full(perm.shape[0], num_groups, dtype=np.int64)
+    out[perm.cpu().numpy()] = gids.cpu().numpy()
+    return out[:num_rows]
+
+
 def _agg_arg(fn: AggFunction, cv, cap: int, device: torch.device):
-    """One aggregate argument as (data, validity) over `cap` rows.
-    count over a utf8 column reads only its validity (as int8 data); any
-    other function over a host value raises (ColVal.to_device)."""
+    """One aggregate argument as (data, validity) over `cap` rows on
+    `device`.  count over a utf8 column reads only its validity (as int8
+    data); a fixed-width host value is uploaded, and a device function
+    over a variable-width one raises (ColVal.to_device)."""
     if not cv.is_device and isinstance(fn, CountAgg):
         valid = np.zeros(cap, dtype=bool)
         valid[:len(cv.array)] = np.asarray(cv.array.is_valid())
         v = to_device(valid, device)
         return v.to(torch.int8), v
-    cv = cv.to_device(cap)
+    cv = cv.to_device(cap, device)
     return cv.data, cv.validity
 
 

@@ -1,27 +1,34 @@
 """Aggregate functions over segmented (sort-based) group layouts (port of
-SumAgg, CountAgg, AvgAgg and MinMaxAgg of blaze_tpu/ops/agg/functions.py).
+SumAgg, CountAgg, AvgAgg, MinMaxAgg, FirstAgg, CollectAgg and
+CombineUniqueAgg of blaze_tpu/ops/agg/functions.py).
 
 Groups arrive as sorted segments with dense group ids (ops/agg/exec.py),
-so every accumulator update is one segmented reduction on the batch's
-device (kernels/sort.py).  An accumulator is a tuple of (data, validity)
-tensors indexed by group id.  The fused lanes (plan/fused.py) read only
-each function's kind, accumulator fields and output type.
+so every device accumulator update is one segmented reduction on the
+batch's device (kernels/sort.py).  A device accumulator is a tuple of
+(data, validity) tensors indexed by group id.  A host accumulator
+(`is_host`: collect_list/collect_set/combine_unique, whose values are
+lists, and min/max over utf8 or binary) folds Arrow arrays with numpy
+group ids in row order (`host_update`, `host_merge`, `host_eval`), as in
+the JAX package.  The fused lanes (plan/fused.py) read only each
+function's kind, accumulator fields and output type.
 
-first and collect (item 13), bloom (item 11) and UDAFs (item 16) belong
-to later slices, and so do decimal sums and averages and min/max over
-strings (a host accumulator in the JAX package; item 13).
+bloom (item 11) and UDAFs (item 16) belong to later slices, and so do
+decimal sums and averages (the decimal slice of item 13).
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
+import pyarrow as pa
 import torch
 
 from blaze_tpu_torch.exprs import PhysicalExpr
+from blaze_tpu_torch.exprs.base import DECIMAL_LATER
 from blaze_tpu_torch.kernels import sort as K
-from blaze_tpu_torch.schema import (DataType, Field, FLOAT64, INT64, Schema,
-                                    TypeId)
+from blaze_tpu_torch.schema import (BOOL, DataType, Field, FLOAT64, INT64,
+                                    Schema, TypeId)
 
 Acc = Tuple[torch.Tensor, torch.Tensor]  # (data, validity) per group
 
@@ -71,9 +78,7 @@ def _out_num_type(dt: DataType) -> DataType:
     """Spark sum/avg accumulator types: int sums are int64, float sums
     float64."""
     if dt.id == TypeId.DECIMAL:
-        raise NotImplementedError(
-            "decimal sums and averages belong to the strings/decimals "
-            "slice of the PyTorch port (ROADMAP Queue 1 item 13)")
+        raise NotImplementedError(DECIMAL_LATER)
     if dt.id in (TypeId.FLOAT32, TypeId.FLOAT64):
         return FLOAT64
     return INT64
@@ -188,10 +193,28 @@ class MinMaxAgg(AggFunction):
 
     @property
     def is_host(self) -> bool:
-        # min/max over utf8/binary is a host accumulator in the JAX
-        # package; the engine raises for it (item 13)
+        # min/max over utf8/binary accumulates on the host: a
+        # variable-width value has no device form
         return (self.input_type is not None
                 and not self.input_type.is_fixed_width)
+
+    def host_update(self, args: List[pa.Array], gids: np.ndarray,
+                    num_segments: int) -> List[pa.Array]:
+        vals = args[0]
+        out: List = [None] * num_segments
+        for v, g in zip(vals.to_pylist(), gids):
+            if g < num_segments and v is not None:
+                cur = out[g]
+                if cur is None or (v < cur if self.minimum else v > cur):
+                    out[g] = v
+        return [pa.array(out, type=vals.type)]
+
+    def host_merge(self, accs, gids, num_segments):
+        # the min of mins, the max of maxes: the same fold
+        return self.host_update(accs, gids, num_segments)
+
+    def host_eval(self, accs: List[pa.Array]) -> pa.Array:
+        return accs[0]
 
     def _reduce(self, data, valid, gids, n):
         vals, nan_mask = data, None
@@ -221,11 +244,121 @@ class MinMaxAgg(AggFunction):
         return accs[0]
 
 
+class FirstAgg(AggFunction):
+    """first(x): the group's first row's value, null or not (a `has`
+    field tells a first NULL from no row yet); first_ignores_null: its
+    first non-null value."""
+
+    def __init__(self, children, ignores_null: bool = False):
+        super().__init__(children)
+        self.ignores_null = ignores_null
+        self.name = "first_ignores_null" if ignores_null else "first"
+
+    def acc_fields(self, s):
+        fields = [Field("first", self.children[0].data_type(s))]
+        if not self.ignores_null:
+            fields.append(Field("has", BOOL, nullable=False))
+        return fields
+
+    def output_type(self, s):
+        return self.children[0].data_type(s)
+
+    def partial_update(self, args, gids, n):
+        data, valid = args[0]
+        if self.ignores_null:
+            return (K.segment_first_ignores_null(data, valid, gids, n),)
+        v = K.segment_first(data, valid, gids, n)
+        has_rows = K.segment_count(torch.ones_like(valid), gids, n) > 0
+        return (v, (has_rows, _ones(n, has_rows)))
+
+    def partial_merge(self, accs, gids, n):
+        if self.ignores_null:
+            data, valid = accs[0]
+            return (K.segment_first_ignores_null(data, valid, gids, n),)
+        (data, valid), (has, _) = accs
+        # the first partial that HAS a value (its has flag), null or not
+        has = has.to(torch.bool)
+        v, _ = K.segment_first_ignores_null(data, has, gids, n)
+        vv, _ = K.segment_first_ignores_null(valid, has, gids, n)
+        any_has = K.segment_count(has, gids, n) > 0
+        return ((v, vv.to(torch.bool) & any_has), (any_has, _ones(n, v)))
+
+    def final_eval(self, accs):
+        return accs[0]
+
+
+class CollectAgg(AggFunction):
+    """collect_list / collect_set: the group's non-null values as a list
+    (a set keeps the first of equal values), a host accumulator."""
+
+    def __init__(self, children, distinct: bool):
+        super().__init__(children)
+        self.distinct = distinct
+        self.name = "collect_set" if distinct else "collect_list"
+
+    @property
+    def is_host(self) -> bool:
+        return True
+
+    def acc_fields(self, s):
+        return [Field("items", self.output_type(s))]
+
+    def output_type(self, s):
+        item = self.children[0].data_type(s)
+        return DataType(TypeId.LIST, children=(Field("item", item),))
+
+    def _fold(self, rows, gids, num_segments, extend: bool) -> List[List]:
+        out: List[List] = [[] for _ in range(num_segments)]
+        for v, g in zip(rows, gids):
+            if g < num_segments and v is not None:
+                if extend:
+                    out[g].extend(v)
+                else:
+                    out[g].append(v)
+        if self.distinct:
+            out = [list(dict.fromkeys(x)) for x in out]
+        return out
+
+    def host_update(self, args: List[pa.Array], gids: np.ndarray,
+                    num_segments: int) -> List[pa.Array]:
+        vals = args[0]
+        out = self._fold(vals.to_pylist(), gids, num_segments, False)
+        return [pa.array(out, type=pa.list_(vals.type))]
+
+    def host_merge(self, accs: List[pa.Array], gids: np.ndarray,
+                   num_segments: int) -> List[pa.Array]:
+        lists = accs[0]
+        out = self._fold(lists.to_pylist(), gids, num_segments, True)
+        return [pa.array(out, type=lists.type)]
+
+    def host_eval(self, accs: List[pa.Array]) -> pa.Array:
+        return accs[0]
+
+
+class CombineUniqueAgg(CollectAgg):
+    """brickhouse.combine_unique: collect_set over the elements of a
+    list-typed input, flattened across the group's rows."""
+
+    def __init__(self, children):
+        super().__init__(children, distinct=True)
+        self.name = "combine_unique"
+
+    def output_type(self, s):
+        t = self.children[0].data_type(s)
+        if t.id != TypeId.LIST:
+            raise TypeError("combine_unique expects an array input")
+        return t
+
+    def host_update(self, args, gids, num_segments):
+        lists = args[0]
+        rows = [None if v is None else [e for e in v if e is not None]
+                for v in lists.to_pylist()]
+        return [pa.array(self._fold(rows, gids, num_segments, True),
+                         type=lists.type)]
+
+
 #: ROADMAP Queue 1 item of each function the port does not have yet
-_LATER = {"first": 13, "first_ignores_null": 13, "collect_list": 13,
-          "collect_set": 13, "brickhouse.collect": 13,
-          "combine_unique": 13, "brickhouse.combine_unique": 13,
-          "bloom_filter": 11, "udaf": 16}
+_LATER = {"bloom_filter": 11, "udaf": 16}
 
 
 def make_agg(name: str, children: Sequence[PhysicalExpr],
@@ -239,6 +372,13 @@ def make_agg(name: str, children: Sequence[PhysicalExpr],
         return AvgAgg(children)
     if name in ("min", "max"):
         return MinMaxAgg(children, minimum=(name == "min"))
+    if name in ("first", "first_ignores_null"):
+        return FirstAgg(children, ignores_null=(name != "first"))
+    if name in ("collect_list", "collect_set", "brickhouse.collect"):
+        # brickhouse's collect delegates to collect_set
+        return CollectAgg(children, distinct=(name != "collect_list"))
+    if name in ("combine_unique", "brickhouse.combine_unique"):
+        return CombineUniqueAgg(children)
     if name in _LATER:
         raise NotImplementedError(
             f"aggregate function {name!r} belongs to a later slice of the "

@@ -1,16 +1,18 @@
-"""Generate: explode and posexplode (port of Generator, ExplodeGenerator
-and GenerateExec, blaze_tpu/ops/generate.py).
+"""Generate: explode, posexplode and json_tuple (port of Generator,
+ExplodeGenerator, JsonTupleGenerator and GenerateExec,
+blaze_tpu/ops/generate.py).
 
 Fan-out sizes depend on the data, so the rows multiply on the host with a
 numpy repeat over the Arrow list offsets, as in the JAX package (no
 Pallas kernel is behind it there); the generated batch re-enters the
 pipeline as an ordinary batch, its fixed-width columns uploaded once.
-`json_tuple` belongs to the strings slice (ROADMAP Queue 1 item 13) and
-the UDTF wrapper to item 16: the planner raises for them.
+`json_tuple` parses each row's JSON on the host.  The UDTF wrapper
+belongs to item 16: the planner raises for it.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -22,7 +24,7 @@ from blaze_tpu_torch.batch import ColumnBatch
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.ops.base import (BatchIterator, CoalesceStream,
                                       ExecutionPlan)
-from blaze_tpu_torch.schema import INT32, Field, Schema, TypeId
+from blaze_tpu_torch.schema import INT32, UTF8, Field, Schema, TypeId
 
 
 class Generator:
@@ -95,6 +97,39 @@ class ExplodeGenerator(Generator):
                      pa.nulls(total, part.type))
             cols.append(_mask_nulls(taken, null_out))
         return counts, cols
+
+
+@dataclass
+class JsonTupleGenerator(Generator):
+    """json_tuple(json, f1, f2, ...): one output row per input row, a
+    utf8 column per field (NULL where the row is not a JSON object or
+    lacks the field; a nested value as its JSON text)."""
+
+    child: PhysicalExpr
+    fields: Sequence[str] = ()
+
+    def out_fields(self, in_schema: Schema) -> List[Field]:
+        return [Field(f"c{i}", UTF8) for i in range(len(self.fields))]
+
+    def generate(self, batch: ColumnBatch):
+        n = batch.num_rows
+        outs: List[List[Optional[str]]] = [[] for _ in self.fields]
+        for x in self.child.evaluate(batch).to_host(n).to_pylist():
+            doc = None
+            if x is not None:
+                try:
+                    doc = json.loads(x)
+                except (ValueError, TypeError):
+                    doc = None
+            for i, f in enumerate(self.fields):
+                v = None
+                if isinstance(doc, dict) and f in doc:
+                    raw = doc[f]
+                    v = (json.dumps(raw) if isinstance(raw, (dict, list))
+                         else None if raw is None else str(raw))
+                outs[i].append(v)
+        return (np.ones(n, dtype=np.int64),
+                [pa.array(o, type=pa.utf8()) for o in outs])
 
 
 def list_lengths(arr: pa.Array) -> pa.Array:

@@ -1,4 +1,5 @@
-"""Parquet scan (port of ParquetScanExec, blaze_tpu/ops/scan.py).
+"""Parquet and memory scans (port of ParquetScanExec and MemoryScanExec,
+blaze_tpu/ops/scan.py).
 
 Parquet decoding is host work (pyarrow's C++ reader) producing Arrow
 batches that cross to the device as padded columns.  The batch boundaries
@@ -13,7 +14,7 @@ set raises.
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -24,10 +25,52 @@ from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
 from blaze_tpu_torch.schema import Schema
 
 
+_DICT_LATER = (f"{config.ENCODING_DICT_ENABLE.key}: the scan's dictionary "
+               f"encoder and DictColumn belong to a later slice of the "
+               f"PyTorch port (ROADMAP Queue 1 item 13)")
+
+
 def parquet_metadata(path: str):
     """Footer metadata of one local parquet file (row counts and the
     row-group statistics that fused-agg bounds discovery reads)."""
     return pq.ParquetFile(path).metadata
+
+
+class MemoryScanExec(ExecutionPlan):
+    """Fixed batches per partition: an Arrow table cut into batches of
+    at most `auron.batch.size` rows, dealt round-robin over the
+    partitions (the JAX package's rule)."""
+
+    def __init__(self, schema: Schema,
+                 partitions: Sequence[Sequence[ColumnBatch]]):
+        super().__init__()
+        self._schema = schema
+        self._partitions = [list(p) for p in partitions]
+
+    @staticmethod
+    def from_arrow(table, num_partitions: int = 1,
+                   batch_rows: Optional[int] = None) -> "MemoryScanExec":
+        if isinstance(table, pa.RecordBatch):
+            table = pa.Table.from_batches([table])
+        if config.ENCODING_DICT_ENABLE.get():
+            raise NotImplementedError(_DICT_LATER)
+        batches = table.to_batches(
+            max_chunksize=batch_rows or config.BATCH_SIZE.get())
+        parts: List[List[ColumnBatch]] = [[] for _ in range(num_partitions)]
+        for i, rb in enumerate(batches):
+            parts[i % num_partitions].append(ColumnBatch.from_arrow(rb))
+        return MemoryScanExec(Schema.from_arrow(table.schema), parts)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self._partitions)
+
+    def execute(self, partition: int) -> BatchIterator:
+        yield from self._partitions[partition]
 
 
 class ParquetScanExec(ExecutionPlan):
@@ -43,10 +86,7 @@ class ParquetScanExec(ExecutionPlan):
                 "parquet predicate pruning and partition columns belong to "
                 "a later slice of the PyTorch port (ROADMAP Queue 1 item 4)")
         if config.ENCODING_DICT_ENABLE.get():
-            raise NotImplementedError(
-                f"{config.ENCODING_DICT_ENABLE.key}: the scan's dictionary "
-                f"encoder and DictColumn belong to the strings slice of the "
-                f"PyTorch port (ROADMAP Queue 1 item 13)")
+            raise NotImplementedError(_DICT_LATER)
         self._file_schema = schema
         self._projection = list(projection) if projection is not None \
             else None

@@ -85,7 +85,7 @@ def _host_order_key(arr: pa.Array, descending: bool, nulls_first: bool
         bucket = np.full(n, 2, dtype=np.uint8)
     else:
         raise NotImplementedError(
-            f"sorting by {t} keys belongs to the strings/decimals slice of "
+            f"sorting by {t} keys belongs to the decimal slice of "
             f"the PyTorch port (ROADMAP Queue 1 item 13)")
     bucket = np.where(valid, bucket, 0 if nulls_first else 4).astype(np.uint8)
     key = np.where(valid, key, np.zeros_like(key))

@@ -135,7 +135,7 @@ class WindowExec(ExecutionPlan):
                 if e.data_type(in_schema).id == TypeId.DECIMAL:
                     raise NotImplementedError(
                         f"window function {f.name!r} over a decimal "
-                        f"argument belongs to the strings/decimals slice "
+                        f"argument belongs to the decimal slice "
                         f"of the PyTorch port (ROADMAP Queue 1 item 13)")
             if isinstance(f, WindowAggFunc):
                 f.agg.bind(in_schema)
@@ -339,7 +339,7 @@ class WindowExec(ExecutionPlan):
         n = pos.shape[0]
         dev = pos.device
         if f.agg.children:
-            v = f.agg.children[0].evaluate(cb).to_device(cb.capacity)
+            v = f.agg.children[0].evaluate(cb).to_device(cb.capacity, cb.device)
             data, valid = v.data[:n], v.validity[:n]
         else:
             data = torch.ones(n, dtype=torch.int64, device=dev)

@@ -1,11 +1,16 @@
-"""Expression decoding: IR dicts -> PhysicalExpr trees (port of the part of
-blaze_tpu/plan/exprs.py the port uses: column, literal, binary, the
-conditional kinds is_null, is_not_null, not, case, if, coalesce and
-in_list, cast and try_cast, and sort specs).
+"""Expression decoding: IR dicts -> PhysicalExpr trees (port of
+blaze_tpu/plan/exprs.py).
 
-Constant folding of all-literal subtrees (the JAX package's exprs/fold.py)
-is not carried over: it changes no result, and this slice's filters
-compare columns with literals.
+Kinds: column, literal, binary, is_null, is_not_null, not, case, if,
+coalesce, in_list, cast, try_cast, like, rlike, string_starts_with,
+string_ends_with, string_contains, scalar_function, named_struct,
+get_indexed_field, get_map_value, row_num, spark_partition_id,
+monotonically_increasing_id, rand, randn and scalar_subquery.
+`bloom_filter_might_contain` raises NotImplementedError naming ROADMAP
+item 11 and `udf` naming item 16.
+
+Constant folding of all-literal subtrees (the JAX package's
+exprs/fold.py) is not carried over: it changes no result.
 """
 
 from __future__ import annotations
@@ -13,20 +18,33 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
-                                   Cast, Coalesce, If, InList, IsNotNull,
-                                   IsNull, Literal, Not, PhysicalExpr,
-                                   TryCast)
+                                   Cast, Coalesce, GetIndexedField,
+                                   GetMapValue, If, InList, IsNotNull,
+                                   IsNull, Like, Literal,
+                                   MonotonicallyIncreasingId, NamedStruct,
+                                   Not, PhysicalExpr, RLike, Rand, RowNum,
+                                   ScalarSubqueryWrapper, SparkPartitionId,
+                                   StringPredicate, TryCast)
 from blaze_tpu_torch.plan.types import type_from_dict
 from blaze_tpu_torch.schema import Schema
 
 
 _UNARY = {"is_null": IsNull, "is_not_null": IsNotNull, "not": Not}
+_NULLARY = {"row_num": RowNum, "spark_partition_id": SparkPartitionId,
+            "monotonically_increasing_id": MonotonicallyIncreasingId}
+#: decoded kinds whose expression waits for a later item
+_LATER = {"bloom_filter_might_contain": "item 11 (kernels/bloom.py)",
+          "udf": "item 16 (the host UDF bridge)"}
 
 
 def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
                    ) -> PhysicalExpr:
     """Decode one expression node and its children."""
     k = d["kind"]
+
+    def sub(x):
+        return expr_from_dict(x, schema)
+
     if k == "column":
         idx = d.get("index")
         if idx is None:
@@ -37,35 +55,58 @@ def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
     if k == "literal":
         return Literal(d.get("value"), type_from_dict(d["type"]))
     if k == "binary":
-        return BinaryExpr(d["op"], expr_from_dict(d["l"], schema),
-                          expr_from_dict(d["r"], schema))
+        return BinaryExpr(d["op"], sub(d["l"]), sub(d["r"]))
     if k in _UNARY:
-        return _UNARY[k](expr_from_dict(d["child"], schema))
+        return _UNARY[k](sub(d["child"]))
+    if k in _NULLARY:
+        return _NULLARY[k]()
     if k == "case":
-        branches = tuple((expr_from_dict(w, schema),
-                          expr_from_dict(t, schema))
-                         for w, t in d["branches"])
-        other = (expr_from_dict(d["else"], schema)
-                 if d.get("else") is not None else None)
+        branches = tuple((sub(w), sub(t)) for w, t in d["branches"])
+        other = sub(d["else"]) if d.get("else") is not None else None
         return CaseWhen(branches, other)
     if k == "if":
-        return If(expr_from_dict(d["cond"], schema),
-                  expr_from_dict(d["then"], schema),
-                  expr_from_dict(d["else"], schema))
+        return If(sub(d["cond"]), sub(d["then"]), sub(d["else"]))
     if k == "coalesce":
-        return Coalesce(tuple(expr_from_dict(a, schema) for a in d["args"]))
+        return Coalesce(tuple(sub(a) for a in d["args"]))
     if k == "in_list":
-        return InList(expr_from_dict(d["child"], schema),
-                      tuple(d["values"]), d.get("negated", False))
+        return InList(sub(d["child"]), tuple(d["values"]),
+                      d.get("negated", False))
     if k in ("cast", "try_cast"):
         cls = Cast if k == "cast" else TryCast
-        return cls(expr_from_dict(d["child"], schema),
-                   type_from_dict(d["type"]))
-    raise NotImplementedError(
-        f"expression kind {k!r} belongs to a later slice of the PyTorch port "
-        f"(ROADMAP Queue 1 item 13 for the string and scalar functions); "
-        f"this slice decodes column, literal, binary, is_null, is_not_null, "
-        f"not, case, if, coalesce, in_list, cast and try_cast")
+        return cls(sub(d["child"]), type_from_dict(d["type"]))
+    if k == "like":
+        return Like(sub(d["child"]), d["pattern"], d.get("negated", False),
+                    d.get("case_insensitive", False))
+    if k == "rlike":
+        return RLike(sub(d["child"]), d["pattern"],
+                     d.get("case_insensitive", False))
+    if k in ("string_starts_with", "string_ends_with", "string_contains"):
+        return StringPredicate(k.replace("string_", ""), sub(d["child"]),
+                               d["pattern"])
+    if k == "scalar_function":
+        from blaze_tpu_torch.funcs import ScalarFunctionExpr
+        out_t = (type_from_dict(d["return_type"])
+                 if d.get("return_type") else None)
+        return ScalarFunctionExpr(
+            d["name"], tuple(sub(a) for a in d.get("args", ())), out_t)
+    if k == "named_struct":
+        return NamedStruct(tuple(d["names"]),
+                           tuple(sub(a) for a in d["args"]))
+    if k == "get_indexed_field":
+        return GetIndexedField(sub(d["child"]), d["index"],
+                               type_from_dict(d["type"]))
+    if k == "get_map_value":
+        return GetMapValue(sub(d["child"]), d["key"],
+                           type_from_dict(d["type"]))
+    if k in ("rand", "randn"):
+        return Rand(d.get("seed", 0), normal=(k == "randn"))
+    if k == "scalar_subquery":
+        return ScalarSubqueryWrapper(d["uuid"], type_from_dict(d["type"]))
+    if k in _LATER:
+        raise NotImplementedError(
+            f"expression kind {k!r} belongs to a later slice of the PyTorch "
+            f"port (ROADMAP Queue 1 {_LATER[k]})")
+    raise ValueError(f"unknown expression kind {k!r}")
 
 
 def sort_spec_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None):

@@ -706,7 +706,7 @@ class FusedPartialAggExec(ExecutionPlan):
                     ad.append(None)
                     av.append(None)
                 else:
-                    v = arg.evaluate(batch).to_device(cap)
+                    v = arg.evaluate(batch).to_device(cap, batch.device)
                     ad.append(v.data)
                     av.append(v.validity)
             if carry is None:
@@ -837,7 +837,7 @@ class FusedPartialAggExec(ExecutionPlan):
                 batch = apply_project(batch, exprs, out_schema)
         kd, kv = [], []
         for e, _name in self._group_exprs:
-            v = e.evaluate(batch).to_device(cap)
+            v = e.evaluate(batch).to_device(cap, batch.device)
             kd.append(v.data)
             kv.append(v.validity)
         ad, av = [], []
@@ -846,7 +846,7 @@ class FusedPartialAggExec(ExecutionPlan):
                 ad.append(None)
                 av.append(None)
             else:
-                v = arg.evaluate(batch).to_device(cap)
+                v = arg.evaluate(batch).to_device(cap, batch.device)
                 ad.append(v.data)
                 av.append(v.validity)
         return kd, kv, ad, av, batch.row_mask()

@@ -2,9 +2,10 @@
 plan rewrite `collapse_filter_project` (port of the part of
 blaze_tpu/plan/planner.py the port uses).
 
-Node kinds: parquet_scan, filter, project, filter_project, hash_agg,
-sort_agg, sort, limit, union, rename_columns, expand, window, generate
-(explode and posexplode), shuffle_writer, local_exchange (an in-process
+Node kinds: parquet_scan, memory_scan (an Arrow table from the resource
+map), filter, project, filter_project, hash_agg, sort_agg, sort, limit,
+union, rename_columns, expand, window, generate (explode, posexplode and
+json_tuple), shuffle_writer, local_exchange (an in-process
 `LocalShuffleExchange`), ipc_reader, broadcast_join, sort_merge_join,
 hash_join, broadcast_nested_loop_join and broadcast_join_build_hash_map.
 Every other kind raises NotImplementedError naming the ROADMAP item it
@@ -22,13 +23,14 @@ from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec,
                                       FilterProjectExec, LimitExec,
                                       ProjectExec, RenameColumnsExec,
                                       UnionExec)
-from blaze_tpu_torch.ops.generate import ExplodeGenerator, GenerateExec
+from blaze_tpu_torch.ops.generate import (ExplodeGenerator, GenerateExec,
+                                          JsonTupleGenerator)
 from blaze_tpu_torch.ops.joins import (BroadcastJoinExec,
                                        BroadcastNestedLoopJoinExec,
                                        BuildHashMapExec, JoinType,
                                        ShuffledHashJoinExec,
                                        SortMergeJoinExec)
-from blaze_tpu_torch.ops.scan import ParquetScanExec
+from blaze_tpu_torch.ops.scan import MemoryScanExec, ParquetScanExec
 from blaze_tpu_torch.ops.sort import SortExec
 from blaze_tpu_torch.ops.window import (LeadLagFunc, NthValueFunc, RankFunc,
                                         WindowAggFunc, WindowExec,
@@ -45,7 +47,7 @@ from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
 #: ROADMAP item each belongs to
 _LATER_KINDS = {
     **dict.fromkeys(("coalesce_batches", "empty_partitions", "debug",
-                     "memory_scan", "ffi_reader"), "item 4"),
+                     "ffi_reader"), "item 4"),
     **dict.fromkeys(("parquet_sink", "orc_sink", "ipc_writer", "orc_scan",
                      "kafka_scan", "rss_shuffle_writer"), "item 16"),
 }
@@ -66,6 +68,12 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k == "ipc_reader":
         return IpcReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
                              d.get("num_partitions", 1))
+    if k == "memory_scan":
+        from blaze_tpu_torch.bridge.resource import get_resource
+        table = get_resource(d["resource_id"])
+        if table is None:
+            raise KeyError(f"memory_scan resource {d['resource_id']!r}")
+        return MemoryScanExec.from_arrow(table, d.get("num_partitions", 1))
 
     if k in ("sort_merge_join", "hash_join", "broadcast_join"):
         return _join_from_dict(d)
@@ -172,11 +180,13 @@ def _generate_from_dict(d: Dict[str, Any],
         gen = ExplodeGenerator(expr_from_dict(g["child"], in_schema),
                                position=(gk == "posexplode"),
                                outer=g.get("outer", False))
-    elif gk in ("json_tuple", "udtf"):
-        item = "item 13" if gk == "json_tuple" else "item 16"
+    elif gk == "json_tuple":
+        gen = JsonTupleGenerator(expr_from_dict(g["child"], in_schema),
+                                 g["fields"])
+    elif gk == "udtf":
         raise NotImplementedError(
-            f"the {gk} generator belongs to a later slice of the PyTorch "
-            f"port (ROADMAP Queue 1 {item})")
+            "the udtf generator belongs to a later slice of the PyTorch "
+            "port (ROADMAP Queue 1 item 16)")
     else:
         raise ValueError(f"unknown generator kind {gk!r}")
     required = d.get("required_cols")
@@ -251,9 +261,10 @@ def _pure(e) -> bool:
     value-only expression classes the port has."""
     from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
                                        Cast, Coalesce, If, InList,
-                                       IsNotNull, IsNull, Literal, Not)
+                                       IsNotNull, IsNull, Like, Literal, Not,
+                                       RLike, StringPredicate)
     ok = (BoundReference, Literal, BinaryExpr, Not, IsNull, IsNotNull, If,
-          CaseWhen, Coalesce, InList, Cast)
+          CaseWhen, Coalesce, InList, Cast, Like, RLike, StringPredicate)
     return isinstance(e, ok) and all(_pure(c) for c in e.children())
 
 

@@ -11,12 +11,12 @@ cached_build_hash_map_id and join_filter), the nested-loop join (a
 KEYLESS broadcast_join on the wire, its inner filter lifted into a
 filter node above it), broadcast_join_build_hash_map, expand, window
 (the rank family, lead/lag, nth_value and aggregates, with group_limit),
-rename_columns and generate (explode and posexplode, the kept columns by
-name); types: the fixed-width ones, utf8, binary and list;
-expressions:
-column, bound_reference, literal, binary (comparisons, and/or,
-arithmetic), is_null, is_not_null, not, case (an `if` encodes as a case
-with one branch), coalesce (a scalar function), in_list, cast, try_cast
+rename_columns and generate (explode, posexplode and json_tuple, the
+kept columns by name); types: the fixed-width ones, utf8, binary, list,
+struct and map (a dictionary as its value type); expressions: every
+kind of plan/exprs.py (an `if` encodes as a case with one branch,
+coalesce and the scalar functions as ScalarFunction nodes, rlike as a
+RegexMatch binary node, and/or's short-circuit nodes decode as binary)
 and the sort expression of a sort node; partitionings: single and hash.
 Every other variant raises NotImplementedError.
 
@@ -69,6 +69,15 @@ def type_from_proto(at: pb.ArrowType) -> Dict[str, Any]:
     if kind in ("LIST", "LARGE_LIST"):
         lst = at.LIST if kind == "LIST" else at.LARGE_LIST
         return {"id": "list", "children": [field_from_proto(lst.field_type)]}
+    if kind == "STRUCT":
+        return {"id": "struct",
+                "children": [field_from_proto(f)
+                             for f in at.STRUCT.sub_field_types]}
+    if kind == "MAP":
+        return {"id": "map", "children": [field_from_proto(at.MAP.key_type),
+                                          field_from_proto(at.MAP.value_type)]}
+    if kind == "DICTIONARY":
+        return type_from_proto(at.DICTIONARY.value)
     raise NotImplementedError(f"ArrowType {kind!r} {_LATER}")
 
 
@@ -88,12 +97,23 @@ def type_to_proto(t: Dict[str, Any]) -> pb.ArrowType:
     if tid == "list":
         out.LIST.field_type.CopyFrom(field_to_proto(t["children"][0]))
         return out
+    if tid == "struct":
+        for c in t.get("children", []):
+            out.STRUCT.sub_field_types.append(field_to_proto(c))
+        return out
+    if tid == "map":
+        out.MAP.key_type.CopyFrom(field_to_proto(t["children"][0]))
+        out.MAP.value_type.CopyFrom(field_to_proto(t["children"][1]))
+        return out
     raise NotImplementedError(f"type {tid!r} {_LATER}")
 
 
 def field_from_proto(f: pb.Field) -> Dict[str, Any]:
-    return {"name": f.name, "type": type_from_proto(f.arrow_type),
-            "nullable": f.nullable}
+    t = type_from_proto(f.arrow_type)
+    # a nested type's children may ride on the Field instead
+    if f.children and not t.get("children"):
+        t["children"] = [field_from_proto(c) for c in f.children]
+    return {"name": f.name, "type": t, "nullable": f.nullable}
 
 
 def field_to_proto(fd: Dict[str, Any]) -> pb.Field:
@@ -149,6 +169,32 @@ _BINOP_DECODE = {
 }
 _BINOP_ENCODE = {v: k for k, v in _BINOP_DECODE.items()}
 
+#: proto ScalarFunction enum name -> registry name (blaze_tpu_torch.funcs);
+#: every other function rides as AuronExtFunctions with its name
+_SCALAR_FN_DECODE = {
+    "Abs": "abs", "Acos": "acos", "Asin": "asin", "Atan": "atan",
+    "Ascii": "ascii", "Ceil": "ceil", "Cos": "cos", "Exp": "exp",
+    "Floor": "floor", "Ln": "ln", "Log10": "log10", "Log2": "log2",
+    "Round": "round", "Signum": "signum", "Sin": "sin", "Sqrt": "sqrt",
+    "Tan": "tan", "Trunc": "trunc", "Btrim": "trim",
+    "CharacterLength": "char_length", "Chr": "chr", "Concat": "concat",
+    "ConcatWithSeparator": "concat_ws", "DateTrunc": "date_trunc",
+    "Lpad": "lpad", "Lower": "lower", "Ltrim": "ltrim",
+    "OctetLength": "octet_length", "RegexpReplace": "regexp_replace",
+    "Repeat": "repeat", "Replace": "replace", "Reverse": "reverse",
+    "Rpad": "rpad", "Rtrim": "rtrim", "Strpos": "strpos",
+    "Substr": "substring", "Translate": "translate", "Trim": "trim",
+    "Upper": "upper", "Expm1": "expm1", "Power": "pow", "IsNaN": "isnan",
+    "Least": "least", "Greatest": "greatest",
+}
+_SCALAR_FN_ENCODE = {v: k for k, v in _SCALAR_FN_DECODE.items()}
+_SCALAR_FN_ENCODE["trim"] = "Trim"  # Btrim and Trim both decode to trim
+
+#: the string predicates' wire messages and their needle fields
+_STRING_PRED = {"string_starts_with": ("string_starts_with_expr", "prefix"),
+                "string_ends_with": ("string_ends_with_expr", "suffix"),
+                "string_contains": ("string_contains_expr", "infix")}
+
 _AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
                   pb.AVG: "avg", pb.COUNT: "count"}
 _AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
@@ -184,10 +230,20 @@ def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
         val, t = scalar_from_proto(e.literal)
         return {"kind": "literal", "value": val, "type": t}
     if kind == "binary_expr":
-        op = _BINOP_DECODE.get(e.binary_expr.op)
+        wire_op = e.binary_expr.op
+        if wire_op in ("RegexMatch", "RegexIMatch"):
+            pat, _ = scalar_from_proto(e.binary_expr.r.literal)
+            return {"kind": "rlike",
+                    "child": expr_from_proto(e.binary_expr.l),
+                    "pattern": pat,
+                    "case_insensitive": wire_op == "RegexIMatch"}
+        if wire_op == "StringConcat":
+            return {"kind": "scalar_function", "name": "concat",
+                    "args": [expr_from_proto(e.binary_expr.l),
+                             expr_from_proto(e.binary_expr.r)]}
+        op = _BINOP_DECODE.get(wire_op)
         if op is None:
-            raise NotImplementedError(
-                f"binary op {e.binary_expr.op!r} {_LATER}")
+            raise NotImplementedError(f"binary op {wire_op!r} {_LATER}")
         return {"kind": "binary", "op": op,
                 "l": expr_from_proto(e.binary_expr.l),
                 "r": expr_from_proto(e.binary_expr.r)}
@@ -225,11 +281,86 @@ def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
         node = e.cast if kind == "cast" else e.try_cast
         return {"kind": kind, "child": expr_from_proto(node.expr),
                 "type": type_from_proto(node.arrow_type)}
-    if kind == "scalar_function" and \
-            e.scalar_function.fun == pb.Coalesce:
-        return {"kind": "coalesce",
-                "args": [expr_from_proto(a) for a in e.scalar_function.args]}
+    if kind == "negative":
+        return {"kind": "scalar_function", "name": "negative",
+                "args": [expr_from_proto(e.negative.expr)]}
+    if kind == "scalar_function":
+        return _scalar_function_from_proto(e.scalar_function)
+    if kind == "like_expr":
+        le = e.like_expr
+        pat, _ = scalar_from_proto(le.pattern.literal)
+        return {"kind": "like", "child": expr_from_proto(le.expr),
+                "pattern": pat, "negated": le.negated,
+                "case_insensitive": le.case_insensitive}
+    if kind in ("sc_and_expr", "sc_or_expr"):
+        node = getattr(e, kind)
+        return {"kind": "binary", "op": kind[3:-5],
+                "l": expr_from_proto(node.left),
+                "r": expr_from_proto(node.right)}
+    for k, (field, attr) in _STRING_PRED.items():
+        if kind == field:
+            node = getattr(e, field)
+            return {"kind": k, "child": expr_from_proto(node.expr),
+                    "pattern": getattr(node, attr)}
+    if kind == "spark_scalar_subquery_wrapper_expr":
+        s = e.spark_scalar_subquery_wrapper_expr
+        return {"kind": "scalar_subquery",
+                "uuid": s.serialized.decode("utf-8", "backslashreplace"),
+                "type": type_from_proto(s.return_type)}
+    if kind in ("get_indexed_field_expr", "get_map_value_expr"):
+        node = getattr(e, kind)
+        key, _ = scalar_from_proto(node.key)
+        k = kind[:-5]
+        return {"kind": k, "child": expr_from_proto(node.expr),
+                ("index" if k == "get_indexed_field" else "key"): key}
+    if kind == "named_struct":
+        t = type_from_proto(e.named_struct.return_type)
+        return {"kind": "named_struct",
+                "names": [c["name"] for c in t.get("children", [])],
+                "args": [expr_from_proto(v) for v in e.named_struct.values]}
+    if kind in _NULLARY_DECODE:
+        return {"kind": _NULLARY_DECODE[kind]}
+    if kind == "spark_randn_expr":
+        return {"kind": "randn", "seed": int(e.spark_randn_expr.seed)}
+    if kind == "bloom_filter_might_contain_expr":
+        b = e.bloom_filter_might_contain_expr
+        return {"kind": "bloom_filter_might_contain", "uuid": b.uuid,
+                "value": expr_from_proto(b.value_expr)}
+    if kind == "spark_udf_wrapper_expr":
+        u = e.spark_udf_wrapper_expr
+        d = {"kind": "udf", "name": u.expr_string,
+             "args": [expr_from_proto(p) for p in u.params],
+             "type": type_from_proto(u.return_type)}
+        payload = u.serialized.decode("utf-8", "backslashreplace")
+        if payload and payload != u.expr_string:
+            d["serialized"] = payload
+        return d
     raise NotImplementedError(f"expression {kind!r} {_LATER}")
+
+
+_NULLARY_DECODE = {"row_num_expr": "row_num",
+                   "spark_partition_id_expr": "spark_partition_id",
+                   "monotonic_increasing_id_expr":
+                       "monotonically_increasing_id"}
+_NULLARY_ENCODE = {v: k for k, v in _NULLARY_DECODE.items()}
+
+
+def _scalar_function_from_proto(sf) -> Dict[str, Any]:
+    enum_name = pb.ScalarFunction.Name(sf.fun)
+    args = [expr_from_proto(a) for a in sf.args]
+    if enum_name == "Coalesce":
+        return {"kind": "coalesce", "args": args}
+    if enum_name == "AuronExtFunctions":
+        name = sf.name
+    else:
+        name = _SCALAR_FN_DECODE.get(enum_name)
+        if name is None:
+            raise NotImplementedError(
+                f"scalar function {enum_name!r} {_LATER}")
+    d = {"kind": "scalar_function", "name": name, "args": args}
+    if sf.HasField("return_type"):
+        d["return_type"] = type_from_proto(sf.return_type)
+    return d
 
 
 def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
@@ -293,6 +424,76 @@ def expr_to_proto(d: Dict[str, Any]) -> pb.PhysicalExprNode:
         for v in d["values"]:
             e.in_list.list.add().literal.CopyFrom(
                 scalar_to_proto(v, _value_type(v)))
+        return e
+    if k == "scalar_function":
+        sf = e.scalar_function
+        enum_name = _SCALAR_FN_ENCODE.get(d["name"])
+        sf.fun = getattr(pb, enum_name or "AuronExtFunctions")
+        sf.name = d["name"]
+        for a in d.get("args", []):
+            sf.args.append(expr_to_proto(a))
+        if d.get("return_type"):
+            sf.return_type.CopyFrom(type_to_proto(d["return_type"]))
+        return e
+    if k == "like":
+        e.like_expr.negated = d.get("negated", False)
+        e.like_expr.case_insensitive = d.get("case_insensitive", False)
+        e.like_expr.expr.CopyFrom(expr_to_proto(d["child"]))
+        e.like_expr.pattern.literal.CopyFrom(
+            scalar_to_proto(d["pattern"], {"id": "utf8"}))
+        return e
+    if k == "rlike":
+        e.binary_expr.op = ("RegexIMatch" if d.get("case_insensitive")
+                            else "RegexMatch")
+        e.binary_expr.l.CopyFrom(expr_to_proto(d["child"]))
+        e.binary_expr.r.literal.CopyFrom(
+            scalar_to_proto(d["pattern"], {"id": "utf8"}))
+        return e
+    if k in _STRING_PRED:
+        field, attr = _STRING_PRED[k]
+        node = getattr(e, field)
+        node.expr.CopyFrom(expr_to_proto(d["child"]))
+        setattr(node, attr, d["pattern"])
+        return e
+    if k == "named_struct":
+        for v in d["args"]:
+            e.named_struct.values.append(expr_to_proto(v))
+        e.named_struct.return_type.CopyFrom(type_to_proto(
+            {"id": "struct",
+             "children": [{"name": n, "type": {"id": "null"},
+                           "nullable": True} for n in d["names"]]}))
+        return e
+    if k in ("get_indexed_field", "get_map_value"):
+        node = getattr(e, k + "_expr")
+        node.expr.CopyFrom(expr_to_proto(d["child"]))
+        key = d["index"] if k == "get_indexed_field" else d["key"]
+        node.key.CopyFrom(scalar_to_proto(key, _value_type(key)))
+        return e
+    if k in _NULLARY_ENCODE:
+        getattr(e, _NULLARY_ENCODE[k]).SetInParent()
+        return e
+    if k in ("rand", "randn"):
+        e.spark_randn_expr.seed = d.get("seed", 0)
+        return e
+    if k == "scalar_subquery":
+        s = e.spark_scalar_subquery_wrapper_expr
+        s.serialized = d["uuid"].encode("utf-8")
+        s.return_type.CopyFrom(type_to_proto(d["type"]))
+        s.return_nullable = True
+        return e
+    if k == "bloom_filter_might_contain":
+        e.bloom_filter_might_contain_expr.uuid = d["uuid"]
+        e.bloom_filter_might_contain_expr.value_expr.CopyFrom(
+            expr_to_proto(d["value"]))
+        return e
+    if k == "udf":
+        u = e.spark_udf_wrapper_expr
+        u.expr_string = d["name"]
+        u.serialized = d.get("serialized", d["name"]).encode("utf-8")
+        u.return_type.CopyFrom(type_to_proto(d["type"]))
+        u.return_nullable = True
+        for a in d.get("args", []):
+            u.params.append(expr_to_proto(a))
         return e
     raise NotImplementedError(f"expression kind {k!r} {_LATER}")
 
@@ -460,12 +661,19 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
 
 def _generate_from_proto(g: pb.GenerateExecNode) -> Dict[str, Any]:
     func = g.generator.func
-    if func not in (pb.Explode, pb.PosExplode):
+    if func in (pb.Explode, pb.PosExplode):
+        gen = {"kind": "explode" if func == pb.Explode else "posexplode",
+               "child": expr_from_proto(g.generator.child[0]),
+               "outer": g.outer}
+    elif func == pb.JsonTuple:
+        gen = {"kind": "json_tuple",
+               "child": expr_from_proto(g.generator.child[0]),
+               "fields": [scalar_from_proto(c.literal)[0]
+                          for c in g.generator.child[1:]]}
+    else:
         raise NotImplementedError(
             f"generator {pb.GenerateFunction.Name(func)} belongs to a later "
-            f"slice of the PyTorch port (ROADMAP Queue 1 items 13 and 16)")
-    gen = {"kind": "explode" if func == pb.Explode else "posexplode",
-           "child": expr_from_proto(g.generator.child[0]), "outer": g.outer}
+            f"slice of the PyTorch port (ROADMAP Queue 1 item 16)")
     return {"kind": "generate", "input": plan_from_proto(g.input),
             "generator": gen,
             "required_child_output": list(g.required_child_output)}
@@ -722,13 +930,20 @@ def _generate_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
     g.input.CopyFrom(plan_to_proto(d["input"]))
     gen = d["generator"]
     gk = gen["kind"]
-    if gk not in ("explode", "posexplode"):
+    if gk in ("explode", "posexplode"):
+        g.generator.func = pb.Explode if gk == "explode" else pb.PosExplode
+        g.generator.child.append(expr_to_proto(gen["child"]))
+        g.outer = gen.get("outer", False)
+    elif gk == "json_tuple":
+        g.generator.func = pb.JsonTuple
+        g.generator.child.append(expr_to_proto(gen["child"]))
+        for f in gen["fields"]:
+            g.generator.child.append(expr_to_proto(
+                {"kind": "literal", "value": f, "type": {"id": "utf8"}}))
+    else:
         raise NotImplementedError(
             f"the {gk} generator belongs to a later slice of the PyTorch "
-            f"port (ROADMAP Queue 1 items 13 and 16)")
-    g.generator.func = pb.Explode if gk == "explode" else pb.PosExplode
-    g.generator.child.append(expr_to_proto(gen["child"]))
-    g.outer = gen.get("outer", False)
+            f"port (ROADMAP Queue 1 item 16)")
     req_names = d.get("required_child_output")
     if req_names is None:
         # the wire carries the kept columns by NAME: an index list

@@ -60,9 +60,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      (averages and totals within 1e-9, keys and order exact up to ties);
      fails unless every generic-engine batch of stage 3a ran on the card,
      every sort of 1024 rows or more ran on the device, and the kernels
-     ran; its shuffle frames verified through the plain CRC32C; one run
-     profiled (busy share, cudaLaunch* per stage, placement and radix on
-     the card as often as their wrappers counted);
+     ran; its shuffle frames verified through the plain CRC32C;
  10. q01 full (stage DAG): date_dim, store, customer and store_returns at
      SF10 from their seeds, written with write_parquet_splits(..., 4), and
      TPC-DS q01 (itest/queries.py) through the port's DagScheduler
@@ -82,7 +80,7 @@ Phases, each printing its own lines; any failure exits non-zero:
  11. q06, q42 and q03 (stage DAG): store_sales at SF10 in 4 files, item
      and date_dim in one file each, from their seeds, and TPC-DS q06
      (BASELINE config #2) through the DagScheduler with 4 exchange
-     partitions under auto, off and auto profiled, then q42 and q03 under
+     partitions under auto and off, then q42 and q03 under
      auto, and q42 once more with auron.tpu.fused.dictDevice.maxSlots
      64; each with a fresh plan (its broadcast builds run again), held
      to its pandas oracle (rows in order; sums within compare_frames'
@@ -92,13 +90,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      ran on the generic engine on the card, q42's and q03's partial and
      final stages ran on the dict-device lane (q03's brands doubling past
      16 codes), and the maxSlots run fell back to the generic engine in
-     both; the profiled run as in phase 10;
+     both;
  12. q17 and q18 (stage DAG, BASELINE config #3): catalog_sales,
      store_returns (4 files each), customer, customer_demographics,
      customer_address and store (one file each) at SF10 from their seeds,
      store_sales and item from phase 11; q18 (ROLLUP through an Expand,
      an IN list, a shuffled hash join to customer) with 4 exchange
-     partitions under auto, off and auto profiled, and its plan cut above
+     partitions under auto and off, and its plan cut above
      the sort over all five grouping sets; q17 (two shuffled hash joins
      on two-column keys, the second over the first's output exchanged
      again) on the generator's tables (empty, as the oracle) and on
@@ -110,7 +108,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      card, every grouping id with null keys where the ROLLUP puts them,
      and both of q17's shuffled hash joins probing on the card; prints
      stage walls, tasks, peak memory, data and oracle seconds, joined
-     and expanded rows; the profiled run as in phase 10;
+     and expanded rows;
  13. q95 and windows (stage DAG, BASELINE config #4 and the window
      operator): web_sales and web_returns at SF10 from their seeds (4
      files each), the other tables from phases 11 and 12; q95 (EXISTS as
@@ -118,8 +116,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      anti join, web_sales hashed whole into the semi join's exchange)
      under auto, off and auto profiled; q12, q20, q98 (a whole-partition
      window sum), q51 (running window sums joined by a full outer
-     sort-merge join) and q67 (rank() over ROLLUP totals) under auto, and
-     q51 profiled; 4 exchange partitions, a fresh plan each, held to the
+     sort-merge join) and q67 (rank() over ROLLUP totals) under auto; 4
+     exchange partitions, a fresh plan each, held to the
      pandas frame in the plan's order (floats within 1e-9 relative);
      fails unless the reference's stage count, no batch and no join probe
      off the card, device probe calls equal to probe batches, radix
@@ -137,7 +135,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      phases 11 and 12; q19 (two broadcasts, a shuffled hash join to
      customer, two more broadcasts), q07 (four broadcasts, four averages
      by item id) and gq1 (posexplode of the list on the host, renamed,
-     a broadcast to item) under auto, q07 under off, and each profiled;
+     a broadcast to item) under auto, q07 under off, and gq1 profiled;
      4 exchange partitions, a fresh plan each, held to the pandas frame
      in order (floats within 1e-9 relative); fails unless the
      reference's stage count, no batch and no join probe off the card,
@@ -157,8 +155,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      key one byte above its scan bytes, which exceed the default); q05
      (a Union of the three channels' sales and returns), q93 (Casts in a
      left join's measures) and q90 (a ratio of two global counts through
-     a nested-loop join) under the default, staged at SF10; q05 once more
-     profiled stage by stage; 4 exchange partitions, a fresh plan each,
+     a nested-loop join) under the default, staged at SF10; 4 exchange
+     partitions, a fresh plan each,
      held to the pandas frame as a set (floats within 1e-9 relative);
      fails unless each run's exec_mode, no batch and no join probe off
      the card, device probe calls equal to probe batches, every radix
@@ -168,11 +166,26 @@ Phases, each printing its own lines; any failure exits non-zero:
      radix and placement, and q90's nested-loop join emitting rows;
      prints each run's wall, exec_mode, stages, scan bytes, io_bytes and
      rows after each join;
- 16. the dict-device lane through dictionary growth on the card: a
+ 16. strings (the utf8 comparisons, the string expressions and the
+     scalar-function registry): q08 (a utf8 `<` on the addresses' zip
+     under a broadcast, a left semi join of store_sales by customer) and
+     q45 (`substring(ca_zip, 1, 2) IN (...)` OR an item IN list after
+     three joins over web_sales) at SF10 over the tables the earlier
+     phases wrote (any missing one generated from its seed), each under
+     the default auron.tpu.dag.singleTaskBytes, then once more profiled
+     stage by stage; held to its pandas frame as a set with the checks of
+     phase 15; prints each run's wall, exec_mode, stages, stage-0
+     io_bytes, radix and placement launches, cudaLaunch* per stage, and
+     q45's `substring` calls, rows and host seconds beside its stage
+     walls; then every case of the port's Spark conformance corpus
+     (itest/spark_corpus.py, 357 cases) on the CPU and on CUDA tensors:
+     fails unless the same cases pass on both, every case the CPU passes
+     and every other one waits for the item `later_item` names (printed);
+ 17. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 17. the paths' profile summary (with io_bytes per stage of every path:
+ 18. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does) and the kernel table as JSON lines,
      the card's name and power limit, and the result line.
@@ -2344,7 +2357,7 @@ def dict_relayout_probe(dev):
 
 
 def family_phase(root):
-    """q06 (BASELINE config #2) under auto, off and auto profiled, then q42
+    """q06 (BASELINE config #2) under auto and off, then q42
     and q03 under auto, and q42 with a small maxSlots (the generic
     engine's fallback: its 17 x 17 codes pass 64), over one SF10 data
     set; returns the runs and the tables and file paths, which the q17
@@ -2352,9 +2365,7 @@ def family_phase(root):
     plans, secs, tables, paths = family_data(root)
     q06_plan, q06_want = plans["q06"]
     runs = {"q06 auto": family_path("q06", q06_plan, q06_want, "auto"),
-            "q06 off": family_path("q06", q06_plan, q06_want, "off"),
-            "q06 profiled": _profiled(lambda: family_path(
-                "q06", q06_plan, q06_want, "auto", profiled=True), "q06")}
+            "q06 off": family_path("q06", q06_plan, q06_want, "off")}
     for name in ("q42", "q03"):
         runs[f"{name} auto"] = family_path(name, *plans[name], "auto")
     runs["q42 fallback"] = family_path("q42", *plans["q42"], "auto",
@@ -2682,16 +2693,14 @@ def q17_q18_path(name, make_plan, want, mode, profiled=False):
 
 
 def q17_q18_phase(root, fam_tables, fam_paths):
-    """q18 (BASELINE config #3's rollup) under auto, off and auto
-    profiled, q18 over all five grouping sets under auto, then q17 under
+    """q18 (BASELINE config #3's rollup) under auto and off, q18 over all
+    five grouping sets under auto, then q17 under
     auto on the generator's tables (an empty result, as the oracle's) and
     on its linked copy.  Returns the phase's results, and its tables and
     paths (the q06 phase's among them) for the next phase."""
     runs, secs, k, tables, paths = q17_q18_data(root, fam_tables, fam_paths)
     out = {"q18 auto": q17_q18_path("q18", *runs["q18"], "auto"),
            "q18 off": q17_q18_path("q18", *runs["q18"], "off"),
-           "q18 profiled": _profiled(lambda: q17_q18_path(
-               "q18", *runs["q18"], "auto", profiled=True), "q18"),
            "q18 all sets auto": q17_q18_path(
                "q18 all sets", *runs["q18 all sets"], "auto")}
     for name in ("q17", "q17 linked"):
@@ -2885,7 +2894,7 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False):
 
 def q95_windows_phase(root, tables, paths):
     """q95 (BASELINE config #4) under auto, off and auto profiled, then
-    q12, q20, q98, q51 and q67 under auto and q51 once more profiled;
+    q12, q20, q98, q51 and q67 under auto;
     returns the runs, and the tables and file paths (web_sales and
     web_returns among them), which the breadth phase reads again."""
     runs, secs, tables, paths = q95_windows_data(root, tables, paths)
@@ -2895,8 +2904,6 @@ def q95_windows_phase(root, tables, paths):
                "q95", *runs["q95"], "auto", profiled=True), "q95")}
     for name in ("q12", "q20", "q98", "q51", "q67"):
         out[f"{name} auto"] = q95_windows_path(name, *runs[name], "auto")
-    out["q51 profiled"] = _profiled(lambda: q95_windows_path(
-        "q51", *runs["q51"], "auto", profiled=True), "q51")
     return {"data_s": secs, "runs": out}, tables, paths
 
 
@@ -2982,17 +2989,15 @@ def q19_q07_gq1_path(name, make_plan, want, mode, clicks, profiled=False):
 
 
 def q19_q07_gq1_phase(root, tables, paths):
-    """q19, q07 and gq1 under auto, q07 under off, then each once more
+    """q19, q07 and gq1 under auto, q07 under off, then gq1 once more
     under auto, profiled."""
     from blaze_tpu_torch.itest.q19_q07_gq1 import QUERIES
     runs, secs, clicks = q19_q07_gq1_data(root, tables, paths)
     out = {f"{n} auto": q19_q07_gq1_path(n, *runs[n], "auto", clicks)
            for n in QUERIES}
     out["q07 off"] = q19_q07_gq1_path("q07", *runs["q07"], "off", clicks)
-    for n in QUERIES:
-        out[f"{n} profiled"] = _profiled(
-            lambda n=n: q19_q07_gq1_path(n, *runs[n], "auto", clicks,
-                                         profiled=True), n)
+    out["gq1 profiled"] = _profiled(lambda: q19_q07_gq1_path(
+        "gq1", *runs["gq1"], "auto", clicks, profiled=True), "gq1")
     return {"data_s": secs, "clicks": clicks, "runs": out}
 
 
@@ -3165,7 +3170,7 @@ def breadth_phase(root, tables, paths, make_q01, q01_want):
     q01 as one local task (the key just above its scan bytes), radix and
     placement launched; then the new shapes under the default settings
     (staged at SF10): q05 (Union), q93 (Cast) and q90 (the nested-loop
-    join), and q05 once more profiled stage by stage."""
+    join)."""
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest.runner import same_order
     from blaze_tpu_torch.plan.stages import DagScheduler
@@ -3210,10 +3215,126 @@ def breadth_phase(root, tables, paths, make_q01, q01_want):
     if not out["q90 staged"]["join_rows"].get(
             "BroadcastNestedLoopJoinExec"):
         raise SystemExit("breadth q90: no nested-loop join rows")
-    out["q05 profiled"] = _profiled(lambda: breadth_path(
-        "q05", *runs["q05"], None, "staged", profiled=True)[0], "q05")
     return {"data_s": secs, "scan_bytes": dict(sizes, q01=q01_bytes),
             "local_query": local, "runs": out}
+
+
+STRINGS_QUERIES = ("q08", "q45")
+
+
+def strings_data(root, tables, paths):
+    """q08's and q45's tables at SF10 (those no earlier phase wrote
+    generated and written here), a fresh-plan maker and the pandas frame
+    of each, and the seconds each step took."""
+    from blaze_tpu_torch.itest import queries as Q
+    from blaze_tpu_torch.itest import tpcds_data as T
+    needed = sorted({t for n in STRINGS_QUERIES for t in Q.QUERIES[n][1]})
+    made = [n for n in needed if n not in tables]
+    phase(f"data: TPC-DS {', '.join(needed)} at SF10 for q08 and q45 "
+          f"({', '.join(made) or 'none'} generated here, the rest from the "
+          f"earlier phases)")
+    t0 = time.perf_counter()
+    tables = dict({n: tables[n] for n in needed if n not in made},
+                  **T.make_tables(SCALE, made))
+    paths = dict({n: paths[n] for n in needed if n not in made},
+                 **T.write_splits({n: tables[n] for n in made},
+                                  os.path.join(root, "strings"), N_FILES))
+    secs = {"data": time.perf_counter() - t0}
+    print("rows: " + ", ".join(f"{n} {tables[n].num_rows} in "
+                               f"{len(paths[n])} file(s)" for n in needed))
+    runs = {}
+    for name in STRINGS_QUERIES:
+        def make(n=name):
+            return Q.plans(paths, tables, BREADTH_PARTS, [n])[n]
+        t = time.perf_counter()
+        want = make()[1]()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        runs[name] = ((lambda m=make: m()[0]), want)
+        print(f"pandas oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return runs, secs
+
+
+def corpus_on_card():
+    """Every case of the port's Spark conformance corpus on the CPU, then
+    on CUDA tensors: the same cases must pass on both, and each other
+    case must be one that waits for a later item (`later_item`)."""
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import spark_corpus as C
+    phase("strings: the Spark conformance corpus on the CPU and on the "
+          "card")
+    cases = [(s, c) for s, cs in sorted(C.SUITES.items()) for c in cs]
+    passed, secs = {}, {}
+    for device in ("cpu", "cuda"):
+        config.conf.set(config.TORCH_DEVICE.key, device)
+        t0 = time.perf_counter()
+        try:
+            passed[device] = {(s, c.name) for s, c in cases
+                              if C.run_case(s, c).passed}
+        finally:
+            config.conf.set(config.TORCH_DEVICE.key, "cuda")
+        torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+        print(f"{device}: {len(passed[device])} of {len(cases)} cases pass "
+              f"in {secs[device]:.2f} s")
+    later = {(s, c.name): C.later_item(s, c) for s, c in cases
+             if C.later_item(s, c) is not None}
+    for (s, n), item in sorted(later.items()):
+        print(f"  waits for {item}: {s}::{n}")
+    if passed["cuda"] != passed["cpu"]:
+        raise SystemExit(
+            f"corpus: the card's passing set differs from the CPU's: only "
+            f"on the CPU {sorted(passed['cpu'] - passed['cuda'])}, only on "
+            f"the card {sorted(passed['cuda'] - passed['cpu'])}")
+    failing = {(s, c.name) for s, c in cases} - passed["cuda"]
+    if failing != set(later):
+        raise SystemExit(f"corpus: failing cases {sorted(failing)} are not "
+                         f"the later-item cases {sorted(later)}")
+    return {"cases": len(cases), "passed": len(passed["cuda"]),
+            "later": {f"{s}::{n}": item for (s, n), item in later.items()},
+            "seconds": secs}
+
+
+def strings_phase(root, tables, paths):
+    """q08 and q45 at SF10 under the default singleTaskBytes (each once
+    more profiled stage by stage), q45's `substring` host seconds beside
+    its stage walls, and the corpus on the card."""
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.funcs.strings import SUBSTRING_STATS
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    runs, secs = strings_data(root, tables, paths)
+    default = config.DAG_SINGLE_TASK_BYTES.default
+    out, substring = {}, {}
+    for name in STRINGS_QUERIES:
+        scan = DagScheduler._scan_input_bytes(runs[name][0]())
+        expect = "local" if scan <= default else "staged"
+        before = dict(SUBSTRING_STATS)
+        out[name], _ = breadth_path(name, *runs[name], None, expect)
+        substring[name] = {k: SUBSTRING_STATS[k] - before[k]
+                           for k in SUBSTRING_STATS}
+        r = out[name]
+        stage0 = r["counters"].get(min(r["counters"]), {}) \
+            if r["counters"] else {}
+        print(f"{name}: wall {r['wall_s']:.3f} s, {r['exec_mode']}, "
+              f"{r['stages']} stages, stage-0 io_bytes "
+              f"{stage0.get('io_bytes')}, radix "
+              f"{r['launches']['radix_partition']}, placement "
+              f"{r['launches']['hash_placement']}; substring "
+              f"{substring[name]['calls']} calls ("
+              f"{substring[name]['vector']} vectorised), "
+              f"{substring[name]['rows']} rows, "
+              f"{substring[name]['seconds']:.3f} host s of "
+              f"{r['wall_s']:.3f} s")
+        out[f"{name} profiled"] = _profiled(lambda n=name, e=expect:
+                                            breadth_path(
+                                                n, *runs[n], None, e,
+                                                profiled=True)[0], name)
+    if not substring["q45"]["calls"] or substring["q08"]["calls"]:
+        raise SystemExit(f"strings: substring calls {substring}: q45 must "
+                         f"call it and q08 must not")
+    return {"data_s": secs, "runs": out, "substring": substring,
+            "corpus": corpus_on_card()}
 
 
 def pq_rows(path):
@@ -3274,10 +3395,7 @@ def main():
         oracle = branches_oracle(sr_paths, lo, hi)
         branches = {
             "auto": branches_path(root, sr_paths, lo, hi, "auto", oracle),
-            "off": branches_path(root, sr_paths, lo, hi, "off", oracle),
-            "profiled": _profiled(lambda: branches_path(
-                root, sr_paths, lo, hi, "auto", oracle, profiled=True),
-                "q01 branches")}
+            "off": branches_path(root, sr_paths, lo, hi, "off", oracle)}
         by_path["q01 branches"] = branches["auto"]["launches"]
         plan, q01_want, make_q01 = full_data(root)
         full = {"auto": full_path(plan, q01_want, "auto"),
@@ -3307,10 +3425,13 @@ def main():
             by_path[name] = q19_q07_gq1["runs"][f"{name} auto"]["launches"]
         breadth = breadth_phase(root, all_tables, all_paths, make_q01,
                                 q01_want)
-        del all_tables
         for k, r in breadth["runs"].items():
             if "profiled" not in k:
                 by_path[k] = r["launches"]
+        strings = strings_phase(root, all_tables, all_paths)
+        del all_tables
+        for k in STRINGS_QUERIES:
+            by_path[k] = strings["runs"][k]["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -3472,6 +3593,21 @@ def main():
               + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
                  f"stage {f['launches_per_stage']}"
                  if "busy_share" in f else ""))
+    print("strings data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in strings["data_s"].items()))
+    for k, f in strings["runs"].items():
+        print(f"{k}: run {f['wall_s']:.3f} s, {f['exec_mode']}, "
+              f"{f['stages']} stages, {f['rows']} rows, stage walls "
+              f"{ {s_: round(w, 3) for s_, w in f['stage_walls'].items()} }, "
+              f"tasks {f['tasks']}, peak {f['peak_bytes']} bytes, join rows "
+              f"{f['join_rows']}, radix groupings (rows, P) "
+              f"{f['radix_groupings']}, eager placements {f['placements']}"
+              + (f", busy {100 * f['busy_share']:.2f}%, cudaLaunch* per "
+                 f"stage {f['launches_per_stage']}"
+                 if "busy_share" in f else ""))
+    print(f"q45 substring: {strings['substring']['q45']}; corpus: "
+          f"{strings['corpus']['passed']} of {strings['corpus']['cases']} "
+          f"cases pass on the card and on the CPU")
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -3481,7 +3617,8 @@ def main():
     for group, prefix in ((full, "q01 full "), (family["runs"], ""),
                           (q17_q18["runs"], ""), (q95_windows["runs"], ""),
                           (q19_q07_gq1["runs"], ""),
-                          (breadth["runs"], "breadth ")):
+                          (breadth["runs"], "breadth "),
+                          (strings["runs"], "strings ")):
         io_bytes.update({prefix + k: _io_bytes(r)
                          for k, r in group.items()})
     print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
@@ -3491,6 +3628,7 @@ def main():
                       "q01_full": full, "q06_family": family,
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
+                      "strings": strings,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

@@ -290,10 +290,13 @@ def test_avg_result_type_and_decimal_raise():
         == [TypeId.INT64, TypeId.INT64]
     with pytest.raises(NotImplementedError, match="item 13"):
         AvgAgg([TRef(0)]).acc_fields(schema)
-    for name, item in (("first", "13"), ("collect_list", "13"),
-                       ("bloom_filter", "11"), ("udaf", "16")):
+    for name, item in (("bloom_filter", "11"), ("udaf", "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             t_make_agg(name, [TRef(1)])
+    # first and collect_list are ported with the strings slice
+    assert t_make_agg("first", [TRef(1)]).output_type(schema).id == \
+        TypeId.INT32
+    assert t_make_agg("collect_list", [TRef(1)]).is_host
 
 
 @pytest.mark.parametrize("case", ["avg", "global", "avg_final", "mixed"])

@@ -4,7 +4,7 @@ JAX package's) through the port's stage DAG, against their pandas
 oracles and the JAX package's DagScheduler on the same plans and data;
 and the planned trees of every query against the JAX package's goldens.
 
-The 81 runnable queries are split over this file and
+The 83 queries are split over this file and
 test_torch_breadth_b.py to _f.py (`GROUPS`, balanced by the JAX side's
 time, so that tier-1's `--dist loadfile` spreads them); this file also
 holds the shared helpers.  For each query of a group:
@@ -28,8 +28,10 @@ This file also holds:
   * every query's `fuse_plan(create_plan(...))` tree, normalized, equal
     to tests/goldens/<q>.plan.txt (the 17 queries of itest/queries.py
     included);
-  * q08 and q45 (a utf8 `<` and `substring`, ROADMAP item 13) marked
-    xfail(strict=True): they raise NotImplementedError naming item 13;
+  * q08 and q45 (a utf8 `<` and `substring`, the strings slice) like
+    the other queries of group "a"; each with its filter swapped for a
+    UDF raises NotImplementedError naming ROADMAP item 16, the item the
+    UDF waits for;
   * the six generators the new queries need, equal to the JAX package's;
   * a fault of the reference's q49 oracle (ROADMAP Queue 3): an order
     whose sales sum to zero has an infinite return ratio in pandas, which
@@ -67,8 +69,8 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 #: the runnable new queries, split by the JAX side's time (~75 s a file)
 GROUPS = {
-    "a": ["q11", "q39", "q41", "q49", "q66", "q73", "q76", "q80", "q83",
-          "q90", "q96"],
+    "a": ["q08", "q11", "q39", "q41", "q45", "q49", "q66", "q73", "q76",
+          "q80", "q83", "q90", "q96"],
     "b": ["q13", "q15", "q26", "q35", "q36", "q47", "q56", "q57", "q59",
           "q62", "q63", "q74", "q99"],
     "c": ["q21", "q25", "q28", "q43", "q46", "q58", "q61", "q64", "q70",
@@ -226,7 +228,7 @@ def test_map_outputs_are_the_jax_bytes(data, runs, name, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# every query: the groups cover the breadth, the goldens, item 13
+# every query: the groups cover the breadth, the goldens, a later piece
 # ---------------------------------------------------------------------------
 
 def test_the_groups_cover_every_new_query():
@@ -234,8 +236,8 @@ def test_the_groups_cover_every_new_query():
     new = {n for n, (fn, _t) in TQ.QUERIES.items()
            if fn.__module__ in (queries_ext.__name__, queries_ext2.__name__)}
     grouped = [n for g in GROUPS.values() for n in g]
-    assert len(grouped) == len(set(grouped)) == 81
-    assert set(grouped) | set(LATER) == new and len(new) == 83
+    assert len(grouped) == len(set(grouped)) == 83 and not LATER
+    assert set(grouped) == new and len(new) == 83
     assert len(TQ.QUERIES) == 100
 
 
@@ -244,17 +246,7 @@ def every_query(tmp_path_factory):
     return breadth_data(tmp_path_factory, sorted(TQ.QUERIES))
 
 
-def _golden_params():
-    for name in sorted(TQ.QUERIES):
-        if name in LATER and name == "q45":  # plans `substring`
-            yield pytest.param(name, marks=pytest.mark.xfail(
-                strict=True, raises=NotImplementedError,
-                reason="substring: ROADMAP item 13"))
-        else:
-            yield name
-
-
-@pytest.mark.parametrize("name", list(_golden_params()))
+@pytest.mark.parametrize("name", sorted(TQ.QUERIES))
 def test_planned_tree_matches_its_golden(every_query, name):
     from blaze_tpu_torch.plan import create_plan
     from blaze_tpu_torch.plan.fused import fuse_plan
@@ -272,20 +264,35 @@ def test_a_missing_golden_is_a_failure(tmp_path):
     assert not os.path.exists(path)
 
 
-@pytest.mark.parametrize("name", [
-    pytest.param(n, marks=pytest.mark.xfail(
-        strict=True, raises=NotImplementedError,
-        reason=f"ROADMAP {LATER[n]}")) for n in sorted(LATER)])
+#: the queries that waited for the strings slice
+STRINGS_SLICE = ["q08", "q45"]
+
+
+@pytest.mark.parametrize("name", STRINGS_SLICE)
 def test_later_query_equals_its_oracle(every_query, name):
     plan, oracle = _plan(every_query, name)
     got = frame(DagScheduler().run_collect(plan))
     assert compare_frames(got, oracle(), REL) is None
 
 
-@pytest.mark.parametrize("name", sorted(LATER))
+def with_a_udf(plan: dict) -> dict:
+    """`plan` with every filter's predicates replaced by one UDF call (a
+    piece of ROADMAP item 16, which the port does not decode)."""
+    if plan.get("kind") == "filter":
+        udf = {"kind": "udf", "name": "is_kept", "type": {"id": "bool"},
+               "args": plan["predicates"]}
+        return {**plan, "input": with_a_udf(plan["input"]),
+                "predicates": [udf]}
+    return {k: (with_a_udf(v) if isinstance(v, dict) else
+                [with_a_udf(x) if isinstance(x, dict) else x for x in v]
+                if isinstance(v, list) else v)
+            for k, v in plan.items()}
+
+
+@pytest.mark.parametrize("name", STRINGS_SLICE)
 def test_later_query_raises_naming_its_item(every_query, name):
-    with pytest.raises(NotImplementedError, match=LATER[name]):
-        DagScheduler().run_collect(_plan(every_query, name)[0])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        DagScheduler().run_collect(with_a_udf(_plan(every_query, name)[0]))
 
 
 @pytest.mark.parametrize("name", ["catalog_returns", "inventory",

@@ -4,8 +4,7 @@ runtime that runs them before `fuse_plan`) against the JAX package's
 (blaze_tpu/plan/planner.py, blaze_tpu/plan/column_pruning.py).
 
   * parity: every stage of every query of the port's `QUERIES` (the 100
-    of itest/queries.py, queries_ext.py and queries_ext2.py; q45 plans
-    `substring`, ROADMAP item 13, and is marked xfail), and the task
+    of itest/queries.py, queries_ext.py and queries_ext2.py), and the task
     plans of itest/q01.py, itest/rollup.py and itest/q01_branches.py,
     encoded as TaskDefinition bytes and decoded in both packages: after
     `prune_columns(collapse_filter_project(...))` the two trees have the
@@ -147,11 +146,8 @@ def _itest_task_defs(name, paths, tmp_path):
         sr, lo, hi, str(tmp_path), N_FILES, PARTS)]
 
 
-#: every query and driver plan; q45 plans `substring` (ROADMAP item 13)
-PARITY = [pytest.param(n, marks=pytest.mark.xfail(
-              strict=True, raises=NotImplementedError, reason="item 13"))
-          if n == "q45" else n for n in TQ.QUERIES] + [
-    "q01 inner", "rollup", "q01 branches"]
+#: every query and driver plan
+PARITY = list(TQ.QUERIES) + ["q01 inner", "rollup", "q01 branches"]
 
 
 @pytest.mark.parametrize("name", PARITY)

@@ -16,9 +16,9 @@ against the JAX `proto_serde`.
   * the wire: a generate node (by index and by name, outer or not) under
     a rename_columns node over a scan with a LIST field encodes to the
     JAX package's bytes and decodes to its dicts, and the decoded dicts
-    plan the same schema in both packages; json_tuple raises, naming
-    ROADMAP item 13, and each node kind the port does not plan yet names
-    its ROADMAP item.
+    plan the same schema in both packages; json_tuple plans, the UDTF
+    generator raises naming ROADMAP item 16, and each node kind the port
+    does not plan yet names its ROADMAP item.
 
 Tolerance: exact (Arrow equality of every output batch)."""
 
@@ -251,17 +251,23 @@ def test_wire_equals_jax(tmp_path, kind, outer, required):
 
 
 def test_json_tuple_raises_naming_its_item(tmp_path):
+    """json_tuple plans since the strings slice (its rows are held to the
+    JAX generator in test_torch_funcs.py); the UDTF generator still
+    raises, naming ROADMAP item 16."""
     plan = {"kind": "generate", "input": _scan(tmp_path),
             "generator": {"kind": "json_tuple", "fields": ["a"],
                           "child": {"kind": "column", "name": "sk"}}}
-    with pytest.raises(NotImplementedError, match="item 13"):
+    assert [f.name for f in t_create(plan).schema][-1] == "c0"
+    plan["generator"] = {"kind": "udtf", "name": "f", "args": [],
+                         "fields": []}
+    with pytest.raises(NotImplementedError, match="item 16"):
         t_create(plan)
 
 
 @pytest.mark.parametrize("kind,item", [
     ("ffi_reader", "item 4"), ("coalesce_batches", "item 4"),
     ("empty_partitions", "item 4"), ("debug", "item 4"),
-    ("memory_scan", "item 4"), ("orc_scan", "item 16"),
+    ("orc_sink", "item 16"), ("orc_scan", "item 16"),
     ("ipc_writer", "item 16"), ("parquet_sink", "item 16"),
     ("kafka_scan", "item 16"), ("rss_shuffle_writer", "item 16")])
 def test_unported_kinds_name_their_item(kind, item):

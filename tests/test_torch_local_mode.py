@@ -18,8 +18,8 @@ patched to False (its device route) and `auron.tpu.shuffle.device` off.
     q93 (Cast) and q90 (the nested-loop join) run local in both
     packages, with the same rows in the same order, and equal their
     pandas oracles; the run's metrics are stage 0's and nothing leaks;
-  * a plan the local mode cannot build raises: it never falls back to the
-    staged route.
+  * a plan the local mode cannot build (q08 and q45 with a UDF filter,
+    ROADMAP item 16) raises: it never falls back to the staged route.
 
 Tolerance: rows in order, floats within 1e-9 relative; bytes exact."""
 
@@ -33,11 +33,11 @@ import pytest
 from blaze_tpu_torch import config as tconf
 from blaze_tpu_torch.itest import queries as TQ
 from blaze_tpu_torch.itest import tpcds_data as TT
-from blaze_tpu_torch.itest.breadth import LATER
 from blaze_tpu_torch.itest.q01_dag import stage_counters
 from blaze_tpu_torch.itest.runner import compare_frames, frame, same_order
 from blaze_tpu_torch.plan.stages import DagScheduler
 from blaze_tpu_torch.shuffle import LocalShuffleExchange
+from test_torch_breadth_a import STRINGS_SLICE, with_a_udf
 
 SCALE = 0.01
 PARTS = 2
@@ -225,11 +225,11 @@ def test_local_and_staged_give_the_same_rows(data):
     assert same_order(local, staged, REL) is None
 
 
-@pytest.mark.parametrize("name", sorted(LATER))
+@pytest.mark.parametrize("name", STRINGS_SLICE)
 def test_the_local_mode_never_falls_back(data, name):
     sched = DagScheduler()
-    with pytest.raises(NotImplementedError, match=LATER[name]):
-        sched.run_collect(_plan(data, name)[0])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        sched.run_collect(with_a_udf(_plan(data, name)[0]))
     assert sched.exec_mode == "local" and sched.stages == []
     assert sched.leak_report() == {"files": [], "resources": [],
                                    "dirs": []}

@@ -329,9 +329,21 @@ def test_generic_engine_passthrough_after_the_skip_probe(distinct, skips):
 
 
 def test_generic_engine_host_accumulators_still_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _collect(_agg_op("torch", _batches(np.random.default_rng(1), 1, 10),
-                         SCHEMA, [K], [("max", [S])], "partial"))
+    """min/max over utf8, first and collect_list run on the host beside
+    the device accumulators (equal to the JAX engine, in every mode);
+    the bloom filter (item 11) and UDAFs (item 16) still raise."""
+    fns = [("max", [S]), ("min", [T]), ("first", [I]),
+           ("first_ignores_null", [X]), ("collect_list", [T]),
+           ("sum", [I])]
+    batches = _batches(np.random.default_rng(1), 4, 60)
+    for mode in ("partial", "complete"):
+        t, j, _, _ = _both(batches, [K], fns, mode)
+        _assert_same_table(t, j)
+    t, j, _, _ = _both(batches, [], fns, "complete")
+    _assert_same_table(t, j)
+    for name, item in (("bloom_filter", "11"), ("udaf", "16")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            t_make_agg(name, [TRef(S)])
 
 
 # ---------------------------------------------------------------------------
