@@ -80,11 +80,22 @@ def _unpack_validity(arr: pa.Array) -> np.ndarray:
 
 
 def _arrow_fixed_values(arr: pa.Array, dtype: DataType) -> np.ndarray:
-    """The data buffer of a fixed-width Arrow array as numpy."""
+    """The data buffer of a fixed-width Arrow array as numpy.  A decimal
+    of precision <= 18 gives its unscaled int64 values: the low 8 bytes
+    of each little-endian decimal128, read as every other int64 of the
+    buffer; an int64 array (an accumulator column) is already unscaled."""
     if dtype.id == TypeId.DECIMAL:
-        raise NotImplementedError(
-            "decimal columns run in the decimal slice of the "
-            "PyTorch port (ROADMAP Queue 1 item 13)")
+        buf = arr.buffers()[1]
+        if pa.types.is_decimal(arr.type):
+            if dtype.precision > 18 or arr.type.precision > 18:
+                # the low 8 bytes would silently truncate wide values
+                raise TypeError(
+                    f"decimal(p>18) has no int64 device form (got "
+                    f"{arr.type}); it stays a host column")
+            pairs = np.frombuffer(buf, dtype=np.int64).reshape(-1, 2)
+            return pairs[arr.offset:arr.offset + len(arr), 0].copy()
+        vals = np.frombuffer(buf, dtype=np.int64)
+        return vals[arr.offset:arr.offset + len(arr)]
     if dtype.id == TypeId.TIMESTAMP_MICROS and pa.types.is_timestamp(arr.type) \
             and arr.type.unit != "us":
         arr = arr.cast(pa.timestamp("us", tz=arr.type.tz), safe=False)
@@ -95,6 +106,36 @@ def _arrow_fixed_values(arr: pa.Array, dtype: DataType) -> np.ndarray:
         return bits[arr.offset:arr.offset + len(arr)].astype(bool)
     vals = np.frombuffer(arr.buffers()[1], dtype=dtype.np_dtype())
     return vals[arr.offset:arr.offset + len(arr)]
+
+
+def decimal_from_unscaled(values: np.ndarray, valid: Optional[np.ndarray],
+                          t: pa.DataType) -> pa.Array:
+    """Unscaled int64/int32 values -> a decimal128 Arrow array, without an
+    Arrow cast (which would rescale): the 16-byte little-endian limbs are
+    built directly, the high limb the low one's sign extension."""
+    v = np.ascontiguousarray(values).astype(np.int64, copy=False)
+    limbs = np.empty((len(v), 2), dtype=np.int64)
+    limbs[:, 0] = v
+    limbs[:, 1] = v >> 63  # arithmetic shift: 0 or -1
+    if valid is None or bool(np.asarray(valid).all()):
+        validity_buf, null_count = None, 0
+    else:
+        valid = np.asarray(valid, dtype=bool)
+        validity_buf = pa.py_buffer(np.packbits(
+            valid.astype(np.uint8), bitorder="little").tobytes())
+        null_count = int((~valid).sum())
+    return pa.Array.from_buffers(t, len(v), [validity_buf,
+                                             pa.py_buffer(limbs.tobytes())],
+                                 null_count=null_count)
+
+
+def _decimal_store(dtype: DataType):
+    """Storage of a decimal column on the device: int64, or int32 for
+    p <= 9 under auron.tpu.encoding.decimal.enable and .int32."""
+    if dtype.precision <= 9 and config.ENCODING_DECIMAL_ENABLE.get() \
+            and config.ENCODING_DECIMAL_INT32.get():
+        return np.int32
+    return np.int64
 
 
 @dataclass
@@ -116,7 +157,10 @@ class DeviceColumn:
         n = len(values)
         if capacity < n:
             raise ValueError(f"capacity {capacity} < {n} rows")
-        data = np.zeros(capacity, dtype=dtype.np_dtype())
+        np_dtype = dtype.np_dtype()
+        if dtype.id == TypeId.DECIMAL and values.dtype == np.int32:
+            np_dtype = np.int32  # the scaled-int32 tier
+        data = np.zeros(capacity, dtype=np_dtype)
         data[:n] = values
         v = np.zeros(capacity, dtype=bool)
         v[:n] = True if valid is None else valid
@@ -128,8 +172,10 @@ class DeviceColumn:
                    device: torch.device) -> "DeviceColumn":
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
-        return DeviceColumn.from_numpy(_arrow_fixed_values(arr, dtype),
-                                       _unpack_validity(arr), dtype,
+        values = _arrow_fixed_values(arr, dtype)
+        if dtype.id == TypeId.DECIMAL:
+            values = values.astype(_decimal_store(dtype), copy=False)
+        return DeviceColumn.from_numpy(values, _unpack_validity(arr), dtype,
                                        capacity, device)
 
     def to_arrow(self, num_rows: int, selection: Optional[np.ndarray] = None,
@@ -147,6 +193,8 @@ class DeviceColumn:
             valid = valid[selection[:num_rows]]
         mask = None if valid.all() else ~valid  # no nulls -> no bitmap
         at = self.dtype.to_arrow()
+        if self.dtype.id == TypeId.DECIMAL:
+            return decimal_from_unscaled(values, valid, at)
         if self.dtype.id == TypeId.BOOL:
             return pa.array(values.astype(bool), type=at, mask=mask)
         return pa.array(values, type=at, mask=mask)

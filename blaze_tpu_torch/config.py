@@ -170,6 +170,18 @@ ENCODING_DICT_ENABLE = bool_conf(
     "Dictionary-encode utf8 columns at scan decode (the JAX package's "
     "DictColumn).  Not ported: the port's scan raises where it is set "
     "(ROADMAP Queue 1 item 13).")
+ENCODING_DECIMAL_ENABLE = bool_conf(
+    "auron.tpu.encoding.decimal.enable", False,
+    "Lower decimal columns as scaled-integer arithmetic on the device: "
+    "precisions <= 18 as scaled int64 (or int32, see "
+    "encoding.decimal.int32); unequal-scale comparisons rescale through "
+    "the two-limb int128 ops (kernels/decimal128.py).  Results equal the "
+    "exact host decimal arithmetic, ANSI and non-ANSI.  Off by default.")
+ENCODING_DECIMAL_INT32 = bool_conf(
+    "auron.tpu.encoding.decimal.int32", True,
+    "With encoding.decimal.enable, store decimals of precision <= 9 as "
+    "scaled int32 on the device: a single add/sub of two p <= 9 operands "
+    "cannot leave int32; results widen to the declared int64 output.")
 STAGE_DEVICE_LOOP_ENABLE = str_conf(
     "auron.tpu.stage.deviceLoop.enable", "auto",
     "Device stage loop (runtime/loop.py): an eligible hash-lane fused "

@@ -11,12 +11,14 @@ as in the JAX package:
     a host function computed (a string length, a predicate's bools).
 
 A value evaluated from a `Literal` is marked `literal`, so a function can
-take a constant argument without reading every row.  Decimal values
-belong to the decimal slice (ROADMAP Queue 1 item 13, second part).
+take a constant argument without reading every row.  A decimal of
+precision <= 18 is fixed-width (its unscaled int64 values on the device);
+a wider one is a host value (a decimal128 Arrow array).
 """
 
 from __future__ import annotations
 
+import decimal as pydec
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -27,12 +29,6 @@ import torch
 from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn, HostColumn,
                                    to_device)
 from blaze_tpu_torch.schema import DataType, Schema, TypeId
-
-#: the message of everything that waits for decimal columns
-DECIMAL_LATER = ("decimal values belong to the decimal slice of the PyTorch "
-                 "port (ROADMAP Queue 1 item 13, decimals: batch.py decimal "
-                 "columns, kernels/decimal128.py, exprs/decimal_arith.py)")
-
 
 @dataclass
 class ColVal:
@@ -76,8 +72,6 @@ class ColVal:
         to `capacity`, onto `device` (the configured one when None)."""
         if self.is_device:
             return self
-        if self.dtype.id == TypeId.DECIMAL:
-            raise NotImplementedError(DECIMAL_LATER)
         if not self.dtype.is_fixed_width:
             raise TypeError(f"{self.dtype} values have no device form")
         if device is None:
@@ -91,8 +85,10 @@ class ColVal:
 
     def to_column(self, capacity: int, device: torch.device):
         """The value as a batch column.  A fixed-width value computed on
-        the host (a utf8 comparison's bools) is uploaded: fixed-width
-        columns live on the device, as in the JAX package."""
+        the host (a utf8 comparison's bools, an exact decimal product of
+        precision <= 18) is uploaded: fixed-width columns live on the
+        device, as in the JAX package; a wider decimal stays a host
+        column."""
         if self.is_device:
             return DeviceColumn(self.dtype, self.data, self.validity)
         if self.dtype.is_fixed_width:
@@ -161,24 +157,39 @@ class Literal(PhysicalExpr):
         return self.dtype
 
     def evaluate(self, batch: ColumnBatch) -> ColVal:
-        if self.dtype.id == TypeId.DECIMAL:
-            raise NotImplementedError(DECIMAL_LATER)
+        value = self.value
+        if self.dtype.id == TypeId.DECIMAL and value is not None:
+            value = decimal_value(value, self.dtype.scale)
         if not self.dtype.is_fixed_width:
             return ColVal(self.dtype, array=pa.array(
-                [self.value] * batch.num_rows, type=self.dtype.to_arrow()),
+                [value] * batch.num_rows, type=self.dtype.to_arrow()),
                 literal=True)
         cap = batch.capacity
         dev = batch.device
         dt = self.dtype.torch_dtype()
-        if self.value is None:
+        if value is None:
             return ColVal(self.dtype, torch.zeros(cap, dtype=dt, device=dev),
                           torch.zeros(cap, dtype=torch.bool, device=dev),
                           literal=True)
+        if self.dtype.id == TypeId.DECIMAL:
+            # the unscaled value, value x 10^scale, exactly
+            value = int(value.scaleb(self.dtype.scale))
         return ColVal(self.dtype,
-                      torch.full((cap,), self.value, dtype=dt, device=dev),
+                      torch.full((cap,), value, dtype=dt, device=dev),
                       torch.ones(cap, dtype=torch.bool, device=dev),
                       literal=True)
 
     def __repr__(self):
         return f"lit({self.value!r})"
 
+
+def decimal_value(value: Any, scale: int) -> pydec.Decimal:
+    """A decimal literal's value (a Decimal, int, float or string) as a
+    Decimal at `scale`, exactly (HALF_UP where it has more digits; a float
+    reads as its shortest repr, 1.2 as 1.2)."""
+    if isinstance(value, float):
+        value = repr(value)
+    with pydec.localcontext() as ctx:
+        ctx.prec = 76
+        return pydec.Decimal(value).quantize(pydec.Decimal(1).scaleb(-scale),
+                                             rounding=pydec.ROUND_HALF_UP)

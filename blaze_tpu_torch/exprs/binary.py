@@ -1,5 +1,5 @@
 """Binary operators with Spark null semantics (port of
-blaze_tpu/exprs/binary.py but its decimal and dictionary-code branches).
+blaze_tpu/exprs/binary.py but its dictionary-code branch).
 
   * comparisons `== != < <= > >=` promote mismatched widths like the JAX
     package (the widest type wins); the result is NULL where either side
@@ -22,8 +22,23 @@ package's host branch: the six comparisons and `<=>` run on the host
 through Arrow's kernels, which order utf8 by its bytes, unsigned, as
 Spark does (q08's `ca_zip < '20000'`).  An AND/OR whose side is a host
 bool (a string predicate's result) uploads it and runs the Kleene logic
-on the device.  Decimal operands wait for the decimal slice and raise
-NotImplementedError.
+on the device.
+
+Decimal operands (an integral operand widens to a decimal, as Spark's
+DecimalType.forType) take the JAX package's routes:
+
+  * equal scales within precision 18: comparisons and `+ -` (whose
+    result precision stays <= 18) on the unscaled int64s on the device;
+  * unequal scales within precision 18: comparisons rescale through the
+    int128 limbs of kernels/decimal128.py on the device when
+    `auron.tpu.encoding.decimal.enable` is on;
+  * everything else (`* / % pmod`, mixed scales, precision > 18, a host
+    operand) is exact on the host (exprs/decimal_arith.py), NULL on
+    overflow, raising under ANSI.
+
+A decimal meeting a float operand takes its value, unscaled / 10^scale in
+float64, before the float operation, as Spark casts it to double (the
+JAX package computes on the unscaled integers there: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -37,9 +52,13 @@ import torch
 
 from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import ColumnBatch
-from blaze_tpu_torch.exprs.base import DECIMAL_LATER, ColVal, PhysicalExpr
+from blaze_tpu_torch.exprs import decimal_arith as D
+from blaze_tpu_torch.exprs.base import ColVal, PhysicalExpr
+from blaze_tpu_torch.kernels import decimal128 as d128
+from blaze_tpu_torch.kernels.cast import decimal_to_double
 from blaze_tpu_torch.kernels.compare import null_aware_eq
-from blaze_tpu_torch.schema import BOOL, DataType, Schema, TypeId, _BY_TORCH
+from blaze_tpu_torch.schema import (BOOL, FLOAT64, DataType, Schema, TypeId,
+                                    _BY_TORCH)
 
 _CMP = {"==": operator.eq, "!=": operator.ne, "<": operator.lt,
         "<=": operator.le, ">": operator.gt, ">=": operator.ge}
@@ -56,18 +75,73 @@ def _check_op(op: str) -> None:
 
 
 def _check_operand(t: DataType) -> None:
-    if t.id == TypeId.DECIMAL:
-        raise NotImplementedError(DECIMAL_LATER)
     if not t.is_fixed_width:
         raise TypeError(f"{t} operands have no arithmetic")
 
 
+def _storage(t: DataType) -> torch.dtype:
+    """The dtype an operand computes in: a decimal meeting a float is its
+    float64 value."""
+    return torch.float64 if t.id == TypeId.DECIMAL else t.torch_dtype()
+
+
 def arith_type(lt: DataType, rt: DataType) -> DataType:
-    """Result type of `+ - * / %`: the promotion of the two storage types
-    (date32 and timestamp operands compute as their integers)."""
+    """Result type of `+ - * / %` over non-decimal operands, or a decimal
+    with a float: the promotion of the two storage types (date32 and
+    timestamp operands compute as their integers)."""
     for t in (lt, rt):
         _check_operand(t)
-    return _BY_TORCH[torch.promote_types(lt.torch_dtype(), rt.torch_dtype())]
+    return _BY_TORCH[torch.promote_types(_storage(lt), _storage(rt))]
+
+
+def decimal_types(op: str, lt: DataType, rt: DataType):
+    """(lt, rt) as decimal types where `op` is decimal-valued: a decimal
+    side, the other decimal-coercible (an integer), an arithmetic or
+    comparison operator.  A float side makes the operation a float one."""
+    if op in _BOOLEAN or op in ("&", "|", "^", "<<", ">>"):
+        return None
+    if TypeId.DECIMAL not in (lt.id, rt.id):
+        return None
+    if lt.is_floating or rt.is_floating:
+        return None
+    ldt, rdt = D.as_decimal_type(lt), D.as_decimal_type(rt)
+    if ldt is None or rdt is None:
+        return None
+    return ldt, rdt
+
+
+def _decimal_device_ok(op: str, ldt: DataType, rdt: DataType) -> bool:
+    """Equal-scale decimals within precision 18 compare, add and subtract
+    exactly on their unscaled int64s (a +/- result of precision
+    max(p1, p2) + 1 <= 18 cannot overflow)."""
+    if ldt.scale != rdt.scale or max(ldt.precision, rdt.precision) > 18:
+        return False
+    if op in _CMP or op == "<=>":
+        return True
+    return op in ("+", "-") and max(ldt.precision, rdt.precision) + 1 <= 18
+
+
+def _decimal_limb_ok(ldt: DataType, rdt: DataType) -> bool:
+    """Unequal-scale comparisons within precision 18 rescale through the
+    int128 limbs (10^18 x 10^20 < 2^127) when the knob is on."""
+    return (config.ENCODING_DECIMAL_ENABLE.get()
+            and max(ldt.precision, rdt.precision) <= 18
+            and abs(ldt.scale - rdt.scale) <= 20)
+
+
+def _decimal_as_double(v: ColVal, batch: ColumnBatch) -> ColVal:
+    """A decimal's value as float64, for a float operation: unscaled /
+    10^scale on the device (a division, so a short scale is exact), each
+    value's nearest double on the host for precision > 18."""
+    if v.dtype.id != TypeId.DECIMAL:
+        return v
+    if v.is_device:
+        return ColVal(FLOAT64, decimal_to_double(v.data, v.dtype.scale),
+                      v.validity)
+    arr = v.to_host(batch.num_rows)
+    return ColVal(FLOAT64, array=pa.array(
+        [None if x is None else float(x) for x in arr.to_pylist()],
+        type=pa.float64()))
 
 
 @dataclass(frozen=True, repr=False)
@@ -84,8 +158,12 @@ class BinaryExpr(PhysicalExpr):
 
     def data_type(self, schema: Schema) -> DataType:
         if self.op in _ARITH:
-            return arith_type(self.left.data_type(schema),
-                              self.right.data_type(schema))
+            lt = self.left.data_type(schema)
+            rt = self.right.data_type(schema)
+            dec = decimal_types(self.op, lt, rt)
+            if dec is not None:
+                return D.result_type(self.op, *dec)
+            return arith_type(lt, rt)
         return BOOL
 
     def evaluate(self, batch: ColumnBatch) -> ColVal:
@@ -94,6 +172,11 @@ class BinaryExpr(PhysicalExpr):
         # an untyped NULL takes the other side's type (BOOL under AND/OR)
         a, b = _typed_null(a, b, self.op, batch), _typed_null(b, a, self.op,
                                                               batch)
+        dec = decimal_types(self.op, a.dtype, b.dtype)
+        if dec is not None:
+            return self._evaluate_decimal(batch, a, b, *dec)
+        # a decimal meeting a float is its double value (Spark's cast)
+        a, b = _decimal_as_double(a, batch), _decimal_as_double(b, batch)
         # a fixed-width value a host function computed (a string
         # predicate's bools, a length) crosses to the device
         a, b = (_fixed_on_device(v, batch) for v in (a, b))
@@ -115,13 +198,30 @@ class BinaryExpr(PhysicalExpr):
             _ansi_arith_check(self.op, batch, a, b, out)
         return out
 
+    def _evaluate_decimal(self, batch: ColumnBatch, a: ColVal, b: ColVal,
+                          ldt: DataType, rdt: DataType) -> ColVal:
+        """The JAX package's three decimal routes: the unscaled int64s on
+        the device, the int128 limbs on the device, or exact on the
+        host."""
+        op = self.op
+        on_device = a.is_device and b.is_device
+        if on_device and _decimal_device_ok(op, ldt, rdt):
+            if op == "<=>":
+                return ColVal(BOOL, null_aware_eq(
+                    a.data.to(torch.int64), a.validity,
+                    b.data.to(torch.int64), b.validity),
+                    torch.ones_like(a.validity))
+            if op in _CMP:
+                return _compare(op, a, b)
+            return _arith(op, a, b, D.result_type(op, ldt, rdt))
+        if on_device and op in (*_CMP, "<=>") and _decimal_limb_ok(ldt, rdt):
+            return d128.compare_colvals(op, a, b, ldt, rdt)
+        return D.evaluate(op, a, b, ldt, rdt, batch)
+
     def _evaluate_host(self, batch: ColumnBatch, a: ColVal,
                        b: ColVal) -> ColVal:
         """Comparisons with a host operand on host Arrow arrays (the JAX
         package's `_evaluate_host`)."""
-        for side in (a, b):
-            if side.dtype.id == TypeId.DECIMAL:
-                raise NotImplementedError(DECIMAL_LATER)
         n = batch.num_rows
         ha, hb = a.to_host(n), b.to_host(n)
         if self.op in _HOST_CMP:
@@ -148,8 +248,7 @@ def _typed_null(v: ColVal, other: ColVal, op: str,
 
 
 def _fixed_on_device(v: ColVal, batch: ColumnBatch) -> ColVal:
-    if v.is_device or not v.dtype.is_fixed_width or \
-            v.dtype.id == TypeId.DECIMAL:
+    if v.is_device or not v.dtype.is_fixed_width:
         return v
     return v.to_device(batch.capacity, batch.device)
 

@@ -6,8 +6,11 @@ over pyarrow with Spark's parsing and display rules, as in the
 reference: `_parse_string` (trim, invalid input -> NULL; integral casts
 by `_spark_to_integer`, dates by `_spark_to_date`) and `_format_string`
 (`_spark_str`); a fixed-width result crosses back to the batch's device.
-Decimals belong to the decimal slice (ROADMAP Queue 1 item 13)
-and raise.
+Decimals of precision <= 18 cast on the device from their unscaled
+int64s; a wider side, and any cast to a decimal from a host value, runs
+`_to_decimal` on the host (BigDecimal semantics at precision 76: HALF_UP,
+past the precision NULL), and a decimal prints at its full scale
+(`_format_decimal`).
 
 ANSI mode (`spark.sql.ansi.enabled`): a Cast raises on input it cannot
 convert instead of producing NULL; TryCast always produces NULL (the
@@ -16,6 +19,7 @@ distinction the reference keeps between CastExpr and TryCastExpr).
 
 from __future__ import annotations
 
+import decimal as pydec
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,13 +53,9 @@ class Cast(PhysicalExpr):
         src = v.dtype
         if src == self.to:
             return v
-        if TypeId.DECIMAL in (src.id, self.to.id):
-            raise NotImplementedError(
-                f"cast {src} -> {self.to}: decimal casts belong to the "
-                f"decimal slice of the PyTorch port (ROADMAP "
-                f"Queue 1 item 13)")
         ansi = self.ansi_capable and config.ANSI_ENABLED.get()
-        if v.is_device and self.to.is_fixed_width:
+        if v.is_device and self.to.is_fixed_width and \
+                _device_supported(src, self.to):
             data, valid = cast_kernels.cast_column(v.data, v.validity,
                                                    src, self.to)
             if ansi:
@@ -86,6 +86,12 @@ class TryCast(Cast):
         return f"try_cast({self.child!r} as {self.to!r})"
 
 
+def _device_supported(src: DataType, dst: DataType) -> bool:
+    """A decimal of precision > 18 has no device form: the host casts."""
+    return not any(t.id == TypeId.DECIMAL and t.precision > 18
+                   for t in (src, dst))
+
+
 def _ansi_error(to: DataType) -> ValueError:
     return ValueError(
         f"[CAST_INVALID_INPUT] cast to {to!r} failed in ANSI mode (use "
@@ -98,7 +104,9 @@ def _host_cast(v: ColVal, to: DataType, batch: ColumnBatch) -> ColVal:
     n = batch.num_rows
     arr = v.to_host(n)
     src = v.dtype
-    if src.id == TypeId.UTF8:
+    if to.id == TypeId.DECIMAL:
+        out = _to_decimal(arr, to)
+    elif src.id == TypeId.UTF8:
         out = _parse_string(arr, to)
     elif to.id == TypeId.UTF8:
         out = _format_string(arr, src)
@@ -111,6 +119,42 @@ def _host_cast(v: ColVal, to: DataType, batch: ColumnBatch) -> ColVal:
         col = DeviceColumn.from_arrow(out, to, batch.capacity, batch.device)
         return ColVal(to, col.data, col.validity)
     return ColVal(to, array=out)
+
+
+def _to_decimal(arr: pa.Array, to: DataType) -> pa.Array:
+    """Any host value -> decimal(p, s): BigDecimal semantics, HALF_UP at
+    the scale, NULL past the precision or for what does not parse (a
+    string trimmed under auron.cast.trimString, a float by its repr)."""
+    quant = pydec.Decimal(1).scaleb(-to.scale)
+    max_unscaled = 10 ** to.precision
+    trim = config.CAST_TRIM_STRING.get()
+    out = []
+    with pydec.localcontext() as ctx:
+        ctx.prec = 76  # two decimal128s' worth; the default 28 overflows
+        for x in arr:
+            if not x.is_valid:
+                out.append(None)
+                continue
+            raw = x.as_py()
+            try:
+                if isinstance(raw, str):
+                    if not trim and raw != raw.strip():
+                        out.append(None)  # Decimal() would accept padding
+                        continue
+                    d = pydec.Decimal(raw.strip() if trim else raw)
+                elif isinstance(raw, bool):
+                    d = pydec.Decimal(int(raw))
+                elif isinstance(raw, float):
+                    d = pydec.Decimal(repr(raw))
+                else:
+                    d = pydec.Decimal(raw)
+                q = d.quantize(quant, rounding=pydec.ROUND_HALF_UP)
+            except (pydec.InvalidOperation, ValueError, TypeError):
+                out.append(None)
+                continue
+            unscaled = int(q.scaleb(to.scale))
+            out.append(None if abs(unscaled) >= max_unscaled else q)
+    return pa.array(out, type=to.to_arrow())
 
 
 def _parse_string(arr: pa.Array, to: DataType) -> pa.Array:
@@ -308,7 +352,20 @@ def _format_string(arr: pa.Array, src: DataType) -> pa.Array:
                 s += "." + f"{v.microsecond:06d}".rstrip("0")
             py.append(s)
         return pa.array(py, type=pa.utf8())
+    if src.id == TypeId.DECIMAL:
+        # the full scale with its trailing zeros: "123.000000000000000000"
+        return pa.array([_format_decimal(x.as_py(), src.scale)
+                         if x.is_valid else None for x in arr],
+                        type=pa.utf8())
     return arr.cast(pa.utf8())
+
+
+def _format_decimal(d: pydec.Decimal, scale: int) -> str:
+    with pydec.localcontext() as ctx:
+        ctx.prec = 76  # decimal(38, _) values overflow the default 28
+        q = (d.quantize(pydec.Decimal(1).scaleb(-scale)) if scale
+             else d.to_integral_value())
+    return format(q, "f")
 
 
 def _spark_str(v, t: DataType) -> str:
@@ -325,6 +382,8 @@ def _spark_str(v, t: DataType) -> str:
         if f in (float("inf"), float("-inf")):
             return "Infinity" if f > 0 else "-Infinity"
         return repr(f) if not f.is_integer() else f"{f:.1f}"
+    if t.id == TypeId.DECIMAL:
+        return _format_decimal(v, t.scale)
     if t.id == TypeId.STRUCT:
         inner = ", ".join(
             _spark_str(v.get(f.name), f.data_type) for f in t.children)

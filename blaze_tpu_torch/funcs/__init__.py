@@ -6,10 +6,9 @@ JAX package, numeric and date functions run as tensor ops on the batch's
 device (torch here, jnp there), and string, JSON, collection and digest
 functions run on the host over Arrow arrays with pyarrow.compute.
 
-A name nobody registered raises KeyError; the decimal functions
-(`unscaled_value`, `make_decimal`, `check_overflow`) are registered and
-raise NotImplementedError naming the decimal slice (ROADMAP Queue 1 item
-13, decimals).
+A name nobody registered raises KeyError.  The decimal functions
+(`unscaled_value`, `make_decimal`, `check_overflow`) run on the unscaled
+integers (funcs/decimal_fns.py).
 """
 
 from __future__ import annotations

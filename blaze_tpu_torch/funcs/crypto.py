@@ -83,10 +83,11 @@ def _hash_impl(algo: str, out_dtype):
         cap, device = batch.capacity, batch.device
         cols = []
         for v in args:
-            if v.dtype.id == TypeId.DECIMAL:
-                from blaze_tpu_torch.exprs.base import DECIMAL_LATER
-                raise NotImplementedError(DECIMAL_LATER)
-            if v.dtype.is_fixed_width:
+            if v.dtype.id == TypeId.DECIMAL and not v.dtype.is_fixed_width:
+                # precision > 18: the bytes of the unscaled BigInteger
+                cols.append((*H.wide_decimal_key(v.to_host(batch.num_rows),
+                                                 cap, device), "binary"))
+            elif v.dtype.is_fixed_width:
                 d = v.to_device(cap, device)
                 cols.append((d.data, d.validity, d.dtype.id.value))
             else:

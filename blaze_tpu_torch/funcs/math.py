@@ -110,8 +110,14 @@ def _rounding(torch_fn):
     def impl(args, batch, out_type):
         (v,) = _dev(args, batch)
         if v.dtype.id == TypeId.DECIMAL:
-            from blaze_tpu_torch.exprs.base import DECIMAL_LATER
-            raise NotImplementedError(DECIMAL_LATER)
+            # the integral value at the input's type (the JAX package's
+            # result type; it keeps the fraction: ROADMAP Queue 3)
+            q = 10 ** v.dtype.scale
+            whole = torch.div(v.data.to(torch.int64), q,
+                              rounding_mode="floor")
+            if torch_fn is torch.ceil:
+                whole = whole + (whole * q != v.data).to(torch.int64)
+            return ColVal(out_type, whole * q, v.validity)
         if v.dtype.is_integer:
             return ColVal(out_type, v.data.to(torch.int64), v.validity)
         return ColVal(out_type, _java_long(torch_fn(_f64(v))), v.validity)
@@ -163,8 +169,9 @@ def _round_impl(half_even: bool):
         if len(args) > 1:
             scale = int(const_arg(args[1], batch, "round") or 0)
         if v.dtype.id == TypeId.DECIMAL:
-            from blaze_tpu_torch.exprs.base import DECIMAL_LATER
-            raise NotImplementedError(DECIMAL_LATER)
+            return ColVal(v.dtype, _round_unscaled(
+                v.data.to(torch.int64), 10 ** max(v.dtype.scale - scale, 0),
+                half_even), v.validity)
         if v.dtype.is_integer:
             if scale >= 0:
                 return v
@@ -185,6 +192,22 @@ def _round_impl(half_even: bool):
         out = torch.where(torch.isfinite(f), out, f)
         return ColVal(v.dtype, out.to(v.data.dtype), v.validity)
     return impl
+
+
+def _round_unscaled(data: torch.Tensor, q: int,
+                    half_even: bool) -> torch.Tensor:
+    """Unscaled decimals rounded to a multiple of `q`, exactly: HALF_UP
+    on the magnitude, or HALF_EVEN (ties to the even quotient)."""
+    if q == 1:
+        return data
+    mag = data.abs()
+    quot = torch.div(mag, q, rounding_mode="floor")
+    rem = mag - quot * q
+    up = rem * 2 > q if half_even else rem * 2 >= q
+    if half_even:
+        up = up | ((rem * 2 == q) & (quot % 2 == 1))
+    quot = quot + up.to(torch.int64)
+    return torch.where(data < 0, -quot, quot) * q
 
 
 register("round")(_round_impl(half_even=False))

@@ -9,7 +9,9 @@ the ANSI-tolerant forms that never raise.
   * try_element_at: element_at with an index out of range NULL in every
     mode (index 0 still raises).
 
-Decimal operands wait for the decimal slice and raise NotImplementedError.
+A decimal operand (with a decimal or an integer) takes the exact decimal
+path (exprs/decimal_arith.py) with ANSI off: Spark's widened result type,
+a zero divisor and an overflow NULL.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import pyarrow as pa
 import torch
 
-from blaze_tpu_torch.exprs.base import DECIMAL_LATER, ColVal
+from blaze_tpu_torch.exprs.base import ColVal
 from blaze_tpu_torch.funcs import register
 from blaze_tpu_torch.funcs.common import dev
 from blaze_tpu_torch.schema import (DataType, FLOAT32, FLOAT64, INT8, INT16,
@@ -28,9 +30,16 @@ _INT_ORDER = [("int8", INT8, 8), ("int16", INT16, 16),
 _INT_BITS = {tid: bits for tid, _t, bits in _INT_ORDER}
 
 
-def _check_no_decimal(*types: DataType) -> None:
-    if any(t.id == TypeId.DECIMAL for t in types):
-        raise NotImplementedError(DECIMAL_LATER)
+def _decimal_pair_types(lt: DataType, rt: DataType):
+    """(lt, rt) as decimals where one is a decimal and the other
+    decimal-coercible, else None."""
+    from blaze_tpu_torch.exprs import decimal_arith as D
+    if TypeId.DECIMAL not in (lt.id, rt.id):
+        return None
+    la, lb = D.as_decimal_type(lt), D.as_decimal_type(rt)
+    if la is None or lb is None:
+        return None
+    return la, lb
 
 
 def _promoted_int(lt: DataType, rt: DataType) -> DataType:
@@ -49,7 +58,10 @@ def _try_type_fn(op):
     def tf(ts):
         lt = ts[0] if ts else INT64
         rt = ts[1] if len(ts) > 1 else lt
-        _check_no_decimal(lt, rt)
+        dec = _decimal_pair_types(lt, rt)
+        if dec is not None:
+            from blaze_tpu_torch.exprs import decimal_arith as D
+            return D.result_type(op, *dec)
         if op == "/":
             return FLOAT64
         if lt.is_floating or rt.is_floating:
@@ -77,7 +89,11 @@ def _try_int_arith(op: str, a: ColVal, b: ColVal, batch,
 def _try_binary(op):
     def fn(args, batch, out_type):
         a, b = args[0], args[1]
-        _check_no_decimal(a.dtype, b.dtype)
+        dec = _decimal_pair_types(a.dtype, b.dtype)
+        if dec is not None:
+            from blaze_tpu_torch.exprs import decimal_arith as D
+            # ansi=False explicitly: try_* never raises
+            return D.evaluate(op, a, b, dec[0], dec[1], batch, ansi=False)
         if op == "/":
             da, db = dev([a, b], batch)
             x = da.data.to(torch.float64)

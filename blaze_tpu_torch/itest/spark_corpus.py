@@ -19,9 +19,10 @@ The include/exclude settings keep the reference's DSL:
     results = run_corpus(settings)
 
 `later_item(suite, case)` names the ROADMAP item a case waits for in the
-port (the decimal suites and cases, nested types the port's batch has
-no form for), or None when it must pass.  The vectors must stay equal to
-the JAX package's (tests/test_torch_spark_corpus.py compares them).
+port, or None when it must pass: since the decimal slice no case waits
+(`holds_decimal` names the 27 cases that waited for it).  The vectors
+must stay equal to the JAX package's (tests/test_torch_spark_corpus.py
+compares them).
 """
 
 from __future__ import annotations
@@ -989,15 +990,9 @@ def run_case(suite: str, case: Case) -> CaseResult:
     return CaseResult(suite, case.name, True)
 
 
-#: what a case that needs a decimal waits for in the port
-DECIMAL_ITEM = "ROADMAP Queue 1 item 13, decimals"
-
-
-def later_item(suite: str, case: Case) -> Optional[str]:
-    """The ROADMAP item a case waits for in the port, or None when it
-    must pass: a case whose input, expressions, plan or expected rows
-    hold a decimal waits for the decimal slice.  No case of the corpus
-    needs the bloom filter (item 11) or a UDF (item 16)."""
+def holds_decimal(case: Case) -> bool:
+    """Whether a case's input, expressions, plan or expected rows hold a
+    decimal (27 of the 357)."""
     blob = [repr(case.input.schema), repr(case.exprs), repr(case.expected)]
     if case.input2 is not None:
         blob.append(repr(case.input2.schema))
@@ -1006,7 +1001,14 @@ def later_item(suite: str, case: Case) -> Optional[str]:
         if case.input2 is not None:
             scans.append(_scan_ir("later2", case.input2))
         blob.append(repr(case.plan(*scans)))
-    return DECIMAL_ITEM if "decimal" in " ".join(blob).lower() else None
+    return "decimal" in " ".join(blob).lower()
+
+
+def later_item(suite: str, case: Case) -> Optional[str]:
+    """The ROADMAP item a case waits for in the port, or None when it
+    must pass.  Since the decimal slice no case waits: none needs the
+    bloom filter (item 11) or a UDF (item 16)."""
+    return None
 
 
 def run_corpus(settings: CorpusSettings) -> List[CaseResult]:

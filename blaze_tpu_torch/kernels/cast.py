@@ -8,11 +8,14 @@ Spark semantics, as in the reference:
     overflow saturate to the type's min/max (Java `(int)d` semantics);
   * numeric -> boolean: value != 0; boolean -> numeric: 0/1;
   * date32 <-> timestamp_us: days * 86_400_000_000; numeric <->
-    timestamp scales by seconds.
+    timestamp scales by seconds;
+  * numeric <-> decimal(p <= 18) on the unscaled int64s: scale by 10^s,
+    HALF_UP on the magnitude, overflow -> NULL; decimal -> integral
+    truncates toward zero; decimal -> float divides by 10^s in float64.
 
-Decimal columns belong to the decimal slice (ROADMAP Queue 1
-item 13): a cast from or to a decimal raises, as a decimal column does at
-`batch.py`.  String casts run at the host boundary (exprs/cast.py).
+Every multiplication by a power of ten is guarded first, so no int64
+wrap can land back inside the precision.  Decimals of precision > 18
+and string casts run at the host boundary (exprs/cast.py).
 """
 
 from __future__ import annotations
@@ -42,17 +45,48 @@ def cast_column(data: torch.Tensor, validity: Optional[torch.Tensor],
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Cast one column on its device; returns (data, validity).  Validity
     may gain nulls (a float too large for a timestamp)."""
-    if TypeId.DECIMAL in (src.id, dst.id):
-        raise NotImplementedError(
-            f"cast {src} -> {dst}: decimal casts belong to the "
-            f"decimal slice of the PyTorch port (ROADMAP Queue 1 "
-            f"item 13)")
-    if src.id == dst.id:
+    if src.id == dst.id and (src.id != TypeId.DECIMAL or (
+            src.precision, src.scale) == (dst.precision, dst.scale)):
         return data, validity
 
     s, d = src.id, dst.id
     v = validity
     out_dt = dst.torch_dtype()
+
+    # --- decimal source: exact integers, float64 for floats ---------------
+    if s == TypeId.DECIMAL:
+        data = data.to(torch.int64)
+        if d == TypeId.DECIMAL:
+            return _rescale_decimal(data, v, src, dst)
+        if dst.is_integer and d not in (TypeId.DATE32,
+                                         TypeId.TIMESTAMP_MICROS):
+            # truncate toward zero (BigDecimal.toBigInteger), overflow NULL
+            i = torch.div(data, 10 ** src.scale, rounding_mode="trunc")
+            lo, hi = _int_bounds(d)
+            ok = (i >= lo) & (i <= hi)
+            nv = ok if v is None else (v & ok)
+            return torch.where(ok, i, 0).to(out_dt), nv
+        return cast_column(decimal_to_double(data, src.scale), v,
+                           DataType(TypeId.FLOAT64), dst)
+
+    # --- decimal destination ---------------------------------------------
+    if d == TypeId.DECIMAL:
+        limit = 10 ** min(dst.precision, 18)
+        if src.is_floating:
+            scaled = data.to(torch.float64) * float(10 ** dst.scale)
+            # HALF_UP on the magnitude (BigDecimal.setScale HALF_UP)
+            rounded = torch.where(scaled >= 0, torch.floor(scaled + 0.5),
+                                  torch.ceil(scaled - 0.5))
+            ok = torch.isfinite(scaled) & (rounded.abs() < float(limit))
+            nv = ok if v is None else (v & ok)
+            return torch.where(ok, rounded, 0.0).to(torch.int64), nv
+        # the range check comes BEFORE the multiplication: a wrapped
+        # product could land back inside the precision
+        max_unscaled = (limit - 1) // 10 ** dst.scale
+        i = data.to(torch.int64)
+        ok = (i >= -max_unscaled) & (i <= max_unscaled)
+        nv = ok if v is None else (v & ok)
+        return torch.where(ok, i, 0) * 10 ** dst.scale, nv
 
     # --- boolean ----------------------------------------------------------
     if d == TypeId.BOOL:
@@ -113,3 +147,33 @@ def cast_column(data: torch.Tensor, validity: Optional[torch.Tensor],
         return data.to(out_dt), v
 
     raise TypeError(f"unsupported cast {src} -> {dst}")
+
+
+def decimal_to_double(unscaled: torch.Tensor, scale: int) -> torch.Tensor:
+    """Unscaled decimals -> float64 as Spark's cast: unscaled / 10^scale,
+    a correctly rounded division (exact at a short scale).  The divisor is
+    a 0-dim tensor on the values' device: CUDA turns a division by a
+    Python scalar into a multiplication by its reciprocal, which differs
+    from the division in the last bit."""
+    return unscaled.to(torch.float64) / torch.tensor(
+        10.0 ** scale, dtype=torch.float64, device=unscaled.device)
+
+
+def _rescale_decimal(data: torch.Tensor, validity, src: DataType,
+                     dst: DataType):
+    """decimal(p1, s1) -> decimal(p2, s2) on unscaled int64s: a wider
+    scale multiplies (range-checked first), a narrower one rounds HALF_UP
+    on the magnitude; past the target precision is NULL."""
+    diff = dst.scale - src.scale
+    limit = 10 ** min(dst.precision, 18)
+    if diff >= 0:
+        max_in = (limit - 1) // 10 ** diff
+        ok = (data >= -max_in) & (data <= max_in)
+        nv = ok if validity is None else (validity & ok)
+        return torch.where(ok, data, 0) * 10 ** diff, nv
+    q = 10 ** -diff
+    mag = torch.div(data.abs() + q // 2, q, rounding_mode="floor")
+    out = torch.where(data < 0, -mag, mag)
+    ok = out.abs() < limit
+    nv = ok if validity is None else (validity & ok)
+    return torch.where(ok, out, 0), nv

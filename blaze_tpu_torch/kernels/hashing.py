@@ -296,7 +296,8 @@ def _hash_fixed_column(values, validity, dtype_id: str, seeds, algo: str):
     long_fn = murmur3_hash_long if algo == "murmur3" else xxhash64_long
     if dtype_id in ("bool", "int8", "int16", "int32", "date32"):
         h = int_fn(values.to(torch.int32), seeds)
-    elif dtype_id in ("int64", "timestamp_us"):
+    elif dtype_id in ("int64", "timestamp_us", "decimal"):
+        # a decimal of precision <= 18 hashes as its unscaled long
         h = long_fn(values.to(torch.int64), seeds)
     elif dtype_id == "float32":
         f = values.to(torch.float32)
@@ -316,10 +317,6 @@ def _hash_fixed_column(values, validity, dtype_id: str, seeds, algo: str):
         byte_mat, lengths = values
         fn = murmur3_hash_bytes if algo == "murmur3" else xxhash64_bytes
         h = fn(byte_mat, lengths, seeds)
-    elif dtype_id == "decimal":
-        raise NotImplementedError(
-            "hashing decimal keys belongs to the decimal slice of "
-            "the PyTorch port (ROADMAP Queue 1 item 13)")
     else:
         raise TypeError(f"unsupported fixed-width type for hashing: {dtype_id}")
     if validity is None:
@@ -351,6 +348,28 @@ def hash_columns(columns: Sequence[Tuple], seed: int = 42,
 def u32_to_i32(h: torch.Tensor) -> torch.Tensor:
     """uint32 bits held in int64 -> the int32 with the same bits."""
     return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
+
+
+def wide_decimal_key(arr, capacity: int, device: torch.device):
+    """A precision > 18 decimal host column as a hash operand: Spark hashes
+    it as the bytes of its unscaled BigInteger (toByteArray, the minimal
+    big-endian two's complement), so it chains as a "binary" column of
+    those bytes (kernels/decimal128.py `minimal_be_bytes`)."""
+    from blaze_tpu_torch.batch import to_device
+    from blaze_tpu_torch.kernels.decimal128 import (int128_limbs,
+                                                    minimal_be_bytes)
+    hi, lo = int128_limbs(arr)
+    mat, lengths = minimal_be_bytes(hi, lo)
+    n = len(arr)
+    full = np.zeros((capacity, 16), dtype=np.uint8)
+    full[:n] = mat
+    full_len = np.zeros(capacity, dtype=np.int32)
+    full_len[:n] = lengths
+    valid = np.zeros(capacity, dtype=bool)
+    valid[:n] = np.ones(n, dtype=bool) if arr.null_count == 0 else \
+        np.asarray(arr.is_valid())
+    return ((to_device(full, device), to_device(full_len, device)),
+            to_device(valid, device))
 
 
 def norm_float_keys(flat_cols, tids):

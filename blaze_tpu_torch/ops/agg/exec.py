@@ -49,7 +49,8 @@ import torch
 
 from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn,
-                                   bucket_capacity, to_device)
+                                   bucket_capacity, decimal_from_unscaled,
+                                   to_device)
 from blaze_tpu_torch.device import resolve
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.kernels import compare
@@ -597,4 +598,11 @@ class _ArrowSink:
 def _cast_output(a: pa.Array, t: pa.DataType) -> pa.Array:
     if a.type.equals(t):
         return a
+    if pa.types.is_decimal(t) and pa.types.is_integer(a.type):
+        # internal unscaled ints -> decimal at the target scale, rebuilt
+        # from the values (an Arrow value cast would rescale)
+        valid = np.ones(len(a), dtype=bool) if a.null_count == 0 else \
+            np.asarray(a.is_valid())
+        return decimal_from_unscaled(
+            np.asarray(a.fill_null(0)).astype(np.int64), valid, t)
     return a.cast(t, safe=False)

@@ -12,8 +12,11 @@ group ids in row order (`host_update`, `host_merge`, `host_eval`), as in
 the JAX package.  The fused lanes (plan/fused.py) read only each
 function's kind, accumulator fields and output type.
 
-bloom (item 11) and UDAFs (item 16) belong to later slices, and so do
-decimal sums and averages (the decimal slice of item 13).
+Decimal sums and averages accumulate the unscaled int64s, exactly, and
+take the JAX package's result types: sum decimal(min(p + 10, 18), s), avg
+decimal(min(p + 4, 18), min(s + 4, 18)) as unscaled x 10^4 / count,
+HALF_UP (Spark caps both at 38: ROADMAP Queue 3).  bloom (item 11) and
+UDAFs (item 16) belong to later slices.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import pyarrow as pa
 import torch
 
 from blaze_tpu_torch.exprs import PhysicalExpr
-from blaze_tpu_torch.exprs.base import DECIMAL_LATER
 from blaze_tpu_torch.kernels import sort as K
 from blaze_tpu_torch.schema import (BOOL, DataType, Field, FLOAT64, INT64,
                                     Schema, TypeId)
@@ -76,9 +78,10 @@ class AggFunction:
 
 def _out_num_type(dt: DataType) -> DataType:
     """Spark sum/avg accumulator types: int sums are int64, float sums
-    float64."""
+    float64, decimal sums keep the scale and widen the precision (capped
+    at 18, as the JAX package)."""
     if dt.id == TypeId.DECIMAL:
-        raise NotImplementedError(DECIMAL_LATER)
+        return DataType(TypeId.DECIMAL, min(dt.precision + 10, 18), dt.scale)
     if dt.id in (TypeId.FLOAT32, TypeId.FLOAT64):
         return FLOAT64
     return INT64
@@ -147,8 +150,9 @@ class CountAgg(AggFunction):
 
 class AvgAgg(AggFunction):
     """avg: a (sum, count) accumulator; the sum is float64 for floats and
-    int64 for integers, and the result float64 sum / count, NULL where the
-    count is 0."""
+    int64 for integers and decimals (unscaled), and the result float64 sum
+    / count, NULL where the count is 0; a decimal's is decimal(p + 4,
+    s + 4), unscaled sum x 10^4 / count rounded HALF_UP."""
 
     name = "avg"
 
@@ -157,7 +161,10 @@ class AvgAgg(AggFunction):
         return [Field("sum", t), Field("count", INT64, nullable=False)]
 
     def output_type(self, s):
-        _out_num_type(self.children[0].data_type(s))
+        t = self.children[0].data_type(s)
+        if t.id == TypeId.DECIMAL:
+            return DataType(TypeId.DECIMAL, min(t.precision + 4, 18),
+                            min(t.scale + 4, 18))
         return FLOAT64
 
     def partial_update(self, args, gids, n):
@@ -176,7 +183,20 @@ class AvgAgg(AggFunction):
         (s_d, _), (c_d, _) = accs
         valid = c_d > 0
         denom = torch.where(valid, c_d, torch.ones_like(c_d))
+        if self.input_type is not None and \
+                self.input_type.id == TypeId.DECIMAL:
+            return decimal_avg(s_d, denom), valid
         return s_d / denom.to(torch.float64), valid
+
+
+def decimal_avg(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Unscaled decimal sums over positive counts -> the averages at 4
+    more digits of scale: sum x 10^4 / count, HALF_UP on the magnitude
+    (truncating division of |num| + count // 2)."""
+    num = sums.to(torch.int64) * 10_000
+    q = torch.div(num.abs() + torch.div(counts, 2, rounding_mode="floor"),
+                  counts, rounding_mode="floor")
+    return torch.where(num < 0, -q, q)
 
 
 class MinMaxAgg(AggFunction):

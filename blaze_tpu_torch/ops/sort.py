@@ -50,8 +50,8 @@ def _host_order_key(arr: pa.Array, descending: bool, nulls_first: bool
                     ) -> List[np.ndarray]:
     """[bucket u8, key] whose joint lexicographic order equals the SQL
     order, as the JAX package's host keys: key is u64 for numerics
-    (sign-biased or IEEE-flipped) or an object column of UTF-8 bytes for
-    strings."""
+    (sign-biased or IEEE-flipped), two u64s for a decimal (its unscaled
+    int128) or an object column of UTF-8 bytes for strings."""
     n = len(arr)
     valid = np.ones(n, dtype=bool) if arr.null_count == 0 else \
         np.asarray(arr.is_valid())
@@ -83,10 +83,21 @@ def _host_order_key(arr: pa.Array, descending: bool, nulls_first: bool
         if descending:
             key = ~key
         bucket = np.full(n, 2, dtype=np.uint8)
+    elif pa.types.is_decimal(t):
+        # the unscaled two's-complement int128 at one scale: a sign-biased
+        # high u64 then the low u64, exact at any precision
+        filled = arr.fill_null(0).cast(pa.decimal128(38, t.scale))
+        u = np.frombuffer(filled.buffers()[1], dtype=np.uint64,
+                          count=2 * (filled.offset + n))[2 * filled.offset:]
+        lokey = u[0::2].copy()
+        hikey = u[1::2].copy() ^ np.uint64(1 << 63)
+        if descending:
+            hikey, lokey = ~hikey, ~lokey
+        bucket = np.where(valid, 2, 0 if nulls_first else 4).astype(np.uint8)
+        return [bucket, np.where(valid, hikey, np.uint64(0)),
+                np.where(valid, lokey, np.uint64(0))]
     else:
-        raise NotImplementedError(
-            f"sorting by {t} keys belongs to the decimal slice of "
-            f"the PyTorch port (ROADMAP Queue 1 item 13)")
+        raise TypeError(f"no sort order for {t} keys")
     bucket = np.where(valid, bucket, 0 if nulls_first else 4).astype(np.uint8)
     key = np.where(valid, key, np.zeros_like(key))
     return [bucket, key]
@@ -123,6 +134,10 @@ def lexsort_host(keys: List[np.ndarray]) -> np.ndarray:
 
 
 def _is_fixed(t: pa.DataType) -> bool:
+    """A key with a device form: not var-width, not a decimal of
+    precision > 18 (a host column)."""
+    if pa.types.is_decimal(t):
+        return t.precision <= 18
     return not (pa.types.is_string(t) or pa.types.is_large_string(t) or
                 pa.types.is_binary(t) or pa.types.is_nested(t))
 

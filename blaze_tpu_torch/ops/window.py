@@ -23,9 +23,15 @@ package.  `execute` streams: once the buffer holds 4 x `auron.batch.size`
 rows, every partition before the last partition start seen is complete
 and is processed and emitted; the rest stays buffered.
 
+A decimal argument's sums and extremes run on its unscaled int64s and
+the output column is rebuilt from the unscaled values at the function's
+output type (sum decimal(min(p + 10, 18), s)); avg follows AvgAgg's
+decimal rule, sum x 10^4 / count HALF_UP (the JAX package casts the
+unscaled sums as whole numbers there: ROADMAP Queue 3).
+
 Not here: the buffer's spill (the memory manager, ROADMAP Queue 1 item
-8), the host route for small batches (item 15), the event-time windows
-of the streaming runtime (item 16) and decimal arguments (item 13).
+8), the host route for small batches (item 15) and the event-time
+windows of the streaming runtime (item 16).
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ import pyarrow.compute as pc
 import torch
 
 from blaze_tpu_torch import config
-from blaze_tpu_torch.batch import ColumnBatch, to_device, to_host
+from blaze_tpu_torch.batch import (ColumnBatch, decimal_from_unscaled,
+                                   to_device, to_host)
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.ops.agg.functions import (AggFunction, AvgAgg, CountAgg,
-                                               MinMaxAgg, SumAgg)
+                                               MinMaxAgg, SumAgg,
+                                               decimal_avg)
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
 from blaze_tpu_torch.ops.sort import host_sort_keys
 from blaze_tpu_torch.schema import FLOAT64, INT32, Field, Schema, TypeId
@@ -131,12 +139,6 @@ class WindowExec(ExecutionPlan):
         self.group_limit = group_limit
         in_schema = child.schema
         for f in self.funcs:
-            for e in f.args():
-                if e.data_type(in_schema).id == TypeId.DECIMAL:
-                    raise NotImplementedError(
-                        f"window function {f.name!r} over a decimal "
-                        f"argument belongs to the decimal slice "
-                        f"of the PyTorch port (ROADMAP Queue 1 item 13)")
             if isinstance(f, WindowAggFunc):
                 f.agg.bind(in_schema)
         self._out_schema = Schema(
@@ -353,8 +355,12 @@ class WindowExec(ExecutionPlan):
                 torch.where(valid, data.to(dt), torch.zeros((), dtype=dt,
                                                             device=dev)),
                 seg_start)
-            out = s if isinstance(f.agg, SumAgg) else \
-                s.to(torch.float64) / torch.clamp(counts, min=1)
+            if isinstance(f.agg, SumAgg):
+                out = s
+            elif f.agg.input_type.id == TypeId.DECIMAL:
+                out = decimal_avg(s, torch.clamp(counts, min=1))
+            else:
+                out = s.to(torch.float64) / torch.clamp(counts, min=1)
             ovalid = counts > 0
         elif isinstance(f.agg, MinMaxAgg):
             # a null never wins: it takes the far end of the type's range
@@ -378,8 +384,11 @@ class WindowExec(ExecutionPlan):
         else:
             # whole partition: every row takes the partition's last value
             last = _partition_last_pos(part_seg, pos)
-        out, ovalid = out[last], ovalid[last]
-        return pa.array(to_host(out), mask=~to_host(ovalid))
+        out, ovalid = to_host(out[last]), to_host(ovalid[last])
+        out_t = f.out_field(cb.schema).data_type
+        if out_t.id == TypeId.DECIMAL:
+            return decimal_from_unscaled(out, ovalid, out_t.to_arrow())
+        return pa.array(out, mask=~ovalid)
 
 
 def _combine(batches: List[pa.RecordBatch]) -> pa.RecordBatch:

@@ -148,8 +148,15 @@ def scalar_from_proto(sv: pb.ScalarValue) -> Tuple[Any, Dict[str, Any]]:
 
 
 def scalar_to_proto(value: Any, type_dict: Dict[str, Any]) -> pb.ScalarValue:
+    """One value as a one-row Arrow IPC stream; a decimal's value (a
+    Decimal, int, float or string) is its exact Decimal at the type's
+    scale."""
     from blaze_tpu_torch.plan.types import type_from_dict
-    t = type_from_dict(type_dict).to_arrow()
+    dt = type_from_dict(type_dict)
+    t = dt.to_arrow()
+    if pa.types.is_decimal(t) and value is not None:
+        from blaze_tpu_torch.exprs.base import decimal_value
+        value = decimal_value(value, dt.scale)
     rb = pa.record_batch([pa.array([value], type=t)], names=["c0"])
     sink = io.BytesIO()
     with pa.ipc.new_stream(sink, rb.schema) as w:

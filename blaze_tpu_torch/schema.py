@@ -2,9 +2,10 @@
 
 The logical type system is Arrow's, restricted to what Spark emits.  On the
 device a fixed-width column is one torch data tensor plus a bool validity
-tensor, padded to the batch capacity.  This slice carries the fixed-width
-types int8/16/32/64, float32/64, bool, date32 and timestamp_us; decimals
-and var-width types decode here but run in a later slice.
+tensor, padded to the batch capacity: int8/16/32/64, float32/64, bool,
+date32, timestamp_us and decimals of precision <= 18, whose unscaled
+values ride as int64 (Spark's long-backed decimals).  Wider decimals and
+the var-width and nested types stay host columns (Arrow arrays).
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ blaze_tpu/shuffle/partitioning.py).
 The partition id is Spark's `pmod(murmur3(keys, seed=42), n)`, bit-exact
 with Spark's HashPartitioning, computed on the batch's device by the
 port's hashing (kernels/hashing.py); a utf8 key's bytes cross to the
-device as a padded byte matrix.  Round-robin and range partitioning
-belong to a later slice.
+device as a padded byte matrix.  A decimal key of precision <= 18 hashes
+as its unscaled long on the device; a wider one (a host column) as the
+minimal big-endian bytes of its unscaled value, as Spark does.
+Round-robin and range partitioning belong to a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from blaze_tpu_torch.batch import ColumnBatch
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.kernels import hashing as H
+from blaze_tpu_torch.schema import TypeId
 
 
 class Partitioning:
@@ -51,6 +54,11 @@ class HashPartitioning(Partitioning):
             v = e.evaluate(batch)
             if v.is_device:
                 flat_cols.append((v.data[:n], v.validity[:n]))
+            elif v.dtype.id == TypeId.DECIMAL:
+                flat_cols.append(H.wide_decimal_key(v.to_host(n), n,
+                                                    batch.device))
+                tids.append("binary")
+                continue
             else:
                 # utf8: the byte matrix crosses to the batch's device
                 (mat, lens), valid = H.padded_string_key(

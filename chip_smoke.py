@@ -172,20 +172,35 @@ Phases, each printing its own lines; any failure exits non-zero:
      q45 (`substring(ca_zip, 1, 2) IN (...)` OR an item IN list after
      three joins over web_sales) at SF10 over the tables the earlier
      phases wrote (any missing one generated from its seed), each under
-     the default auron.tpu.dag.singleTaskBytes, then once more profiled
-     stage by stage; held to its pandas frame as a set with the checks of
+     the default auron.tpu.dag.singleTaskBytes, q08 then once more
+     profiled stage by stage; held to its pandas frame as a set with the checks of
      phase 15; prints each run's wall, exec_mode, stages, stage-0
      io_bytes, radix and placement launches, cudaLaunch* per stage, and
      q45's `substring` calls, rows and host seconds beside its stage
      walls; then every case of the port's Spark conformance corpus
      (itest/spark_corpus.py, 357 cases) on the CPU and on CUDA tensors:
-     fails unless the same cases pass on both, every case the CPU passes
-     and every other one waits for the item `later_item` names (printed);
- 17. the dict-device lane through dictionary growth on the card: a
+     fails unless the same cases pass on both and every case passes (no
+     case waits for a later item since the decimal slice);
+ 17. decimal (the decimal slice): store_returns and web_sales from the
+     earlier phases with their money columns as decimal(7,2)
+     (itest/decimal_money.py, 4 files each), full q01 (its literal 1.2 a
+     decimal(2,1), so `ctr_total_return > avg_return * 1.2` is a p > 18
+     comparison on the host) and q12 (its ratio a decimal division) under
+     the default auron.tpu.dag.singleTaskBytes, once each under auto,
+     unprofiled; each held to its exact oracle (integer cents, Python
+     Decimal) with zero tolerance, with the checks of phase 15; fails
+     unless radix groups every exchange and placement never runs (the
+     decimal sums stay on the generic AggExec), the corpus's 27 decimal
+     cases passed on the card in phase 16, and every entry of
+     kernels/decimal128.py, the decimal casts and roundings equal their
+     CPU results on 2^20 seeded int128 pairs; prints each query's wall,
+     stage walls, exec_mode, radix launches and decimal_arith's host
+     calls, rows and seconds, and the phase's wall;
+ 18. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 18. the paths' profile summary (with io_bytes per stage of every path:
+ 19. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does) and the kernel table as JSON lines,
      the card's name and power limit, and the result line.
@@ -3056,7 +3071,7 @@ def breadth_data(root, tables, paths):
 
 
 def breadth_path(name, make_plan, want, single_task_bytes, expect,
-                 profiled=False, record_placements=True):
+                 profiled=False, record_placements=True, check=None):
     """One run of query `name` through the port's DagScheduler with the
     stage loop under auto, a fresh plan, and auron.tpu.dag.singleTaskBytes
     at `single_task_bytes` (None: its default, 64 MiB): fails unless its
@@ -3068,7 +3083,9 @@ def breadth_path(name, make_plan, want, single_task_bytes, expect,
     placement exact against the plain version on its operands
     (_RecordedPlacements), every task run once and nothing leaked.
     Returns (the run's result dict, the result frame); with `profiled`,
-    each stage under torch.profiler (_dag_profile)."""
+    each stage under torch.profiler (_dag_profile).  `check(result
+    table)`, where given, replaces the pandas comparison: '' where the
+    result equals its exact oracle, else what differs."""
     import torch
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest.q01_dag import stage_counters
@@ -3124,11 +3141,12 @@ def breadth_path(name, make_plan, want, single_task_bytes, expect,
     if sched.exec_mode != expect:
         raise SystemExit(f"{label}: exec_mode {sched.exec_mode}, expected "
                          f"{expect}")
-    err = compare_frames(got, want, 1e-9)
+    err = check(out) if check else compare_frames(got, want, 1e-9)
     if err or not len(got):
         raise SystemExit(f"{label}: {len(got)} rows against the oracle's "
                          f"{len(want)}: {err}")
-    print(f"result: {len(got)} rows equal to the pandas oracle (first "
+    print(f"result: {len(got)} rows equal to the "
+          f"{'exact' if check else 'pandas'} oracle (first "
           f"{got.iloc[0].tolist()})")
     shapes = groupings.check(label, launches["radix_partition"])
     placed = placements.check(label) if placements else None
@@ -3220,6 +3238,9 @@ def breadth_phase(root, tables, paths, make_q01, q01_want):
 
 
 STRINGS_QUERIES = ("q08", "q45")
+#: the strings queries run once more profiled (q45's re-run was cut to
+#: hold a start inside the script's time with the decimal phase)
+STRINGS_PROFILED = ("q08",)
 
 
 def strings_data(root, tables, paths):
@@ -3291,13 +3312,16 @@ def corpus_on_card():
     if failing != set(later):
         raise SystemExit(f"corpus: failing cases {sorted(failing)} are not "
                          f"the later-item cases {sorted(later)}")
+    decimal = {(s, c.name) for s, c in cases if C.holds_decimal(c)}
     return {"cases": len(cases), "passed": len(passed["cuda"]),
+            "decimal_cases": len(decimal),
+            "decimal_passed": len(decimal & passed["cuda"]),
             "later": {f"{s}::{n}": item for (s, n), item in later.items()},
             "seconds": secs}
 
 
 def strings_phase(root, tables, paths):
-    """q08 and q45 at SF10 under the default singleTaskBytes (each once
+    """q08 and q45 at SF10 under the default singleTaskBytes (q08 once
     more profiled stage by stage), q45's `substring` host seconds beside
     its stage walls, and the corpus on the card."""
     from blaze_tpu_torch import config
@@ -3326,15 +3350,188 @@ def strings_phase(root, tables, paths):
               f"{substring[name]['rows']} rows, "
               f"{substring[name]['seconds']:.3f} host s of "
               f"{r['wall_s']:.3f} s")
-        out[f"{name} profiled"] = _profiled(lambda n=name, e=expect:
-                                            breadth_path(
-                                                n, *runs[n], None, e,
-                                                profiled=True)[0], name)
+        if name in STRINGS_PROFILED:
+            out[f"{name} profiled"] = _profiled(
+                lambda n=name, e=expect: breadth_path(
+                    n, *runs[n], None, e, profiled=True)[0], name)
     if not substring["q45"]["calls"] or substring["q08"]["calls"]:
         raise SystemExit(f"strings: substring calls {substring}: q45 must "
                          f"call it and q08 must not")
     return {"data_s": secs, "runs": out, "substring": substring,
             "corpus": corpus_on_card()}
+
+
+DECIMAL_QUERIES = ("q01", "q12")
+
+
+def decimal_data(root, tables, paths):
+    """store_returns and web_sales at SF10 from the earlier phases with
+    their money columns as decimal(7,2) (itest/decimal_money.py), written
+    in N_FILES files each; the dimensions' files reused; each query's
+    plan maker, exact oracle and checker; the seconds each step took."""
+    from blaze_tpu_torch.itest import decimal_money as M
+    from blaze_tpu_torch.itest import tpcds_data as T
+    phase("data: TPC-DS store_returns and web_sales at SF10 with their "
+          "money as decimal(7,2), the other tables from the earlier phases")
+    t0 = time.perf_counter()
+    facts = M.with_money({n: tables[n] for n in M.MONEY_COLUMNS})
+    secs = {"convert": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    dpaths = dict(paths, **T.write_splits(facts, os.path.join(
+        root, "decimal"), N_FILES))
+    dtables = dict(tables, **facts)
+    secs["write"] = time.perf_counter() - t0
+    print("rows: " + ", ".join(
+        f"{n} {facts[n].num_rows} in {len(dpaths[n])} files, money "
+        f"{M.MONEY_COLUMNS[n]}" for n in facts))
+    runs = {}
+    for name, build, check in (("q01", M.q01, M.check_q01),
+                               ("q12", M.q12, M.check_q12)):
+        def make(b=build):
+            return b(dpaths, dtables, BREADTH_PARTS)
+        t = time.perf_counter()
+        want = make()[1]()
+        secs[f"oracle {name}"] = time.perf_counter() - t
+        runs[name] = ((lambda m=make: m()[0]), want,
+                      (lambda out, c=check, w=want: c(out, w)))
+        print(f"exact oracle {name}: {len(want)} rows in "
+              f"{secs[f'oracle {name}']:.1f} s")
+    return runs, secs
+
+
+def decimal128_on_card(n=1 << 20):
+    """Every entry of kernels/decimal128.py, the decimal casts of
+    kernels/cast.py and the decimal roundings of the aggregates and
+    functions on n seeded int128 pairs (and unscaled int64s) on the card,
+    each exactly equal to the same call on the CPU: integer semantics
+    (shifts, wraps, truncating and flooring division) that could differ on
+    CUDA show here."""
+    import torch
+    from blaze_tpu_torch.funcs.math import _round_unscaled
+    from blaze_tpu_torch.kernels import cast as KC
+    from blaze_tpu_torch.kernels import decimal128 as K
+    from blaze_tpu_torch.ops.agg.functions import decimal_avg
+    from blaze_tpu_torch.schema import DataType, TypeId
+    phase(f"decimal: kernels/decimal128.py, the decimal casts and roundings "
+          f"on {n} seeded int128 pairs on the card against the CPU")
+    g = torch.Generator().manual_seed(77)
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int64)
+    x = {k: rand(-(1 << 63), (1 << 63) - 1) for k in ("ah", "al", "bh", "bl")}
+    edge = torch.tensor([-(1 << 63), (1 << 63) - 1, 0, -1, 1, 1 << 32,
+                         -(1 << 32), 1 << 31])
+    for k in x:
+        x[k][:len(edge)] = edge.roll(len(k))
+    sign = torch.where(rand(0, 2) == 0, -1, 1)
+    x["u18"] = rand(0, 10 ** 18) * sign            # p <= 18 unscaled
+    x["odd"] = (rand(0, 10 ** 11) * 10 + 5) * sign  # odd halves, both signs
+    x["valid"] = rand(0, 8) > 0
+    x["counts"] = rand(1, 1 << 16)
+    dec = lambda p, s: DataType(TypeId.DECIMAL, p, s)  # noqa: E731
+    entries = {
+        "u_lt": lambda x: K.u_lt(x["al"], x["bl"]),
+        "add128": lambda x: K.add128(x["ah"], x["al"], x["bh"], x["bl"]),
+        "sub128": lambda x: K.sub128(x["ah"], x["al"], x["bh"], x["bl"]),
+        "neg128": lambda x: K.neg128(x["ah"], x["al"]),
+        "eq128": lambda x: K.eq128(x["ah"], x["al"], x["ah"], x["bl"]),
+        "lt128": lambda x: K.lt128(x["ah"], x["al"], x["bh"], x["bl"]),
+        "fits_int64": lambda x: K.fits_int64(x["ah"], x["al"]),
+        "add_overflows": lambda x: K.add_overflows(x["ah"], x["bh"],
+                                                   x["ah"] + x["bh"]),
+        "from_int64": lambda x: K.from_int64(x["al"]),
+        "rescaled_pair 2->20": lambda x: K.rescaled_pair(x["u18"], 2, 20),
+        "decimal_avg": lambda x: decimal_avg(x["odd"], x["counts"]),
+        "cast decimal(18,3)->int32": lambda x: KC.cast_column(
+            x["odd"], x["valid"], dec(18, 3), DataType(TypeId.INT32)),
+        "cast decimal(18,2)->float64": lambda x: KC.cast_column(
+            x["u18"], x["valid"], dec(18, 2), DataType(TypeId.FLOAT64)),
+        "cast int64->decimal(18,4)": lambda x: KC.cast_column(
+            x["al"], x["valid"], DataType(TypeId.INT64), dec(18, 4)),
+    }
+    for m in (10, 10 ** 9, (1 << 31) - 1):
+        entries[f"mul_small {m}"] = \
+            lambda x, m=m: K.mul_small(x["ah"], x["al"], m)
+    for k in (1, 9, 18, 20):
+        entries[f"mul_pow10 {k}"] = \
+            lambda x, k=k: K.mul_pow10(x["ah"], x["al"], k)
+    for src, dst in (((18, 0), (18, 2)), ((18, 4), (18, 1)),
+                     ((12, 1), (9, 0)), ((18, 2), (7, 2))):
+        entries[f"rescale {src}->{dst}"] = \
+            lambda x, a=src, b=dst: KC.cast_column(
+                x["odd"] if a[1] > b[1] else x["u18"], x["valid"],
+                dec(*a), dec(*b))
+    for q, even in ((10, False), (100, True), (1000, False)):
+        entries[f"round to {q} {'HALF_EVEN' if even else 'HALF_UP'}"] = \
+            lambda x, q=q, e=even: _round_unscaled(x["odd"], q, e)
+    on_card = {k: v.cuda() for k, v in x.items()}
+    t0 = time.perf_counter()
+    for name, fn in entries.items():
+        want, got = fn(x), fn(on_card)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for w, c in zip(want, got):
+            c = c.cpu()
+            if not torch.equal(w, c):
+                raise SystemExit(f"decimal128 on the card: {name} differs "
+                                 f"from the CPU in {int((w != c).sum())} of "
+                                 f"{n} rows")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"{len(entries)} entries on {n} rows each equal to the CPU's "
+          f"exactly, {secs:.2f} s")
+    return {"entries": sorted(entries), "rows": n, "seconds": secs}
+
+
+def decimal_phase(root, tables, paths, corpus):
+    """Decimal full q01 and decimal q12 at SF10 under the default
+    auron.tpu.dag.singleTaskBytes (staged: their scans exceed it), once
+    each under auto, unprofiled, each held to its exact oracle with zero
+    tolerance and every radix grouping exact against its plain version;
+    no placement (the decimal sums stay on the generic AggExec); the host
+    rows and seconds of exprs/decimal_arith.py per query; the int128 ops
+    on the card; the corpus's decimal cases on the card (`corpus`, from
+    the strings phase)."""
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.exprs.decimal_arith import HOST_STATS
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    t_phase = time.perf_counter()
+    runs, secs = decimal_data(root, tables, paths)
+    default = config.DAG_SINGLE_TASK_BYTES.default
+    out, host = {}, {}
+    for name in DECIMAL_QUERIES:
+        make, want, check = runs[name]
+        scan = DagScheduler._scan_input_bytes(make())
+        expect = "local" if scan <= default else "staged"
+        before = dict(HOST_STATS)
+        out[name], _ = breadth_path(f"decimal {name}", make, want, None,
+                                    expect, check=check)
+        host[name] = {k: HOST_STATS[k] - before[k] for k in HOST_STATS}
+        r = out[name]
+        if r["launches"]["hash_placement"] or \
+                not r["launches"]["radix_partition"]:
+            raise SystemExit(f"decimal {name}: launches {r['launches']}: "
+                             f"radix must group every exchange and "
+                             f"placement never run (generic AggExec)")
+        print(f"decimal {name}: wall {r['wall_s']:.3f} s, {r['exec_mode']},"
+              f" {r['stages']} stages, radix "
+              f"{r['launches']['radix_partition']}, placement 0; "
+              f"decimal_arith on the host: {host[name]['calls']} calls, "
+              f"{host[name]['rows']} rows, {host[name]['seconds']:.3f} s "
+              f"of {r['wall_s']:.3f} s")
+    if not host["q01"]["rows"]:
+        raise SystemExit("decimal q01: its p > 18 comparison never reached "
+                         "decimal_arith on the host")
+    if corpus["decimal_passed"] != corpus["decimal_cases"] or \
+            corpus["passed"] != corpus["cases"]:
+        raise SystemExit(f"corpus on the card: {corpus}")
+    print(f"corpus on the card: {corpus['passed']} of {corpus['cases']} "
+          f"cases, the {corpus['decimal_cases']} decimal cases among them")
+    limbs = decimal128_on_card()
+    wall = time.perf_counter() - t_phase
+    print(f"decimal phase: {wall:.1f} s")
+    return {"data_s": secs, "runs": out, "decimal_arith": host,
+            "decimal128": limbs, "wall_s": wall}
 
 
 def pq_rows(path):
@@ -3429,9 +3626,13 @@ def main():
             if "profiled" not in k:
                 by_path[k] = r["launches"]
         strings = strings_phase(root, all_tables, all_paths)
-        del all_tables
         for k in STRINGS_QUERIES:
             by_path[k] = strings["runs"][k]["launches"]
+        decimals = decimal_phase(root, all_tables, all_paths,
+                                 strings["corpus"])
+        del all_tables
+        for k in DECIMAL_QUERIES:
+            by_path[f"decimal {k}"] = decimals["runs"][k]["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -3608,6 +3809,17 @@ def main():
     print(f"q45 substring: {strings['substring']['q45']}; corpus: "
           f"{strings['corpus']['passed']} of {strings['corpus']['cases']} "
           f"cases pass on the card and on the CPU")
+    print("decimal data, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in decimals["data_s"].items())
+        + f"; phase {decimals['wall_s']:.1f} s")
+    for k, f in decimals["runs"].items():
+        print(f"decimal {k}: run {f['wall_s']:.3f} s, {f['exec_mode']}, "
+              f"{f['stages']} stages, {f['rows']} rows, stage walls "
+              f"{ {s_: round(w, 3) for s_, w in f['stage_walls'].items()} }, "
+              f"tasks {f['tasks']}, peak {f['peak_bytes']} bytes, radix "
+              f"groupings (rows, P) {f['radix_groupings']}, eager "
+              f"placements {f['placements']}; decimal_arith on the host "
+              f"{decimals['decimal_arith'][k]}")
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -3618,7 +3830,8 @@ def main():
                           (q17_q18["runs"], ""), (q95_windows["runs"], ""),
                           (q19_q07_gq1["runs"], ""),
                           (breadth["runs"], "breadth "),
-                          (strings["runs"], "strings ")):
+                          (strings["runs"], "strings "),
+                          (decimals["runs"], "")):
         io_bytes.update({prefix + k: _io_bytes(r)
                          for k, r in group.items()})
     print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
@@ -3628,7 +3841,7 @@ def main():
                       "q01_full": full, "q06_family": family,
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
-                      "strings": strings,
+                      "strings": strings, "decimal": decimals,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

@@ -288,8 +288,12 @@ def test_avg_result_type_and_decimal_raise():
     assert AvgAgg([TRef(1)]).output_type(schema).id == TypeId.FLOAT64
     assert [f.data_type.id for f in AvgAgg([TRef(1)]).acc_fields(schema)] \
         == [TypeId.INT64, TypeId.INT64]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        AvgAgg([TRef(0)]).acc_fields(schema)
+    # a decimal no longer raises (the decimal slice): the JAX package's
+    # decimal(p + 10, s) sum and decimal(p + 4, s + 4) result
+    assert [f.data_type for f in AvgAgg([TRef(0)]).acc_fields(schema)] \
+        == [DataType(TypeId.DECIMAL, 18, 2), DataType(TypeId.INT64)]
+    assert AvgAgg([TRef(0)]).output_type(schema) == \
+        DataType(TypeId.DECIMAL, 14, 6)
     for name, item in (("bloom_filter", "11"), ("udaf", "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             t_make_agg(name, [TRef(1)])

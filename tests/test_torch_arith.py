@@ -172,8 +172,19 @@ def test_ansi_mode_raises_as_jax(ansi, case):
 
 
 def test_decimal_operands_raise():
+    """Decimal operands no longer raise (the decimal slice): a decimal
+    plus an integer widens as Spark's DecimalPrecision, to the JAX
+    package's type and values (tests/test_torch_decimal.py holds every
+    operator)."""
     rb = pa.record_batch({"a": pa.array([1, 2], pa.decimal128(10, 2)),
                           "b": pa.array([1, 2], pa.int64())})
     schema = TSchema.from_arrow(rb.schema)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TBinary("+", TRef(0), TRef(1)).data_type(schema)
+    t = TBinary("+", TRef(0), TRef(1)).data_type(schema)
+    j = JBinary("+", JRef(0), JRef(1)).data_type(JSchema.from_arrow(
+        rb.schema))
+    assert (t.precision, t.scale) == (j.precision, j.scale) == (23, 2)
+    got = TBinary("+", TRef(0), TRef(1)).evaluate(
+        TBatch.from_arrow(rb, device=CPU)).to_host(2)
+    want = JBinary("+", JRef(0), JRef(1)).evaluate(
+        JBatch.from_arrow(rb)).to_host(2)
+    assert got.equals(want)

@@ -247,15 +247,25 @@ def test_ansi_cast_raises_and_try_cast_nulls(rb, to):
 
 
 def test_a_decimal_side_raises_naming_item_13():
-    from blaze_tpu_torch.schema import DataType, TypeId
-    dec = DataType(TypeId.DECIMAL, 12, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TK.cast_column(torch.zeros(2, dtype=torch.int64),
-                       torch.ones(2, dtype=torch.bool), _tt("int64"), dec)
+    """A decimal side no longer raises (the decimal slice, once ROADMAP
+    item 13): int64 -> decimal(12,2) scales by 10^2 on the unscaled
+    int64s, the kernel and the expression equal to the JAX package's
+    (tests/test_torch_decimal.py holds every decimal cast)."""
+    dec = TType(TTid.DECIMAL, 12, 2)
+    data, valid = TK.cast_column(torch.tensor([1, -2]),
+                                 torch.ones(2, dtype=torch.bool),
+                                 _tt("int64"), dec)
+    jdata, jvalid = JK.cast_column(np.array([1, -2]), np.ones(2, bool),
+                                   JType(JTid.INT64),
+                                   JType(JTid.DECIMAL, 12, 2))
+    assert data.tolist() == list(jdata) == [100, -200]
+    assert valid.tolist() == list(jvalid)
     rb = pa.record_batch({"k": pa.array([1, 2])})
     cb = TBatch.from_arrow(rb, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TE.Cast(TE.BoundReference(0), dec).evaluate(cb)
+    got = TE.Cast(TE.BoundReference(0), dec).evaluate(cb).to_host(2)
+    want = JE.Cast(JE.BoundReference(0), JType(JTid.DECIMAL, 12, 2)) \
+        .evaluate(JBatch.from_arrow(rb)).to_host(2)
+    assert got.equals(want)
 
 
 def test_join_key_promotion_is_a_cast():

@@ -458,17 +458,14 @@ def test_try_arithmetic(name):
 
 
 def test_decimal_functions_raise_naming_the_decimal_slice():
-    rb = pa.record_batch({"i": pa.array([1, 2])})
-    tb = TBatch.from_arrow(rb, device=CPU)
-    schema = TSchema.from_arrow(rb.schema)
-    for name in ("unscaled_value", "make_decimal", "check_overflow"):
-        e = t_expr(fn(name, col(0)), schema)
-        with pytest.raises(NotImplementedError, match="decimal slice"):
-            e.evaluate(tb)
-    dec = {"kind": "literal", "value": 1,
-           "type": {"id": "decimal", "precision": 10, "scale": 2}}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_expr(fn("abs", dec), schema).evaluate(tb)
+    """The decimal functions no longer raise (the decimal slice): each
+    equals the JAX one over int64 unscaled values (tests/
+    test_torch_decimal.py holds them over decimals)."""
+    rb = pa.record_batch({"i": pa.array([1, -2, 10 ** 12, None])})
+    for name in ("unscaled_value", "check_overflow"):
+        check(fn(name, col(0)), rb)
+    check(dict(fn("make_decimal", col(0)), return_type={
+        "id": "decimal", "precision": 10, "scale": 2}), rb)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ of the JAX package's 357 vectors in 65 suites), on the CPU.
   * every case is one parametrised test: it passes through the port
     (IR -> `create_plan` -> execute over a memory scan), or it is
     xfail(strict=True) naming the ROADMAP item it waits for
-    (`later_item`: the cases that hold a decimal, item 13's decimal
-    slice), so a case that starts to pass fails here until its mark goes;
+    (`later_item`), so a case that starts to pass fails here until its
+    mark goes; since the decimal slice no case waits, the 27 that hold a
+    decimal (`holds_decimal`) included;
   * the port's copy equals `blaze_tpu.itest.spark_corpus.SUITES`: the
     same suite names, case names, input tables, IR (expressions, and the
     plans built over the same scans), expected rows, tolerances, confs,
@@ -83,8 +84,10 @@ def test_the_corpus_is_the_jax_one():
 
 
 def test_the_later_cases_are_the_decimal_ones():
-    later = [(s, n) for s, n in _ALL
-             if TC.later_item(s, _case(s, n)) is not None]
+    """The 27 cases that waited for the decimal slice hold a decimal, and
+    no case waits any longer."""
+    assert all(TC.later_item(s, _case(s, n)) is None for s, n in _ALL)
+    later = [(s, n) for s, n in _ALL if TC.holds_decimal(_case(s, n))]
     assert len(later) == 27
     assert {s for s, _ in later} == {
         "Decimal38Suite", "DecimalArithmeticSuite", "DecimalSuite",

@@ -334,13 +334,27 @@ def test_window_of_no_rows():
 
 
 def test_decimal_argument_names_item_13():
+    """A decimal argument no longer raises (the decimal slice, once
+    ROADMAP item 13): max and lag keep the decimal(12,2) type and values
+    (tests/test_torch_decimal_paths.py holds sums and averages against a
+    Decimal reference)."""
     schema = pa.schema([("g", pa.int64()), ("d", pa.decimal128(12, 2))])
-    src = _Source(schema, [])
     d = TE.BoundReference(1)
-    for func in (TW.WindowAggFunc("s", t_make_agg("max", [d])),
-                 TW.LeadLagFunc("l", d, 1)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TW.WindowExec(src, [func], [TE.BoundReference(0)], [])
+    import decimal
+    vals = [decimal.Decimal(v) for v in ("1.25", "-3.50", "2.00", "0.01")]
+    rb = pa.record_batch([pa.array([1, 1, 2, 2]),
+                          pa.array(vals, pa.decimal128(12, 2))],
+                         schema=schema)
+    src = _Source(schema, [rb])
+    op = TW.WindowExec(src, [TW.WindowAggFunc("s", t_make_agg("max", [d]),
+                                              running=False),
+                             TW.LeadLagFunc("l", d, -1)],
+                       [TE.BoundReference(0)], [])
+    out = pa.Table.from_batches([b.to_arrow() for b in op.execute(0)])
+    assert out.schema.field("s").type == pa.decimal128(12, 2)
+    assert out.column("s").to_pylist() == [vals[0], vals[0], vals[2],
+                                           vals[2]]
+    assert out.column("l").to_pylist() == [None, vals[0], None, vals[2]]
 
 
 # ---------------------------------------------------------------------------
