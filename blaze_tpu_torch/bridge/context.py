@@ -1,6 +1,9 @@
 """Per-task execution context (copy of the task part of
 blaze_tpu/bridge/context.py; the query service and the flight recorder
-belong to later slices).
+belong to later slices).  `TaskContext.query` is the serving query that
+governs the task, read by `active_query()`; it stays None until the
+query service is ported (ROADMAP item 16), and the memory manager's
+per-query quotas and cross-query arbitration read it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ class TaskContext:
     is_running: Callable[[], bool] = lambda: True
     # chunks the device stage loop has folded for this task
     loop_chunks: int = 0
+    # the governing serving query (an object with `query_id`, `mem_quota`
+    # and `degrade()`), or None
+    query: object = None
 
     def check_running(self):
         if not self.is_running():
@@ -42,6 +48,13 @@ def current_task() -> TaskContext:
         ctx = TaskContext()
         _local.ctx = ctx
     return ctx
+
+
+def active_query():
+    """The query governing the current execution, or None: the current
+    TaskContext's `query`."""
+    ctx = getattr(_local, "ctx", None)
+    return None if ctx is None else ctx.query
 
 
 def set_current_task(ctx) -> None:

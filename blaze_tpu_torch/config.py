@@ -23,39 +23,53 @@ from typing import Any, Callable, Dict, Optional
 
 @dataclass(frozen=True)
 class ConfigOption:
-    """Typed config key with its default and doc."""
+    """Typed config key with its default, doc and alternative keys (read
+    after `key`, in order, as the JAX package reads them)."""
 
     key: str
     default: Any
     parse: Callable[[str], Any]
     doc: str = ""
+    alt_keys: tuple = ()
+
+    @property
+    def keys(self) -> tuple:
+        return (self.key, *self.alt_keys)
 
     def get(self, session: Optional["ConfSession"] = None) -> Any:
         return (session or conf).get(self)
 
     @property
     def env_key(self) -> str:
-        return "BLAZE_TPU_" + self.key.upper().replace(".", "_")
+        return _env_key(self.key)
+
+
+def _env_key(key: str) -> str:
+    return "BLAZE_TPU_" + key.upper().replace(".", "_")
 
 
 def _parse_bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
 
 
-def int_conf(key: str, default: int, doc: str = "") -> ConfigOption:
-    return ConfigOption(key, default, int, doc)
+def int_conf(key: str, default: int, doc: str = "",
+             alt_keys: tuple = ()) -> ConfigOption:
+    return ConfigOption(key, default, int, doc, alt_keys)
 
 
-def float_conf(key: str, default: float, doc: str = "") -> ConfigOption:
-    return ConfigOption(key, default, float, doc)
+def float_conf(key: str, default: float, doc: str = "",
+               alt_keys: tuple = ()) -> ConfigOption:
+    return ConfigOption(key, default, float, doc, alt_keys)
 
 
-def bool_conf(key: str, default: bool, doc: str = "") -> ConfigOption:
-    return ConfigOption(key, default, _parse_bool, doc)
+def bool_conf(key: str, default: bool, doc: str = "",
+              alt_keys: tuple = ()) -> ConfigOption:
+    return ConfigOption(key, default, _parse_bool, doc, alt_keys)
 
 
-def str_conf(key: str, default: str, doc: str = "") -> ConfigOption:
-    return ConfigOption(key, default, str, doc)
+def str_conf(key: str, default: str, doc: str = "",
+             alt_keys: tuple = ()) -> ConfigOption:
+    return ConfigOption(key, default, str, doc, alt_keys)
 
 
 class ConfSession:
@@ -75,10 +89,12 @@ class ConfSession:
 
     def get(self, opt: ConfigOption) -> Any:
         with self._lock:
-            if opt.key in self._overrides:
-                return opt.parse(self._overrides[opt.key])
-        if opt.env_key in os.environ:
-            return opt.parse(os.environ[opt.env_key])
+            for k in opt.keys:
+                if k in self._overrides:
+                    return opt.parse(self._overrides[k])
+        for k in opt.keys:
+            if _env_key(k) in os.environ:
+                return opt.parse(os.environ[_env_key(k)])
         return opt.default
 
     def get_raw(self, key: str) -> Optional[str]:
@@ -87,13 +103,13 @@ class ConfSession:
         with self._lock:
             if key in self._overrides:
                 return self._overrides[key]
-        return os.environ.get("BLAZE_TPU_" + key.upper().replace(".", "_"))
+        return os.environ.get(_env_key(key))
 
     def is_set(self, opt: ConfigOption) -> bool:
         with self._lock:
-            if opt.key in self._overrides:
+            if any(k in self._overrides for k in opt.keys):
                 return True
-        return opt.env_key in os.environ
+        return any(_env_key(k) in os.environ for k in opt.keys)
 
 
 #: Global session.
@@ -208,6 +224,16 @@ PARTIAL_AGG_SKIPPING_MIN_ROWS = int_conf(
     "auron.tpu.partialAgg.skipping.minRows", 50000,
     "Probe window: rows a partial AggExec sees before its one-shot "
     "cardinality probe runs.")
+PARTIAL_AGG_SKIPPING_ON_SPILL = bool_conf(
+    "auron.tpu.partialAgg.skipping.onSpill", False,
+    "Under memory pressure, switch an eligible partial AggExec to "
+    "pass-through instead of spilling its buffer (skip before spill; off "
+    "keeps the reference's spill-before-skip order).",
+    alt_keys=("auron.partialAggSkipping.skipSpill",))
+SUGGESTED_MERGING_BATCH_MEM_SIZE = int_conf(
+    "auron.suggested.batch.memSize.multiwayMerging", 1 << 20,
+    "Target bytes per output chunk of a k-way merge (ops/sort.py "
+    "merge_sorted_batches).")
 ANSI_ENABLED = bool_conf(
     "spark.sql.ansi.enabled", False,
     "ANSI SQL mode: integral division or modulo by zero and integer "
@@ -250,6 +276,20 @@ COLLAPSE_FILTER_PROJECT = bool_conf(
     "adjacent Filter->Project chains into one FilterProjectExec and "
     "Project->Project into a single Project by substituting bound "
     "references.")
+
+# -- the memory manager (memory/manager.py) and the spill tiers ------------
+
+MEMORY_FRACTION = float_conf(
+    "auron.memory.fraction", 0.6,
+    "Fraction of the device memory granted to the memory manager.")
+PROCESS_VMRSS_MEMORY_FRACTION = float_conf(
+    "auron.process.vmrss.memoryFraction", 0.9,
+    "On the CPU: the fraction of physical memory (at most 4 GiB of it) "
+    "the memory manager's budget is taken from.")
+ON_HEAP_SPILL_MEMORY_FRACTION = float_conf(
+    "auron.onHeapSpill.memoryFraction", 0.9,
+    "Fraction of the memory manager's budget the spill tiers may hold in "
+    "host RAM before further runs go to disk files.")
 TORCH_DEVICE = str_conf(
     "auron.torch.device", "cuda",
     "Device the PyTorch port runs on: `cuda` (the default; raises when no "

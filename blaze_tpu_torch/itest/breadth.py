@@ -16,7 +16,15 @@ NotImplementedError naming their item.  q49 is held to `q49_frame`, its
 oracle with Spark's division by zero (ROADMAP Queue 3: the reference's
 pandas oracle divides to an infinity and counts it).
 
+`--budget-mb N` sets the memory manager's budget to N MiB
+(memory/manager.py `MemManager.init`), as the JAX package's
+itest/report.py flag does; each query's line and JSON then carry the
+manager's `budget_bytes`, `spill_count`, `spilled_bytes` and
+`peak_mem_bytes`, and the spills by consumer, counted from zero for
+each query.
+
     python -m blaze_tpu_torch.itest.breadth --scale 1 [--queries q05,q90]
+        [--budget-mb 32]
 
 The entry point runs on the card; `--device cpu` runs the plain versions.
 The last line is one JSON object with every query's numbers; the exit
@@ -94,17 +102,48 @@ def _launches() -> Dict[str, int]:
             "placement": HU.placement_launches}
 
 
+def _reset_memory(mm) -> None:
+    """The manager's spill totals and peak counted from zero."""
+    mm.total_spill_count = 0
+    mm.total_spilled_bytes = 0
+    mm.peak_used = 0
+    mm.spills_by_consumer = {}
+
+
+def _memory(mm, sched) -> Dict:
+    """The manager's numbers, and the largest `mem_used` of each operator
+    kind that charged it (over its tasks and stages)."""
+    peaks: Dict[str, int] = {}
+    for tree in sched.stage_metrics.values():
+        todo = [tree]
+        while todo:
+            node = todo.pop()
+            if node.values.get("mem_used"):
+                peaks[node.name] = max(peaks.get(node.name, 0),
+                                       node.values["mem_used"])
+            todo.extend(node.children)
+    return {"budget_bytes": mm.total, "spill_count": mm.total_spill_count,
+            "spilled_bytes": mm.total_spilled_bytes,
+            "peak_mem_bytes": mm.peak_used,
+            "spills_by_consumer": {k: list(v) for k, v in
+                                   mm.spills_by_consumer.items()},
+            "operator_peaks": peaks}
+
+
 def run_one(name: str, paths: Dict, tables: Dict, partitions: int
             ) -> Dict:
-    """One query: its wall, mode, stages, rows, launches, counters and
-    whether it met its oracle (or, for a LATER query, raised naming its
-    item)."""
+    """One query: its wall, mode, stages, rows, launches, counters, the
+    memory manager's spills and peak, and whether it met its oracle (or,
+    for a LATER query, raised naming its item)."""
     from blaze_tpu_torch.itest.q01_dag import stage_counters
     from blaze_tpu_torch.itest.queries import QUERIES
     from blaze_tpu_torch.itest.runner import compare_frames, frame
+    from blaze_tpu_torch.memory import MemManager
     from blaze_tpu_torch.plan.stages import DagScheduler
     plan, oracle = QUERIES[name][0](paths, tables, partitions)
     sched = DagScheduler()
+    mm = MemManager.get()
+    _reset_memory(mm)
     _zero_launches()
     t0 = time.perf_counter()
     try:
@@ -116,6 +155,7 @@ def run_one(name: str, paths: Dict, tables: Dict, partitions: int
                 "met": LATER[name] in str(e), "detail": str(e)}
     wall = time.perf_counter() - t0
     launches = _launches()
+    memory = _memory(mm, sched)
     t0 = time.perf_counter()
     want = FRAMES[name](tables) if name in FRAMES else oracle()
     oracle_s = time.perf_counter() - t0
@@ -124,7 +164,7 @@ def run_one(name: str, paths: Dict, tables: Dict, partitions: int
                        .values()) for k in COUNTERS}
     return {"query": name, "wall_s": wall, "exec_mode": sched.exec_mode,
             "stages": len(sched.stages), "rows": len(got),
-            "launches": launches, "counters": counters,
+            "launches": launches, "counters": counters, "memory": memory,
             "oracle_s": oracle_s, "met": err is None and name not in LATER,
             "detail": err or ""}
 
@@ -154,7 +194,13 @@ def run(names: List[str], scale: float, root: str) -> List[Dict]:
               f"{r['stages']} stages, {r['rows']} rows, radix "
               f"{r['launches']['radix']}, placement "
               f"{r['launches']['placement']}, cpu_batches "
-              f"{r['counters']['cpu_batches']}, oracle "
+              f"{r['counters']['cpu_batches']}, budget "
+              f"{r['memory']['budget_bytes']}, spills "
+              f"{r['memory']['spill_count']} "
+              f"({r['memory']['spilled_bytes']} bytes; "
+              f"{r['memory']['spills_by_consumer']}), peak "
+              f"{r['memory']['peak_mem_bytes']} (by operator "
+              f"{r['memory']['operator_peaks']}), oracle "
               f"{'met' if r['met'] else 'MISSED: ' + r['detail']} "
               f"({r['oracle_s']:.1f} s)", flush=True)
     return out
@@ -169,6 +215,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "key's own, 64 MiB)")
     ap.add_argument("--queries", default="",
                     help="comma-separated names (default: every query)")
+    ap.add_argument("--budget-mb", type=int, default=None,
+                    help="the memory manager's budget in MiB (default: "
+                    "the card's memory x auron.memory.fraction)")
     ap.add_argument("--device", default=None,
                     help="auron.torch.device (default: the key's own, "
                     "cuda)")
@@ -180,7 +229,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         config.conf.set(config.DAG_SINGLE_TASK_BYTES.key,
                         args.single_task_bytes)
     from blaze_tpu_torch.device import resolve
+    from blaze_tpu_torch.memory import MemManager
     device = resolve()
+    MemManager.init(None if args.budget_mb is None
+                    else args.budget_mb << 20)
     root = tempfile.mkdtemp(prefix="blaze-breadth-")
     try:
         results = run(names, args.scale, root)
@@ -189,8 +241,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     missed = [r["query"] for r in results if not r["met"]]
     ran = [r for r in results if "later" not in r]
     walls = sum(r["wall_s"] for r in ran)
+    spilled = [r["query"] for r in ran if r["memory"]["spill_count"]]
     print(f"{len(ran)} queries run, {len(ran) - len(missed)} equal to "
-          f"their oracle; missed: {missed}; walls {walls:.3f} s in all",
+          f"their oracle; missed: {missed}; walls {walls:.3f} s in all; "
+          f"budget {MemManager.get().total} bytes, {len(spilled)} queries "
+          f"spilled, {sum(r['memory']['spill_count'] for r in ran)} spills",
           flush=True)
     if device.type == "cuda":
         import torch
@@ -199,6 +254,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                       "files": FILES, "partitions": PARTITIONS,
                       "single_task_bytes":
                           config.DAG_SINGLE_TASK_BYTES.get(),
+                      "budget_bytes": MemManager.get().total,
                       "queries": results}))
     return 1 if missed else 0
 

@@ -20,7 +20,17 @@ engine on the batch's device:
     it has seen `auron.tpu.partialAgg.skipping.minRows` rows and, past the
     ratio, flushes its buffer and passes every further row through as its
     own group (the final stage re-merges);
-  * a global aggregation over empty input still emits one row.
+  * a global aggregation over empty input still emits one row;
+  * the buffered partials and the utf8 dictionaries are charged to the
+    memory manager (`_AggState` is a `MemConsumer`).  Under pressure the
+    buffer is combined into one key-sorted run and spilled
+    (`try_new_spill`); at the end the spilled runs and the in-memory run
+    are merged by key (ops/sort.py `merge_sorted_batches`) and
+    re-aggregated chunk by chunk, the last group of each chunk carried
+    into the next.  With `auron.tpu.partialAgg.skipping.onSpill`, an
+    aggregation that may pass rows through takes pressure by handing its
+    buffer downstream un-merged and switching to pass-through
+    (`try_release_pressure`) instead of spilling.
 
 utf8 group keys dictionary-encode per operator instance
 (`incremental_dict_codes`: first-seen order, stable across batches) into
@@ -32,10 +42,8 @@ only.  A host accumulator (collect_*, combine_unique, min/max over
 strings) folds the batch's Arrow values with the group ids in row order
 on the host, beside the device accumulators.
 
-Not carried over: the memory manager's accounting, spill and skip-on-spill
-(`update_mem_used`, `spill`, `try_release_pressure`; ROADMAP Queue 1
-item 8), the AQE skip hint and query degradation (item 16) and xla_stats
-notes (item 15).
+Not carried over: the AQE skip hint and query degradation (item 16) and
+xla_stats notes (item 15).
 """
 
 from __future__ import annotations
@@ -55,8 +63,11 @@ from blaze_tpu_torch.device import resolve
 from blaze_tpu_torch.exprs import PhysicalExpr
 from blaze_tpu_torch.kernels import compare
 from blaze_tpu_torch.kernels import sort as K
+from blaze_tpu_torch.memory import (MemConsumer, MemManager, Spill,
+                                    try_new_spill)
 from blaze_tpu_torch.ops.agg.functions import AggFunction, CountAgg
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
+from blaze_tpu_torch.ops.sort import merge_sorted_batches
 from blaze_tpu_torch.schema import Field, INT64, Schema, TORCH_TO_NP
 
 
@@ -94,9 +105,14 @@ class AggExec(ExecutionPlan):
 
     def execute(self, partition: int) -> BatchIterator:
         state = _AggState(self)
-        for batch in self.children[0].execute(partition):
-            yield from state.process(batch)
-        yield from state.output()
+        state.set_spillable(MemManager.get())
+        try:
+            for batch in self.children[0].execute(partition):
+                yield from state.process(batch)
+            yield from state.output()
+        finally:
+            state.unregister()
+            state.release_spills()
 
 
 def build_agg_schema(in_schema: Schema, group_exprs, aggs) -> Schema:
@@ -118,12 +134,14 @@ def build_agg_schema(in_schema: Schema, group_exprs, aggs) -> Schema:
 _RAW_MODES = (AggMode.PARTIAL, AggMode.COMPLETE)
 
 
-class _AggState:
+class _AggState(MemConsumer):
     """Per-partition aggregation state (the JAX package's AggTable
-    analog, without its spill tiers)."""
+    analog)."""
 
     def __init__(self, op: AggExec):
+        super().__init__("agg")
         self.op = op
+        self.metrics = op.metrics
         self.in_schema = op.children[0].schema
         self.num_keys = len(op._group_exprs)
         # per utf8 key: the accumulated dictionary (codes are positions);
@@ -134,6 +152,12 @@ class _AggState:
             self.dict_arrays.append(None if t.is_fixed_width else
                                     pa.array([], type=t.to_arrow()))
         self.buffer: List[pa.RecordBatch] = []
+        self.buffered_bytes = 0
+        self.spills: List[Spill] = []
+        #: the buffer handed over by try_release_pressure, emitted at the
+        #: next pull
+        self.flush_pending: List[pa.RecordBatch] = []
+        self._output_started = False
         self.skipping = False
         self.rows_seen = 0
         self._probe_done = False  # the cardinality probe runs once
@@ -146,6 +170,7 @@ class _AggState:
         if self.skipping:
             # pass-through lane: raw rows leave as accumulator-shaped
             # batches, each row its own group
+            yield from self._drain_pending()
             n = batch.selected_count()
             if n == 0:
                 return
@@ -159,17 +184,28 @@ class _AggState:
             return
         self.rows_seen += batch.selected_count()
         self.buffer.append(partial)
-        # the JAX package charges the buffer to its memory manager here
-        # (update_mem_used; spill and skip-on-spill): ROADMAP item 8
+        self.buffered_bytes += partial.nbytes
+        self.update_mem_used(self.buffered_bytes + self._dict_bytes())
+        if self.skipping:
+            # the manager took try_release_pressure's offer during the
+            # update: the buffer moved to flush_pending
+            yield from self._drain_pending()
+            return
         if self._should_skip_partials():
             self.skipping = True
             self.op.metrics.add("partial_skipped", 1)
-            flushed, self.buffer = self.buffer, []
+            flushed, self.buffer, self.buffered_bytes = self.buffer, [], 0
+            self.update_mem_used(self._dict_bytes())
             yield from self._emit(flushed)
             return
         limit = config.BATCH_SIZE.get() * 4
         if sum(rb.num_rows for rb in self.buffer) >= limit * 2:
             self._combine_buffer()
+
+    def _drain_pending(self) -> Iterator[ColumnBatch]:
+        if self.flush_pending:
+            pending, self.flush_pending = self.flush_pending, []
+            yield from self._emit(pending)
 
     def _skip_eligible(self) -> bool:
         """Pass-through keeps the semantics only for keyed all-PARTIAL
@@ -311,12 +347,19 @@ class _AggState:
             if self.dict_arrays[i] is None:
                 out.append((cv.data, cv.validity, cv.dtype))
                 continue
-            codes, valid, self.dict_arrays[i], _grew = \
+            codes, valid, self.dict_arrays[i], grew = \
                 incremental_dict_codes(cv.to_host(batch.num_rows),
                                        self.dict_arrays[i], batch.capacity)
+            if grew:
+                # the dictionaries count against the budget beside the
+                # buffered partials
+                self.update_mem_used(self.buffered_bytes + self._dict_bytes())
             dev = batch.device
             out.append((to_device(codes, dev), to_device(valid, dev), INT64))
         return out
+
+    def _dict_bytes(self) -> int:
+        return sum(a.nbytes for a in self.dict_arrays if a is not None)
 
     def _decode_keys(self, rb: pa.RecordBatch) -> List[pa.Array]:
         """The key columns of an internal partial batch with every code
@@ -346,7 +389,7 @@ class _AggState:
         return self._internal_schema
 
     # ------------------------------------------------------------------
-    # buffer combine
+    # buffer combine and spill (MemConsumer)
     # ------------------------------------------------------------------
     def _combine_buffer(self) -> None:
         if len(self.buffer) <= 1:
@@ -354,7 +397,8 @@ class _AggState:
         tbl = pa.Table.from_batches(self.buffer).combine_chunks()
         merged = self._merge_partial_chunk(tbl.to_batches()[0])
         self.buffer = [merged] if merged is not None else []
-        # the JAX package updates its memory accounting here (item 8)
+        self.buffered_bytes = merged.nbytes if merged is not None else 0
+        self.update_mem_used(self.buffered_bytes + self._dict_bytes())
 
     def _merge_partial_chunk(self, rb: pa.RecordBatch
                              ) -> Optional[pa.RecordBatch]:
@@ -401,15 +445,91 @@ class _AggState:
         return pa.RecordBatch.from_arrays(sink.materialize(),
                                           schema=self._internal_schema)
 
+    def try_release_pressure(self) -> int:
+        """Skip-on-spill: with `auron.tpu.partialAgg.skipping.onSpill`, an
+        aggregation that may pass rows through hands its buffered
+        partials downstream un-merged (emitted at the next pull) and
+        switches to pass-through instead of spilling them."""
+        if not (config.PARTIAL_AGG_SKIPPING_ON_SPILL.get() and
+                not self.skipping and not self._output_started and
+                self.buffer and self._skip_eligible()):
+            return 0
+        self.skipping = True
+        self._probe_done = True
+        self.flush_pending.extend(self.buffer)
+        released = self.buffered_bytes
+        self.buffer = []
+        self.buffered_bytes = 0
+        self._mem_used = self._dict_bytes()  # the dictionaries stay
+        self.op.metrics.add("partial_skipped", 1)
+        return released
+
+    def spill(self) -> int:
+        if not self.buffer:
+            return 0
+        released = self.try_release_pressure()
+        if released:
+            return released
+        self._combine_buffer()
+        if not self.buffer:
+            return 0
+        # the combined buffer is in key order (the lexsort's)
+        run = self.buffer[0]
+        spill = try_new_spill()
+        bs = config.BATCH_SIZE.get()
+        spill.write_batches(run.slice(i, min(bs, run.num_rows - i))
+                            for i in range(0, run.num_rows, bs))
+        self.spills.append(spill)
+        released = self.buffered_bytes
+        self.buffer = []
+        self.buffered_bytes = 0
+        self._mem_used = self._dict_bytes()  # the dictionaries stay
+        self.op.metrics.add("spill_count")
+        self.op.metrics.add("spilled_bytes", released)
+        return released
+
+    def release_spills(self) -> None:
+        spills, self.spills = self.spills, []
+        for s in spills:
+            s.release()
+
     # ------------------------------------------------------------------
     # output
     # ------------------------------------------------------------------
     def output(self) -> Iterator[ColumnBatch]:
+        # a skip-on-spill from here on would strand rows in flush_pending
+        self._output_started = True
+        yield from self._drain_pending()
         self._combine_buffer()
-        batches = self.buffer
-        if not batches and not self.num_keys and not self.skipping:
-            batches = [self._empty_global_accs()]
-        yield from self._emit(batches)
+        if not self.spills:
+            batches = self.buffer
+            if not batches and not self.num_keys and not self.skipping:
+                batches = [self._empty_global_accs()]
+            yield from self._emit(batches)
+            return
+        # the spilled runs and the in-memory run merged by key; each
+        # chunk re-aggregated, its last group carried into the next chunk
+        runs = [s.read_batches() for s in self.spills]
+        if self.buffer:
+            runs.append(iter(self.buffer))
+        carry: Optional[pa.RecordBatch] = None
+        for chunk in merge_sorted_batches(runs, list(range(self.num_keys)),
+                                          [False] * self.num_keys,
+                                          [True] * self.num_keys):
+            if carry is not None:
+                chunk = pa.Table.from_batches([carry, chunk]) \
+                    .combine_chunks().to_batches()[0]
+            merged = self._merge_partial_chunk(chunk)
+            if merged is None:
+                continue
+            if merged.num_rows > 1:
+                carry = merged.slice(merged.num_rows - 1)
+                yield from self._emit([merged.slice(0, merged.num_rows - 1)])
+            else:
+                carry = merged
+        if carry is not None:
+            yield from self._emit([carry])
+        self.release_spills()
 
     def _empty_global_accs(self) -> pa.RecordBatch:
         """A global aggregation over empty input still emits one row

@@ -21,7 +21,11 @@ batch's segment structure, on the batch's device:
 Lead/lag and nth_value take rows of the host Arrow array, as in the JAX
 package.  `execute` streams: once the buffer holds 4 x `auron.batch.size`
 rows, every partition before the last partition start seen is complete
-and is processed and emitted; the rest stays buffered.
+and is processed and emitted; the rest stays buffered.  The buffer
+(`_WindowBuffer`) is a `MemConsumer` charged with its Arrow bytes: under
+pressure its batches spill (`try_new_spill`), and at the next boundary
+flush, or at the end, the spilled runs are read back oldest first,
+ahead of the batches still in memory.
 
 A decimal argument's sums and extremes run on its unscaled int64s and
 the output column is rebuilt from the unscaled values at the function's
@@ -29,8 +33,7 @@ output type (sum decimal(min(p + 10, 18), s)); avg follows AvgAgg's
 decimal rule, sum x 10^4 / count HALF_UP (the JAX package casts the
 unscaled sums as whole numbers there: ROADMAP Queue 3).
 
-Not here: the buffer's spill (the memory manager, ROADMAP Queue 1 item
-8), the host route for small batches (item 15) and the event-time
+Not here: the host route for small batches (item 15) and the event-time
 windows of the streaming runtime (item 16).
 """
 
@@ -49,6 +52,7 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import (ColumnBatch, decimal_from_unscaled,
                                    to_device, to_host)
 from blaze_tpu_torch.exprs import PhysicalExpr
+from blaze_tpu_torch.memory import MemConsumer, MemManager, try_new_spill
 from blaze_tpu_torch.ops.agg.functions import (AggFunction, AvgAgg, CountAgg,
                                                MinMaxAgg, SumAgg,
                                                decimal_avg)
@@ -125,6 +129,61 @@ class WindowAggFunc(WindowFunc):
         return list(self.agg.children)
 
 
+class _WindowBuffer(MemConsumer):
+    """The window's buffered input batches, spillable: under pressure
+    the batches in memory move to a spill, and `drain` reads them back
+    (spilled runs first, since a spill always takes the oldest rows)."""
+
+    def __init__(self, op: "WindowExec"):
+        super().__init__("WindowExec.buffer")
+        self._op = op
+        self.metrics = op.metrics
+        self._mem: List[pa.RecordBatch] = []
+        self._mem_bytes = 0
+        self._spills: list = []
+        self.rows = 0
+
+    def add(self, rb: pa.RecordBatch) -> None:
+        self._mem.append(rb)
+        self._mem_bytes += rb.nbytes
+        self.rows += rb.num_rows
+        self.update_mem_used(self._mem_bytes)
+
+    def spill(self) -> int:
+        if not self._mem:
+            return 0
+        s = try_new_spill()
+        s.write_batches(iter(self._mem))
+        self._spills.append(s)
+        released = self._mem_bytes
+        self._mem = []
+        self._mem_bytes = 0
+        self._mem_used = 0
+        self.spill_metrics.spill_count += 1
+        self.spill_metrics.spilled_bytes += released
+        self._op.metrics.add("spill_count")
+        self._op.metrics.add("spilled_bytes", released)
+        return released
+
+    def drain(self) -> List[pa.RecordBatch]:
+        """Every buffered batch in arrival order; empties the buffer."""
+        out: List[pa.RecordBatch] = []
+        for s in self._spills:
+            out.extend(s.read_batches())
+        self.release()
+        out.extend(self._mem)
+        self._mem = []
+        self._mem_bytes = 0
+        self.rows = 0
+        self.update_mem_used(0)
+        return out
+
+    def release(self) -> None:
+        for s in self._spills:
+            s.release()
+        self._spills = []
+
+
 class WindowExec(ExecutionPlan):
 
     def __init__(self, child: ExecutionPlan,
@@ -149,53 +208,62 @@ class WindowExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
-        """Counters: `output_rows`, and the processed batches by device
-        (`cuda_batches` / `cpu_batches`)."""
-        buf: List[pa.RecordBatch] = []
+        """Counters: `output_rows`, the processed batches by device
+        (`cuda_batches` / `cpu_batches`), and the buffer's `spill_count`
+        and `spilled_bytes`."""
+        buf = _WindowBuffer(self)
+        buf.set_spillable(MemManager.get())
         segs: List[np.ndarray] = []  # each buffered batch's partition
         #                              starts (with partition_by)
-        buf_rows = 0
         flush_rows = 4 * config.BATCH_SIZE.get()
         prev_last: Optional[tuple] = None  # the last row's partition keys
         last_cut: Optional[int] = None  # buffer row of the last partition
         #                                 start
         device = None
-        for b in self.children[0].execute(partition):
-            b = b.compact()
-            if b.num_rows == 0:
-                continue
-            device = b.device
-            rb = b.to_arrow()
-            if self.partition_by:
-                # only this batch's keys are evaluated; the seam is row 0
-                # against the previous batch's last row
-                keys = self._part_keys(b, rb.num_rows)
-                seg = np.zeros(rb.num_rows, dtype=bool)
-                for k in keys:
-                    seg[1:] |= k[1:] != k[:-1]
-                if prev_last is not None:
-                    seg[0] = any(k[0] != pl for k, pl in zip(keys, prev_last))
-                idx = np.flatnonzero(seg)
-                idx = idx[idx + buf_rows > 0]  # buffer row 0 is not a cut
-                if len(idx):
-                    last_cut = int(idx[-1]) + buf_rows
-                prev_last = tuple(k[-1] for k in keys)
-                segs.append(seg)
-            buf.append(rb)
-            buf_rows += rb.num_rows
-            if self.partition_by and buf_rows >= flush_rows \
-                    and last_cut is not None:
-                whole, seg = _combine(buf), np.concatenate(segs)
-                # take() copies the tail, so the drained batches are freed
-                tail = whole.take(pa.array(
-                    np.arange(last_cut, whole.num_rows), type=pa.int64()))
-                buf, segs, buf_rows = [tail], [seg[last_cut:]], tail.num_rows
-                head, head_seg = whole.slice(0, last_cut), seg[:last_cut]
-                last_cut = None
-                yield self._process(head, device, head_seg)
-        if buf_rows:
-            yield self._process(_combine(buf), device,
-                                np.concatenate(segs) if segs else None)
+        try:
+            for b in self.children[0].execute(partition):
+                b = b.compact()
+                if b.num_rows == 0:
+                    continue
+                device = b.device
+                rb = b.to_arrow()
+                if self.partition_by:
+                    # only this batch's keys are evaluated; the seam is
+                    # row 0 against the previous batch's last row
+                    keys = self._part_keys(b, rb.num_rows)
+                    seg = np.zeros(rb.num_rows, dtype=bool)
+                    for k in keys:
+                        seg[1:] |= k[1:] != k[:-1]
+                    if prev_last is not None:
+                        seg[0] = any(k[0] != pl
+                                     for k, pl in zip(keys, prev_last))
+                    idx = np.flatnonzero(seg)
+                    idx = idx[idx + buf.rows > 0]  # buffer row 0: no cut
+                    if len(idx):
+                        last_cut = int(idx[-1]) + buf.rows
+                    prev_last = tuple(k[-1] for k in keys)
+                    segs.append(seg)
+                buf.add(rb)
+                if self.partition_by and buf.rows >= flush_rows \
+                        and last_cut is not None:
+                    whole, seg = _combine(buf.drain()), np.concatenate(segs)
+                    # take() copies the tail: a slice would pin every
+                    # drained batch while the buffer is charged only
+                    # the slice's bytes
+                    buf.add(whole.take(pa.array(
+                        np.arange(last_cut, whole.num_rows),
+                        type=pa.int64())))
+                    segs = [seg[last_cut:]]
+                    head, head_seg = whole.slice(0, last_cut), seg[:last_cut]
+                    last_cut = None
+                    yield self._process(head, device, head_seg)
+            tail = buf.drain()
+            if tail:
+                yield self._process(_combine(tail), device,
+                                    np.concatenate(segs) if segs else None)
+        finally:
+            buf.unregister()
+            buf.release()
 
     # ------------------------------------------------------------------
     def _process(self, rb: pa.RecordBatch, device,

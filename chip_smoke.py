@@ -234,6 +234,9 @@ ROUNDS = 16                 # hash_agg_step probe rounds
 
 
 T0 = time.perf_counter()
+#: query -> (maker of a fresh plan, its pandas frame), as the phases that
+#: first ran it made them; the spill phase runs them again
+ORACLES = {}
 
 
 def phase(name):
@@ -2163,6 +2166,7 @@ def family_data(root):
         secs[f"oracle {name}"] = time.perf_counter() - t
         plans[name] = (lambda n=name: Q.plans(paths, tables, FAMILY_PARTS,
                                               [n])[n][0], want)
+        ORACLES[name] = plans[name]
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
     return plans, secs, tables, paths
@@ -2443,6 +2447,7 @@ def q17_q18_data(root, fam_tables, fam_paths):
         runs[name] = ((lambda m=make: m()[0]), want)
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
+    ORACLES["q17"] = runs["q17"]
     return runs, secs, k, tables, paths
 
 
@@ -2763,9 +2768,24 @@ def q95_windows_data(root, tables, paths):
         want = make()[1]()
         secs[f"oracle {name}"] = time.perf_counter() - t
         runs[name] = ((lambda m=make: m()[0]), want)
+        ORACLES[name] = runs[name]
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
     return runs, secs, tables, paths
+
+
+def _node_values(sched, op_name, key):
+    """`key` of every node named `op_name` in the stages' merged metric
+    trees (a peak such as `mem_used` is the largest over its tasks)."""
+    out = []
+    for tree in sched.stage_metrics.values():
+        todo = [tree]
+        while todo:
+            node = todo.pop()
+            if node.name == op_name:
+                out.append(node.values.get(key, 0))
+            todo.extend(node.children)
+    return out
 
 
 def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
@@ -2901,6 +2921,10 @@ def q95_windows_path(name, make_plan, want, mode, profiled=False):
                               for c in windows.values()):
             raise SystemExit(f"{label}: WindowExec batches off the card: "
                              f"{windows}")
+        # the largest bytes each window buffer held (its MemConsumer's
+        # peak), from which the spill phase takes q51's budget
+        res["window_buffer_peaks"] = _node_values(sched, "WindowExec",
+                                                  "mem_used")
     if profiled:
         res.update(_dag_profile(sched, label, res["wall_s"], launches,
                                 res["probe_calls"]))
@@ -3071,7 +3095,8 @@ def breadth_data(root, tables, paths):
 
 
 def breadth_path(name, make_plan, want, single_task_bytes, expect,
-                 profiled=False, record_placements=True, check=None):
+                 profiled=False, record_placements=True, check=None,
+                 allow_empty=False):
     """One run of query `name` through the port's DagScheduler with the
     stage loop under auto, a fresh plan, and auron.tpu.dag.singleTaskBytes
     at `single_task_bytes` (None: its default, 64 MiB): fails unless its
@@ -3085,7 +3110,8 @@ def breadth_path(name, make_plan, want, single_task_bytes, expect,
     Returns (the run's result dict, the result frame); with `profiled`,
     each stage under torch.profiler (_dag_profile).  `check(result
     table)`, where given, replaces the pandas comparison: '' where the
-    result equals its exact oracle, else what differs."""
+    result equals its exact oracle, else what differs.  `allow_empty`
+    admits an empty result where the oracle's frame is empty too."""
     import torch
     from blaze_tpu_torch import config
     from blaze_tpu_torch.itest.q01_dag import stage_counters
@@ -3141,13 +3167,17 @@ def breadth_path(name, make_plan, want, single_task_bytes, expect,
     if sched.exec_mode != expect:
         raise SystemExit(f"{label}: exec_mode {sched.exec_mode}, expected "
                          f"{expect}")
-    err = check(out) if check else compare_frames(got, want, 1e-9)
-    if err or not len(got):
+    if allow_empty and not len(want):
+        err = f"{len(got)} rows where the oracle has none" if len(got) \
+            else None
+    else:
+        err = check(out) if check else compare_frames(got, want, 1e-9)
+    if err or not (len(got) or allow_empty):
         raise SystemExit(f"{label}: {len(got)} rows against the oracle's "
                          f"{len(want)}: {err}")
     print(f"result: {len(got)} rows equal to the "
-          f"{'exact' if check else 'pandas'} oracle (first "
-          f"{got.iloc[0].tolist()})")
+          f"{'exact' if check else 'pandas'} oracle"
+          + (f" (first {got.iloc[0].tolist()})" if len(got) else ""))
     shapes = groupings.check(label, launches["radix_partition"])
     placed = placements.check(label) if placements else None
     off_card = {sid: c["cpu_batches"] for sid, c in counters.items()
@@ -3534,6 +3564,164 @@ def decimal_phase(root, tables, paths, corpus):
             "decimal128": limbs, "wall_s": wall}
 
 
+SPILL_QUERIES = ("q06", "q17", "q95", "q51")
+SPILL_BUDGET = 32 << 20     # bytes: the JAX package's SF10 spill set's
+#: the memory consumers the spill phase must see spill, by their names
+SPILL_KINDS = ("sort", "agg", "WindowExec.buffer", "shuffle")
+
+
+class _SpillRouteGroupings:
+    """Within a `with` block, the (rows, partitions) of every radix
+    grouping the shuffle writer asks for while it spills (the spill
+    route), apart from its final write."""
+
+    def __enter__(self):
+        from blaze_tpu_torch.kernels import radix as R
+        from blaze_tpu_torch.shuffle import writer as W
+        self.shapes, self._inside = [], False
+        self._order, self._spill = R.partition_order, \
+            W.ShuffleRepartitioner.spill
+
+        def order(pids, n_parts):
+            if self._inside:
+                self.shapes.append((int(pids.numel()), int(n_parts)))
+            return self._order(pids, n_parts)
+
+        def spill(rep):
+            self._inside = True
+            try:
+                return self._spill(rep)
+            finally:
+                self._inside = False
+        R.partition_order = order
+        W.ShuffleRepartitioner.spill = spill
+        return self
+
+    def __exit__(self, *exc):
+        from blaze_tpu_torch.kernels import radix as R
+        from blaze_tpu_torch.shuffle import writer as W
+        R.partition_order = self._order
+        W.ShuffleRepartitioner.spill = self._spill
+        return False
+
+
+def _spill_run(name, budget, unbudgeted_wall):
+    """One run of `name` through breadth_path (staged, auto, its earlier
+    phase's pandas frame) with the memory manager at `budget` bytes;
+    returns the result with the manager's totals, the spills by consumer,
+    the RAM- and file-tier runs and the radix groupings of the writer's
+    spill route, which must be as many as the writer's spills."""
+    from blaze_tpu_torch.memory import MemManager
+    from blaze_tpu_torch.memory.spill import SPILL_TIERS
+    make, want = ORACLES[name]
+    mm = MemManager.init(budget)
+    tiers0 = dict(SPILL_TIERS)
+    with _SpillRouteGroupings() as route:
+        r, _ = breadth_path(f"spill {name}", make, want, 0, "staged",
+                            record_placements=(name != "q51"),
+                            allow_empty=(name == "q17"))
+    r.update(budget_bytes=mm.total, spill_count=mm.total_spill_count,
+             spilled_bytes=mm.total_spilled_bytes,
+             peak_mem_bytes=mm.peak_used,
+             spills_by_consumer={k: list(v) for k, v in
+                                 mm.spills_by_consumer.items()},
+             tiers={k: SPILL_TIERS[k] - tiers0[k] for k in SPILL_TIERS},
+             spill_route_groupings=route.shapes,
+             unbudgeted_wall_s=unbudgeted_wall)
+    print(f"spill {name}: wall {r['wall_s']:.3f} s (unbudgeted "
+          f"{unbudgeted_wall:.3f} s in its earlier phase), budget "
+          f"{budget}, {r['spill_count']} spills, {r['spilled_bytes']} "
+          f"bytes, by consumer {r['spills_by_consumer']}, RAM/file tier "
+          f"runs {r['tiers']}, peak {r['peak_mem_bytes']}, radix "
+          f"{r['launches']['radix_partition']}, of them on the spill route "
+          f"{len(route.shapes)}")
+    if len(route.shapes) != r["spills_by_consumer"].get("shuffle", [0])[0]:
+        raise SystemExit(f"spill {name}: {len(route.shapes)} radix "
+                         f"groupings on the spill route for "
+                         f"{r['spills_by_consumer']} spills")
+    return r
+
+
+def spill_phase(unbudgeted):
+    """q06, q17 and q95 at SF10 under a 32 MiB memory budget, and q51 under
+    half of the bytes its window buffers held at most in the q95 phase's
+    run (so that a buffer itself spills, not only the sort under it):
+    staged, 4 exchange partitions, the stage loop under auto, unprofiled,
+    each with a fresh plan and held to the pandas frame the earlier phase
+    made for it (breadth_path's checks: rows as a set within 1e-9,
+    nothing off the card, every radix grouping exact against its plain
+    version, as many as counted).  A query that does not spill under 32
+    MiB (its consumers never hold that much) runs once more under half
+    the peak its consumers held.  Fails unless every query spilled and
+    the sort, the generic aggregation, the window buffer and the shuffle
+    writer each spilled in the phase.  `unbudgeted`: each query's wall
+    and q51's window buffer peaks from its earlier phase in this start.
+    The memory manager goes back to its default budget after."""
+    import statistics as st
+    import torch
+    from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.memory import MemManager, default_budget_bytes
+    t_phase = time.perf_counter()
+    peaks = unbudgeted["q51 window buffer peaks"]
+    budgets = {n: SPILL_BUDGET for n in SPILL_QUERIES}
+    budgets["q51"] = max(peaks) // 2
+    print(f"budgets: {budgets} bytes (q51: half the larger of its window "
+          f"buffers' peaks {peaks} in the q95 phase's run)")
+    out, kinds = {}, {}
+    try:
+        for name in SPILL_QUERIES:
+            r = _spill_run(name, budgets[name], unbudgeted[name])
+            if not r["spill_count"]:
+                out[f"{name} at {budgets[name]}"] = r
+                budgets[name] = max(1, r["peak_mem_bytes"] // 2)
+                r = _spill_run(name, budgets[name], unbudgeted[name])
+            if not r["spill_count"]:
+                raise SystemExit(f"spill {name}: no spill under "
+                                 f"{r['budget_bytes']} bytes")
+            for k, (c, b) in r["spills_by_consumer"].items():
+                kinds.setdefault(k, [0, 0])
+                kinds[k][0] += c
+                kinds[k][1] += b
+            out[name] = r
+    finally:
+        MemManager.init(default_budget_bytes())
+    missing = [k for k in SPILL_KINDS if not kinds.get(k, [0])[0]]
+    if missing:
+        raise SystemExit(f"spill phase: {missing} never spilled: {kinds}")
+    shapes = [s for r in out.values() for s in r["spill_route_groupings"]]
+    n = int(st.median(s[0] for s in shapes))
+    P = shapes[0][1]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    pids = torch.randint(0, P, (n,), dtype=torch.int32, device="cuda",
+                         generator=gen)
+
+    def call():
+        return R.partition_order(pids, P)
+    before = sum(R.kernel_launches.values())
+    call()
+    launches = sum(R.kernel_launches.values()) - before
+    # the profiler of a long process loses device records now and then:
+    # up to three tries for a profile holding every launch, else the
+    # device time is left unmeasured
+    us = per_call = None
+    for _ in range(3):
+        us, per_call = device_us_of(call, tuple(RADIX_KERNELS.values()))
+        if per_call == launches:
+            break
+    route = {"calls": len(shapes), "median_rows": n, "P": P,
+             "device_us": us if per_call == launches else None,
+             "profiled_launches_per_call": per_call,
+             "launches_per_call": launches,
+             "ms": time_ms(call),
+             "plain_ms": time_ms(lambda: R.partition_order_plain(pids, P)),
+             "bound_ms": (8 * n + 4 * P) / HBM_BYTES_PER_S * 1e3}
+    wall = time.perf_counter() - t_phase
+    print(f"spill phase: {wall:.1f} s; budgets {budgets}; spills by "
+          f"consumer kind {kinds}; radix on the spill route: {route}")
+    return {"runs": out, "by_consumer": kinds, "budgets": budgets,
+            "radix_spill_route": route, "wall_s": wall}
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -3633,6 +3821,16 @@ def main():
         del all_tables
         for k in DECIMAL_QUERIES:
             by_path[f"decimal {k}"] = decimals["runs"][k]["launches"]
+        spill = spill_phase({
+            "q06": family["runs"]["q06 auto"]["wall_s"],
+            "q17": q17_q18["runs"]["q17 auto"]["wall_s"],
+            "q95": q95_windows["runs"]["q95 auto"]["wall_s"],
+            "q51": q95_windows["runs"]["q51 auto"]["wall_s"],
+            "q51 window buffer peaks":
+                q95_windows["runs"]["q51 auto"]["window_buffer_peaks"]})
+        ORACLES.clear()
+        for k, r in spill["runs"].items():
+            by_path[f"spill {k}"] = r["launches"]
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -3689,6 +3887,8 @@ def main():
                     for route in ("one tile", "more tiles")}
                 if name == "radix_partition" else None,
                 "writer_entry": writer_entry(cases[name][1])
+                if name == "radix_partition" else None,
+                "spill_route": spill["radix_spill_route"]
                 if name == "radix_partition" else None,
                 "parity": True, "cases": cases[name]}
 
@@ -3820,6 +4020,20 @@ def main():
               f"groupings (rows, P) {f['radix_groupings']}, eager "
               f"placements {f['placements']}; decimal_arith on the host "
               f"{decimals['decimal_arith'][k]}")
+    print(f"spill phase {spill['wall_s']:.1f} s, budgets "
+          f"{spill['budgets']}; spills by consumer kind "
+          f"{spill['by_consumer']}; radix on the spill route "
+          f"{spill['radix_spill_route']}")
+    for k, f in spill["runs"].items():
+        print(f"spill {k}: run {f['wall_s']:.3f} s (unbudgeted "
+              f"{f['unbudgeted_wall_s']:.3f} s), stage walls "
+              f"{ {s_: round(w, 3) for s_, w in f['stage_walls'].items()} }, "
+              f"{f['spill_count']} spills, {f['spilled_bytes']} bytes, by "
+              f"consumer {f['spills_by_consumer']}, RAM/file tier runs "
+              f"{f['tiers']} (the writer's spills are files of their own), "
+              f"peak {f['peak_mem_bytes']} of {f['budget_bytes']} bytes, "
+              f"radix {f['launches']['radix_partition']} "
+              f"({len(f['spill_route_groupings'])} on the spill route)")
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -3831,7 +4045,7 @@ def main():
                           (q19_q07_gq1["runs"], ""),
                           (breadth["runs"], "breadth "),
                           (strings["runs"], "strings "),
-                          (decimals["runs"], "")):
+                          (decimals["runs"], ""), (spill["runs"], "spill ")):
         io_bytes.update({prefix + k: _io_bytes(r)
                          for k, r in group.items()})
     print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
@@ -3842,6 +4056,7 @@ def main():
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
                       "strings": strings, "decimal": decimals,
+                      "spill": spill,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
