@@ -17,7 +17,7 @@ machine without a visible card raises here, before any work starts.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import pyarrow as pa
 
@@ -63,3 +63,31 @@ class NativeExecutionRuntime:
         self._finalized = True
         self.task.is_running = lambda: False
         return self.plan.collect_metrics()
+
+
+def execute_plan(plan_or_td, partition: Optional[int] = None
+                 ) -> List[pa.RecordBatch]:
+    """Run one task to completion and return its batches (the
+    NativeHelper.executeNativePlan analog of blaze_tpu/bridge/runtime.py
+    `execute_plan`): a TaskDefinition (bytes, JSON or dict) runs as one
+    task; an operator tree runs `partition`, or every partition in
+    order."""
+    if isinstance(plan_or_td, ExecutionPlan):
+        parts = ([partition] if partition is not None
+                 else range(plan_or_td.num_partitions))
+        out: List[pa.RecordBatch] = []
+        for p in parts:
+            rt = NativeExecutionRuntime(
+                {"stage_id": 0, "partition_id": p,
+                 "num_partitions": plan_or_td.num_partitions},
+                plan=plan_or_td).start()
+            try:
+                out.extend(rt.batches())
+            finally:
+                rt.finalize()
+        return out
+    rt = NativeExecutionRuntime(plan_or_td).start()
+    try:
+        return list(rt.batches())
+    finally:
+        rt.finalize()

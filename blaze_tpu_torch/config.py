@@ -31,6 +31,7 @@ class ConfigOption:
     parse: Callable[[str], Any]
     doc: str = ""
     alt_keys: tuple = ()
+    category: str = "core"
 
     @property
     def keys(self) -> tuple:
@@ -53,23 +54,27 @@ def _parse_bool(s: str) -> bool:
 
 
 def int_conf(key: str, default: int, doc: str = "",
-             alt_keys: tuple = ()) -> ConfigOption:
-    return ConfigOption(key, default, int, doc, alt_keys)
+             alt_keys: tuple = (), category: str = "core"
+             ) -> ConfigOption:
+    return ConfigOption(key, default, int, doc, alt_keys, category)
 
 
 def float_conf(key: str, default: float, doc: str = "",
-               alt_keys: tuple = ()) -> ConfigOption:
-    return ConfigOption(key, default, float, doc, alt_keys)
+               alt_keys: tuple = (), category: str = "core"
+               ) -> ConfigOption:
+    return ConfigOption(key, default, float, doc, alt_keys, category)
 
 
 def bool_conf(key: str, default: bool, doc: str = "",
-              alt_keys: tuple = ()) -> ConfigOption:
-    return ConfigOption(key, default, _parse_bool, doc, alt_keys)
+              alt_keys: tuple = (), category: str = "core"
+              ) -> ConfigOption:
+    return ConfigOption(key, default, _parse_bool, doc, alt_keys, category)
 
 
 def str_conf(key: str, default: str, doc: str = "",
-             alt_keys: tuple = ()) -> ConfigOption:
-    return ConfigOption(key, default, str, doc, alt_keys)
+             alt_keys: tuple = (), category: str = "core"
+             ) -> ConfigOption:
+    return ConfigOption(key, default, str, doc, alt_keys, category)
 
 
 class ConfSession:
@@ -318,6 +323,52 @@ STAGE_MAX_RECOVERIES = int_conf(
     "Lineage-recovery rounds per query: each FetchFailedError re-runs only "
     "the poisoned producer map task and restarts the consuming stage; "
     "beyond this many rounds the failure propagates.")
+
+# -- the Spark front door (convert/spark.py): the master switch, the UDF
+# -- routes and the per-operator switches, as the JAX package has them
+
+ENABLED = bool_conf(
+    "auron.enabled", True, "Master switch for native conversion.",
+    category="convert")
+UDF_FALLBACK_ENABLE = bool_conf(
+    "auron.udf.fallback.enable", True,
+    "Wrap unsupported expressions as host-evaluated UDFs during plan "
+    "conversion (convertExprWithFallback, NativeConverters.scala:399) "
+    "instead of rejecting the subtree.  The port converts them as the JAX "
+    "package does; running one waits for the host UDF bridge (ROADMAP "
+    "item 16).")
+UDF_JSON_ENABLED = bool_conf(
+    "auron.udf.UDFJson.enabled", True,
+    "Convert Hive UDFJson (get_json_object) natively.", category="convert")
+UDF_BRICKHOUSE_ENABLED = bool_conf(
+    "auron.udf.brickhouse.enabled", False,
+    "Convert brickhouse collect/combine_unique UDAFs natively.",
+    category="convert")
+
+#: per-operator conversion switches (ref AuronConverters.scala:98-128), by
+#: the operator's name in `auron.enable.<op>`
+OPERATOR_SWITCHES = {
+    op: bool_conf(f"auron.enable.{op}", True,
+                  f"Allow converting {op} nodes to the native engine.",
+                  category="convert")
+    for op in ("scan", "paimon.scan", "iceberg.scan", "hudi.scan",
+               "project", "filter", "sort", "union", "smj", "shj",
+               "native.join.condition", "bhj", "bnlj", "local.limit",
+               "global.limit", "take.ordered.and.project", "collectLimit",
+               "aggr", "expand", "window", "window.group.limit", "generate",
+               "local.table.scan", "data.writing", "data.writing.parquet",
+               "data.writing.orc", "scan.parquet", "scan.parquet.timestamp",
+               "scan.orc", "scan.orc.timestamp", "broadcastExchange",
+               "shuffleExchange")}
+
+
+def operator_enabled(op: str) -> bool:
+    """Converter gate lookup (ref per-op enable flags,
+    AuronConverters.scala:98-128); an operator without a switch is on."""
+    opt = OPERATOR_SWITCHES.get(op)
+    return True if opt is None else opt.get()
+
+
 #: keys of the JAX scheduler's branches the port has not ported: the
 #: scheduler raises where one of them turns its branch on (ROADMAP items
 #: 14 and 16)

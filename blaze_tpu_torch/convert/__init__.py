@@ -1,0 +1,9 @@
+"""L6 plan-translation layer of the PyTorch port (a copy of
+blaze_tpu/convert/: the AuronConvertStrategy + AuronConverters +
+NativeConverters analog).  The Flink converters are not ported (ROADMAP
+item 16)."""
+
+from blaze_tpu_torch.convert.spark import (ConversionError, ConversionResult,
+                                           convert_spark_plan)
+
+__all__ = ["ConversionError", "ConversionResult", "convert_spark_plan"]

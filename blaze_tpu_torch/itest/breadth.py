@@ -9,10 +9,11 @@ runs the plan (4 exchange partitions) through plan/stages.py
 (`--single-task-bytes`; unset: the default 64 MiB, so a small query runs
 as one local task and a large one staged) and compares the result with the oracle's frame as a set
 (itest/runner.py `compare_frames`).  It prints a line per query: the
-wall, `exec_mode`, the stage count, the rows, the radix and placement
-launches on the card, and whether the oracle was met.  The queries that
-wait for a later slice (`LATER`) are run too and must raise
-NotImplementedError naming their item.  q49 is held to `q49_frame`, its
+wall, `exec_mode`, the stage count, the rows, the launches on the card
+(radix, placement and the row-order float sums of csrc/segment_sum.cu),
+and whether the oracle was met.  The queries that wait for a later slice
+(`LATER`) are run too and must raise NotImplementedError naming their
+item.  q49 is held to `q49_frame`, its
 oracle with Spark's division by zero (ROADMAP Queue 3: the reference's
 pandas oracle divides to an infinity and counts it).
 
@@ -91,15 +92,19 @@ COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches", "io_bytes")
 def _zero_launches() -> None:
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.kernels import sort as K
     HU.placement_launches = 0
     R.partition_launches = 0
+    K.segment_sum_launches = 0
 
 
 def _launches() -> Dict[str, int]:
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.kernels import sort as K
     return {"radix": R.partition_launches,
-            "placement": HU.placement_launches}
+            "placement": HU.placement_launches,
+            "segment_sum": K.segment_sum_launches}
 
 
 def _reset_memory(mm) -> None:
@@ -193,7 +198,8 @@ def run(names: List[str], scale: float, root: str) -> List[Dict]:
         print(f"{name}: wall {r['wall_s']:.3f} s, {r['exec_mode']}, "
               f"{r['stages']} stages, {r['rows']} rows, radix "
               f"{r['launches']['radix']}, placement "
-              f"{r['launches']['placement']}, cpu_batches "
+              f"{r['launches']['placement']}, segment_sum "
+              f"{r['launches']['segment_sum']}, cpu_batches "
               f"{r['counters']['cpu_batches']}, budget "
               f"{r['memory']['budget_bytes']}, spills "
               f"{r['memory']['spill_count']} "

@@ -37,6 +37,7 @@ SOURCES = {
     "radix": "radix.cu",
     "window_table": "window_table.cu",
     "crc32c": "crc32c.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -61,6 +62,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
     "window_table": {
         # the StepParams block in host memory, stream
         "blaze_window_step": (_I, [_P, _P]),
+    },
+    "segment_sum": {
+        # slots, values, valid, out, first, last, n, S, is_f64, stream
+        "blaze_segment_sum": (_I, [_P] * 6 + [ctypes.c_longlong] * 2
+                              + [_I, _P]),
     },
     "crc32c": {
         # data (bytes), n, crc -> crc

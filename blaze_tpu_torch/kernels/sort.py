@@ -6,7 +6,8 @@ here they are PyTorch operations on the batch's device:
   * `segment_sum`/`segment_count` are one `index_add_` into a buffer one
     slot longer than the segments: rows whose group id is out of range
     (padding and masked rows carry `capacity - 1`, which is past the
-    groups) land in the extra slot, as XLA's scatter drops them;
+    groups) land in the extra slot, as XLA's scatter drops them.  A float
+    sum on a CUDA tensor runs csrc/segment_sum.cu instead (below);
   * `segment_min`/`segment_max` are `scatter_reduce` over an identity
     fill.  NaN propagates as in `jax.ops.segment_min`: NaN values enter
     the reduction as the identity and a segment that held one becomes
@@ -14,8 +15,14 @@ here they are PyTorch operations on the batch's device:
     atomics treat NaN.  An empty segment holds the JAX identity (the
     type's extreme, or -inf/inf).
 
-On CUDA the float sums add with atomics in a run-dependent order; on the
-CPU `index_add_` adds in row order, as the JAX package does there.
+Float sums add in row order on both devices.  On the CPU `index_add_`
+adds each segment's rows sequentially from +0.0, as the JAX package does
+there.  On the card `index_add_` adds with atomics in a run-dependent
+order, so a float sum on a CUDA tensor goes to the hand kernel
+csrc/segment_sum.cu, one warp per segment adding its rows in row order,
+which gives the CPU's bits; integer sums stay on `index_add_`, exact in
+any order.  There is no fallback: a CUDA float tensor the kernel does not
+take (float16, bfloat16) raises.
 """
 
 from __future__ import annotations
@@ -24,8 +31,13 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from blaze_tpu_torch.kernels import compare
+from blaze_tpu_torch.kernels import compare, lane
 from blaze_tpu_torch.schema import DataType
+
+#: launches of the CUDA row-order sum (csrc/segment_sum.cu): one per
+#: `segment_sum` call on a CUDA float tensor with rows and segments (two
+#: kernels each)
+segment_sum_launches = 0
 
 
 def sort_indices(columns: Sequence[Tuple[torch.Tensor,
@@ -65,13 +77,65 @@ def _slot(gids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def segment_sum(values: torch.Tensor, gids: torch.Tensor, num_segments: int,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-segment sums in the values' type (integers wrap as in JAX)."""
+                valid: Optional[torch.Tensor] = None,
+                contiguous: bool = False) -> torch.Tensor:
+    """Per-segment sums in the values' type (integers wrap as in JAX);
+    floats add in row order.  `contiguous` says the rows of each segment
+    are adjacent (out-of-range rows aside), as the generic engine's are
+    after its lexsort; the card's kernel then walks them where they lie,
+    else it sorts the ids stably first.  Either way the sums are the
+    same."""
+    if values.dtype.is_floating_point and lane.route(values) == "cuda":
+        return _segment_sum_cuda(values, gids, num_segments, valid,
+                                 contiguous)
+    return segment_sum_plain(values, gids, num_segments, valid)
+
+
+def segment_sum_plain(values: torch.Tensor, gids: torch.Tensor,
+                      num_segments: int,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`segment_sum` as one `index_add_` (row order on the CPU)."""
     v = values if valid is None else torch.where(
         valid, values, torch.zeros_like(values))
     out = torch.zeros(num_segments + 1, dtype=v.dtype, device=v.device)
     out.index_add_(0, _slot(gids, num_segments), v)
     return out[:num_segments]
+
+
+def _segment_sum_cuda(values, gids, num_segments, valid, contiguous):
+    """One call of csrc/segment_sum.cu: float32/float64 sums in row
+    order."""
+    global segment_sum_launches
+    from blaze_tpu_torch.kernels import build
+    if values.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segment_sum: no row-order kernel for "
+                        f"{values.dtype} on the card")
+    n = values.shape[0]
+    if values.dim() != 1 or gids.shape != values.shape or (
+            valid is not None and valid.shape != values.shape):
+        raise ValueError(f"segment_sum: values {tuple(values.shape)}, gids "
+                         f"{tuple(gids.shape)} and valid must be equal 1-D")
+    dev = values.device
+    if n == 0 or num_segments == 0:
+        return torch.zeros(num_segments, dtype=values.dtype, device=dev)
+    slots = _slot(gids, num_segments)
+    v = values.contiguous()
+    ok = None if valid is None else valid.to(torch.bool).contiguous()
+    if not contiguous:
+        order = torch.sort(slots, stable=True).indices
+        slots = slots.index_select(0, order)
+        v = v.index_select(0, order)
+        ok = None if ok is None else ok.index_select(0, order)
+    out = torch.empty(num_segments, dtype=v.dtype, device=dev)
+    first = torch.empty(num_segments, dtype=torch.int64, device=dev)
+    last = torch.empty(num_segments, dtype=torch.int64, device=dev)
+    rc = build.bound("segment_sum", "blaze_segment_sum")(
+        slots.data_ptr(), v.data_ptr(), None if ok is None else ok.data_ptr(),
+        out.data_ptr(), first.data_ptr(), last.data_ptr(), n, num_segments,
+        int(v.dtype == torch.float64), build.stream_of(dev))
+    build.check(rc, "segment_sum kernel")
+    segment_sum_launches += 1
+    return out
 
 
 def segment_count(valid: torch.Tensor, gids: torch.Tensor,

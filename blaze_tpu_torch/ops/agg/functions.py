@@ -106,13 +106,14 @@ class SumAgg(AggFunction):
 
     def partial_update(self, args, gids, n):
         data, valid = args[0]
-        s = K.segment_sum(data.to(_acc_dtype(data)), gids, n, valid)
+        s = K.segment_sum(data.to(_acc_dtype(data)), gids, n, valid,
+                          contiguous=True)
         has = K.segment_count(valid, gids, n) > 0
         return ((s, has),)
 
     def partial_merge(self, accs, gids, n):
         data, valid = accs[0]
-        s = K.segment_sum(data, gids, n, valid)
+        s = K.segment_sum(data, gids, n, valid, contiguous=True)
         has = K.segment_count(valid, gids, n) > 0
         return ((s, has),)
 
@@ -140,7 +141,7 @@ class CountAgg(AggFunction):
 
     def partial_merge(self, accs, gids, n):
         data, valid = accs[0]
-        c = K.segment_sum(data, gids, n, valid)
+        c = K.segment_sum(data, gids, n, valid, contiguous=True)
         return ((c, _ones(c.shape[0], c)),)
 
     def final_eval(self, accs):
@@ -169,14 +170,15 @@ class AvgAgg(AggFunction):
 
     def partial_update(self, args, gids, n):
         data, valid = args[0]
-        s = K.segment_sum(data.to(_acc_dtype(data)), gids, n, valid)
+        s = K.segment_sum(data.to(_acc_dtype(data)), gids, n, valid,
+                          contiguous=True)
         c = K.segment_count(valid, gids, n)
         return ((s, c > 0), (c, _ones(n, c)))
 
     def partial_merge(self, accs, gids, n):
         (s_d, s_v), (c_d, c_v) = accs
-        s = K.segment_sum(s_d, gids, n, s_v)
-        c = K.segment_sum(c_d, gids, n, c_v)
+        s = K.segment_sum(s_d, gids, n, s_v, contiguous=True)
+        c = K.segment_sum(c_d, gids, n, c_v, contiguous=True)
         return ((s, c > 0), (c, _ones(c.shape[0], c)))
 
     def final_eval(self, accs):

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from blaze_tpu_torch.kernels import sort as K
 from blaze_tpu_torch.schema import dtype_of
 
 
@@ -335,6 +336,8 @@ def dense_partial_agg(gid: torch.Tensor, num_slots: int,
     """One batch's own dense table: one segmented reduction per
     accumulator, keyed by a precomputed dense group id; masked rows go to
     the sentinel slot `num_slots`, which is cut off.  Empty slots hold 0.
+    Float sums add in row order on every device (kernels/sort.py
+    `segment_sum`), so equal groups sum to equal bits on the card too.
     Returns (accs, acc_valid, slot_occupied)."""
     g = torch.where(valid_mask, gid.to(torch.int64),
                     torch.full_like(gid, num_slots, dtype=torch.int64))
@@ -358,10 +361,10 @@ def dense_partial_agg(gid: torch.Tensor, num_slots: int,
             avalid.append(torch.ones(num_slots, dtype=torch.bool,
                                      device=g.device))
             continue
-        if kind == "sum":
-            dt = (torch.float64 if values.dtype.is_floating_point
-                  else torch.int64)
-            v = values.to(dt)
+        if kind == "sum" and values.dtype.is_floating_point:
+            acc = K.segment_sum(values.to(torch.float64), g, num_slots, vv)
+        elif kind == "sum":
+            v = values.to(torch.int64)
             acc = seg(0, g, torch.where(vv, v, torch.zeros_like(v)))
         elif kind in ("min", "max"):
             ident = _identity(values.dtype, kind == "max")

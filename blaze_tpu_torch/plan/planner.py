@@ -61,7 +61,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         if d.get("predicate") or d.get("partition_schema"):
             raise NotImplementedError(
                 "parquet predicate pruning and partition columns belong to "
-                "a later slice of the PyTorch port (ROADMAP Queue 1 item 4)")
+                "a later slice of the PyTorch port (ROADMAP Queue 1 step "
+                "11, item 4)")
         return ParquetScanExec(schema_from_dict(d["schema"]),
                                d["file_groups"],
                                projection=d.get("projection"))
@@ -324,7 +325,7 @@ def partitioning_from_dict(d: Dict[str, Any],
         return SinglePartitioning()
     raise NotImplementedError(
         f"{k!r} partitioning belongs to a later slice of the PyTorch port "
-        f"(ROADMAP Queue 1 item 3)")
+        f"(ROADMAP Queue 1 step 10, item 7)")
 
 
 def decode_task_definition(data) -> Dict[str, Any]:

@@ -35,6 +35,12 @@ from blaze_tpu_torch.plan.proto import auron_pb2 as pb
 
 _LATER = ("belongs to a later slice of the PyTorch port (ROADMAP Queue 1 "
           "item 3)")
+#: round-robin and range partitionings (and their wire forms)
+_LATER_PARTITIONING = ("belongs to a later slice of the PyTorch port "
+                       "(ROADMAP Queue 1 step 10, item 7)")
+#: a scan's pruning predicates and partition columns
+_LATER_SCAN = ("belongs to a later slice of the PyTorch port (ROADMAP "
+               "Queue 1 step 11, item 4)")
 
 # ---------------------------------------------------------------------------
 # ArrowType <-> type dicts ({"id": ...} of plan/types.py)
@@ -548,7 +554,7 @@ def partitioning_from_proto(p: pb.PhysicalRepartition) -> Dict[str, Any]:
         return {"kind": "hash",
                 "exprs": [expr_from_proto(e) for e in h.hash_expr],
                 "num_partitions": int(h.partition_count)}
-    raise NotImplementedError(f"repartition {kind!r} {_LATER}")
+    raise NotImplementedError(f"repartition {kind!r} {_LATER_PARTITIONING}")
 
 
 def partitioning_to_proto(d: Dict[str, Any]) -> pb.PhysicalRepartition:
@@ -562,7 +568,7 @@ def partitioning_to_proto(d: Dict[str, Any]) -> pb.PhysicalRepartition:
         for e in d["exprs"]:
             p.hash_repartition.hash_expr.append(expr_to_proto(e))
         return p
-    raise NotImplementedError(f"partitioning {k!r} {_LATER}")
+    raise NotImplementedError(f"partitioning {k!r} {_LATER_PARTITIONING}")
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +584,7 @@ def _file_groups_from_conf(conf: pb.FileScanExecConf):
     groups[min(idx, n - 1)] = [f.path for f in conf.file_group.files]
     if conf.HasField("partition_schema") and \
             len(conf.partition_schema.columns):
-        raise NotImplementedError(f"partition columns {_LATER}")
+        raise NotImplementedError(f"partition columns {_LATER_SCAN}")
     return groups, schema_from_proto(conf.schema)
 
 
@@ -595,7 +601,8 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
             names = [f["name"] for f in schema["fields"]]
             d["projection"] = [names[i] for i in node.base_conf.projection]
         if node.pruning_predicates:
-            raise NotImplementedError(f"scan pruning predicates {_LATER}")
+            raise NotImplementedError(
+                f"scan pruning predicates {_LATER_SCAN}")
         return d
     if kind == "ipc_reader":
         return {"kind": "ipc_reader",
@@ -832,7 +839,7 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
                 conf.projection.append(names.index(p))
         if d.get("predicate") or d.get("partition_schema"):
             raise NotImplementedError(
-                f"scan predicates and partition columns {_LATER}")
+                f"scan predicates and partition columns {_LATER_SCAN}")
         return n
     if k == "ipc_reader":
         n.ipc_reader.ipc_provider_resource_id = d["resource_id"]

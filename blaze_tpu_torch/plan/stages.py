@@ -534,3 +534,25 @@ class DagScheduler:
             lines.append(f"stage {st.sid}: tasks={st.num_tasks} "
                          f"out={kind} deps={st.deps}")
         return "\n".join(lines)
+
+
+def execute_spark_plan_json(plan_json, num_partitions: int = 2,
+                            work_dir: Optional[str] = None, *,
+                            scheduler: Optional[DagScheduler] = None
+                            ) -> pa.Table:
+    """Front door: Spark `toJSON` physical plan -> converter -> stage DAG
+    -> protobuf tasks -> engine (blaze_tpu/plan/stages.py
+    `execute_spark_plan_json`), on the configured device: CUDA unless the
+    caller sets `auron.torch.device=cpu`; asking for CUDA without a card
+    raises before the plan converts.  `scheduler`, when given, runs the
+    plan instead of a fresh `DagScheduler(work_dir)`, so the caller can
+    read its `exec_mode`, stages and walls afterwards."""
+    from blaze_tpu_torch.convert.spark import convert_spark_plan
+    from blaze_tpu_torch.device import resolve
+    if scheduler is not None and work_dir is not None:
+        raise ValueError("execute_spark_plan_json: pass work_dir or a "
+                         "scheduler, not both")
+    resolve()
+    res = convert_spark_plan(plan_json, num_partitions=num_partitions)
+    sched = scheduler if scheduler is not None else DagScheduler(work_dir)
+    return sched.run_collect(res.plan)

@@ -36,10 +36,17 @@ def crc32c_plain(data, crc: int = 0) -> int:
     return c ^ 0xFFFFFFFF
 
 
+#: calls of the built C entry (`crc32c_built`)
+built_calls = 0
+
+
 def crc32c_built(data, crc: int = 0) -> int:
     """CRC32C of `data` (bytes-like) through the built C entry; builds the
     library on first use and raises where it cannot be built."""
+    global built_calls
     from blaze_tpu_torch.kernels import build
     if not isinstance(data, bytes):
         data = bytes(data)
-    return build.bound("crc32c", "blaze_crc32c")(data, len(data), crc)
+    out = build.bound("crc32c", "blaze_crc32c")(data, len(data), crc)
+    built_calls += 1
+    return out

@@ -4,9 +4,9 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
-  2. build: the three CUDA sources of blaze_tpu_torch/csrc, built with nvcc
-     for sm_90a into build/kernels/ (one nvcc per source, started
-     together);
+  2. build: the five sources of blaze_tpu_torch/csrc (four CUDA kernel
+     sources and the host CRC32C), built with nvcc for sm_90a into
+     build/kernels/ (one nvcc per source, started together);
   3. kernel parity and times at the main paths' shapes: each kernel entry
      (placement, radix's two entries, window step) against its plain
      PyTorch version on the same CUDA tensors (outputs must be exactly
@@ -172,11 +172,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      q45 (`substring(ca_zip, 1, 2) IN (...)` OR an item IN list after
      three joins over web_sales) at SF10 over the tables the earlier
      phases wrote (any missing one generated from its seed), each under
-     the default auron.tpu.dag.singleTaskBytes, q08 then once more
-     profiled stage by stage; held to its pandas frame as a set with the checks of
-     phase 15; prints each run's wall, exec_mode, stages, stage-0
-     io_bytes, radix and placement launches, cudaLaunch* per stage, and
-     q45's `substring` calls, rows and host seconds beside its stage
+     the default auron.tpu.dag.singleTaskBytes (the profiled re-runs
+     were cut for the script's time); held to its pandas frame as a set
+     with the checks of phase 15; prints each run's wall, exec_mode,
+     stages, stage-0 io_bytes, radix and placement launches, and q45's `substring` calls, rows and host seconds beside its stage
      walls; then every case of the port's Spark conformance corpus
      (itest/spark_corpus.py, 357 cases) on the CPU and on CUDA tensors:
      fails unless the same cases pass on both and every case passes (no
@@ -196,14 +195,46 @@ Phases, each printing its own lines; any failure exits non-zero:
      CPU results on 2^20 seeded int128 pairs; prints each query's wall,
      stage walls, exec_mode, radix launches and decimal_arith's host
      calls, rows and seconds, and the phase's wall;
- 18. the dict-device lane through dictionary growth on the card: a
+ 18. front door: the seven checked-in Spark plans (tests/fixtures/: q01,
+     q06, q17, q18, q67, q95 and the hand-captured Spark 3.5 q01 agg)
+     through plan/stages.py `execute_spark_plan_json` (the port's
+     converter, convert/spark.py, then the DagScheduler) at SF10, the
+     earlier phases' tables written again in the fixtures' own file
+     layout (itest/spark_fixtures.py); each held to its oracle as a set
+     (the earlier phases' pandas frames; floats within 1e-6 relative);
+     fails unless each is equal and no batch ran off the card; prints
+     each plan's converted node classes, exec_mode, stage count and wall;
+ 19. q70 at SF1 through itest/breadth.py, held to its oracle (its ROLLUP
+     sums one state's single store at two levels and rank() must tie
+     them: the dict-device lane's and the generic engine's float sums in
+     row order on the card); fails unless equal, the row-order sum kernel
+     ran, and every float segment sum of the run equals the CPU's row
+     order bit for bit;
+ 20. segment_sum: csrc/segment_sum.cu against the CPU's row-order sums,
+     bit for bit, at q70's recorded call with the longest segment (also
+     through the kernel's other route) and at one segment of
+     2^20 rows, timed beside its plain version and one `index_add_`,
+     with its bound; and the engine's lexsort equal on the card and the
+     CPU (the repair rests on its stability);
+ 21. the order-free float sums (the hash lane's and the dense lane's
+     `index_add_`, the window's `torch.cumsum`), each run twice on the
+     card at q01's map shape and hot: whether the two runs' bits agree,
+     and whether they equal the CPU's (printed, not failed);
+ 22. spill: q06, q17 and q95 at SF10 under 32 MiB and q51 under half its
+     window buffers' peak (memory/manager.py, memory/spill.py), staged,
+     each held to its earlier phase's pandas frame; fails unless each
+     spilled, every consumer kind spilled and the writer's spill route's
+     radix groupings are exact;
+ 23. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 19. the paths' profile summary (with io_bytes per stage of every path:
+ 24. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
-     chains, as the JAX package does) and the kernel table as JSON lines,
-     the card's name and power limit, and the result line.
+     chains, as the JAX package does) and the kernel table as JSON lines
+     (the three ported kernels, the row-order sum and the host CRC32C:
+     all five built libraries), the card's name and power limit, and the
+     result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
 exits non-zero where torch sees none.
@@ -1201,21 +1232,29 @@ def make_data(root):
 def _zero_launches():
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.kernels import sort as K
     from blaze_tpu_torch.kernels import window_table as WT
+    from blaze_tpu_torch.shuffle import crc32c as C
     HU.placement_launches = 0
     R.partition_launches = 0
     for k in R.kernel_launches:
         R.kernel_launches[k] = 0
     WT.window_step_launches = 0
+    K.segment_sum_launches = 0
+    C.built_calls = 0
 
 
 def _read_launches():
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.kernels import sort as K
     from blaze_tpu_torch.kernels import window_table as WT
+    from blaze_tpu_torch.shuffle import crc32c as C
     return {"hash_placement": HU.placement_launches,
             "radix_partition": R.partition_launches,
             "window_step": WT.window_step_launches,
+            "segment_sum": K.segment_sum_launches,
+            "crc32c": C.built_calls,
             "radix_kernels": dict(R.kernel_launches)}
 
 
@@ -1611,6 +1650,11 @@ def crc32c_phase(dev):
         if built != plain:
             raise SystemExit(f"crc32c: built and plain differ on {n} B")
         out[n] = {"crc": built, "us": us}
+    data = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    crc32c_plain(data)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"1 MiB through the plain version: {plain_ms:.1f} ms")
     check = crc32c_built(b"123456789")
     print(f'CRC32C("123456789") = 0x{check:08x} (expected '
           f"0x{CRC_CHECK:08X})")
@@ -1632,7 +1676,7 @@ def crc32c_phase(dev):
     torch.cuda.synchronize()
     print(f"frame written from a batch on the card: {frames} frame(s) "
           f"verified through crc32c_plain")
-    return {"sizes": out, "check": check, "impl": name}
+    return {"sizes": out, "check": check, "impl": name, "plain_ms": plain_ms}
 
 
 def _per_stage(prof, stages, prefix=None):
@@ -2448,6 +2492,7 @@ def q17_q18_data(root, fam_tables, fam_paths):
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
     ORACLES["q17"] = runs["q17"]
+    ORACLES["q18"] = runs["q18"]
     return runs, secs, k, tables, paths
 
 
@@ -3269,8 +3314,9 @@ def breadth_phase(root, tables, paths, make_q01, q01_want):
 
 STRINGS_QUERIES = ("q08", "q45")
 #: the strings queries run once more profiled (q45's re-run was cut to
-#: hold a start inside the script's time with the decimal phase)
-STRINGS_PROFILED = ("q08",)
+#: hold a start inside the script's time with the decimal phase, q08's
+#: with the front door: its trace took 60 s to read)
+STRINGS_PROFILED = ()
 
 
 def strings_data(root, tables, paths):
@@ -3722,6 +3768,311 @@ def spill_phase(unbudgeted):
             "radix_spill_route": route, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the Spark front door, q70 and the row-order float sums
+# ---------------------------------------------------------------------------
+
+FRONT_DOOR_COUNTERS = ("cuda_batches", "cpu_batches", "io_bytes")
+
+
+def front_door_phase(root, tables, wants):
+    """The seven checked-in Spark plans (tests/fixtures/) through the
+    port's `execute_spark_plan_json` at SF10, each held to its oracle as a
+    set (itest/spark_fixtures.py): the tables the earlier phases generated,
+    written again in the fixtures' own layout; `wants` holds the pandas
+    frames the earlier phases computed for the same queries on the same
+    tables (the rest are computed here).  Fails unless each equals its
+    oracle and every batch ran on the card."""
+    from blaze_tpu_torch.itest import spark_fixtures as SF
+    from blaze_tpu_torch.itest.q01_dag import stage_counters
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    phase("front door: the seven checked-in Spark plans through "
+          "execute_spark_plan_json at SF10, each against its oracle")
+    data_dir = os.path.join(root, "front_door")
+    t0 = time.perf_counter()
+    fx_tables, paths, secs = SF.make_data(SCALE, data_dir, tables=tables)
+    print("rows: " + ", ".join(f"{n} {t.num_rows} in {len(paths[n])} "
+                               f"file(s)" for n, t in fx_tables.items())
+          + f"; generated {secs['generated'] or 'none'} in "
+          f"{secs['generate']:.1f} s, written in {secs['write']:.1f} s")
+    runs = {}
+    for name in SF.FIXTURES:
+        want = wants.get(name)
+        t = time.perf_counter()
+        if want is None:
+            want = SF.oracle(name, fx_tables, paths)
+        oracle_s = time.perf_counter() - t
+        sched = DagScheduler()
+        _zero_launches()
+        r = SF.run_fixture(name, data_dir, paths, want, scheduler=sched)
+        launches = _read_launches()
+        per_stage = stage_counters(sched, FRONT_DOOR_COUNTERS)
+        counters = {k: sum(c[k] for c in per_stage.values())
+                    for k in FRONT_DOOR_COUNTERS}
+        print(f"front door {name}: {r['rows']} rows, {r['exec_mode']}, "
+              f"{r['stages']} stages, wall {r['wall_s']:.3f} s, oracle "
+              f"{'equal' if r['error'] is None else r['error']} "
+              f"({oracle_s:.1f} s), batches and io_bytes {counters}, radix "
+              f"{launches['radix_partition']}, placement "
+              f"{launches['hash_placement']}, segment_sum "
+              f"{launches['segment_sum']}; converted {r['classes']}")
+        if r["error"] is not None:
+            raise SystemExit(f"front door {name}: {r['error']}")
+        # q17's plan, like the reference's, joins to nothing: no batch
+        if counters["cpu_batches"] or (r["rows"] and
+                                       not counters["cuda_batches"]):
+            raise SystemExit(f"front door {name}: batches off the card: "
+                             f"{counters}")
+        del r["table"]
+        runs[name] = dict(r, launches=launches, counters=per_stage,
+                          oracle_s=oracle_s,
+                          stage_walls=dict(sched.stage_walls))
+    secs["phase"] = time.perf_counter() - t0
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return {"runs": runs, "data_s": secs}
+
+
+class _RecordedSegmentSums:
+    """Within a `with` block, every float call of kernels/sort.py
+    `segment_sum` on the card is recorded: its inputs and its result
+    copied to the host.  `check` then holds each result, bit for bit, to
+    the plain version's (the CPU's row order) on the same inputs."""
+
+    def __enter__(self):
+        from blaze_tpu_torch.kernels import sort as K
+        self.calls, self._real = [], K.segment_sum
+
+        def recording(values, gids, num_segments, valid=None,
+                      contiguous=False):
+            out = self._real(values, gids, num_segments, valid, contiguous)
+            if values.is_cuda and values.is_floating_point():
+                self.calls.append((values.cpu(), gids.cpu(), num_segments,
+                                   None if valid is None else valid.cpu(),
+                                   contiguous, out.cpu()))
+            return out
+        K.segment_sum = recording
+        return self
+
+    def __exit__(self, *exc):
+        from blaze_tpu_torch.kernels import sort as K
+        K.segment_sum = self._real
+        return False
+
+    def check(self, label, wrapper_calls):
+        """Fails unless every recorded call equals the CPU's row-order sums
+        bit for bit and the calls with rows and segments are as many as
+        the wrapper counted; returns (rows, segments, longest segment) of
+        each call and the inputs of the one with the longest segment."""
+        import torch
+        from blaze_tpu_torch.kernels import sort as K
+        shapes, longest = [], None
+        for v, g, S, valid, contiguous, got in self.calls:
+            if not _same_float_bits(got, K.segment_sum_plain(v, g, S,
+                                                             valid)):
+                raise SystemExit(f"{label}: a float segment sum of {len(v)} "
+                                 f"rows over {S} segments is not the CPU's "
+                                 f"row-order sum")
+            run = int(torch.bincount(K._slot(g, S), minlength=S + 1)[:-1]
+                      .max()) if len(v) and S else 0
+            shapes.append((len(v), S, run))
+            if longest is None or run > longest[0]:
+                longest = (run, v, g, S, valid, contiguous)
+        launched = sum(1 for n, S, _run in shapes if n and S)
+        if launched != wrapper_calls:
+            raise SystemExit(f"{label}: {launched} float segment sums "
+                             f"recorded for {wrapper_calls} launches counted")
+        print(f"{label}: {len(shapes)} float segment sums on the card, each "
+              f"bit-equal to the CPU's row order; (rows, segments, longest) "
+              f"from {min(shapes) if shapes else None} to "
+              f"{max(shapes) if shapes else None}")
+        return shapes, longest
+
+
+Q70_SCALE = 1.0             # q70's fault showed at SF1 on the card
+SEGSUM_LONG = 1 << 20       # rows of the one-segment case
+
+
+def q70_phase(root):
+    """q70 alone at SF1 through itest/breadth.py (its tables from their
+    seeds), held to its oracle: its ROLLUP sums one state's single store
+    at two grouping levels in the dict-device lane's dense tables, and
+    rank() ties them only if both sums are the same bits.  Every float
+    segment sum of the run is recorded (_RecordedSegmentSums) and held to
+    the CPU's row order; the one with the longest segment is returned for
+    the segment_sum cases."""
+    from blaze_tpu_torch.itest import breadth as B
+    phase("q70 at SF1 through the breadth driver: a ROLLUP's float sums "
+          "in row order on the card (csrc/segment_sum.cu), rank() over them")
+    with _RecordedSegmentSums() as rec:
+        _zero_launches()
+        r = B.run(["q70"], Q70_SCALE, os.path.join(root, "q70"))[0]
+        launches = _read_launches()
+    shutil.rmtree(os.path.join(root, "q70"), ignore_errors=True)
+    print(f"q70: {'equal to its oracle' if r['met'] else r['detail']}; "
+          f"segment_sum launches {launches['segment_sum']}")
+    if not r["met"]:
+        raise SystemExit(f"q70 at SF1 misses its oracle: {r['detail']}")
+    if not launches["segment_sum"]:
+        raise SystemExit("q70: the row-order sum kernel never ran")
+    shapes, longest = rec.check("q70", launches["segment_sum"])
+    del r["launches"]
+    return dict(r, launches=launches, segment_sums=shapes, longest=longest)
+
+
+def _same_float_bits(got, want):
+    """Bits equal where the values are numbers, NaN where they are NaN."""
+    import torch
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    view = torch.int64 if want.dtype == torch.float64 else torch.int32
+    return torch.equal(got[~nan].view(view), want[~nan].view(view))
+
+
+def segment_sum_cases(dev, q70_call):
+    """The row-order sum kernel (csrc/segment_sum.cu) against the CPU's
+    row-order sums, bit for bit: at q70's recorded call with the longest
+    segment (as q70 made it, then through the other route: the ids
+    sorted first, or walked where they lie) and at one segment of 2^20
+    rows; times per
+    call against its plain version on the card and one `index_add_`, the
+    bound (bytes at 3.35 TB/s), device time and kernels per call; and the
+    engine's lexsort, whose stability the repair rests on, equal on the
+    card and on the CPU."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.kernels import compare
+    from blaze_tpu_torch.kernels import sort as K
+    phase("segment_sum: csrc/segment_sum.cu against the CPU's row-order "
+          "sums, bit for bit")
+    rng = np.random.default_rng(70)
+    keys = [torch.from_numpy(rng.integers(0, 16, SEGSUM_LONG)),
+            torch.from_numpy(rng.integers(0, 4, SEGSUM_LONG))]
+    mask = torch.from_numpy(rng.random(SEGSUM_LONG) > 0.1)
+    on_card = compare.lexsort_indices([k.to(dev) for k in keys],
+                                      mask.to(dev)).cpu()
+    stable = torch.equal(on_card, compare.lexsort_indices(keys, mask))
+    print(f"lexsort_indices over {SEGSUM_LONG} rows of 64 key values, "
+          f"masked rows among them: the card's permutation "
+          f"{'equals' if stable else 'DIFFERS FROM'} the CPU's")
+    if not stable:
+        raise SystemExit("lexsort_indices is not the CPU's on the card")
+    _longest, v, g, S, valid, contiguous = q70_call
+    long_v = torch.from_numpy(rng.standard_normal(SEGSUM_LONG) * 1e4)
+    shapes = [
+        ("q70's longest", v, g, S, valid, contiguous),
+        ("q70's longest, " + ("ids sorted first" if contiguous
+                              else "walked unsorted"),
+         v, g, S, valid, not contiguous),
+        ("one segment of 2^20 rows", long_v,
+         torch.zeros(SEGSUM_LONG, dtype=torch.int64), 1,
+         torch.from_numpy(rng.random(SEGSUM_LONG) > 0.2), True)]
+    cases = []
+    for label, v, g, S, valid, contiguous in shapes:
+        want = K.segment_sum_plain(v, g, S, valid)
+        vd, gd = v.to(dev), g.to(dev)
+        okd = None if valid is None else valid.to(dev)
+        got = K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
+        torch.cuda.synchronize()
+        exact = _same_float_bits(got, want)
+        card_index_add = K.segment_sum_plain(vd, gd, S, okd)
+        differs = not _same_float_bits(card_index_add, want)
+
+        def call():
+            K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
+        slots = K._slot(gd, S)
+        upd = vd if okd is None else torch.where(okd, vd,
+                                                 torch.zeros_like(vd))
+        table = torch.zeros(S + 1, dtype=vd.dtype, device=dev)
+        n = v.shape[0]
+        nbytes = n * (v.element_size() + 8 + (0 if valid is None else 1)) \
+            + S * v.element_size()
+        c = {"case": label, "n": n, "segments": S,
+             "longest": int(torch.bincount(K._slot(g, S),
+                                           minlength=S + 1)[:-1].max()),
+             "contiguous": contiguous, "exact": exact,
+             "err": 0.0 if exact else float("inf"),
+             "index_add_differs_from_row_order": differs,
+             "ms": time_ms(call),
+             "plain_ms": time_ms(lambda: K.segment_sum_plain(vd, gd, S,
+                                                             okd)),
+             "library_ms": time_ms(lambda: table.index_add_(0, slots, upd)),
+             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        c["device_us"], c["launches_per_call"] = device_us_of(
+            call, ("::span_kernel(", "::walk_kernel<"))
+        print(f"segment_sum {label}: {n} rows, {S} segments, longest "
+              f"{c['longest']}: {'bit-equal to' if exact else 'DIFFERS FROM'}"
+              f" the CPU's row order (index_add_ on the card "
+              f"{'differs' if differs else 'agrees'}); {c['ms']:.4f} ms a "
+              f"call (device {c['device_us']:.2f} us in "
+              f"{c['launches_per_call']:.0f} kernels), plain "
+              f"{c['plain_ms']:.4f} ms, index_add_ {c['library_ms']:.4f} "
+              f"ms, bound {c['bound_ms']:.5f} ms ({nbytes} bytes)")
+        if not exact:
+            raise SystemExit(f"segment_sum {label}: the kernel's sums are "
+                             f"not the CPU's row-order sums")
+        cases.append(c)
+    return cases
+
+
+ORDER_FREE_PARTS = 4096     # rows per window partition in the cumsum case
+
+
+def order_free_lanes(dev):
+    """The float sums that still add in no fixed order on the card: the
+    hash lane's accumulators (parallel/stage.py scatter_accumulate), the
+    dense lane (dense_partial_agg) and the window's running sums
+    (ops/window.py _segmented_cumsum), each run twice on the same inputs,
+    at q01's map shape (32768 rows into 2^18 slots) and hot (2^20 rows into
+    64 groups); prints whether the two runs' bits agree and whether they
+    equal the CPU's.  Recorded, not failed: these lanes are not changed
+    (ROADMAP Queue 3 lists the ones whose runs differ)."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ops.window import _segmented_cumsum
+    from blaze_tpu_torch.parallel.stage import (dense_partial_agg,
+                                                scatter_accumulate)
+    phase("order-free float sums on the card: each lane twice, bits "
+          "compared")
+    rng = np.random.default_rng(72)
+    out = {}
+    for shape, n, groups in (("q01 map", N, S), ("hot", 1 << 20, 64)):
+        v = torch.from_numpy(rng.standard_normal(n) * 1e3)
+        g = torch.from_numpy(rng.integers(0, groups, n))
+        mask = torch.ones(n, dtype=torch.bool)
+        seg_start = torch.arange(n) // ORDER_FREE_PARTS * ORDER_FREE_PARTS
+
+        def hash_lane(v, g, mask, groups=groups):
+            accs = (torch.zeros(groups, dtype=v.dtype, device=v.device),)
+            valid = (torch.zeros(groups, dtype=torch.bool,
+                                 device=v.device),)
+            return scatter_accumulate(g, [("sum", v, None)], mask, accs,
+                                      valid)[0][0]
+
+        def dense_lane(v, g, mask, groups=groups):
+            return dense_partial_agg(g, groups, [("sum", v, None)],
+                                     mask)[0][0]
+
+        def window(v, g, mask, seg_start=seg_start):
+            return _segmented_cumsum(v, seg_start.to(v.device))
+
+        for lane, fn in (("hash lane", hash_lane), ("dense lane", dense_lane),
+                         ("window cumsum", window)):
+            cpu = fn(v, g, mask)
+            a = fn(v.to(dev), g.to(dev), mask.to(dev))
+            b = fn(v.to(dev), g.to(dev), mask.to(dev))
+            torch.cuda.synchronize()
+            r = {"twice_same": _same_float_bits(a, b),
+                 "equals_cpu": _same_float_bits(a, cpu)}
+            out[f"{lane}, {shape}"] = r
+            print(f"{lane} at {shape} ({n} rows, {groups} groups): two "
+                  f"runs {'agree' if r['twice_same'] else 'DIFFER'} bit "
+                  f"for bit; {'equal to' if r['equals_cpu'] else 'not'} "
+                  f"the CPU's row order")
+    return out
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -3818,9 +4169,19 @@ def main():
             by_path[k] = strings["runs"][k]["launches"]
         decimals = decimal_phase(root, all_tables, all_paths,
                                  strings["corpus"])
-        del all_tables
         for k in DECIMAL_QUERIES:
             by_path[f"decimal {k}"] = decimals["runs"][k]["launches"]
+        front_door = front_door_phase(
+            root, all_tables,
+            dict({k: ORACLES[k][1] for k in ("q06", "q17", "q18", "q67",
+                                             "q95")}, q01=q01_want))
+        del all_tables
+        for k, r in front_door["runs"].items():
+            by_path[f"front door {k}"] = r["launches"]
+        q70 = q70_phase(root)
+        by_path["q70"] = q70["launches"]
+        segsum_cases = segment_sum_cases(dev, q70.pop("longest"))
+        order_free = order_free_lanes(dev)
         spill = spill_phase({
             "q06": family["runs"]["q06 auto"]["wall_s"],
             "q17": q17_q18["runs"]["q17 auto"]["wall_s"],
@@ -3906,6 +4267,46 @@ def main():
     # radix's partition_ranks over the writer's 2^19 bucket at P = 16 (the
     # writer's reduce count; its order-only entry at q01's shape beside
     # it), the window step at the rollup's map-side batch
+    def segment_sum_entry():
+        """The row-order float sum: no Pallas site behind it (it repairs
+        the order of `index_add_`'s float adds on the card); its main case
+        is q70's recorded call, the one-segment case beside it."""
+        main_case = segsum_cases[0]
+        return {"name": "segment_sum", "route": "cuda",
+                "source": "blaze_tpu_torch/csrc/segment_sum.cu",
+                "replaces": None,
+                "replaces_note": "no Pallas site: index_add_'s float adds "
+                                 "on the card (blaze_tpu_torch/kernels/"
+                                 "sort.py segment_sum)",
+                "launches": sum(p["segment_sum"] for p in by_path.values()),
+                "launches_by_path": {k: p["segment_sum"]
+                                     for k, p in by_path.items()},
+                "max_abs_err": max(c["err"] for c in segsum_cases),
+                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+                "library_ms": main_case["library_ms"],
+                "device_us": main_case["device_us"],
+                "launches_per_call": main_case["launches_per_call"],
+                "parity": True, "cases": segsum_cases}
+
+    def crc32c_entry():
+        """The frames' CRC32C: host code that nvcc builds, no Pallas site
+        and no device kernel; its times are host times over 1 MiB, its
+        `launches` the built entry's calls on the paths."""
+        mib = crc["sizes"][1 << 20]
+        return {"name": "crc32c", "route": "cuda",
+                "source": "blaze_tpu_torch/csrc/crc32c.cu", "replaces": None,
+                "replaces_note": "no Pallas site: host code, the shuffle "
+                                 "frames' checksum (blaze_tpu/shuffle/ipc.py)",
+                "launches": sum(p["crc32c"] for p in by_path.values()),
+                "launches_by_path": {k: p["crc32c"]
+                                     for k, p in by_path.items()},
+                "max_abs_err": 0.0, "ms": mib["us"] / 1e3,
+                "plain_ms": crc["plain_ms"],
+                "bound_ms": (1 << 20) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None, "host": True,
+                "parity": True}
+
     kernels = [
         entry("hash_placement", "blaze_tpu_torch/csrc/hash_update.cu",
               "blaze_tpu/kernels/hash_update.py:182"),
@@ -3913,6 +4314,8 @@ def main():
               "blaze_tpu/kernels/radix.py:122"),
         entry("window_step", "blaze_tpu_torch/csrc/window_table.cu",
               "blaze_tpu/kernels/mxu_agg.py:200"),
+        segment_sum_entry(),
+        crc32c_entry(),
     ]
     print("radix on the paths, us on the card per call: " + ", ".join(
         f"{k} {p['kernels']['radix_partition']['device_us']:.2f} "
@@ -4034,6 +4437,16 @@ def main():
               f"peak {f['peak_mem_bytes']} of {f['budget_bytes']} bytes, "
               f"radix {f['launches']['radix_partition']} "
               f"({len(f['spill_route_groupings'])} on the spill route)")
+    print(f"front door: phase {front_door['data_s']['phase']:.1f} s, data "
+          f"written in {front_door['data_s']['write']:.1f} s; " + "; ".join(
+              f"{k} {r['exec_mode']} {r['stages']} stages "
+              f"{r['wall_s']:.3f} s" for k, r in front_door["runs"].items()))
+    print(f"q70 at SF1: wall {q70['wall_s']:.3f} s, {q70['exec_mode']}, "
+          f"{len(q70['segment_sums'])} float segment sums, segment_sum "
+          f"launches {q70['launches']['segment_sum']}; equal to its oracle")
+    print("order-free float sums, two runs on the card: " + "; ".join(
+        f"{k} {'same' if r['twice_same'] else 'DIFFER'}"
+        for k, r in order_free.items()))
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -4045,7 +4458,8 @@ def main():
                           (q19_q07_gq1["runs"], ""),
                           (breadth["runs"], "breadth "),
                           (strings["runs"], "strings "),
-                          (decimals["runs"], ""), (spill["runs"], "spill ")):
+                          (decimals["runs"], ""), (spill["runs"], "spill "),
+                          (front_door["runs"], "front door ")):
         io_bytes.update({prefix + k: _io_bytes(r)
                          for k, r in group.items()})
     print("io_bytes per stage (scans' decoded and shuffle reads' Arrow "
@@ -4056,7 +4470,8 @@ def main():
                       "q17_q18": q17_q18, "q95_windows": q95_windows,
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
                       "strings": strings, "decimal": decimals,
-                      "spill": spill,
+                      "spill": spill, "front_door": front_door,
+                      "q70": q70, "order_free_lanes": order_free,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
