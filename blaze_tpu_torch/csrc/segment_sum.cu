@@ -1,184 +1,344 @@
-// Row-order segment sums of a float column (CUDA C++, sm_90a).
+// Row-order float sums over segments (CUDA C++, sm_90a): three forms in
+// one source.
 //
-// Replaces: no Pallas kernel.  It stands behind kernels/sort.py
-// `segment_sum` for float32 and float64 tensors on the card, which the
-// generic aggregation engine (ops/agg/functions.py: sum, avg and their
-// merges) and the dense tables of the dict-device lane
-// (parallel/stage.py `dense_partial_agg`) call once per float sum and
-// batch.  `index_add_` and every other scatter or scan PyTorch offers add
-// floats on the card with atomics or in a parallel tree, so a sum's last
-// bits depended on the run: two equal groups (q70's ROLLUP sums one
-// state's single store at two grouping levels) could sum apart and
-// rank() split their tie.
+// Replaces: no Pallas kernel.  It stands behind kernels/sort.py for
+// float32 and float64 tensors on the card, where `index_add_` and
+// `torch.cumsum` add floats with atomics or in a parallel tree, so the
+// last bits of a sum depended on the run:
+//   form 0, segment sum from +0.0: `segment_sum`, for the generic
+//     aggregation engine (ops/agg/functions.py: sum, avg and their merges)
+//     and the dict-device lane's batch tables (parallel/stage.py
+//     `dense_partial_agg`);
+//   form 1, segment sum into a carry: `segment_sum_into`, for the hash
+//     lane's float accumulators (parallel/stage.py `scatter_accumulate`,
+//     behind `fold_step`, `hash_agg_step`, `rehash_carry` and the scatter
+//     dense lane);
+//   form 2, segmented running sum: `segmented_running_sum`, for the
+//     window's running float sums (ops/window.py `_segmented_cumsum`).
 //
-// Contract (bit-identical to the CPU's `index_add_`, which is the JAX
-// package's CPU result): out[s] is the sequential sum, in row order and
-// starting from +0.0, of the values of the rows whose slot is s and whose
-// valid byte is nonzero (valid may be null: every row).  A row whose slot
-// is outside [0, S) adds nowhere.  A row left out adds nothing, which is
-// what the CPU's +0.0 for it does: a sum that starts at +0.0 is never
-// -0.0, and x + 0.0 == x for every other x.
+// Contract (the CPU's `index_add_` and sequential `cumsum`, which are the
+// JAX package's CPU results for the sums): the rows come grouped, each
+// segment one run of equal ids in row order (callers sort their ids
+// stably first and pass `order`, the sorted position's row).  Form 0
+// writes out[s] = ((+0.0 + x1) + x2) + ... over the rows whose id is s;
+// form 1 the same starting from out[s] (the carry), in place; form 2
+// writes, for every row, the sum from +0.0 of its run up to and including
+// it.  x is the row's value, or +0.0 where its valid byte is 0 (valid may
+// be null: every row).  In forms 0 and 1 a row whose id is outside
+// [0, S) adds nowhere, and a slot with no rows is +0.0 (form 0) or keeps
+// its carry's bits (form 1).  Every add is __dadd_rn / __fadd_rn: one
+// dependent chain per segment, never reassociated or contracted.
 //
-// What bounds it on this card: the serial walk, not bytes.  The work is
-// 17 B a row (slot, value, valid byte) read once and S values written,
-// about 5 us per 2^20 rows at 3.35 TB/s; but a segment's adds form one
-// dependent chain (IEEE addition does not reassociate), so a segment of
-// m rows takes m dependent adds whatever the card's width.
-// The engine's segments are short except where a group holds most of a
-// batch (a grand total, or q70's ROLLUP level that rolls every row up).
+// What bounds it on this card: a segment's adds are one dependent chain,
+// so a segment of m rows takes m add latencies however wide the card is;
+// the bytes (ids, order, values, valid byte, outputs) move at 3.35 TB/s
+// in microseconds.  A row-order sum of one long segment is therefore
+// slower than `index_add_`, which reassociates.
 //
-// What the design does about it.  Two launches on the caller's stream:
-//   launch 1, span: one thread per row; the lanes of a warp that share a
-//     slot find each other with __match_any_sync, and the lowest and the
-//     highest of them move the segment's first and last row with one
-//     64-bit atomicMin / atomicMax each (a run of one slot costs two
-//     atomics per warp, not per row);
-//   launch 2, walk: one warp per segment walks its rows from first to
-//     last and adds those whose slot is its own, in row order: the lanes
-//     load 32 consecutive rows at a time (coalesced, four such chunks in
-//     flight), then each chunk's 32 values are broadcast in row order
-//     (__shfl_sync, a row left out as +0.0) and added, so every lane runs
-//     the same chain of adds and lane 0 writes the sum.  The loads and
-//     the broadcasts overlap; only the adds chain.  (Earlier designs: one
-//     thread per segment, 8 rows a step, waited on memory every step, 73
-//     ns a row; broadcasting only the taken rows, each broadcast waiting
-//     on the mask of the one before, 44 ns a row.)
-// Rows of other slots inside a span (out-of-range rows between a
-// segment's rows, or another segment's rows when the ids are not sorted)
-// are skipped, so the result is right for any ids; the span is short
-// exactly when each segment's rows are contiguous, as the engine's are
-// after its stable lexsort.  Other callers sort the ids stably first
-// (kernels/sort.py), which keeps each segment's rows in row order.
+// What the design does about it.  Two kernels (and one 4-byte memset; a
+// memset of the output in form 0) on the caller's stream:
+//   heads: one thread a row.  A row whose id differs from the row
+//     before opens a segment (no atomics, no memsets, no pass over S).
+//     If the row `short_max` rows later still has its id, the segment is
+//     long and its head goes to a list (one atomic per long segment);
+//     else the thread sums the segment itself, eight rows' loads in
+//     flight at a time, so many short chains run side by side on each SM
+//     (the hash lane's segments are one or two rows);
+//   long: a persistent grid of blocks, one long segment a block at a
+//     time.  Eight producer warps stage each tile of 1,024 rows into a
+//     two-stage shared-memory ring with cp.async (a row left out is
+//     zero-filled by the copy itself: +0.0) and find where the run ends;
+//     one consumer thread runs the chain from shared memory, loading the
+//     next eight values before it adds the current eight, so only the adds
+//     wait on each other.  In form 2 the consumer writes each prefix to
+//     shared memory and the producers store the tile coalesced.  A tile's
+//     1,024 dependent adds outlast a memory latency, so two stages and
+//     one __syncthreads a tile keep the consumer fed.
+// `blaze_add_chain` is the probe of the floor: one thread, one chain of
+// dependent adds from registers.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWalkThreads = 128;  // 4 segments a block, one a warp
-constexpr int kDepth = 4;          // chunks of 32 rows in flight a warp
+constexpr int kFromZero = 0;
+constexpr int kIntoCarry = 1;
+constexpr int kRunning = 2;
+
+constexpr int kHeadThreads = 256;
+constexpr int kChunk = 8;             // rows a head thread loads at a time
+constexpr int kProducers = 256;       // warps 1-8 of a long block
+constexpr int kLongThreads = 32 + kProducers;
+constexpr int kTile = 1024;           // rows of a ring stage
+constexpr int kPerProducer = kTile / kProducers;
+constexpr int kPad = 16;              // the consumer reads 16 past a tile
+constexpr int kMaxLongBlocks = 132 * 4;
 constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void span_kernel(const int64_t* __restrict__ slots, long long n,
-                            long long S, unsigned long long* first,
-                            unsigned long long* last) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  long long s = -1;
-  if (i < n) {
-    const long long v = slots[i];
-    if (v >= 0 && v < S) s = v;
-  }
-  // every lane of the warp takes part (the grid is whole warps)
-  const unsigned peers = __match_any_sync(kAll, s);
-  if (s < 0) return;
-  if (lane == __ffs(peers) - 1) {
-    atomicMin(first + s, static_cast<unsigned long long>(i));
-  }
-  if (lane == 31 - __clz(peers)) {
-    atomicMax(last + s, static_cast<unsigned long long>(i));
-  }
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
 }
 
-// The row at `r` of segment s, or nothing past the span's end.
+// Sorted position r's row, whether it is taken, and its value (+0.0 when
+// it is left out).
 template <typename T>
-__device__ __forceinline__ void load_row(const int64_t* __restrict__ slots,
-                                         const T* __restrict__ values,
-                                         const uint8_t* __restrict__ valid,
-                                         long long s, unsigned long long r,
-                                         unsigned long long end, T& x,
-                                         bool& take) {
-  x = T(0);
-  take = false;
-  if (r <= end) {
-    x = values[r];
-    take = slots[r] == s && (valid == nullptr || valid[r] != 0);
-  }
+__device__ __forceinline__ T value_at(const int64_t* __restrict__ order,
+                                      const T* __restrict__ values,
+                                      const uint8_t* __restrict__ valid,
+                                      long long r) {
+  const long long i = order != nullptr ? order[r] : r;
+  const bool take = valid == nullptr || valid[i] != 0;
+  return take ? values[i] : T(0);
 }
 
-template <typename T>
-__global__ void walk_kernel(const int64_t* __restrict__ slots,
-                            const T* __restrict__ values,
-                            const uint8_t* __restrict__ valid,
-                            T* __restrict__ out,
-                            const unsigned long long* __restrict__ first,
-                            const unsigned long long* __restrict__ last,
-                            long long S) {
-  const long long s =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (s >= S) return;  // whole warps: blockDim is a multiple of 32
-  const unsigned long long a = first[s];
-  const unsigned long long b = last[s];
-  T acc = T(0);
-  if (a <= b) {
-    // kDepth chunks of 32 rows in flight; chunk d of a round lives in
-    // x[d] / take[d] (lane l holds its row l)
-    T x[kDepth];
-    bool take[kDepth];
+template <typename T, typename I, int F>
+__global__ void __launch_bounds__(kHeadThreads)
+    heads_kernel(const I* __restrict__ ids, const int64_t* __restrict__ order,
+                 const T* __restrict__ values,
+                 const uint8_t* __restrict__ valid, T* __restrict__ out,
+                 long long n, long long S, int short_max,
+                 int* __restrict__ long_count, int* __restrict__ long_heads) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const I s = ids[r];
+  if (F != kRunning && (s < 0 || static_cast<long long>(s) >= S)) return;
+  if (r > 0 && ids[r - 1] == s) return;  // not the first row of its run
+  if (r + short_max < n && ids[r + short_max] == s) {
+    long_heads[atomicAdd(long_count, 1)] = static_cast<int>(r);
+    return;
+  }
+  T acc = F == kIntoCarry ? out[s] : T(0);
+  for (long long base = r;; base += kChunk) {
+    T x[kChunk];
+    bool in[kChunk];
 #pragma unroll
-    for (int d = 0; d < kDepth; ++d) {
-      load_row(slots, values, valid, s, a + 32ull * d + lane, b, x[d],
-               take[d]);
+    for (int j = 0; j < kChunk; ++j) {
+      const long long row = base + j;
+      in[j] = row < n && ids[row] == s;
+      x[j] = row < n ? value_at(order, values, valid, row) : T(0);
     }
-    for (unsigned long long base = a; base <= b; base += 32ull * kDepth) {
 #pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
-        const unsigned long long chunk = base + 32ull * d;
-        if (chunk > b) break;  // uniform across the warp
-        // every lane adds the chunk's 32 rows in row order, a row left
-        // out as +0.0 (no change to the sum): the same chain of adds on
-        // every lane.  The broadcasts do not depend on the sum, so they
-        // issue ahead of it and only the adds chain.
-        const T xd = take[d] ? x[d] : T(0);
-#pragma unroll
-        for (int j = 0; j < 32; ++j) acc += __shfl_sync(kAll, xd, j);
-        load_row(slots, values, valid, s, chunk + 32ull * kDepth + lane, b,
-                 x[d], take[d]);
+    for (int j = 0; j < kChunk; ++j) {
+      if (!in[j]) {
+        if (F != kRunning) out[s] = acc;
+        return;
       }
+      acc = add(acc, x[j]);
+      if (F == kRunning) out[base + j] = acc;
     }
   }
-  if (lane == 0) out[s] = acc;
+}
+
+template <typename T, typename I, int F>
+__global__ void __launch_bounds__(kLongThreads)
+    long_kernel(const I* __restrict__ ids, const int64_t* __restrict__ order,
+                const T* __restrict__ values,
+                const uint8_t* __restrict__ valid, T* __restrict__ out,
+                long long n, const int* __restrict__ long_count,
+                const int* __restrict__ long_heads) {
+  __shared__ __align__(16) T buf[2][kTile + kPad];
+  __shared__ __align__(16) T pre[F == kRunning ? 2 : 1][F == kRunning
+                                                            ? kTile
+                                                            : 1];
+  // rows of the run in tile t: lens[t % 4] (a tile's length is read up to
+  // two rounds after it is filled, and reset three rounds after)
+  __shared__ int lens[4];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p = threadIdx.x - 32;  // producer index (warps 1-8)
+  const int count = *long_count;
+  for (int k = blockIdx.x; k < count; k += gridDim.x) {
+    const long long h = long_heads[k];
+    const I s = ids[h];
+    __syncthreads();  // the previous segment's last reads of lens are done
+    if (threadIdx.x == 0) lens[0] = kTile;
+    __syncthreads();
+    T acc = T(0);
+    if (F == kIntoCarry && threadIdx.x == 0) acc = out[s];
+    int last = INT_MAX;  // the run's last tile, once it is known
+    for (int t = 0;; ++t) {
+      if (warp != 0) {
+        if (t <= last) {
+          // tile t into stage t % 2: the run's rows copied (a row left
+          // out as +0.0), and the first row past the run into lens
+          const long long row0 = h + static_cast<long long>(t) * kTile;
+          T* dst = buf[t & 1];
+#pragma unroll
+          for (int q = 0; q < kPerProducer; ++q) {
+            const int j = p + q * kProducers;
+            const long long row = row0 + j;
+            const bool in = row < n && ids[row] == s;
+            if (in) {
+              const long long i = order != nullptr ? order[row] : row;
+              const bool take = valid == nullptr || valid[i] != 0;
+              __pipeline_memcpy_async(dst + j, values + i, sizeof(T),
+                                      take ? 0 : sizeof(T));
+            }
+            const unsigned out_of_run = __ballot_sync(kAll, !in);
+            if (lane == 0 && out_of_run != 0) {
+              atomicMin(&lens[t & 3], j + __ffs(out_of_run) - 1);
+            }
+          }
+          __pipeline_commit();
+        }
+        if (p == 0) lens[(t + 1) & 3] = kTile;
+        if (F == kRunning && t >= 2 && t - 2 <= last) {
+          // tile t - 2's prefixes, coalesced
+          const int m = lens[(t - 2) & 3];
+          const long long row0 =
+              h + static_cast<long long>(t - 2) * kTile;
+          const T* src = pre[t & 1];
+          for (int j = p; j < m; j += kProducers) out[row0 + j] = src[j];
+        }
+        __pipeline_wait_prior(0);
+      } else if (lane == 0 && t >= 1 && t - 1 <= last) {
+        // tile t - 1 from stage (t - 1) % 2: the chain
+        const int m = lens[(t - 1) & 3];
+        const T* b = buf[(t - 1) & 1];
+        T* w = pre[F == kRunning ? ((t - 1) & 1) : 0];
+        T cur[8], nxt[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) cur[q] = b[q];
+        int j = 0;
+        for (; j + 8 <= m; j += 8) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) nxt[q] = b[j + 8 + q];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            acc = add(acc, cur[q]);
+            if (F == kRunning) w[j + q] = acc;
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) cur[q] = nxt[q];
+        }
+        for (int q = 0; j + q < m; ++q) {
+          acc = add(acc, cur[q]);
+          if (F == kRunning) w[j + q] = acc;
+        }
+        if (F != kRunning && t - 1 == last) out[s] = acc;
+      }
+      __syncthreads();
+      if (t <= last && lens[t & 3] < kTile) last = t;
+      if (t == last + (F == kRunning ? 2 : 1)) break;
+    }
+  }
+}
+
+template <typename T>
+__global__ void chain_kernel(T* out, T x, T y, long long n) {
+  T a = x;
+#pragma unroll 16
+  for (long long i = 0; i < n; ++i) a = add(a, y);
+  out[0] = a;
+}
+
+template <typename T, typename I, int F>
+cudaError_t launch(const void* ids, const int64_t* order, const void* values,
+                   const uint8_t* valid, void* out, int* scratch,
+                   long long n, long long S, int short_max,
+                   cudaStream_t st) {
+  const I* id = static_cast<const I*>(ids);
+  const T* v = static_cast<const T*>(values);
+  T* o = static_cast<T*>(out);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  if (F == kFromZero) {
+    err = cudaMemsetAsync(o, 0, S * sizeof(T), st);  // +0.0 is all zeros
+    if (err != cudaSuccess) return err;
+  }
+  const long long head_blocks = (n + kHeadThreads - 1) / kHeadThreads;
+  heads_kernel<T, I, F><<<static_cast<unsigned>(head_blocks), kHeadThreads,
+                          0, st>>>(id, order, v, valid, o, n, S, short_max,
+                                   scratch, scratch + 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long long long_blocks = n / (short_max + 1) + 1;
+  if (long_blocks > kMaxLongBlocks) long_blocks = kMaxLongBlocks;
+  long_kernel<T, I, F><<<static_cast<unsigned>(long_blocks), kLongThreads,
+                         0, st>>>(id, order, v, valid, o, n, scratch,
+                                  scratch + 1);
+  return cudaGetLastError();
+}
+
+template <typename T, typename I>
+cudaError_t launch_form(int form, const void* ids, const int64_t* order,
+                        const void* values, const uint8_t* valid, void* out,
+                        int* scratch, long long n, long long S,
+                        int short_max, cudaStream_t st) {
+  switch (form) {
+    case kFromZero:
+      return launch<T, I, kFromZero>(ids, order, values, valid, out, scratch,
+                                     n, S, short_max, st);
+    case kIntoCarry:
+      return launch<T, I, kIntoCarry>(ids, order, values, valid, out,
+                                      scratch, n, S, short_max, st);
+    default:
+      return launch<T, I, kRunning>(ids, order, values, valid, out, scratch,
+                                    n, S, short_max, st);
+  }
 }
 
 }  // namespace
 
-// All pointers are device pointers.  slots (n,) int64; values (n,) float64
-// when is_f64, else float32; valid (n,) bool or null; out (S,) of the
-// values' type; first and last (S,) 8-byte scratch, set here.  n >= 1,
-// S >= 1.  Two kernel launches (and two memsets) on `stream`; returns
-// cudaGetLastError() after the last launch.
-extern "C" int blaze_segment_sum(const int64_t* slots, const void* values,
+// All pointers are device pointers.  form 0, 1 or 2 (above).  ids (n,)
+// int64 when ids_is64, else int32, each segment one run; order (n,) int64
+// or null (row r is values[order[r]]); values (n,) float64 when is_f64,
+// else float32; valid (n,) bool or null, indexed like values; out (S,) in
+// forms 0 and 1 (read first in form 1), (n,) in sorted positions in form
+// 2; scratch 2 + n / (short_max + 1) int32 cells (the long segments'
+// count and list).
+// 1 <= n < 2^31, S >= 1, short_max >= 1.  Returns cudaGetLastError()
+// after the last launch.
+extern "C" int blaze_segment_sum(int form, const void* ids, int ids_is64,
+                                 const int64_t* order, const void* values,
                                  const uint8_t* valid, void* out,
-                                 void* first, void* last, long long n,
-                                 long long S, int is_f64, void* stream) {
-  if (n < 1 || S < 1 || (is_f64 != 0 && is_f64 != 1)) {
+                                 int* scratch, long long n, long long S,
+                                 int short_max, int is_f64, void* stream) {
+  if (form < kFromZero || form > kRunning || n < 1 || n > INT_MAX ||
+      S < 1 || short_max < 1 || (is_f64 != 0 && is_f64 != 1) ||
+      (ids_is64 != 0 && ids_is64 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* f = static_cast<unsigned long long*>(first);
-  auto* l = static_cast<unsigned long long*>(last);
-  cudaError_t err = cudaMemsetAsync(f, 0xff, S * sizeof(*f), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(l, 0, S * sizeof(*l), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long row_blocks = (n + kThreads - 1) / kThreads;
-  span_kernel<<<static_cast<unsigned>(row_blocks), kThreads, 0, st>>>(
-      slots, n, S, f, l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long seg_blocks = (S * 32 + kWalkThreads - 1) / kWalkThreads;
+  cudaError_t err;
   if (is_f64) {
-    walk_kernel<double><<<static_cast<unsigned>(seg_blocks), kWalkThreads,
-                          0, st>>>(slots, static_cast<const double*>(values),
-                                   valid, static_cast<double*>(out), f, l, S);
+    err = ids_is64 ? launch_form<double, int64_t>(form, ids, order, values,
+                                                  valid, out, scratch, n, S,
+                                                  short_max, st)
+                   : launch_form<double, int32_t>(form, ids, order, values,
+                                                  valid, out, scratch, n, S,
+                                                  short_max, st);
   } else {
-    walk_kernel<float><<<static_cast<unsigned>(seg_blocks), kWalkThreads, 0,
-                         st>>>(slots, static_cast<const float*>(values),
-                               valid, static_cast<float*>(out), f, l, S);
+    err = ids_is64 ? launch_form<float, int64_t>(form, ids, order, values,
+                                                 valid, out, scratch, n, S,
+                                                 short_max, st)
+                   : launch_form<float, int32_t>(form, ids, order, values,
+                                                 valid, out, scratch, n, S,
+                                                 short_max, st);
+  }
+  return static_cast<int>(err);
+}
+
+// The floor of a row-order sum: one thread adds y to x n times, each add
+// waiting on the one before; out[0] gets the sum (float64 when is_f64,
+// else float32).  One launch on `stream`.
+extern "C" int blaze_add_chain(void* out, double x, double y, long long n,
+                               int is_f64, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64) {
+    chain_kernel<double><<<1, 1, 0, st>>>(static_cast<double*>(out), x, y, n);
+  } else {
+    chain_kernel<float><<<1, 1, 0, st>>>(static_cast<float*>(out),
+                                         static_cast<float>(x),
+                                         static_cast<float>(y), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

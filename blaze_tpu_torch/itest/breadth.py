@@ -95,7 +95,8 @@ def _zero_launches() -> None:
     from blaze_tpu_torch.kernels import sort as K
     HU.placement_launches = 0
     R.partition_launches = 0
-    K.segment_sum_launches = 0
+    for form in K.form_launches:
+        K.form_launches[form] = 0
 
 
 def _launches() -> Dict[str, int]:
@@ -104,7 +105,7 @@ def _launches() -> Dict[str, int]:
     from blaze_tpu_torch.kernels import sort as K
     return {"radix": R.partition_launches,
             "placement": HU.placement_launches,
-            "segment_sum": K.segment_sum_launches}
+            "segment_sum": sum(K.form_launches.values())}
 
 
 def _reset_memory(mm) -> None:

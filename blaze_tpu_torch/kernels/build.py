@@ -64,9 +64,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
         "blaze_window_step": (_I, [_P, _P]),
     },
     "segment_sum": {
-        # slots, values, valid, out, first, last, n, S, is_f64, stream
-        "blaze_segment_sum": (_I, [_P] * 6 + [ctypes.c_longlong] * 2
-                              + [_I, _P]),
+        # form, ids, ids_is64, order, values, valid, out, scratch, n, S,
+        # short_max, is_f64, stream
+        "blaze_segment_sum": (_I, [_I, _P, _I] + [_P] * 5
+                              + [ctypes.c_longlong] * 2 + [_I, _I, _P]),
+        # out, x, y, n, is_f64, stream: the dependent-add probe
+        "blaze_add_chain": (_I, [_P, ctypes.c_double, ctypes.c_double,
+                                 ctypes.c_longlong, _I, _P]),
     },
     "crc32c": {
         # data (bytes), n, crc -> crc

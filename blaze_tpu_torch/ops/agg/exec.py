@@ -272,9 +272,13 @@ class _AggState(MemConsumer):
         """(perm, sorted valid mask, group ids, group count) of a batch
         whose grouping columns are `keys` [(data, validity, dtype)]."""
         if not self.num_keys:
-            gids = torch.where(valid_mask, 0, 1)
-            perm = torch.arange(cap, device=valid_mask.device)
-            return perm, valid_mask, gids, 1
+            # one group: its rows first, in row order, the masked ones
+            # after them, so that the group is one run of ids (the
+            # row-order sums' contract, kernels/sort.py `segment_sum`)
+            perm = torch.sort((~valid_mask).to(torch.int32),
+                              stable=True).indices
+            sorted_valid = valid_mask.index_select(0, perm)
+            return perm, sorted_valid, torch.where(sorted_valid, 0, 1), 1
         operands = []
         for data, valid, dtype in keys:
             b, k = compare.order_key(data, valid, dtype, False, True)

@@ -12,11 +12,13 @@ batch's segment structure, on the batch's device:
   * a row's partition start and its rank are running maxima of marked
     positions (`torch.cummax`); partition ends and tie ends are running
     minima from the right (`torch.flip` around `torch.cummin`);
-  * running sums and counts are one global `torch.cumsum` minus its value
-    before the row's partition start (a NaN or an infinity counts only in
-    its own partition, where the JAX package lets it reach every later
-    one); running min/max are a log-step doubling scan bounded by
-    partition membership.
+  * running float sums add each partition's rows in row order from +0.0
+    (kernels/sort.py `segmented_running_sum`, csrc/segment_sum.cu on the
+    card), so a NaN or an infinity counts only in its own partition, where
+    the JAX package lets it reach every later one; running counts and
+    integer sums are one global `torch.cumsum` minus its value before the
+    row's partition start; running min/max are a log-step doubling scan
+    bounded by partition membership.
 
 Lead/lag and nth_value take rows of the host Arrow array, as in the JAX
 package.  `execute` streams: once the buffer holds 4 x `auron.batch.size`
@@ -52,6 +54,7 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import (ColumnBatch, decimal_from_unscaled,
                                    to_device, to_host)
 from blaze_tpu_torch.exprs import PhysicalExpr
+from blaze_tpu_torch.kernels import sort as K
 from blaze_tpu_torch.memory import MemConsumer, MemManager, try_new_spill
 from blaze_tpu_torch.ops.agg.functions import (AggFunction, AvgAgg, CountAgg,
                                                MinMaxAgg, SumAgg,
@@ -506,27 +509,19 @@ def _segment_size(part_seg: torch.Tensor, pos: torch.Tensor,
 
 def _segmented_cumsum(values: torch.Tensor, seg_start: torch.Tensor
                       ) -> torch.Tensor:
-    """Cumulative sum restarting at each partition start: the global
-    cumsum minus its value just before the row's partition start.
+    """Cumulative sum restarting at each partition start.
 
-    A NaN or an infinity would poison the global cumsum for every later
-    partition (the JAX package's `_segmented_cumsum` does so), so float
-    values that are not all finite are summed as zeros, and each row then
-    takes the NaN or infinity that a sum of its own partition's values up
-    to it gives."""
+    Floats add in row order within each partition, from +0.0
+    (kernels/sort.py `segmented_running_sum`: a matrix cumsum on the CPU,
+    csrc/segment_sum.cu on the card), the order Spark's window frame adds
+    in, so the card gives the CPU's bits and a NaN or an infinity stays in
+    its own partition.  The JAX package's `_segmented_cumsum` takes the
+    global cumsum minus its value before the partition, which spreads a
+    NaN or an infinity to every later partition and cancels.  Integers
+    (counts, int64 sums, unscaled decimals), exact in any order, keep
+    that global cumsum minus base."""
     if values.is_floating_point():
-        finite = torch.isfinite(values)
-        if not bool(finite.all()):
-            out = _segmented_cumsum(
-                torch.where(finite, values, torch.zeros_like(values)),
-                seg_start)
-            nan, pos, neg = (
-                _segmented_cumsum(m.to(torch.int64), seg_start) > 0
-                for m in (torch.isnan(values), values == float("inf"),
-                          values == float("-inf")))
-            out = torch.where(pos, float("inf"), out)
-            out = torch.where(neg, float("-inf"), out)
-            return torch.where(nan | (pos & neg), float("nan"), out)
+        return K.segmented_running_sum(values, seg_start)
     total = torch.cumsum(values, 0)
     base = total[torch.clamp(seg_start - 1, min=0)]
     base = torch.where(seg_start == 0, torch.zeros_like(base), base)

@@ -4,26 +4,22 @@ group ids `pack_dense_keys[_i32]` / `unpack_dense_keys` and a batch's own
 dense table `dense_partial_agg`, with the dense scatter carry of
 blaze_tpu/plan/fused.py `_init_carry` / `_scatter_into_carry`).
 
-`hash_agg_step` inserts one batch: keys hash with xxhash64 (seed 42) to a
-slot, `kernels/hash_update.place_in_carry` places rows by linear probing,
-claiming slots in the carry's `used` flags and its key-limb table, and the
-shared tail replays the key scatters through the claimed slots and
-accumulates through the placed slots.  The step is atomic: when any row
-fails to place within `probe_rounds`, the original carry comes back
-unchanged with the overflow count, so the caller can grow (exact modes) or
-degrade to pass-through (partial mode) losslessly.
+`fold_step` inserts one batch in place: keys hash with xxhash64 (seed 42)
+to a slot, `kernels/hash_update.place_in_carry` places rows by linear
+probing, claiming slots in the carry's `used` flags and its key-limb
+table, then the key scatters go through the claimed slots and the
+accumulation through the placed slots.  It has static shapes and no host
+sync, so a CUDA graph can capture it (the device stage loop's step,
+runtime/loop.py).  The step is atomic: when any row fails to place within
+`probe_rounds`, the placement takes its claims back (`rollback`), every
+row then reads as unplaced, and the carry keeps every bit, so the caller
+can grow (exact modes) or degrade to pass-through (partial mode)
+losslessly.
 
-The port keeps the JAX package's functional contract: a step never writes
-into the carry it was given (the new carry holds fresh tensors: `used`
-and `limbs` are copied once, before the placement claims into them), so
-a caller may retry a batch against the old carry.
-
-`fold_step` is the device stage loop's step (runtime/loop.py): the same
-insert, in place into the carry it is given, with static shapes and no
-host sync, so a CUDA graph can capture it.  Its overflow is atomic all the
-same: the placement takes its claims back (`rollback`), every row then
-reads as unplaced, and the tail leaves every bit of the carry as it was.
-Its final carry equals `hash_agg_step`'s bit for bit.
+`hash_agg_step` is the same insert with the JAX package's functional
+contract: it folds into a copy of the carry and returns the original on
+overflow, so a caller may retry a batch against the old carry.  One body
+sums floats into a hash table.
 """
 
 from __future__ import annotations
@@ -125,19 +121,13 @@ def hash_agg_step(carry: HashAggCarry,
                   mask: torch.Tensor, probe_rounds: int = 16):
     """Insert one batch into the table.  Returns (new_carry, overflow,
     num_groups): overflow is a host int (the unplaced masked rows; > 0
-    returns the original carry); num_groups a 0-d tensor."""
-    from blaze_tpu_torch.kernels import hash_update as HU
-    S = carry.used.shape[0]
-    key_cols, h = _slot_hashes(key_cols, S)
-    used = carry.used.clone()
-    limbs = carry.limbs.clone()
-    placed, wslot, unplaced = HU.place_in_carry(
-        h, HU.encode_limbs(key_cols), mask, used, limbs, probe_rounds)
-    overflow = int(unplaced)
+    returns the original carry); num_groups a 0-d tensor.  The insert is
+    `fold_step`'s, into a copy of the carry."""
+    new = HashAggCarry(*(tuple(t.clone() for t in f) if isinstance(f, tuple)
+                         else f.clone() for f in carry))
+    overflow = int(_fold(new, key_cols, agg_specs, mask, probe_rounds))
     if overflow:
         return carry, overflow, carry.used.sum()
-    new = _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot,
-                          used, limbs)
     return new, 0, new.used.sum()
 
 
@@ -168,6 +158,13 @@ def fold_step(carry: HashAggCarry,
     (1,) bool tensor on the carry's device: the batch overflowed, and the
     carry is unchanged.  No host sync, no data-dependent shape: the step
     a CUDA graph captures (`scratch`: the graph's placement scratch)."""
+    return _fold(carry, key_cols, agg_specs, live, probe_rounds,
+                 scratch) > 0
+
+
+def _fold(carry, key_cols, agg_specs, live, probe_rounds, scratch=None):
+    """The insert of `fold_step`; returns the (1,) int32 count of live
+    rows left unplaced (> 0: the carry is unchanged)."""
     from blaze_tpu_torch.kernels import hash_update as HU
     S = carry.used.shape[0]
     key_cols, h = _slot_hashes(key_cols, S)
@@ -187,7 +184,7 @@ def fold_step(carry: HashAggCarry,
         _bits(tv).index_add_(0, idx, (kv & claimed).to(torch.uint8))
     scatter_accumulate(placed, agg_specs, live, carry.accs, carry.acc_valid,
                        inplace=True)
-    return unplaced > 0
+    return unplaced
 
 
 def _spread(n: int, S: int, device) -> torch.Tensor:
@@ -196,41 +193,22 @@ def _spread(n: int, S: int, device) -> torch.Tensor:
     return torch.arange(n, device=device) & (S - 1)
 
 
-def _hash_step_tail(carry, key_cols, agg_specs, mask, placed, wslot, used,
-                    limbs):
-    """Key scatters through the newly claimed slots, then the accumulation
-    through the placed slots: one code path behind every placement.
-    `used` and `limbs` are the new carry's, already claimed into by the
-    placement."""
-    S = carry.used.shape[0]
-    claimed = torch.nonzero(wslot < S).squeeze(1)
-    slots = wslot.index_select(0, claimed).long()
-    tkeys, tkvalid = [], []
-    for tk, tv, (kd, kv) in zip(carry.keys, carry.key_valid, key_cols):
-        tk = tk.clone()
-        tv = tv.clone()
-        tk[slots] = kd.index_select(0, claimed)
-        tv[slots] = kv.index_select(0, claimed)
-        tkeys.append(tk)
-        tkvalid.append(tv)
-    accs, avalid = scatter_accumulate(placed, agg_specs, mask, carry.accs,
-                                      carry.acc_valid)
-    return HashAggCarry(tuple(tkeys), tuple(tkvalid), tuple(accs),
-                        tuple(avalid), used, limbs)
-
-
 def scatter_accumulate(g: torch.Tensor,
                        agg_specs: Sequence[Tuple[str, Optional[torch.Tensor],
                                                  Optional[torch.Tensor]]],
                        mask: torch.Tensor, accs: Sequence[torch.Tensor],
                        avalid: Sequence[torch.Tensor], inplace: bool = False):
     """Rows scatter into slot `g`; out-of-range slots (the sentinel S) drop.
-    Row i, dropped, is routed to slot i & (S - 1) (spread, so that on a CUDA
-    device the atomics of the dropped rows do not all contend for one
-    slot) with the operation's identity (0 for integer sums and counts,
-    -0.0 for float sums, the max/min identity for min/max), which leaves
-    every accumulator bit unchanged.  `inplace` updates `accs` and
-    `avalid` themselves (the fold step) instead of new tensors."""
+    A float sum adds in row order into the carry on every device
+    (kernels/sort.py `segment_sum_into`: the CPU's `index_add_`, the
+    card's csrc/segment_sum.cu), a live row whose value is null or masked
+    adding +0.0.  The exact accumulations (integer sums, counts, min, max
+    and the validity) scatter with `index_add_` / `scatter_reduce_`: a
+    dropped row is routed to slot i & (S - 1) (spread, so that on a CUDA
+    device its atomics do not all contend for one slot) with the
+    operation's identity, which leaves every bit unchanged.  `inplace`
+    updates `accs` and `avalid` themselves (the fold step) instead of new
+    tensors."""
     new_accs, new_avalid = [], []
     spread = None
     for (kind, vd, vv), a, av in zip(agg_specs, accs, avalid):
@@ -246,9 +224,10 @@ def scatter_accumulate(g: torch.Tensor,
             new_accs.append(a.index_add_(0, gi, cv.to(a.dtype)))
             new_avalid.append(av)
             continue
-        if kind == "sum":
-            zero = -0.0 if a.dtype.is_floating_point else 0
-            upd = torch.where(cv, vd.to(a.dtype), torch.full_like(a[:1], zero))
+        if kind == "sum" and a.dtype.is_floating_point:
+            K.segment_sum_into(a, vd.to(a.dtype), g, cv)
+        elif kind == "sum":
+            upd = torch.where(cv, vd.to(a.dtype), torch.zeros_like(a[:1]))
             a.index_add_(0, gi, upd)
         elif kind in ("min", "max"):
             ident = _identity(a.dtype, kind == "max")

@@ -7,11 +7,12 @@ source batches (`auron.tpu.stage.deviceLoop.chunkBatches`, 8) per step.
 On a CUDA device a step is ONE replay of a CUDA graph that holds, for
 every batch slot of the chunk, the chain, the hashing, the placement
 kernel (csrc/hash_update.cu, a cooperative launch captured as a graph
-node) and the accumulation, all in place into the graph's own carry; the
-host then reads one small vector back (the overflow flag, the first
-overflowing batch and the chunk's source rows): one sync per chunk.  On
-the CPU the same fold body runs eagerly with the plain placement, which
-is how the tests hold it to the JAX package.
+node) and the accumulation (float sums through a stable sort and
+csrc/segment_sum.cu's carry form), all in place into the graph's own
+carry; the host then reads one small vector back (the overflow flag, the
+first overflowing batch and the chunk's source rows): one sync per
+chunk.  On the CPU the same fold body runs eagerly with the plain
+placement, which is how the tests hold it to the JAX package.
 
 The JAX loop's contract, kept:
   * ATOMIC overflow: a batch that overflows leaves the carry unchanged
@@ -62,6 +63,7 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import ColumnBatch, DeviceColumn
 from blaze_tpu_torch.bridge.context import current_task
 from blaze_tpu_torch.kernels import hash_update as HU
+from blaze_tpu_torch.kernels import sort as K
 from blaze_tpu_torch.parallel.stage import (HashAggCarry, fold_step,
                                             init_hash_carry, rehash_carry,
                                             reset_hash_carry)
@@ -151,6 +153,7 @@ class _Fold:
                         if device.type == "cuda" else None)
         self.graph = None
         self.placement_nodes = 0
+        self.segment_sum_nodes = {}
         self._start_value = 0
 
     def acquire(self, program) -> bool:
@@ -186,6 +189,7 @@ class _Fold:
         side.wait_stream(main)
         graph = torch.cuda.CUDAGraph()
         before = HU.captured_launches
+        sums_before = dict(K.captured_launches)
         with torch.cuda.stream(side):
             graph.capture_begin(capture_error_mode="global")
             try:
@@ -194,6 +198,8 @@ class _Fold:
                 graph.capture_end()
         main.wait_stream(side)
         self.placement_nodes = HU.captured_launches - before
+        self.segment_sum_nodes = {f: K.captured_launches[f] - c
+                                  for f, c in sums_before.items()}
         self.graph = graph
         self._set_start(0)
         graph_stats["captures"] += 1
@@ -256,6 +262,7 @@ class _Fold:
             self.graph.replay()
             graph_stats["replays"] += 1
             HU.placement_launches += self.placement_nodes
+            K.add_replayed(self.segment_sum_nodes)
         ovf, first, rows = self.stats.tolist()
         return bool(ovf), int(first), int(rows)
 

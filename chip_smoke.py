@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --short-max-sweep   # only the threshold sweep
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
@@ -22,10 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      replayed twice, exact both times;
   4. the device stage loop's fold at q01's reduce shape as CUDA graph
      replays against the same fold on the CPU (integer columns exact,
-     float sums within 1e-9), its host launches and placement kernels
-     under torch.profiler, and one fold graph replayed alone: its device
-     operations, the host time of a replay against issuing the same body
-     eagerly, and its device time;
+     float sums bit for bit: row order on both), its host launches and
+     placement kernels under torch.profiler, and one fold graph replayed
+     alone: its device operations, the host time of a replay against
+     issuing the same body eagerly, and its device time;
   5. the two main paths, each as TaskDefinition bytes through the port's
      runtime on the card over the same SF10 data (2,875,140 store_returns
      rows in 4 parquet files; 4 map tasks, 16 reduce tasks), each with the
@@ -35,16 +36,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      just after it, and the loop's route checked (16 loop tasks on each
      reduce stage, q01's fallbacks equal to its partial skips, the
      rollup's map side outside the loop):
-       q01     TPC-DS q01's inner two-stage query (hash lane: placement
-               and radix kernels);
+       q01     TPC-DS q01's inner two-stage query (hash lane: placement,
+               radix and the row-order sum's carry form);
        rollup  the store-by-day returns rollup (dense window-table lane on
                the map side, one window-step launch per map batch; hash
                lane on the reduce side);
-  6. where the time goes: each path again under torch.profiler in both
-     modes, with the card's busy share of the wall, the top kernels and
-     host ops, the host launches (cudaLaunch* and cudaGraphLaunch apart)
-     and graph replays, and a check that each of the port's device kernels
-     ran on the card exactly as often as its wrapper counted;
+  6. where the time goes: each path again under torch.profiler with the
+     stage loop under auto, and q01 again staged (off), with the card's
+     busy share of the wall, the top
+     kernels and host ops, the host launches (cudaLaunch* and
+     cudaGraphLaunch apart) and graph replays, and a check that each of
+     the port's device kernels ran on the card exactly as often as its
+     wrapper counted;
   7. regrow: q01 under auto with a 4,096-slot table, every reduce task
      regrowing in the loop, one graph per table size, equal to the oracle;
   8. crc32c: the port's built CRC32C (csrc/crc32c.cu, host code) against
@@ -210,16 +213,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      row order on the card); fails unless equal, the row-order sum kernel
      ran, and every float segment sum of the run equals the CPU's row
      order bit for bit;
- 20. segment_sum: csrc/segment_sum.cu against the CPU's row-order sums,
-     bit for bit, at q70's recorded call with the longest segment (also
-     through the kernel's other route) and at one segment of
-     2^20 rows, timed beside its plain version and one `index_add_`,
-     with its bound; and the engine's lexsort equal on the card and the
-     CPU (the repair rests on its stability);
- 21. the order-free float sums (the hash lane's and the dense lane's
-     `index_add_`, the window's `torch.cumsum`), each run twice on the
-     card at q01's map shape and hot: whether the two runs' bits agree,
-     and whether they equal the CPU's (printed, not failed);
+ 20. segment_sum: the dependent-add probe (one thread, 2^20 adds, float64
+     and float32: the floor of any row-order sum), then the three forms of
+     csrc/segment_sum.cu against the CPU's row-order sums, bit for bit:
+     from +0.0 at q70's recorded call with the longest segment (also
+     through the other route) and at one segment of 2^20 rows, into a
+     carry at q01's map shape, hot and one segment of 2^20 rows, running
+     over 2^20 rows in window partitions of 4,096 and in one; each timed
+     beside its plain version and one PyTorch call (`index_add_`,
+     `torch.cumsum`), with device time and kernels per call and its bound
+     (the larger of the bytes at 3.35 TB/s and the longest segment's
+     adds at the probe's latency), failing unless the profile holds its
+     two kernels a call; and the engine's lexsort equal on the card and
+     the CPU (the sums rest on its stability);
+ 21. row-order lanes: the hash lane (`scatter_accumulate` into a non-zero
+     carry over three batches), staged `hash_agg_step`, the dense lane
+     (batch tables and the scatter carry) at q01's map shape and hot, the
+     window's running sums (2^20 rows in partitions of 4,096 and in one)
+     and the generic engine's global float sum and avg over filtered
+     batches whose masked rows stay among the others (AggExec, no keys),
+     each run twice on the card: fails unless both runs give the same
+     bits and the CPU's, and the engine's sums ran the kernel;
  22. spill: q06, q17 and q95 at SF10 under 32 MiB and q51 under half its
      window buffers' peak (memory/manager.py, memory/spill.py), staged,
      each held to its earlier phase's pandas frame; fails unless each
@@ -232,9 +246,9 @@ Phases, each printing its own lines; any failure exits non-zero:
  24. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does) and the kernel table as JSON lines
-     (the three ported kernels, the row-order sum and the host CRC32C:
-     all five built libraries), the card's name and power limit, and the
-     result line.
+     (the three ported kernels, the row-order sum with its launches by
+     form and the host CRC32C: all five built libraries), the card's name
+     and power limit, and the result line.
 
 The script imports nothing of the JAX package.  It needs a CUDA card: it
 exits non-zero where torch sees none.
@@ -300,8 +314,20 @@ KERNEL_NAMES = {
     "hash_placement": ("::place_kernel(",),
     "radix_partition": tuple(RADIX_KERNELS.values()),
     "window_step": ("::window_step_kernel(",),
+    "segment_sum": ("::heads_kernel<", "::long_kernel<"),
 }
 PROFILED_CALLS = 20
+
+
+def _expected_kernels(kernel, launches):
+    """The device kernels, by name pattern, that a wrapper's counts
+    `launches` (_read_launches) say ran: radix's by kernel (the upsweep
+    only for columns of more than one tile), one heads and one long kernel
+    per row-order sum, one kernel per call of the others."""
+    if kernel == "radix_partition":
+        return {RADIX_KERNELS[k]: c
+                for k, c in launches["radix_kernels"].items()}
+    return {pattern: launches[kernel] for pattern in KERNEL_NAMES[kernel]}
 
 
 def _on_card(e):
@@ -417,8 +443,7 @@ def _placement_state(gen, dev, load):
     import torch
     from blaze_tpu_torch.kernels import hash_update as HU
     from blaze_tpu_torch.kernels.hashing import hash_columns
-    from blaze_tpu_torch.parallel.stage import (_hash_step_tail,
-                                                init_hash_carry)
+    from blaze_tpu_torch.parallel.stage import init_hash_carry
 
     def hashed(kc):
         cols = [(d, v, "int64") for d, v in kc]
@@ -436,11 +461,8 @@ def _placement_state(gen, dev, load):
         hashed(kc), HU.encode_limbs(kc), ones, used, tab, 1 << 16)
     if int(unplaced):
         raise SystemExit("placement state: the table could not be filled")
-    specs = [("sum", torch.ones(n_fill, dtype=torch.float64, device=dev),
-              ones)]
-    carry = _hash_step_tail(carry, kc, specs, ones, placed, wslot, used, tab)
     kc, mask = _key_batch(gen, fresh[:n_fill], fresh[n_fill:], N, dev)
-    return hashed(kc), HU.encode_limbs(kc), mask, carry.used, carry.limbs
+    return hashed(kc), HU.encode_limbs(kc), mask, used, tab
 
 
 def _placement_bytes(h, mask, placed, L, S_):
@@ -588,8 +610,9 @@ def fold_graph_parity(dev):
     8-slot graph, then 3 batches on the 4-slot graph, one slot padded), as
     CUDA graph replays on the card against the same fold
     run eagerly on the CPU with the plain placement: `used`, keys, key
-    validity, limbs and sum validity exact, sums within 1e-9 relative
-    (float64 atomics add in a run-dependent order).  Then the card's
+    validity, limbs and sum validity exact, and the float sums bit for bit
+    (row order into the carry on both: the captured carry form of
+    csrc/segment_sum.cu, `index_add_` on the CPU).  Then the card's
     replays again under torch.profiler: host launches (cudaLaunch* and
     cudaGraphLaunch apart) and the placement kernels it ran."""
     import torch
@@ -632,15 +655,17 @@ def fold_graph_parity(dev):
                               zip(getattr(cuda, f), getattr(cpu, f)))
     got, want = cuda.accs[0].cpu(), cpu.accs[0]
     rel = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+    sums_exact = _same_float_bits(got, want)
     again = torch.equal(cuda.used, cuda2.used) and all(
-        torch.equal(a, b) for a, b in zip(cuda.keys, cuda2.keys))
+        torch.equal(a, b) for a, b in zip(cuda.keys, cuda2.keys)) and \
+        _same_float_bits(cuda.accs[0], cuda2.accs[0])
     print(f"fold of {n_batches} batches x {N} rows into {S} slots: "
           f"{int(cuda.used.sum())} groups; integer columns exact={exact}, "
-          f"sums max relative error {rel:.3e} (limit 1e-9); second run "
-          f"equal={again}; counters {m}; graphs {captured}; wall "
-          f"{first_s:.3f} s (with the capture), {second_s:.4f} s replayed, "
-          f"{cpu_s:.3f} s on the CPU")
-    if not exact or rel > 1e-9 or not again:
+          f"sums bit for bit={sums_exact} (max relative error {rel:.3e}); "
+          f"second run equal={again}; counters {m}; graphs {captured}; "
+          f"wall {first_s:.3f} s (with the capture), {second_s:.4f} s "
+          f"replayed, {cpu_s:.3f} s on the CPU")
+    if not exact or not sums_exact or not again:
         raise SystemExit("the fold graph disagrees with the same fold on "
                          "the CPU")
     if (m["stage_loop_batches"] != n_batches or m["stage_loop_regrows"]
@@ -679,7 +704,7 @@ def fold_graph_parity(dev):
           f"(live and gated-off slots); device busy {busy_us / 1e3:.3f} ms")
     replay = replay_cost(prog)
     return {"groups": int(cuda.used.sum()), "max_rel_err": rel,
-            "wall_first_s": first_s, "wall_replayed_s": second_s,
+            "sums_bit_equal": sums_exact, "wall_first_s": first_s, "wall_replayed_s": second_s,
             "wall_cpu_s": cpu_s, "graphs": captured,
             "host_launches": launches, "placement_kernels": kernels,
             "placement_us_per_node": place_us / max(kernels, 1),
@@ -1240,7 +1265,8 @@ def _zero_launches():
     for k in R.kernel_launches:
         R.kernel_launches[k] = 0
     WT.window_step_launches = 0
-    K.segment_sum_launches = 0
+    for form in K.form_launches:
+        K.form_launches[form] = 0
     C.built_calls = 0
 
 
@@ -1253,7 +1279,8 @@ def _read_launches():
     return {"hash_placement": HU.placement_launches,
             "radix_partition": R.partition_launches,
             "window_step": WT.window_step_launches,
-            "segment_sum": K.segment_sum_launches,
+            "segment_sum": sum(K.form_launches.values()),
+            "segment_sum_forms": dict(K.form_launches),
             "crc32c": C.built_calls,
             "radix_kernels": dict(R.kernel_launches)}
 
@@ -1337,12 +1364,12 @@ def q01_path(root, sr_paths, lo, hi, mode, label="q01"):
     if a.num_rows != b.num_rows or not a.select(keys).equals(b.select(keys)):
         raise SystemExit(f"{label}: the group set differs from the oracle")
     nulls_ok, max_rel = _sums_close(a, b, "ctr_total_return")
-    print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: float64 "
-          f"atomics add in a run-dependent order)")
+    print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: the "
+          f"oracle's group-by adds in its own order)")
     if not nulls_ok or max_rel > 1e-9:
         raise SystemExit(f"{label}: sums differ from the oracle")
-    _check_on_card(res, launches, ("hash_placement", "radix_partition"),
-                   label)
+    _check_on_card(res, launches, ("hash_placement", "radix_partition",
+                                   "segment_sum"), label)
     _check_loop(res["counters"], mode, label, map_eligible=True)
     return {"launches": launches, "counters": res["counters"],
             "graphs": graphs, "map_s": res["map_s"],
@@ -1428,8 +1455,8 @@ def rollup_path(root, sr_paths, lo, hi, mode):
         raise SystemExit("rollup path: groups or counts differ from the "
                          "oracle")
     nulls_ok, max_rel = _sums_close(a, b, "amt")
-    print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: the reduce "
-          f"side adds float64 with atomics)")
+    print(f"sums: max relative error {max_rel:.3e} (limit 1e-9: the "
+          f"oracle's group-by adds in its own order)")
     if not nulls_ok or max_rel > 1e-9:
         raise SystemExit("rollup path: sums differ from the oracle")
     if counters["map"]["mxu_verify_fallback"]:
@@ -1440,7 +1467,8 @@ def rollup_path(root, sr_paths, lo, hi, mode):
                          f"{counters['map']['mxu_rows']} rows, the filter "
                          f"kept {filtered}")
     _check_on_card(res, launches, ("window_step", "hash_placement",
-                                   "radix_partition"), "rollup")
+                                   "radix_partition", "segment_sum"),
+                   "rollup")
     if launches["window_step"] != counters["map"]["cuda_batches"]:
         raise SystemExit(f"rollup path: {launches['window_step']} window "
                          f"steps for {counters['map']['cuda_batches']} map "
@@ -1571,13 +1599,8 @@ def profile_path(name, run, root, mode):
         print(f"  {kernel}: wrapper launches {calls}, device kernels "
               f"{count}" + (f", {us / calls:.2f} us on the card per call"
                             if calls else ""))
-        # each device kernel as often as the wrapper counted it: one per
-        # call, or for radix by name (the upsweep only for columns of more
-        # than one tile)
-        expected = ({RADIX_KERNELS[k]: c
-                     for k, c in launches["radix_kernels"].items()}
-                    if kernel == "radix_partition" else {names[0]: calls})
-        for pattern, want in expected.items():
+        # each device kernel as often as the wrapper counted it
+        for pattern, want in _expected_kernels(kernel, launches).items():
             _us, got = _device_events(prof, (pattern,))
             _count_on_card([prof], f"{name} path", f"{kernel} ran {got} "
                            f"device kernels {pattern} where its wrapper "
@@ -1811,12 +1834,8 @@ def branches_path(root, sr_paths, lo, hi, mode, oracle, profiled=False):
                         reverse=True)[:10]:
             print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
                   f"{e.count:6d}  {e.key[:90]}")
-        for kernel in ("hash_placement", "radix_partition"):
-            names = KERNEL_NAMES[kernel]
-            expected = ({RADIX_KERNELS[k]: c
-                         for k, c in launches["radix_kernels"].items()}
-                        if kernel == "radix_partition"
-                        else {names[0]: launches[kernel]})
+        for kernel in ("hash_placement", "radix_partition", "segment_sum"):
+            expected = _expected_kernels(kernel, launches)
             for pattern, want_n in expected.items():
                 _us, got = _device_events(prof, (pattern,))
                 _count_on_card([prof], label, f"{kernel} ran {got} device "
@@ -2132,12 +2151,8 @@ def _dag_profile(sched, label, wall, launches, probes):
         return sum(t for t, _c in hits), sum(c for _t, c in hits)
 
     kernel_us = {}
-    for kernel in ("hash_placement", "radix_partition"):
-        names = KERNEL_NAMES[kernel]
-        expected = ({RADIX_KERNELS[k]: c
-                     for k, c in launches["radix_kernels"].items()}
-                    if kernel == "radix_partition"
-                    else {names[0]: launches[kernel]})
+    for kernel in ("hash_placement", "radix_partition", "segment_sum"):
+        expected = _expected_kernels(kernel, launches)
         us = 0.0
         for pattern, want_n in expected.items():
             p_us, n_dev = kernels(pattern)
@@ -3302,9 +3317,14 @@ def breadth_phase(root, tables, paths, make_q01, q01_want):
     for name in BREADTH_SHAPES:
         # q93's 2,700 map-side placements a run are not recorded: each
         # would keep a copy of the table (as q51's in phase 13)
-        out[f"{name} staged"], _ = breadth_path(
-            name, *runs[name], None, "staged",
-            record_placements=(name != "q93"))
+        with _TimedRowOrderSums() as timed:
+            out[f"{name} staged"], _ = breadth_path(
+                name, *runs[name], None, "staged",
+                record_placements=(name != "q93"))
+        sums = out[f"{name} staged"]["row_order_sums"] = timed.summary()
+        print(f"{name}: wall {out[f'{name} staged']['wall_s']:.3f} s; "
+              f"row-order sums by form (calls, ms on the card's clock from "
+              f"each call's first operation to its last) {sums}")
     if not out["q90 staged"]["join_rows"].get(
             "BroadcastNestedLoopJoinExec"):
         raise SystemExit("breadth q90: no nested-loop join rows")
@@ -3832,6 +3852,58 @@ def front_door_phase(root, tables, wants):
     return {"runs": runs, "data_s": secs}
 
 
+class _TimedRowOrderSums:
+    """Within a `with` block, each eager call of the row-order sums on a
+    CUDA float tensor (kernels/sort.py `segment_sum`, `segment_sum_into`,
+    `segmented_running_sum`) is bracketed by two CUDA events on the
+    current stream (no synchronisation): `summary` gives the calls and
+    the device milliseconds between their events (the wrapper's sort,
+    memsets and kernels) by form.  Calls inside a graph capture are
+    not timed (their replays are the graph's)."""
+
+    NAMES = {"segment_sum": "sum", "segment_sum_into": "into",
+             "segmented_running_sum": "running"}
+
+    def __enter__(self):
+        import torch
+        from blaze_tpu_torch.kernels import sort as K
+        self.events = {f: [] for f in self.NAMES.values()}
+        self._real = {name: getattr(K, name) for name in self.NAMES}
+
+        def timed(name, real):
+            form = self.NAMES[name]
+
+            def call(*args, **kwargs):
+                t = args[0] if name != "segment_sum_into" else args[1]
+                if not (t.is_cuda and t.is_floating_point()) or \
+                        torch.cuda.is_current_stream_capturing():
+                    return real(*args, **kwargs)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = real(*args, **kwargs)
+                b.record()
+                self.events[form].append((a, b))
+                return out
+            return call
+        for name, real in self._real.items():
+            setattr(K, name, timed(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        from blaze_tpu_torch.kernels import sort as K
+        for name, real in self._real.items():
+            setattr(K, name, real)
+        return False
+
+    def summary(self):
+        import torch
+        torch.cuda.synchronize()
+        return {form: {"calls": len(ev),
+                       "device_ms": sum(a.elapsed_time(b) for a, b in ev)}
+                for form, ev in self.events.items() if ev}
+
+
 class _RecordedSegmentSums:
     """Within a `with` block, every float call of kernels/sort.py
     `segment_sum` on the card is recorded: its inputs and its result
@@ -3908,13 +3980,14 @@ def q70_phase(root):
         r = B.run(["q70"], Q70_SCALE, os.path.join(root, "q70"))[0]
         launches = _read_launches()
     shutil.rmtree(os.path.join(root, "q70"), ignore_errors=True)
+    forms = launches["segment_sum_forms"]
     print(f"q70: {'equal to its oracle' if r['met'] else r['detail']}; "
-          f"segment_sum launches {launches['segment_sum']}")
+          f"segment_sum launches {launches['segment_sum']} by form {forms}")
     if not r["met"]:
         raise SystemExit(f"q70 at SF1 misses its oracle: {r['detail']}")
-    if not launches["segment_sum"]:
+    if not forms["sum"]:
         raise SystemExit("q70: the row-order sum kernel never ran")
-    shapes, longest = rec.check("q70", launches["segment_sum"])
+    shapes, longest = rec.check("q70", forms["sum"])
     del r["launches"]
     return dict(r, launches=launches, segment_sums=shapes, longest=longest)
 
@@ -3930,22 +4003,197 @@ def _same_float_bits(got, want):
     return torch.equal(got[~nan].view(view), want[~nan].view(view))
 
 
+ADD_CHAIN = 1 << 20         # dependent adds of the latency probe
+WINDOW_PARTS = 4096         # rows per window partition in the running cases
+SHORT_MAX_SWEEP = (8, 16, 32, 64, 128)
+
+
+def add_latency_ns(dev):
+    """Nanoseconds of one dependent add on the card, float64 and float32:
+    one thread runs a chain of 2^20 adds from registers (csrc/
+    segment_sum.cu `blaze_add_chain`), timed with CUDA events (median of
+    5).  No row-order sum beats it: a segment of m rows is m such adds."""
+    import torch
+    from blaze_tpu_torch.kernels import build
+    fn = build.bound("segment_sum", "blaze_add_chain")
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        o = torch.empty(1, dtype=dt, device=dev)
+
+        def call(o=o, f64=int(dt == torch.float64)):
+            build.check(fn(o.data_ptr(), 1.0, 1e-9, ADD_CHAIN, f64,
+                           build.stream_of(dev)), "add chain probe")
+        out[dt] = time_ms(call, warmup=2, iters=5) * 1e6 / ADD_CHAIN
+    print("one dependent add on the card: " + ", ".join(
+        f"{str(dt)[6:]} {ns:.4f} ns" for dt, ns in out.items())
+        + f" (a chain of {ADD_CHAIN} adds from registers)")
+    return out
+
+
+def _longest_run(ids):
+    import torch
+    return int(torch.unique_consecutive(ids, return_counts=True)[1].max())
+
+
+def _segsum_device_us(label, call, calls=PROFILED_CALLS):
+    """(device us, kernels) a call of csrc/segment_sum.cu's two kernels,
+    and the same for every kernel of the call (the wrapper's sort
+    included), from one profile of `calls` calls.  A profile short of two
+    kernels a call (the profiler drops records in a long process, PERF.md
+    §7) is made again, at most PROFILE_ATTEMPTS times, and then the
+    fullest one is read over the calls its kernels make up; more kernels
+    than two a call, or none, fail."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    per_call = len(KERNEL_NAMES["segment_sum"])
+    want = per_call * calls
+    best = None
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        us, got = _device_events(prof, KERNEL_NAMES["segment_sum"])
+        if got > want:
+            raise SystemExit(f"segment_sum {label}: {got} kernels on the "
+                             f"card for {calls} calls")
+        if got and (best is None or got > best[1]):
+            best = (us, got) + _device_events(prof, ("",))
+        if got == want:
+            break
+        print(f"segment_sum {label}: attempt {attempt}: the profile holds "
+              f"{got} of its {want} kernels")
+    if best is None:
+        raise SystemExit(f"segment_sum {label}: no kernel record in "
+                         f"{PROFILE_ATTEMPTS} profiles")
+    us, got, all_us, every = best
+    held = got / per_call
+    if got < want:
+        print(f"segment_sum {label}: device times over the {held:g} calls "
+              f"whose kernels the profile holds")
+    return us / held, got / held, all_us / held, every / held
+
+
+def _segsum_case(label, form, v, g, S, valid, contiguous, carry, add_ns,
+                 dev):
+    """One case of csrc/segment_sum.cu: form "sum" (`segment_sum`), "into"
+    (`segment_sum_into` over `carry`) or "running"
+    (`segmented_running_sum`, `g` the rows' partition starts), held bit
+    for bit to the plain version on the CPU and timed on the card."""
+    import torch
+    from blaze_tpu_torch.kernels import sort as K
+    vd, gd = v.to(dev), g.to(dev)
+    okd = None if valid is None else valid.to(dev)
+    slots = K._slot(gd, S)
+    upd = vd if okd is None else torch.where(okd, vd, torch.zeros_like(vd))
+    n, size = v.shape[0], v.element_size()
+    in_bytes = n * (size + g.element_size() + (0 if valid is None else 1))
+    if form == "sum":
+        want = K.segment_sum_plain(v, g, S, valid)
+        got = K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
+
+        def call():
+            return K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
+
+        def plain():
+            return K.segment_sum_plain(vd, gd, S, okd)
+        start = torch.zeros(S + 1, dtype=vd.dtype, device=dev)
+        longest = int(torch.bincount(slots, minlength=S + 1)[:-1].max())
+        nbytes = in_bytes + S * size
+    elif form == "into":
+        want = K.segment_sum_into_plain(carry.clone(), v, g, valid)
+        acc = carry.to(dev)
+        got = K.segment_sum_into(acc.clone(), vd, gd, okd)
+
+        def call():
+            return K.segment_sum_into(acc, vd, gd, okd)
+
+        def plain():
+            return K.segment_sum_into_plain(acc, vd, gd, okd)
+        start = torch.cat([acc, acc.new_zeros(1)])
+        hits = torch.bincount(slots, minlength=S + 1)[:-1]
+        longest = int(hits.max())
+        nbytes = in_bytes + 2 * int((hits > 0).sum()) * size
+    else:
+        want = K.segmented_running_sum_plain(v, g)
+        got = K.segmented_running_sum(vd, gd)
+
+        def call():
+            return K.segmented_running_sum(vd, gd)
+
+        def plain():
+            return K.segmented_running_sum_plain(vd, gd)
+
+        def library():
+            return torch.cumsum(vd, 0)
+        longest = _longest_run(g)
+        S = int(torch.unique_consecutive(g).shape[0])
+        nbytes = in_bytes + n * size
+    index_add_bits = None
+    if form != "running":
+        # one index_add_ into the same start: the library's sums
+        index_add_bits = _same_float_bits(
+            start.clone().index_add_(0, slots, upd)[:S], want)
+        table = start.clone()
+
+        def library():
+            table.index_add_(0, slots, upd)
+    torch.cuda.synchronize()
+    exact = _same_float_bits(got, want)
+    chain_ms = longest * add_ns[v.dtype] * 1e-6
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    c = {"case": label, "form": form, "dtype": str(v.dtype)[6:], "n": n,
+         "segments": S, "longest": longest, "contiguous": contiguous,
+         "exact": exact, "err": 0.0 if exact else float("inf"),
+         "ms": time_ms(call), "plain_ms": time_ms(plain),
+         "library_ms": time_ms(library),
+         "library": "torch.cumsum" if form == "running" else "index_add_",
+         "bytes": nbytes, "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+         "bound_ms": max(bytes_ms, chain_ms),
+         "bound_by": "operations" if chain_ms > bytes_ms else "bytes"}
+    (c["device_us"], c["launches_per_call"], c["device_us_all"],
+     c["device_ops_per_call"]) = _segsum_device_us(f"{form} {label}", call)
+    c["host_us"] = host_us_of(call)
+    c["of_chain"] = c["ms"] / chain_ms
+    print(f"segment_sum {form} {label}: {n} rows, {S} segments, longest "
+          f"{longest}, {c['dtype']}: {'bit-equal to' if exact else 'DIFFERS FROM'}"
+          f" the CPU's row order"
+          + ("" if index_add_bits is None else
+             f" (one index_add_ on the card "
+             f"{'agrees' if index_add_bits else 'differs'})")
+          + f"; {c['ms']:.4f} ms a call ({c['of_chain']:.3f}x the chain "
+          f"of the longest segment, {chain_ms:.4f} ms), device "
+          f"{c['device_us']:.2f} us in {c['launches_per_call']:.0f} kernels "
+          f"({c['device_us_all']:.2f} us in {c['device_ops_per_call']:.0f} "
+          f"with the sort; host {c['host_us']:.1f} us a call), plain "
+          f"{c['plain_ms']:.4f} ms, {c['library']} "
+          f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+          f"({c['bound_by']}; {nbytes} bytes {bytes_ms:.5f} ms)")
+    if not exact:
+        raise SystemExit(f"segment_sum {form} {label}: the kernel's sums "
+                         f"are not the CPU's row-order sums")
+    return c
+
+
 def segment_sum_cases(dev, q70_call):
-    """The row-order sum kernel (csrc/segment_sum.cu) against the CPU's
-    row-order sums, bit for bit: at q70's recorded call with the longest
-    segment (as q70 made it, then through the other route: the ids
-    sorted first, or walked where they lie) and at one segment of 2^20
-    rows; times per
-    call against its plain version on the card and one `index_add_`, the
-    bound (bytes at 3.35 TB/s), device time and kernels per call; and the
-    engine's lexsort, whose stability the repair rests on, equal on the
-    card and on the CPU."""
+    """csrc/segment_sum.cu's three forms against the CPU's row-order sums,
+    bit for bit, and timed (`_segsum_case`): from +0.0 at q70's recorded
+    call with the longest segment (as q70 made it, then through the other
+    route: the ids sorted stably by the wrapper, or on the host first) and
+    at one segment of 2^20 rows; into a carry at q01's map shape (32,768
+    rows into 2^18 slots, float64 and float32), hot (2^20 rows into 64
+    slots) and one segment of 2^20 rows; running over 2^20 rows in window
+    partitions of 4,096 and in one.  Then the engine's lexsort, whose
+    stability the sums rest on, equal on the card and on the CPU."""
     import numpy as np
     import torch
     from blaze_tpu_torch.kernels import compare
     from blaze_tpu_torch.kernels import sort as K
-    phase("segment_sum: csrc/segment_sum.cu against the CPU's row-order "
-          "sums, bit for bit")
+    phase("segment_sum: the dependent-add probe, then csrc/segment_sum.cu's "
+          "three forms against the CPU's row-order sums, bit for bit")
+    add_ns = add_latency_ns(dev)
     rng = np.random.default_rng(70)
     keys = [torch.from_numpy(rng.integers(0, 16, SEGSUM_LONG)),
             torch.from_numpy(rng.integers(0, 4, SEGSUM_LONG))]
@@ -3958,118 +4206,277 @@ def segment_sum_cases(dev, q70_call):
           f"{'equals' if stable else 'DIFFERS FROM'} the CPU's")
     if not stable:
         raise SystemExit("lexsort_indices is not the CPU's on the card")
-    _longest, v, g, S, valid, contiguous = q70_call
-    long_v = torch.from_numpy(rng.standard_normal(SEGSUM_LONG) * 1e4)
-    shapes = [
-        ("q70's longest", v, g, S, valid, contiguous),
-        ("q70's longest, " + ("ids sorted first" if contiguous
-                              else "walked unsorted"),
-         v, g, S, valid, not contiguous),
-        ("one segment of 2^20 rows", long_v,
-         torch.zeros(SEGSUM_LONG, dtype=torch.int64), 1,
-         torch.from_numpy(rng.random(SEGSUM_LONG) > 0.2), True)]
-    cases = []
-    for label, v, g, S, valid, contiguous in shapes:
-        want = K.segment_sum_plain(v, g, S, valid)
-        vd, gd = v.to(dev), g.to(dev)
-        okd = None if valid is None else valid.to(dev)
-        got = K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
-        torch.cuda.synchronize()
-        exact = _same_float_bits(got, want)
-        card_index_add = K.segment_sum_plain(vd, gd, S, okd)
-        differs = not _same_float_bits(card_index_add, want)
-
-        def call():
-            K.segment_sum(vd, gd, S, okd, contiguous=contiguous)
-        slots = K._slot(gd, S)
-        upd = vd if okd is None else torch.where(okd, vd,
-                                                 torch.zeros_like(vd))
-        table = torch.zeros(S + 1, dtype=vd.dtype, device=dev)
-        n = v.shape[0]
-        nbytes = n * (v.element_size() + 8 + (0 if valid is None else 1)) \
-            + S * v.element_size()
-        c = {"case": label, "n": n, "segments": S,
-             "longest": int(torch.bincount(K._slot(g, S),
-                                           minlength=S + 1)[:-1].max()),
-             "contiguous": contiguous, "exact": exact,
-             "err": 0.0 if exact else float("inf"),
-             "index_add_differs_from_row_order": differs,
-             "ms": time_ms(call),
-             "plain_ms": time_ms(lambda: K.segment_sum_plain(vd, gd, S,
-                                                             okd)),
-             "library_ms": time_ms(lambda: table.index_add_(0, slots, upd)),
-             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        c["device_us"], c["launches_per_call"] = device_us_of(
-            call, ("::span_kernel(", "::walk_kernel<"))
-        print(f"segment_sum {label}: {n} rows, {S} segments, longest "
-              f"{c['longest']}: {'bit-equal to' if exact else 'DIFFERS FROM'}"
-              f" the CPU's row order (index_add_ on the card "
-              f"{'differs' if differs else 'agrees'}); {c['ms']:.4f} ms a "
-              f"call (device {c['device_us']:.2f} us in "
-              f"{c['launches_per_call']:.0f} kernels), plain "
-              f"{c['plain_ms']:.4f} ms, index_add_ {c['library_ms']:.4f} "
-              f"ms, bound {c['bound_ms']:.5f} ms ({nbytes} bytes)")
-        if not exact:
-            raise SystemExit(f"segment_sum {label}: the kernel's sums are "
-                             f"not the CPU's row-order sums")
-        cases.append(c)
-    return cases
+    _longest, v, g, S_q70, valid, contiguous = q70_call
+    if contiguous:
+        other = ("ids sorted by the wrapper", v, g, valid, False)
+    else:
+        order = torch.sort(K._slot(g, S_q70), stable=True).indices
+        other = ("ids sorted on the host first", v[order],
+                 K._slot(g, S_q70)[order],
+                 None if valid is None else valid[order], True)
+    n_long = SEGSUM_LONG
+    long_v = torch.from_numpy(rng.standard_normal(n_long) * 1e4)
+    long_ok = torch.from_numpy(rng.random(n_long) > 0.2)
+    zeros = torch.zeros(n_long, dtype=torch.int64)
+    map_v = torch.from_numpy(rng.standard_normal(N) * 1e3)
+    map_g = torch.from_numpy(rng.integers(0, S, N))
+    map_g[::97] = S  # unplaced rows drop
+    map_ok = torch.from_numpy(rng.random(N) > 0.05)
+    map_carry = torch.from_numpy(rng.standard_normal(S) * 1e3)
+    hot_g = torch.from_numpy(rng.choice(S, 64, replace=False)[
+        rng.integers(0, 64, n_long)])
+    parts = torch.arange(n_long) // WINDOW_PARTS * WINDOW_PARTS
+    cases = [
+        _segsum_case("q70's longest call", "sum", v, g, S_q70, valid,
+                     contiguous, None, add_ns, dev),
+        _segsum_case(f"q70's longest call, {other[0]}", "sum", other[1],
+                     other[2], S_q70, other[3], other[4], None, add_ns, dev),
+        _segsum_case("one segment of 2^20 rows", "sum", long_v, zeros, 1,
+                     long_ok, True, None, add_ns, dev),
+        _segsum_case("q01's map shape", "into", map_v, map_g, S, map_ok,
+                     False, map_carry, add_ns, dev),
+        _segsum_case("q01's map shape", "into", map_v.float(), map_g, S,
+                     map_ok, False, map_carry.float(), add_ns, dev),
+        _segsum_case("hot: 2^20 rows into 64 slots", "into", long_v, hot_g,
+                     S, long_ok, False, map_carry, add_ns, dev),
+        _segsum_case("one segment of 2^20 rows", "into", long_v, zeros, 1,
+                     long_ok, False, map_carry[:1], add_ns, dev),
+        _segsum_case(f"2^20 rows in partitions of {WINDOW_PARTS}",
+                     "running", long_v, parts, 1, None, True, None, add_ns,
+                     dev),
+        _segsum_case("2^20 rows in one partition", "running", long_v, zeros,
+                     1, None, True, None, add_ns, dev)]
+    return {"add_ns": {str(dt)[6:]: ns for dt, ns in add_ns.items()},
+            "cases": cases}
 
 
-ORDER_FREE_PARTS = 4096     # rows per window partition in the cumsum case
+def short_max_sweep(dev):
+    """ms a call of csrc/segment_sum.cu at each short-segment threshold of
+    SHORT_MAX_SWEEP (segments of at most that many rows are one thread's,
+    longer ones a block's; kernels/sort.py fixes SHORT_MAX from this
+    sweep), launched directly with the threshold: the carry form at q01's
+    map shape (its ids sorted as the wrapper sorts them) and the running
+    form over 2^20 rows in partitions of 64 and of 4,096.  Each result is
+    held to the plain version bit for bit first."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.kernels import build
+    from blaze_tpu_torch.kernels import sort as K
+    phase("segment_sum: the short-segment threshold swept")
+    fn = build.bound("segment_sum", "blaze_segment_sum")
+    rng = np.random.default_rng(70)
+    v = torch.from_numpy(rng.standard_normal(N) * 1e3).to(dev)
+    g = torch.from_numpy(rng.integers(0, S, N)).to(dev)
+    carry = torch.from_numpy(rng.standard_normal(S) * 1e3).to(dev)
+    w = torch.from_numpy(rng.standard_normal(SEGSUM_LONG)).to(dev)
+    rows = torch.arange(SEGSUM_LONG, device=dev)
+
+    def launch(form, ids, order, values, out, n_out, sm):
+        n = values.shape[0]
+        scratch = torch.empty(2 + n // (sm + 1), dtype=torch.int32,
+                              device=dev)
+        build.check(fn(K._FORMS[form], ids.data_ptr(),
+                       int(ids.dtype == torch.int64),
+                       None if order is None else order.data_ptr(),
+                       values.data_ptr(), None, out.data_ptr(),
+                       scratch.data_ptr(), n, n_out, sm, 1,
+                       build.stream_of(dev)), "segment_sum sweep")
+        return out
+
+    def into(sm, acc):
+        ids, order = K._grouped(g)
+        return launch("into", ids, order, v, acc, S, sm)
+
+    def running(sm, part):
+        return launch("running", rows // part * part, None, w,
+                      torch.empty_like(w), 1, sm)
+    want = {"into": K.segment_sum_into_plain(carry.cpu(), v.cpu(), g.cpu()),
+            64: K.segmented_running_sum_plain(w.cpu(), (rows // 64 * 64)
+                                              .cpu()),
+            4096: K.segmented_running_sum_plain(
+                w.cpu(), (rows // WINDOW_PARTS * WINDOW_PARTS).cpu())}
+    out = {}
+    for sm in SHORT_MAX_SWEEP:
+        if not (_same_float_bits(into(sm, carry.clone()), want["into"])
+                and _same_float_bits(running(sm, 64), want[64])
+                and _same_float_bits(running(sm, WINDOW_PARTS),
+                                     want[4096])):
+            raise SystemExit(f"segment_sum at threshold {sm}: not the "
+                             f"CPU's row-order sums")
+        acc = carry.clone()
+        out[sm] = {
+            "into q01 map": time_ms(lambda: into(sm, acc)),
+            "running, partitions of 64": time_ms(lambda: running(sm, 64)),
+            f"running, partitions of {WINDOW_PARTS}": time_ms(
+                lambda: running(sm, WINDOW_PARTS))}
+        print(f"SHORT_MAX {sm}: " + ", ".join(
+            f"{k} {ms:.4f} ms" for k, ms in out[sm].items()))
+    return out
 
 
-def order_free_lanes(dev):
-    """The float sums that still add in no fixed order on the card: the
-    hash lane's accumulators (parallel/stage.py scatter_accumulate), the
-    dense lane (dense_partial_agg) and the window's running sums
-    (ops/window.py _segmented_cumsum), each run twice on the same inputs,
-    at q01's map shape (32768 rows into 2^18 slots) and hot (2^20 rows into
-    64 groups); prints whether the two runs' bits agree and whether they
-    equal the CPU's.  Recorded, not failed: these lanes are not changed
-    (ROADMAP Queue 3 lists the ones whose runs differ)."""
+ENGINE_BATCHES = 4
+
+
+def _engine_global_sums(rng):
+    """A lane of row_order_lanes: the generic engine's global float sum
+    and avg (ops/agg/exec.py AggExec, no keys, complete mode) over
+    ENGINE_BATCHES batches of N rows behind a FilterExec that keeps about
+    80% of them: at that density the filter's batches reach the
+    aggregation with their masked rows among the others.  On the card it
+    fails unless the row-order sum kernel ran."""
+    import pyarrow as pa
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import BinaryExpr, BoundReference, Literal
+    from blaze_tpu_torch.kernels import sort as K
+    from blaze_tpu_torch.ops.agg import exec as AE
+    from blaze_tpu_torch.ops.agg.functions import make_agg
+    from blaze_tpu_torch.ops.base import ExecutionPlan
+    from blaze_tpu_torch.ops.basic import FilterExec
+    from blaze_tpu_torch.schema import BOOL, Schema
+    batches = [pa.record_batch({
+        "x": pa.array(rng.standard_normal(N) * 1e3,
+                      mask=rng.random(N) < 0.05),
+        "m": pa.array(rng.random(N) < 0.8)}) for _ in range(ENGINE_BATCHES)]
+
+    class Source(ExecutionPlan):
+        def __init__(self, d):
+            super().__init__()
+            self.d = d
+
+        @property
+        def schema(self):
+            return Schema.from_arrow(batches[0].schema)
+
+        def execute(self, partition):
+            for rb in batches:
+                yield ColumnBatch.from_arrow(rb, device=self.d)
+
+    def run(d):
+        config.conf.set(config.TORCH_DEVICE.key, d.type)
+        try:
+            return ran(d)
+        finally:
+            config.conf.set(config.TORCH_DEVICE.key, "cuda")
+
+    def ran(d):
+        kept = FilterExec(Source(d), [BinaryExpr("==", BoundReference(1),
+                                                 Literal(True, BOOL))])
+        op = AE.AggExec(kept, [], [
+            (make_agg(fn, [BoundReference(0)]), AE.AggMode("complete"), fn)
+            for fn in ("sum", "avg")])
+        before = K.form_launches["sum"]
+        out = pa.Table.from_batches([b.to_arrow() for b in op.execute(0)])
+        if d.type == "cuda" and K.form_launches["sum"] == before:
+            raise SystemExit("generic engine lane: the row-order sum kernel "
+                             "never ran")
+        return torch.tensor([out.column(fn)[0].as_py()
+                             for fn in ("sum", "avg")], dtype=torch.float64)
+    return run
+
+
+def row_order_lanes(dev):
+    """Every lane that sums floats, run twice on the card on the same
+    inputs and once on the CPU: fails unless both runs give the same bits
+    and the CPU's.  At q01's map shape (32,768 rows a batch into 2^18
+    slots) and hot (2^20 rows a batch into 64 of them): the hash lane
+    (parallel/stage.py `scatter_accumulate` into a non-zero carry, three
+    batches), staged `hash_agg_step` (three batches, keys drawn from 2^16
+    or 64 values), the dense lane's batch tables (`dense_partial_agg`)
+    and its scatter carry (`scatter_into_dense_carry`, three batches);
+    then the window's running sums (ops/window.py `_segmented_cumsum`)
+    over 2^20 rows in partitions of 4,096 and in one, and the generic
+    engine's global sums over filtered batches (_engine_global_sums)."""
     import numpy as np
     import torch
     from blaze_tpu_torch.ops.window import _segmented_cumsum
-    from blaze_tpu_torch.parallel.stage import (dense_partial_agg,
-                                                scatter_accumulate)
-    phase("order-free float sums on the card: each lane twice, bits "
-          "compared")
+    from blaze_tpu_torch.parallel import stage as ST
+    phase("row-order lanes: each float-sum lane twice on the card, "
+          "against the CPU's bits")
     rng = np.random.default_rng(72)
     out = {}
-    for shape, n, groups in (("q01 map", N, S), ("hot", 1 << 20, 64)):
-        v = torch.from_numpy(rng.standard_normal(n) * 1e3)
-        g = torch.from_numpy(rng.integers(0, groups, n))
-        mask = torch.ones(n, dtype=torch.bool)
-        seg_start = torch.arange(n) // ORDER_FREE_PARTS * ORDER_FREE_PARTS
 
-        def hash_lane(v, g, mask, groups=groups):
-            accs = (torch.zeros(groups, dtype=v.dtype, device=v.device),)
-            valid = (torch.zeros(groups, dtype=torch.bool,
-                                 device=v.device),)
-            return scatter_accumulate(g, [("sum", v, None)], mask, accs,
-                                      valid)[0][0]
+    def check(name, fn):
+        cpu = fn(torch.device("cpu"))
+        a = fn(dev)
+        b = fn(dev)
+        torch.cuda.synchronize()
+        r = {"twice_same": _same_float_bits(a, b),
+             "equals_cpu": _same_float_bits(a, cpu)}
+        out[name] = r
+        print(f"{name}: two runs on the card "
+              f"{'agree' if r['twice_same'] else 'DIFFER'} bit for bit; "
+              f"{'equal to' if r['equals_cpu'] else 'NOT'} the CPU's row "
+              f"order")
 
-        def dense_lane(v, g, mask, groups=groups):
-            return dense_partial_agg(g, groups, [("sum", v, None)],
-                                     mask)[0][0]
+    for shape, n, distinct in (("q01 map", N, S // 4), ("hot", SEGSUM_LONG,
+                                                         64)):
+        slots = rng.choice(S, distinct, replace=False)
+        pool = rng.integers(1, 1 << 40, distinct)
+        batches = []
+        for _ in range(3):
+            pick = rng.integers(0, distinct, n)
+            g = torch.from_numpy(slots[pick])
+            g[::97] = S  # unplaced rows drop
+            batches.append((torch.from_numpy(rng.standard_normal(n) * 1e3),
+                            g, torch.from_numpy(pool[pick]),
+                            torch.from_numpy(rng.random(n) > 0.05),
+                            torch.from_numpy(rng.random(n) > 0.02)))
+        carry = torch.from_numpy(rng.standard_normal(S) * 1e3)
+        carry[::11] = -0.0
 
-        def window(v, g, mask, seg_start=seg_start):
-            return _segmented_cumsum(v, seg_start.to(v.device))
+        def hash_lane(d):
+            acc = carry.clone().to(d)
+            av = torch.zeros(S, dtype=torch.bool, device=d)
+            for v, g, _k, ok, m in batches:
+                ST.scatter_accumulate(g.to(d), [("sum", v.to(d), ok.to(d))],
+                                      m.to(d), [acc], [av], inplace=True)
+            return acc
 
-        for lane, fn in (("hash lane", hash_lane), ("dense lane", dense_lane),
-                         ("window cumsum", window)):
-            cpu = fn(v, g, mask)
-            a = fn(v.to(dev), g.to(dev), mask.to(dev))
-            b = fn(v.to(dev), g.to(dev), mask.to(dev))
-            torch.cuda.synchronize()
-            r = {"twice_same": _same_float_bits(a, b),
-                 "equals_cpu": _same_float_bits(a, cpu)}
-            out[f"{lane}, {shape}"] = r
-            print(f"{lane} at {shape} ({n} rows, {groups} groups): two "
-                  f"runs {'agree' if r['twice_same'] else 'DIFFER'} bit "
-                  f"for bit; {'equal to' if r['equals_cpu'] else 'not'} "
-                  f"the CPU's row order")
+        def staged(d):
+            c = ST.init_hash_carry([torch.int64], ["sum"], [torch.float64],
+                                   S, d)
+            for v, _g, k, ok, m in batches:
+                keys = [(k.to(d), torch.ones_like(m).to(d))]
+                c, ovf, _ = ST.hash_agg_step(c, keys, [("sum", v.to(d),
+                                                        ok.to(d))], m.to(d))
+                if ovf:
+                    raise SystemExit(f"row-order lanes: hash_agg_step "
+                                     f"overflowed at {shape}")
+            return torch.cat([c.accs[0], c.keys[0].to(torch.float64)])
+
+        def dense_tables(d):
+            return torch.cat([ST.dense_partial_agg(
+                g.to(d), S, [("sum", v.to(d), ok.to(d))], m.to(d))[0][0]
+                for v, g, _k, ok, m in batches])
+
+        def dense_carry(d):
+            c = ST.init_dense_carry(["sum"], [torch.float64], S, d)
+            for v, g, _k, ok, m in batches:
+                c = ST.scatter_into_dense_carry(c, g.to(d), ["sum"],
+                                                [v.to(d)], [ok.to(d)],
+                                                m.to(d))
+            return c[0][0]
+
+        for lane, fn in (("hash lane into a carry", hash_lane),
+                         ("hash_agg_step staged", staged),
+                         ("dense lane batch tables", dense_tables),
+                         ("dense lane scatter carry", dense_carry)):
+            check(f"{lane}, {shape} ({n} rows x 3, {distinct} slots)", fn)
+    v = torch.from_numpy(rng.standard_normal(SEGSUM_LONG) * 1e3)
+    for label, part in ((f"partitions of {WINDOW_PARTS}", WINDOW_PARTS),
+                        ("one partition", SEGSUM_LONG)):
+        starts = torch.arange(SEGSUM_LONG) // part * part
+        check(f"window running sums, {SEGSUM_LONG} rows in {label}",
+              lambda d, starts=starts: _segmented_cumsum(v.to(d),
+                                                         starts.to(d)))
+    check(f"generic engine, global sum and avg over {ENGINE_BATCHES} "
+          f"filtered batches of {N} rows", _engine_global_sums(rng))
+    bad = [k for k, r in out.items()
+           if not (r["twice_same"] and r["equals_cpu"])]
+    if bad:
+        raise SystemExit(f"row-order lanes: not the CPU's bits twice: {bad}")
     return out
 
 
@@ -4084,11 +4491,21 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    sweep = sys.argv[1:] == ["--short-max-sweep"]
+    if sys.argv[1:] and not sweep:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     from blaze_tpu_torch import config  # fails outside a checkout
+    from blaze_tpu_torch.kernels import sort as K
     smi = environment()
     config.conf.set(config.TORCH_DEVICE.key, "cuda")
     dev = torch.device("cuda")
     build_kernels()
+    if sweep:
+        print(json.dumps({"short_max_sweep": short_max_sweep(dev),
+                          "short_max": K.SHORT_MAX}))
+        return 0
     crc = crc32c_phase(dev)
 
     phase("kernels against their plain versions, main-path shapes")
@@ -4126,8 +4543,10 @@ def main():
         profiled = {
             f"{name}{label}": _profiled(
                 lambda: profile_path(name, run, root, mode), name)
-            for mode, label in (("auto", ""), ("off", " off"))
-            for name, run in (("q01", q01_run), ("rollup", rollup_run))}
+            for name, run, mode, label in (
+                ("q01", q01_run, "auto", ""),
+                ("rollup", rollup_run, "auto", ""),
+                ("q01", q01_run, "off", " off"))}
         oracle = branches_oracle(sr_paths, lo, hi)
         branches = {
             "auto": branches_path(root, sr_paths, lo, hi, "auto", oracle),
@@ -4180,8 +4599,8 @@ def main():
             by_path[f"front door {k}"] = r["launches"]
         q70 = q70_phase(root)
         by_path["q70"] = q70["launches"]
-        segsum_cases = segment_sum_cases(dev, q70.pop("longest"))
-        order_free = order_free_lanes(dev)
+        segsum = segment_sum_cases(dev, q70.pop("longest"))
+        lanes = row_order_lanes(dev)
         spill = spill_phase({
             "q06": family["runs"]["q06 auto"]["wall_s"],
             "q17": q17_q18["runs"]["q17 auto"]["wall_s"],
@@ -4268,26 +4687,39 @@ def main():
     # writer's reduce count; its order-only entry at q01's shape beside
     # it), the window step at the rollup's map-side batch
     def segment_sum_entry():
-        """The row-order float sum: no Pallas site behind it (it repairs
-        the order of `index_add_`'s float adds on the card); its main case
-        is q70's recorded call, the one-segment case beside it."""
-        main_case = segsum_cases[0]
+        """The row-order float sums: no Pallas site behind them (they
+        repair the order of `index_add_`'s and `torch.cumsum`'s float adds
+        on the card); launches by form on the paths; the main case is q70's
+        recorded call, every form's cases beside it."""
+        main_case = segsum["cases"][0]
         return {"name": "segment_sum", "route": "cuda",
                 "source": "blaze_tpu_torch/csrc/segment_sum.cu",
                 "replaces": None,
-                "replaces_note": "no Pallas site: index_add_'s float adds "
-                                 "on the card (blaze_tpu_torch/kernels/"
-                                 "sort.py segment_sum)",
+                "replaces_note": "no Pallas site: index_add_'s and "
+                                 "torch.cumsum's float adds on the card "
+                                 "(blaze_tpu_torch/kernels/sort.py "
+                                 "segment_sum, segment_sum_into, "
+                                 "segmented_running_sum)",
                 "launches": sum(p["segment_sum"] for p in by_path.values()),
+                "launches_by_form": {
+                    f: sum(p["segment_sum_forms"][f]
+                           for p in by_path.values())
+                    for f in K.form_launches},
                 "launches_by_path": {k: p["segment_sum"]
                                      for k, p in by_path.items()},
-                "max_abs_err": max(c["err"] for c in segsum_cases),
+                "max_abs_err": max(c["err"] for c in segsum["cases"]),
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"],
+                "bound_note": "the larger of the bytes at 3.35 TB/s and the "
+                              "longest segment's dependent adds at the "
+                              "probe's latency",
                 "library_ms": main_case["library_ms"],
                 "device_us": main_case["device_us"],
                 "launches_per_call": main_case["launches_per_call"],
-                "parity": True, "cases": segsum_cases}
+                "add_ns": segsum["add_ns"],
+                "short_max": K.SHORT_MAX,
+                "parity": True, "cases": segsum["cases"]}
 
     def crc32c_entry():
         """The frames' CRC32C: host code that nvcc builds, no Pallas site
@@ -4444,9 +4876,17 @@ def main():
     print(f"q70 at SF1: wall {q70['wall_s']:.3f} s, {q70['exec_mode']}, "
           f"{len(q70['segment_sums'])} float segment sums, segment_sum "
           f"launches {q70['launches']['segment_sum']}; equal to its oracle")
-    print("order-free float sums, two runs on the card: " + "; ".join(
-        f"{k} {'same' if r['twice_same'] else 'DIFFER'}"
-        for k, r in order_free.items()))
+    print("row-order lanes, two runs on the card and the CPU: " + "; ".join(
+        f"{k} {'same' if r['twice_same'] and r['equals_cpu'] else 'DIFFER'}"
+        for k, r in lanes.items()))
+    print("segment_sum by form: " + "; ".join(
+        f"{c['form']} {c['case']} {c['dtype']} {c['ms']:.4f} ms "
+        f"({c['of_chain']:.3f}x its chain; bound {c['bound_ms']:.5f} ms, "
+        f"{c['library']} {c['library_ms']:.4f} ms)"
+        for c in segsum["cases"]))
+    q05 = breadth["runs"]["q05 staged"]
+    print(f"q05 at SF10: wall {q05['wall_s']:.3f} s; row-order sums "
+          f"{q05['row_order_sums']}")
     # io_bytes by stage on every path, now that every task prunes
     io_bytes = {k: {st: r["counters"][st]["io_bytes"]
                       for st in ("map", "reduce")} for k, r in runs.items()}
@@ -4471,7 +4911,7 @@ def main():
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
                       "strings": strings, "decimal": decimals,
                       "spill": spill, "front_door": front_door,
-                      "q70": q70, "order_free_lanes": order_free,
+                      "q70": q70, "row_order_lanes": lanes,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))
