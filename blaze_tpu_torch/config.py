@@ -247,6 +247,14 @@ ANSI_ENABLED = bool_conf(
 CAST_TRIM_STRING = bool_conf(
     "auron.cast.trimString", True,
     "Trim whitespace before string->numeric/date casts (Spark behavior).")
+PARQUET_ENABLE_PAGE_FILTERING = bool_conf(
+    "auron.parquet.enable.pageFiltering", True,
+    "Row-group pruning with the footers' min/max statistics on a scan "
+    "that carries a predicate (ops/pruning.py).")
+PARQUET_METADATA_CACHE_SIZE = int_conf(
+    "auron.parquet.metadataCacheSize", 1024,
+    "Parquet footers cached across scans and bound discovery (ops/scan.py "
+    "parquet_metadata).")
 SCAN_EAGER_FILE_BYTES = int_conf(
     "auron.tpu.scan.eagerFileBytes", 128 << 20,
     "Local parquet files up to this size decode eagerly per file; larger "

@@ -7,11 +7,10 @@ same converted-class log and the same wrapped UDFs, and raises the same
 `ConversionError` (node class and reason).  Two departures, neither in
 the dict: the JAX package's Auron UI records (`bridge/ui.py`,
 `record_conversion`) are left out (ROADMAP item 16), and `query_id` comes
-from a per-process counter here.  Three kinds of node convert exactly as
-there but run only in a later slice, and raise NotImplementedError where
-the port would run them: a Hive scan's partition columns
-(`partition_schema`, ROADMAP Queue 1 step 11), a `RoundRobinPartitioning`
-(step 10) and an expression wrapped as a host UDF (`kind: udf`, item 16).
+from a per-process counter here.  An expression wrapped as a host UDF
+(`kind: udf`) converts exactly as there but runs only in a later slice
+(ROADMAP Queue 1 item 16): the port raises NotImplementedError where it
+would run it.
 
 Parity: the JVM translation layer —
   AuronConvertStrategy.apply     (AuronConvertStrategy.scala:49: per-node

@@ -182,8 +182,8 @@ def run_stages(stages: Sequence[Stage],
     reads a shuffle runs, its resource serves the blocks of the stage it
     reads.  Returns per stage name: its tasks' outputs (one list of
     batches per task), the shuffle files it wrote with their offsets, the
-    `stage_counters` summed over its tasks and its host wall seconds,
-    ending in a device synchronisation."""
+    `stage_counters` summed over its tasks (and each task's own) and its
+    host wall seconds, ending in a device synchronisation."""
     import torch
 
     from blaze_tpu_torch.bridge.resource import put_resource, remove_resource
@@ -221,6 +221,7 @@ def run_stages(stages: Sequence[Stage],
                     results[st.reads]["shuffle"], stage_ids[st.reads]))
                 resources.add(st.resource)
             counters: Dict[str, int] = {}
+            task_counters: List[Dict[str, int]] = []
             outputs = []
             # a named range per stage, for torch.profiler's per-stage counts
             with torch.profiler.record_function(STAGE_RANGE + st.name):
@@ -230,7 +231,10 @@ def run_stages(stages: Sequence[Stage],
                     try:
                         outputs.append(list(rt.batches()))
                     finally:
-                        count(counters, rt.finalize())
+                        task_counters.append({})
+                        count(task_counters[-1], rt.finalize())
+                        for k, v in task_counters[-1].items():
+                            counters[k] = counters.get(k, 0) + v
                 sync()
             written = []
             if st.out_dir is not None:
@@ -242,6 +246,7 @@ def run_stages(stages: Sequence[Stage],
                         data_file=data)))
             results[st.name] = {"outputs": outputs, "shuffle": written,
                                 "counters": counters,
+                                "task_counters": task_counters,
                                 "seconds": time.perf_counter() - t0}
     finally:
         for r in resources:

@@ -1,6 +1,7 @@
-"""Filter, Project, FilterProject, Limit, Union, RenameColumns and Expand
-(port of FilterExec, ProjectExec, FilterProjectExec, LimitExec,
-UnionExec, RenameColumnsExec and ExpandExec, blaze_tpu/ops/basic.py).
+"""Filter, Project, FilterProject, Limit, Union, RenameColumns, Expand,
+EmptyPartitions and Debug (port of FilterExec, ProjectExec,
+FilterProjectExec, LimitExec, UnionExec, RenameColumnsExec, ExpandExec,
+EmptyPartitionsExec and DebugExec, blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
 compacts; CoalesceStream re-batches.  On the q01 path both operators are
@@ -8,7 +9,9 @@ absorbed into the fused aggregation (plan/fused.py), which evaluates the
 same expressions inside its step.  `FilterProjectExec` is the planner's
 collapse of a Filter under a Project (plan/planner.py
 `collapse_filter_project`): it filters, projects and re-batches, so its
-batches are the ones the two operators would emit.
+batches are the ones the two operators would emit.  `DebugExec` passes
+its child's batches through and logs one INFO line a batch to the logger
+`blaze_tpu_torch.debug`.
 """
 
 from __future__ import annotations
@@ -240,3 +243,44 @@ class ExpandExec(ExecutionPlan):
                     self.metrics.add(f"{out.device.type}_batches")
                     yield out
         return iter(CoalesceStream(gen(), metrics=self.metrics))
+
+
+class EmptyPartitionsExec(ExecutionPlan):
+    """`num_partitions` partitions with no rows (ref
+    empty_partitions_exec.rs)."""
+
+    def __init__(self, schema: Schema, num_partitions: int = 1):
+        super().__init__()
+        self._schema = schema
+        self._n = num_partitions
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return self._n
+
+    def execute(self, partition: int) -> BatchIterator:
+        return iter(())
+
+
+class DebugExec(ExecutionPlan):
+    """Pass-through that logs each batch (ref debug_exec.rs)."""
+
+    def __init__(self, child: ExecutionPlan, tag: str = "debug"):
+        super().__init__([child])
+        self._tag = tag
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int) -> BatchIterator:
+        import logging
+        log = logging.getLogger("blaze_tpu_torch.debug")
+        for i, batch in enumerate(self.children[0].execute(partition)):
+            log.info("[%s] partition=%d batch=%d rows=%d", self._tag,
+                     partition, i, batch.selected_count())
+            yield batch

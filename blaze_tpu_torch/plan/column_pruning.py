@@ -220,7 +220,9 @@ def _prune_join(plan, required: Optional[Set[int]]):
 
 def _prune_scan(scan, required: Optional[Set[int]]):
     from blaze_tpu_torch.ops.scan import ParquetScanExec
-    if required is None:
+    # a scan with partition columns keeps its projection, as in the JAX
+    # package; a narrowed scan keeps its pruning predicate
+    if required is None or scan._partition_schema is not None:
         return scan, None
     n = len(scan.schema)
     req = sorted(i for i in required if i < n)
@@ -228,5 +230,6 @@ def _prune_scan(scan, required: Optional[Set[int]]):
         return scan, None
     names = [scan.schema[i].name for i in req]
     new = ParquetScanExec(scan._file_schema, scan._file_groups,
-                          projection=names, batch_rows=scan._batch_rows)
+                          projection=names, predicate=scan._predicate,
+                          batch_rows=scan._batch_rows)
     return new, {old: new_i for new_i, old in enumerate(req)}

@@ -2,14 +2,17 @@
 plan rewrite `collapse_filter_project` (port of the part of
 blaze_tpu/plan/planner.py the port uses).
 
-Node kinds: parquet_scan, memory_scan (an Arrow table from the resource
-map), filter, project, filter_project, hash_agg, sort_agg, sort, limit,
-union, rename_columns, expand, window, generate (explode, posexplode and
-json_tuple), shuffle_writer, local_exchange (an in-process
-`LocalShuffleExchange`), ipc_reader, broadcast_join, sort_merge_join,
-hash_join, broadcast_nested_loop_join and broadcast_join_build_hash_map.
-Every other kind raises NotImplementedError naming the ROADMAP item it
-belongs to.
+Node kinds: parquet_scan (with a pruning `predicate`, `partition_schema`
+and per-file `partition_values`), memory_scan (an Arrow table from the
+resource map), ffi_reader, empty_partitions, filter, project,
+filter_project, hash_agg, sort_agg, sort, limit, union, rename_columns,
+expand, window, generate (explode, posexplode and json_tuple), debug,
+coalesce_batches, shuffle_writer, local_exchange (an in-process
+`LocalShuffleExchange`), ipc_reader, ipc_writer, broadcast_join,
+sort_merge_join, hash_join, broadcast_nested_loop_join and
+broadcast_join_build_hash_map; partitionings: hash, round_robin, single
+and range.  Every other kind raises NotImplementedError naming the
+ROADMAP item it belongs to.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import json
 from typing import Any, Dict, Optional
 
 from blaze_tpu_torch.ops.agg import AggExec, AggExecMode, AggMode, make_agg
-from blaze_tpu_torch.ops.base import ExecutionPlan
-from blaze_tpu_torch.ops.basic import (ExpandExec, FilterExec,
+from blaze_tpu_torch.ops.base import CoalesceStream, ExecutionPlan
+from blaze_tpu_torch.ops.basic import (DebugExec, EmptyPartitionsExec,
+                                      ExpandExec, FilterExec,
                                       FilterProjectExec, LimitExec,
                                       ProjectExec, RenameColumnsExec,
                                       UnionExec)
@@ -38,19 +42,39 @@ from blaze_tpu_torch.ops.window import (LeadLagFunc, NthValueFunc, RankFunc,
 from blaze_tpu_torch.plan.exprs import expr_from_dict, sort_spec_from_dict
 from blaze_tpu_torch.plan.types import schema_from_dict
 from blaze_tpu_torch.schema import Schema
-from blaze_tpu_torch.shuffle import (HashPartitioning, IpcReaderExec,
+from blaze_tpu_torch.shuffle import (FFIReaderExec, HashPartitioning,
+                                     IpcReaderExec, IpcWriterExec,
                                      LocalShuffleExchange, Partitioning,
+                                     RangePartitioning,
+                                     RoundRobinPartitioning,
                                      ShuffleWriterExec, SinglePartitioning)
 
 
 #: node kinds of the JAX planner the port does not plan yet, with the
 #: ROADMAP item each belongs to
-_LATER_KINDS = {
-    **dict.fromkeys(("coalesce_batches", "empty_partitions", "debug",
-                     "ffi_reader"), "item 4"),
-    **dict.fromkeys(("parquet_sink", "orc_sink", "ipc_writer", "orc_scan",
-                     "kafka_scan", "rss_shuffle_writer"), "item 16"),
-}
+_LATER_KINDS = dict.fromkeys(("parquet_sink", "orc_sink", "orc_scan",
+                              "kafka_scan", "rss_shuffle_writer"),
+                             "item 16")
+
+
+class CoalesceBatchesExec(ExecutionPlan):
+    """Plan-addressable re-batching node (ref CoalesceStream auto-wrap,
+    rt.rs:160-166) over the port's CoalesceStream.  Its target is
+    `batch_size`, else `auron.batch.size`: the JAX package's
+    degradation ladder, which halves it under the serving layer's
+    `capacity_shrink`, belongs to ROADMAP Queue 1 item 16."""
+
+    def __init__(self, child: ExecutionPlan, batch_size: Optional[int] = None):
+        super().__init__([child])
+        self._batch_size = batch_size
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int):
+        return iter(CoalesceStream(self.children[0].execute(partition),
+                                   self._batch_size, metrics=self.metrics))
 
 
 def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
@@ -58,17 +82,24 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     k = d["kind"]
 
     if k == "parquet_scan":
-        if d.get("predicate") or d.get("partition_schema"):
-            raise NotImplementedError(
-                "parquet predicate pruning and partition columns belong to "
-                "a later slice of the PyTorch port (ROADMAP Queue 1 step "
-                "11, item 4)")
-        return ParquetScanExec(schema_from_dict(d["schema"]),
-                               d["file_groups"],
-                               projection=d.get("projection"))
+        schema = schema_from_dict(d["schema"])
+        pred = (expr_from_dict(d["predicate"], schema)
+                if d.get("predicate") else None)
+        pschema = (schema_from_dict(d["partition_schema"])
+                   if d.get("partition_schema") else None)
+        return ParquetScanExec(schema, d["file_groups"],
+                               projection=d.get("projection"),
+                               predicate=pred, partition_schema=pschema,
+                               partition_values=d.get("partition_values"))
     if k == "ipc_reader":
         return IpcReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
                              d.get("num_partitions", 1))
+    if k == "ffi_reader":
+        return FFIReaderExec(d["resource_id"], schema_from_dict(d["schema"]),
+                             d.get("num_partitions", 1))
+    if k == "empty_partitions":
+        return EmptyPartitionsExec(schema_from_dict(d["schema"]),
+                                   d.get("num_partitions", 1))
     if k == "memory_scan":
         from blaze_tpu_torch.bridge.resource import get_resource
         table = get_resource(d["resource_id"])
@@ -96,7 +127,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
     if k not in ("filter", "project", "filter_project", "hash_agg",
                  "sort_agg", "sort", "limit", "rename_columns", "expand",
                  "window", "generate", "shuffle_writer", "local_exchange",
-                 "broadcast_join_build_hash_map"):
+                 "broadcast_join_build_hash_map", "debug",
+                 "coalesce_batches", "ipc_writer"):
         raise ValueError(f"unknown plan node kind {k!r}")
     child = create_plan(d["input"])
     in_schema = child.schema
@@ -113,6 +145,13 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
             [expr_from_dict(e, in_schema) for e in d["exprs"]], d["names"])
     if k == "rename_columns":
         return RenameColumnsExec(child, d["names"])
+    if k == "debug":
+        return DebugExec(child, d.get("tag", "debug"))
+    if k == "coalesce_batches":
+        return CoalesceBatchesExec(child, d.get("batch_size"))
+    if k == "ipc_writer":
+        from blaze_tpu_torch.bridge.resource import get_resource
+        return IpcWriterExec(child, get_resource(d["sink_resource_id"]))
     if k == "generate":
         return _generate_from_dict(d, child)
     if k == "sort":
@@ -321,11 +360,21 @@ def partitioning_from_dict(d: Dict[str, Any],
     if k == "hash":
         return HashPartitioning([expr_from_dict(e, schema)
                                  for e in d["exprs"]], d["num_partitions"])
+    if k == "round_robin":
+        return RoundRobinPartitioning(d["num_partitions"])
     if k == "single":
         return SinglePartitioning()
-    raise NotImplementedError(
-        f"{k!r} partitioning belongs to a later slice of the PyTorch port "
-        f"(ROADMAP Queue 1 step 10, item 7)")
+    if k == "range":
+        import base64
+        import io
+
+        import pyarrow as pa
+        specs = [sort_spec_from_dict(s, schema) for s in d["specs"]]
+        with pa.ipc.open_stream(io.BytesIO(
+                base64.b64decode(d["bounds_ipc"]))) as r:
+            bounds = next(iter(r))
+        return RangePartitioning(specs, d["num_partitions"], bounds)
+    raise ValueError(f"unknown partitioning kind {k!r}")
 
 
 def decode_task_definition(data) -> Dict[str, Any]:

@@ -3,9 +3,12 @@ of blaze_tpu/plan/proto_serde.py this slice uses).
 
 Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
 `create_plan` reads, with the same dict vocabulary as the JAX package, so
-the same bytes decode to equal dicts in both.  Node kinds: parquet_scan,
-ipc_reader, filter, projection, agg (hash_agg/sort_agg), sort, limit,
-union, shuffle_writer, the joins (sort_merge_join, hash_join,
+the same bytes decode to equal dicts in both.  Node kinds: parquet_scan
+(with its pruning predicates, ANDed into one `predicate`, and the
+partition schema with each file's partition values), ipc_reader,
+ffi_reader, empty_partitions, debug, ipc_writer, coalesce_batches,
+filter, projection, agg (hash_agg/sort_agg), sort, limit, union,
+shuffle_writer, the joins (sort_merge_join, hash_join,
 broadcast_join, with join type, build side, broadcast_id /
 cached_build_hash_map_id and join_filter), the nested-loop join (a
 KEYLESS broadcast_join on the wire, its inner filter lifted into a
@@ -17,8 +20,10 @@ struct and map (a dictionary as its value type); expressions: every
 kind of plan/exprs.py (an `if` encodes as a case with one branch,
 coalesce and the scalar functions as ScalarFunction nodes, rlike as a
 RegexMatch binary node, and/or's short-circuit nodes decode as binary)
-and the sort expression of a sort node; partitionings: single and hash.
-Every other variant raises NotImplementedError.
+and the sort expression of a sort node; partitionings: single, hash,
+round-robin and range (its bounds as `bounds_ipc`, base64 of one Arrow
+IPC batch; multi-key bounds ride as struct scalars).  Every other variant
+raises NotImplementedError.
 
 `ScalarValue` follows the reference encoding: a one-batch Arrow IPC stream
 whose column 0 row 0 is the value.
@@ -26,8 +31,9 @@ whose column 0 row 0 is the value.
 
 from __future__ import annotations
 
+import base64
 import io
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import pyarrow as pa
 
@@ -35,12 +41,6 @@ from blaze_tpu_torch.plan.proto import auron_pb2 as pb
 
 _LATER = ("belongs to a later slice of the PyTorch port (ROADMAP Queue 1 "
           "item 3)")
-#: round-robin and range partitionings (and their wire forms)
-_LATER_PARTITIONING = ("belongs to a later slice of the PyTorch port "
-                       "(ROADMAP Queue 1 step 10, item 7)")
-#: a scan's pruning predicates and partition columns
-_LATER_SCAN = ("belongs to a later slice of the PyTorch port (ROADMAP "
-               "Queue 1 step 11, item 4)")
 
 # ---------------------------------------------------------------------------
 # ArrowType <-> type dicts ({"id": ...} of plan/types.py)
@@ -554,7 +554,33 @@ def partitioning_from_proto(p: pb.PhysicalRepartition) -> Dict[str, Any]:
         return {"kind": "hash",
                 "exprs": [expr_from_proto(e) for e in h.hash_expr],
                 "num_partitions": int(h.partition_count)}
-    raise NotImplementedError(f"repartition {kind!r} {_LATER_PARTITIONING}")
+    if kind == "round_robin_repartition":
+        return {"kind": "round_robin",
+                "num_partitions": int(p.round_robin_repartition
+                                      .partition_count)}
+    if kind == "range_repartition":
+        r = p.range_repartition
+        specs = [sort_spec_from_proto(e) for e in r.sort_expr.expr]
+        bounds_cols: List[List[Any]] = [[] for _ in specs]
+        for sv in r.list_value:
+            val, _ = scalar_from_proto(sv)
+            if len(specs) == 1:
+                bounds_cols[0].append(val)
+            else:
+                # multi-key bounds ride as struct scalars
+                for i, (_k, v) in enumerate(val.items()):
+                    bounds_cols[i].append(v)
+        arrays = [pa.array(c) for c in bounds_cols]
+        rb = pa.record_batch(arrays, names=[f"b{i}"
+                                            for i in range(len(arrays))])
+        sink = io.BytesIO()
+        with pa.ipc.new_stream(sink, rb.schema) as w:
+            w.write_batch(rb)
+        return {"kind": "range", "specs": specs,
+                "num_partitions": int(r.partition_count),
+                "bounds_ipc": base64.b64encode(sink.getvalue())
+                .decode("ascii")}
+    raise ValueError(f"unsupported repartition {kind!r}")
 
 
 def partitioning_to_proto(d: Dict[str, Any]) -> pb.PhysicalRepartition:
@@ -568,24 +594,65 @@ def partitioning_to_proto(d: Dict[str, Any]) -> pb.PhysicalRepartition:
         for e in d["exprs"]:
             p.hash_repartition.hash_expr.append(expr_to_proto(e))
         return p
-    raise NotImplementedError(f"partitioning {k!r} {_LATER_PARTITIONING}")
+    if k == "round_robin":
+        p.round_robin_repartition.partition_count = d["num_partitions"]
+        return p
+    if k == "range":
+        from blaze_tpu_torch.plan.types import type_to_dict
+        from blaze_tpu_torch.schema import DataType
+        r = p.range_repartition
+        r.partition_count = d["num_partitions"]
+        for s in d["specs"]:
+            r.sort_expr.expr.append(sort_spec_to_proto(s))
+        with pa.ipc.open_stream(io.BytesIO(
+                base64.b64decode(d["bounds_ipc"]))) as rd:
+            rb = next(iter(rd))
+        for i in range(rb.num_rows):
+            if rb.num_columns == 1:
+                col = rb.column(0)
+                r.list_value.append(scalar_to_proto(
+                    col[i].as_py(),
+                    type_to_dict(DataType.from_arrow(col.type))))
+            else:
+                row = {rb.schema.field(j).name: rb.column(j)[i].as_py()
+                       for j in range(rb.num_columns)}
+                struct_t = {"id": "struct", "children": [
+                    {"name": rb.schema.field(j).name,
+                     "type": type_to_dict(
+                         DataType.from_arrow(rb.column(j).type)),
+                     "nullable": True}
+                    for j in range(rb.num_columns)]}
+                r.list_value.append(scalar_to_proto(row, struct_t))
+        return p
+    raise ValueError(f"cannot encode partitioning {k!r}")
 
 
 # ---------------------------------------------------------------------------
 # plan nodes
 # ---------------------------------------------------------------------------
 
-def _file_groups_from_conf(conf: pb.FileScanExecConf):
+def _file_groups_from_conf(conf: pb.FileScanExecConf
+                           ) -> Tuple[List[List[str]], Dict[str, Any],
+                                      Dict[str, Any]]:
     """The wire carries ONE file group (this task's); rebuild the
-    positional file_groups list so plan.execute(partition_index) finds it."""
+    positional file_groups list so plan.execute(partition_index) finds it,
+    and with a partition schema the per-file partition values at the same
+    position."""
     n = max(1, int(conf.num_partitions))
-    idx = int(conf.partition_index)
+    idx = min(int(conf.partition_index), n - 1)
     groups: List[List[str]] = [[] for _ in range(n)]
-    groups[min(idx, n - 1)] = [f.path for f in conf.file_group.files]
+    groups[idx] = [f.path for f in conf.file_group.files]
+    extra: Dict[str, Any] = {}
     if conf.HasField("partition_schema") and \
             len(conf.partition_schema.columns):
-        raise NotImplementedError(f"partition columns {_LATER_SCAN}")
-    return groups, schema_from_proto(conf.schema)
+        extra["partition_schema"] = schema_from_proto(conf.partition_schema)
+        pvals: List[List[List[Any]]] = [[] for _ in range(n)]
+        pvals[idx] = [[scalar_from_proto(sv)[0] for sv in f.partition_values]
+                      for f in conf.file_group.files]
+        extra["partition_values"] = pvals
+    elif any(f.partition_values for f in conf.file_group.files):
+        raise ValueError("partition_values without partition_schema")
+    return groups, schema_from_proto(conf.schema), extra
 
 
 def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
@@ -594,21 +661,50 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
         raise ValueError("PhysicalPlanNode with no variant set")
     if kind == "parquet_scan":
         node = n.parquet_scan
-        groups, schema = _file_groups_from_conf(node.base_conf)
+        groups, schema, extra = _file_groups_from_conf(node.base_conf)
         d: Dict[str, Any] = {"kind": kind, "schema": schema,
-                             "file_groups": groups}
+                             "file_groups": groups, **extra}
         if node.base_conf.projection:
-            names = [f["name"] for f in schema["fields"]]
-            d["projection"] = [names[i] for i in node.base_conf.projection]
+            # projection indices address the file schema and the
+            # partition schema combined, in that order
+            fields = list(schema["fields"])
+            if "partition_schema" in extra:
+                fields += list(extra["partition_schema"]["fields"])
+            d["projection"] = [fields[i]["name"]
+                               for i in node.base_conf.projection]
         if node.pruning_predicates:
-            raise NotImplementedError(
-                f"scan pruning predicates {_LATER_SCAN}")
+            pred = expr_from_proto(node.pruning_predicates[0])
+            for p in node.pruning_predicates[1:]:
+                pred = {"kind": "binary", "op": "and", "l": pred,
+                        "r": expr_from_proto(p)}
+            d["predicate"] = pred
         return d
     if kind == "ipc_reader":
         return {"kind": "ipc_reader",
                 "resource_id": n.ipc_reader.ipc_provider_resource_id,
                 "schema": schema_from_proto(n.ipc_reader.schema),
                 "num_partitions": int(n.ipc_reader.num_partitions)}
+    if kind == "ffi_reader":
+        return {"kind": "ffi_reader",
+                "resource_id": n.ffi_reader
+                .export_iter_provider_resource_id,
+                "schema": schema_from_proto(n.ffi_reader.schema),
+                "num_partitions": int(n.ffi_reader.num_partitions)}
+    if kind == "empty_partitions":
+        return {"kind": "empty_partitions",
+                "schema": schema_from_proto(n.empty_partitions.schema),
+                "num_partitions": int(n.empty_partitions.num_partitions)}
+    if kind == "debug":
+        return {"kind": "debug", "input": plan_from_proto(n.debug.input),
+                "tag": n.debug.debug_id}
+    if kind == "ipc_writer":
+        return {"kind": "ipc_writer",
+                "input": plan_from_proto(n.ipc_writer.input),
+                "sink_resource_id": n.ipc_writer.ipc_consumer_resource_id}
+    if kind == "coalesce_batches":
+        return {"kind": "coalesce_batches",
+                "input": plan_from_proto(n.coalesce_batches.input),
+                "batch_size": int(n.coalesce_batches.batch_size) or None}
     if kind == "shuffle_writer":
         sw = n.shuffle_writer
         return {"kind": "shuffle_writer",
@@ -830,21 +926,53 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         conf.num_partitions = len(groups)
         idx = non_empty[0] if non_empty else 0
         conf.partition_index = idx
-        for path in groups[idx]:
-            conf.file_group.files.add(path=path)
+        pschema: Optional[Dict[str, Any]] = d.get("partition_schema")
+        pvals = d.get("partition_values") or []
+        group_vals = pvals[idx] if idx < len(pvals) else []
+        for fi, path in enumerate(groups[idx]):
+            pf = conf.file_group.files.add(path=path)
+            if pschema is not None and fi < len(group_vals):
+                for v, fld in zip(group_vals[fi], pschema["fields"]):
+                    pf.partition_values.append(
+                        scalar_to_proto(v, fld["type"]))
+        if pschema is not None:
+            conf.partition_schema.CopyFrom(schema_to_proto(pschema))
         conf.schema.CopyFrom(schema_to_proto(d["schema"]))
         if d.get("projection"):
             names = [f["name"] for f in d["schema"]["fields"]]
+            if pschema:
+                names += [f["name"] for f in pschema["fields"]]
             for p in d["projection"]:
                 conf.projection.append(names.index(p))
-        if d.get("predicate") or d.get("partition_schema"):
-            raise NotImplementedError(
-                f"scan predicates and partition columns {_LATER_SCAN}")
+        if d.get("predicate"):
+            n.parquet_scan.pruning_predicates.append(
+                expr_to_proto(d["predicate"]))
         return n
     if k == "ipc_reader":
         n.ipc_reader.ipc_provider_resource_id = d["resource_id"]
         n.ipc_reader.schema.CopyFrom(schema_to_proto(d["schema"]))
         n.ipc_reader.num_partitions = d.get("num_partitions", 1)
+        return n
+    if k == "ffi_reader":
+        n.ffi_reader.export_iter_provider_resource_id = d["resource_id"]
+        n.ffi_reader.schema.CopyFrom(schema_to_proto(d["schema"]))
+        n.ffi_reader.num_partitions = d.get("num_partitions", 1)
+        return n
+    if k == "empty_partitions":
+        n.empty_partitions.schema.CopyFrom(schema_to_proto(d["schema"]))
+        n.empty_partitions.num_partitions = d.get("num_partitions", 1)
+        return n
+    if k == "debug":
+        n.debug.input.CopyFrom(plan_to_proto(d["input"]))
+        n.debug.debug_id = d.get("tag", "debug")
+        return n
+    if k == "ipc_writer":
+        n.ipc_writer.input.CopyFrom(plan_to_proto(d["input"]))
+        n.ipc_writer.ipc_consumer_resource_id = d["sink_resource_id"]
+        return n
+    if k == "coalesce_batches":
+        n.coalesce_batches.input.CopyFrom(plan_to_proto(d["input"]))
+        n.coalesce_batches.batch_size = d.get("batch_size") or 0
         return n
     if k == "shuffle_writer":
         n.shuffle_writer.input.CopyFrom(plan_to_proto(d["input"]))

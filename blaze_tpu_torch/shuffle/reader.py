@@ -10,6 +10,13 @@ so the reduce side sees the same batches.  A file segment that cannot be
 read back intact (a failed CRC32C, a short read, a lost file) raises
 `FetchFailedError` naming the map task that wrote it (its `stage_id` and
 `map_id`), so the stage scheduler re-runs only that task.
+
+`FFIReaderExec` imports host Arrow batches (the ConvertToNative path; in
+process the "FFI" is a handoff of pyarrow batches through the resource
+map), one ColumnBatch per batch, not re-batched.  `IpcWriterExec` is the
+collect path (results back to Spark): it writes the child's compacted,
+non-empty batches as framed IPC into the sink its resource id names (a
+callable `partition -> binary file`), and emits nothing.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import io
 import mmap
 import struct
 from dataclasses import dataclass
-from typing import Iterator, Union
+from typing import BinaryIO, Callable, Iterator, Union
 
 import pyarrow as pa
 
@@ -29,6 +36,7 @@ from blaze_tpu_torch.ops.base import BatchIterator, CoalesceStream, ExecutionPla
 from blaze_tpu_torch.schema import Schema
 from blaze_tpu_torch.faults import FetchFailedError
 from blaze_tpu_torch.shuffle.ipc import (IpcCompressionReader,
+                                         IpcCompressionWriter,
                                          ShuffleChecksumError,
                                          read_frames_from_buffer)
 
@@ -110,3 +118,56 @@ class IpcReaderExec(ExecutionPlan):
             for rb in read_block(block):
                 self.metrics.add("io_bytes", rb.nbytes)
                 yield rb
+
+
+class IpcWriterExec(ExecutionPlan):
+    """Writes the child stream as framed IPC into a host sink."""
+
+    def __init__(self, child: ExecutionPlan,
+                 sink_factory: Callable[[int], BinaryIO]):
+        super().__init__([child])
+        self._sink_factory = sink_factory
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int) -> BatchIterator:
+        sink = self._sink_factory(partition)
+        w = IpcCompressionWriter(sink)
+        for batch in self.children[0].execute(partition):
+            rb = batch.compact().to_arrow()
+            if rb.num_rows:
+                w.write_batch(rb)
+                self.metrics.add("output_rows", rb.num_rows)
+                self.metrics.add("io_bytes", rb.nbytes)
+        w.finish()
+        return iter(())
+
+
+class FFIReaderExec(ExecutionPlan):
+    """Imports the host Arrow batches its resource holds: a list of
+    batches, or a callable `partition -> batches`."""
+
+    def __init__(self, resource_id: str, schema: Schema,
+                 num_partitions: int = 1):
+        super().__init__()
+        self.resource_id = resource_id
+        self._schema = schema
+        self._num_partitions = num_partitions
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return self._num_partitions
+
+    def execute(self, partition: int) -> BatchIterator:
+        source = get_resource(self.resource_id)
+        if source is None:
+            raise KeyError(f"ffi resource {self.resource_id!r} not found")
+        batches = source(partition) if callable(source) else source
+        for rb in batches:
+            yield ColumnBatch.from_arrow(rb)

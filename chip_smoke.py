@@ -207,13 +207,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      (the earlier phases' pandas frames; floats within 1e-6 relative);
      fails unless each is equal and no batch ran off the card; prints
      each plan's converted node classes, exec_mode, stage count and wall;
- 19. q70 at SF1 through itest/breadth.py, held to its oracle (its ROLLUP
+ 19. wire kinds (itest/wire_kinds.py, over phase 5's store_returns, each
+     path once under auto): W1, a global sort through a range exchange
+     (4 map tasks: a scan with the date predicate pruning row groups, a
+     filter, a shuffle writer with range partitioning into 16 by
+     customer nulls first and ticket, the bounds from
+     `sample_range_bounds` over a seeded 1% sample; 16 reduce tasks:
+     ipc_reader, coalesce_batches, sort, ipc_writer into memory), radix
+     profiled; W2, a round-robin exchange through
+     `execute_spark_plan_json` (a Spark plan: FileScan, Exchange
+     RoundRobinPartitioning(16), partial and final HashAggregate around a
+     hash exchange); W3, q01's inner query over a Hive layout of the same
+     rows (one file a store without its column, 4 file groups, the date
+     predicate, a debug node at the reduce root) and the FFI probe (one
+     map task's scanned batches through an ffi_reader: the same map
+     bytes); fails unless W1 equals a pandas sort row for row, W2 a
+     pandas group-by (counts exact, sums within 1e-9), W3 phase 5's
+     oracle, pruned_row_groups the footers' count and above 0, radix on
+     the card as often as counted and every grouping exact, no
+     aggregation batch off the card;
+ 20. q70 at SF1 through itest/breadth.py, held to its oracle (its ROLLUP
      sums one state's single store at two levels and rank() must tie
      them: the dict-device lane's and the generic engine's float sums in
      row order on the card); fails unless equal, the row-order sum kernel
      ran, and every float segment sum of the run equals the CPU's row
      order bit for bit;
- 20. segment_sum: the dependent-add probe (one thread, 2^20 adds, float64
+ 21. segment_sum: the dependent-add probe (one thread, 2^20 adds, float64
      and float32: the floor of any row-order sum), then the three forms of
      csrc/segment_sum.cu against the CPU's row-order sums, bit for bit:
      from +0.0 at q70's recorded call with the longest segment (also
@@ -226,7 +245,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      adds at the probe's latency), failing unless the profile holds its
      two kernels a call; and the engine's lexsort equal on the card and
      the CPU (the sums rest on its stability);
- 21. row-order lanes: the hash lane (`scatter_accumulate` into a non-zero
+ 22. row-order lanes: the hash lane (`scatter_accumulate` into a non-zero
      carry over three batches), staged `hash_agg_step`, the dense lane
      (batch tables and the scatter carry) at q01's map shape and hot, the
      window's running sums (2^20 rows in partitions of 4,096 and in one)
@@ -234,16 +253,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      batches whose masked rows stay among the others (AggExec, no keys),
      each run twice on the card: fails unless both runs give the same
      bits and the CPU's, and the engine's sums ran the kernel;
- 22. spill: q06, q17 and q95 at SF10 under 32 MiB and q51 under half its
+ 23. spill: q06, q17 and q95 at SF10 under 32 MiB and q51 under half its
      window buffers' peak (memory/manager.py, memory/spill.py), staged,
      each held to its earlier phase's pandas frame; fails unless each
      spilled, every consumer kind spilled and the writer's spill route's
      radix groupings are exact;
- 23. the dict-device lane through dictionary growth on the card: a
+ 24. the dict-device lane through dictionary growth on the card: a
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 24. the paths' profile summary (with io_bytes per stage of every path:
+ 25. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does) and the kernel table as JSON lines
      (the three ported kernels, the row-order sum with its launches by
@@ -1373,7 +1392,8 @@ def q01_path(root, sr_paths, lo, hi, mode, label="q01"):
     _check_loop(res["counters"], mode, label, map_eligible=True)
     return {"launches": launches, "counters": res["counters"],
             "graphs": graphs, "map_s": res["map_s"],
-            "reduce_s": res["reduce_s"], "peak_bytes": peak, "table": a}
+            "reduce_s": res["reduce_s"], "peak_bytes": peak, "table": a,
+            "oracle": b}
 
 
 def _check_loop(counters, mode, label, map_eligible):
@@ -1520,7 +1540,7 @@ def regrow_path(root, sr_paths, lo, hi):
     if sizes != chain or res["graphs"]["captures"] < len(chain):
         raise SystemExit(f"regrow: table sizes {sizes}, captures "
                          f"{res['graphs']['captures']}")
-    del res["table"]
+    del res["table"], res["oracle"]
     return res
 
 
@@ -3852,6 +3872,175 @@ def front_door_phase(root, tables, wants):
     return {"runs": runs, "data_s": secs}
 
 
+def _wire_batches_on_card(counters, label):
+    if counters["cpu_batches"] or not counters["cuda_batches"]:
+        raise SystemExit(f"wire kinds {label}: batches off the card: "
+                         f"{counters}")
+
+
+def wire_kinds_phase(root, sr_paths, lo, hi, q01_want):
+    """The plan kinds the wire and the front door hand the port
+    (itest/wire_kinds.py) at SF10 over phase 5's store_returns, each once
+    under the stage loop's `auto`: W1, a range exchange into a sort and an
+    IPC writer as TaskDefinitions (radix profiled: its kernels on the card
+    as often as counted, every grouping exact against the plain version);
+    W2, a round-robin exchange through `execute_spark_plan_json`; W3, q01
+    over a Hive layout of the same rows (12 files, one a store) with a
+    debug node at the reduce root; and the FFI probe.  Fails unless each
+    equals its oracle (W1 row for row, W2's counts exact and sums within
+    1e-9, W3 phase 5's oracle), the scans' pruned_row_groups equal the
+    footers' count (W1's scans; W3's scans run alone: a map task that the
+    loop hands back to the staged path scans twice, its first scan cut
+    where the loop fell back) and are above 0, the FFI probe's map bytes
+    equal the scan's, radix ran on every path and no aggregation batch
+    ran off the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.itest import wire_kinds as W
+    from blaze_tpu_torch.itest.q01 import file_groups
+    from blaze_tpu_torch.itest.q01_dag import stage_counters
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    phase("wire kinds: W1 a range exchange into a sort and an IPC writer, "
+          "W2 a round-robin exchange through the front door, W3 q01 over a "
+          "Hive layout, SF10, stage loop auto")
+    _loop_mode("auto")
+    t_phase = time.perf_counter()
+    top = os.path.join(root, "wire_kinds")
+    out = {"runs": {}}
+
+    def check_pruning(res, groups, label):
+        err = W.pruning_error(res["map_task_counters"], groups, lo, hi)
+        if err is not None or res["footer_pruned"] <= 0:
+            raise SystemExit(f"wire kinds {label}: {err or 'no row group '
+                             'pruned by the footers'}")
+
+    # W1, profiled: radix's kernels on the card as often as counted
+    t0 = time.perf_counter()
+    bounds = W.w1_bounds(W.w1_sample(sr_paths, lo, hi), N_REDUCES)
+    want1 = W.w1_oracle(sr_paths, lo, hi)
+    prep_s = time.perf_counter() - t0
+    attempt = [0]
+
+    def w1_run():
+        attempt[0] += 1
+        d = os.path.join(top, f"w1_{attempt[0]}")
+        os.makedirs(d)
+        _zero_launches()
+        with _RecordedGroupings() as rec, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = W.run_w1(sr_paths, lo, hi, bounds, d, N_MAPS, N_REDUCES)
+        launches = _read_launches()
+        for pattern, want in _expected_kernels("radix_partition",
+                                               launches).items():
+            _us, got = _device_events(prof, (pattern,))
+            _count_on_card([prof], "wire kinds W1", f"radix ran {got} "
+                           f"device kernels {pattern} where its wrapper "
+                           f"counted {want}", got, want)
+        res["groupings"] = rec.check("wire kinds W1",
+                                     launches["radix_partition"])
+        res["launches"] = launches
+        return res
+    w1 = _profiled(w1_run, "wire kinds W1")
+    w1["error"] = W.w1_error(w1.pop("table"), want1)
+    w1["footer_pruned"] = W.footer_pruned(sr_paths, lo, hi)
+    if w1["error"] is not None:
+        raise SystemExit(f"wire kinds W1: {w1['error']}")
+    check_pruning(w1, file_groups(sr_paths, N_MAPS), "W1")
+    if not w1["launches"]["radix_partition"]:
+        raise SystemExit("wire kinds W1: radix never ran")
+    print(f"W1: {want1.num_rows} rows sorted, equal to the pandas sort row "
+          f"for row; map {w1['map_s']:.3f} s, reduce {w1['reduce_s']:.3f} "
+          f"s (sample, bounds and oracle {prep_s:.1f} s); pruned_row_groups "
+          f"{w1['counters']['map']['pruned_row_groups']} (footers "
+          f"{w1['footer_pruned']}); sinks {sum(map(len, w1['sinks']))} "
+          f"bytes; radix {w1['launches']['radix_partition']} calls, "
+          f"kernels {w1['launches']['radix_kernels']} on the card as "
+          f"counted ({attempt[0]} profiled attempt(s))")
+    del w1["sinks"], w1["shuffle"]
+    out["runs"]["W1"] = w1
+
+    # W2 through the front door
+    sched = DagScheduler()
+    _zero_launches()
+    w2 = W.run_w2(sr_paths, N_REDUCES, scheduler=sched)
+    w2["launches"] = _read_launches()
+    w2["error"] = W.w2_error(w2.pop("table"), W.w2_oracle(sr_paths))
+    del w2["scheduler"]
+    per_stage = stage_counters(sched, FRONT_DOOR_COUNTERS)
+    w2["counters"] = per_stage
+    w2["stage_walls"] = dict(sched.stage_walls)
+    if w2["error"] is not None:
+        raise SystemExit(f"wire kinds W2: {w2['error']}")
+    _wire_batches_on_card({k: sum(c[k] for c in per_stage.values())
+                           for k in FRONT_DOOR_COUNTERS}, "W2")
+    if not w2["launches"]["radix_partition"]:
+        raise SystemExit("wire kinds W2: radix never ran")
+    print(f"W2: {w2['exec_mode']}, {w2['stages']} stages, wall "
+          f"{w2['wall_s']:.3f} s, equal to the pandas group-by; radix "
+          f"{w2['launches']['radix_partition']}, placement "
+          f"{w2['launches']['hash_placement']}, segment_sum "
+          f"{w2['launches']['segment_sum']}; stage walls "
+          f"{ {k: round(v, 3) for k, v in w2['stage_walls'].items()} }")
+    out["runs"]["W2"] = w2
+
+    # W3 over the Hive layout, then the FFI probe
+    t0 = time.perf_counter()
+    groups, pvals = W.write_hive(sr_paths, os.path.join(top, "hive"),
+                                 N_MAPS)
+    write_s = time.perf_counter() - t0
+    d3 = os.path.join(top, "w3")
+    os.makedirs(d3)
+    _zero_launches()
+    w3 = W.run_w3(groups, pvals, lo, hi, d3, N_REDUCES)
+    w3["launches"] = _read_launches()
+    w3["error"] = W.q01_error(w3.pop("table"), q01_want)
+    w3["footer_pruned"] = W.footer_pruned([p for g in groups for p in g],
+                                          lo, hi)
+    w3["write_s"] = write_s
+    if w3["error"] is not None:
+        raise SystemExit(f"wire kinds W3: {w3['error']}")
+    check_pruning(w3, groups, "W3")
+    t0 = time.perf_counter()
+    alone = W.scans_alone(groups, pvals, lo, hi)
+    w3["scans_alone_pruned"] = sum(p for _b, p in alone)
+    w3["scans_alone_s"] = time.perf_counter() - t0
+    if w3["scans_alone_pruned"] != w3["footer_pruned"]:
+        raise SystemExit(f"wire kinds W3: the scans alone pruned "
+                         f"{w3['scans_alone_pruned']} row groups, the "
+                         f"footers {w3['footer_pruned']}")
+    for st in ("map", "reduce"):
+        _wire_batches_on_card(w3["counters"][st], f"W3 {st}")
+    for k in ("radix_partition", "hash_placement"):
+        if not w3["launches"][k]:
+            raise SystemExit(f"wire kinds W3: {k} never ran")
+    os.makedirs(os.path.join(top, "ffi"))
+    probe = W.ffi_probe(groups, pvals, lo, hi, N_MAPS // 2,
+                        os.path.join(top, "ffi"), d3, N_REDUCES,
+                        alone[N_MAPS // 2][0])
+    del alone
+    if not all(probe["same"].values()):
+        raise SystemExit(f"wire kinds FFI probe: map bytes differ "
+                         f"{probe['same']}")
+    print(f"W3: {sum(len(g) for g in groups)} Hive files written in "
+          f"{write_s:.1f} s; map {w3['map_s']:.3f} s, reduce "
+          f"{w3['reduce_s']:.3f} s, equal to phase 5's oracle; "
+          f"pruned_row_groups {w3['counters']['map']['pruned_row_groups']} "
+          f"(footers {w3['footer_pruned']}, the scans alone "
+          f"{w3['scans_alone_pruned']} in {w3['scans_alone_s']:.2f} s, loop "
+          f"fallbacks {w3['counters']['map']['stage_loop_fallback']}); radix "
+          f"{w3['launches']['radix_partition']}, placement "
+          f"{w3['launches']['hash_placement']}, segment_sum "
+          f"{w3['launches']['segment_sum']}; FFI probe map task "
+          f"{N_MAPS // 2}: {probe['batches']} batches, {probe['rows']} "
+          f"rows, the scan's .data and .index bytes")
+    del w3["shuffle"]
+    out["runs"]["W3"] = w3
+    out["ffi"] = probe
+    shutil.rmtree(top, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"wire kinds phase: {out['wall_s']:.1f} s")
+    return out
+
+
 class _TimedRowOrderSums:
     """Within a `with` block, each eager call of the row-order sums on a
     CUDA float tensor (kernels/sort.py `segment_sum`, `segment_sum_into`,
@@ -4597,6 +4786,10 @@ def main():
         del all_tables
         for k, r in front_door["runs"].items():
             by_path[f"front door {k}"] = r["launches"]
+        wire = wire_kinds_phase(root, sr_paths, lo, hi,
+                                runs["q01"]["oracle"])
+        for k, r in wire["runs"].items():
+            by_path[f"wire kinds {k}"] = r["launches"]
         q70 = q70_phase(root)
         by_path["q70"] = q70["launches"]
         segsum = segment_sum_cases(dev, q70.pop("longest"))
@@ -4619,6 +4812,7 @@ def main():
     phase("summary")
     for k, r in runs.items():
         del r["table"]
+        r.pop("oracle", None)
         loop_counters = {st: {c: v for c, v in r["counters"][st].items()
                               if "loop" in c} for st in ("map", "reduce")}
         print(f"{k}: walls map {r['map_s']:.3f} s reduce {r['reduce_s']:.3f}"
@@ -4873,6 +5067,18 @@ def main():
           f"written in {front_door['data_s']['write']:.1f} s; " + "; ".join(
               f"{k} {r['exec_mode']} {r['stages']} stages "
               f"{r['wall_s']:.3f} s" for k, r in front_door["runs"].items()))
+    print(f"wire kinds: phase {wire['wall_s']:.1f} s; W1 map "
+          f"{wire['runs']['W1']['map_s']:.3f} s reduce "
+          f"{wire['runs']['W1']['reduce_s']:.3f} s; W2 "
+          f"{wire['runs']['W2']['exec_mode']} {wire['runs']['W2']['wall_s']:.3f}"
+          f" s; W3 map {wire['runs']['W3']['map_s']:.3f} s reduce "
+          f"{wire['runs']['W3']['reduce_s']:.3f} s (Hive files written in "
+          f"{wire['runs']['W3']['write_s']:.1f} s); pruned_row_groups W1 "
+          f"{wire['runs']['W1']['counters']['map']['pruned_row_groups']}, W3 "
+          f"{wire['runs']['W3']['counters']['map']['pruned_row_groups']}; "
+          f"radix W1/W2/W3 " + "/".join(
+              str(wire['runs'][k]['launches']['radix_partition'])
+              for k in ('W1', 'W2', 'W3')))
     print(f"q70 at SF1: wall {q70['wall_s']:.3f} s, {q70['exec_mode']}, "
           f"{len(q70['segment_sums'])} float segment sums, segment_sum "
           f"launches {q70['launches']['segment_sum']}; equal to its oracle")
@@ -4911,6 +5117,7 @@ def main():
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
                       "strings": strings, "decimal": decimals,
                       "spill": spill, "front_door": front_door,
+                      "wire_kinds": wire,
                       "q70": q70, "row_order_lanes": lanes,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))

@@ -14,10 +14,10 @@ package's (blaze_tpu/convert/): the same function of the same JSON.
     dicts or equal `ConversionError`s (node class and reason);
   * `tag_plan`, `remove_inefficient_converts` and `explain` give the same
     tags and reasons;
-  * the plans that convert but that the port runs only in a later slice
-    raise NotImplementedError naming it: a Hive scan's partition columns
-    (ROADMAP Queue 1 step 11), a round-robin exchange (step 10) and a
-    wrapped UDF (item 16).
+  * a Hive scan with a partition column and a round-robin exchange,
+    which waited for the plan-kinds slice, run through both packages'
+    `execute_spark_plan_json` over written files with equal rows in
+    order; a wrapped UDF still raises NotImplementedError naming item 16.
 
 The one field compared after normalising is `broadcast_id`: both
 converters draw it from uuid4, so it is replaced by its order of
@@ -389,7 +389,7 @@ def test_strategy_tags_as_the_jax_package(case):
         assert all(t.convertible for t in tt.walk())
 
 
-# -- converted, but run only in a later slice -------------------------------
+# -- converted, and run as the JAX package runs them, or in a later slice --
 
 @pytest.fixture
 def cpu():
@@ -398,31 +398,79 @@ def cpu():
     tconf.conf.unset(tconf.TORCH_DEVICE.key)
 
 
-def _hive_scan():
+def _hive_scan(files=None):
     return [{"class": "org.apache.spark.sql.hive.execution.HiveTableScanExec",
              "num-children": 0, "format": "parquet",
              "requestedAttributes": [K, attr("dt", "date", 9)],
-             "files": [["/data/t/dt=2024-01-02/part-00000.parquet"]],
+             "files": files or [["/data/t/dt=2024-01-02/part-00000.parquet"]],
              "partition_schema": [{"name": "dt", "type": {"id": "date32"}}],
              "partition_values": [[["2024-01-02"]]]}]
 
 
-def test_hive_partition_columns_convert_and_wait_for_step_11(cpu):
+def _run_both(plan_json, parts=1):
+    """The plan through both front doors (`execute_spark_plan_json`), the
+    JAX package on its device route."""
+    import blaze_tpu.bridge.placement as P
+    from blaze_tpu.memory import MemManager
+    from blaze_tpu.plan.stages import execute_spark_plan_json as j_run
+    from blaze_tpu_torch.plan.stages import execute_spark_plan_json as t_run
+    MemManager.init(4 << 30)
+    saved = P.host_resident
+    P.host_resident = lambda: False
+    try:
+        want = j_run(plan_json, parts)
+    finally:
+        P.host_resident = saved
+    return t_run(plan_json, parts), want
+
+
+def _kv_files(tmp_path, n_files):
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(n_files):
+        p = str(tmp_path / f"part-{i:05d}.parquet")
+        n = 37 + 11 * i
+        pq.write_table(pa.table({"k": rng.integers(0, 9, n),
+                                 "v": rng.random(n)}), p)
+        out.append([p])
+    return out
+
+
+def test_hive_partition_columns_convert_and_run_as_the_jax_package(
+        cpu, tmp_path):
+    import datetime
     from blaze_tpu_torch.plan import create_plan
     jax_out, port_out = _both(_hive_scan())
     assert port_out == jax_out and jax_out[0] == "plan"
     plan = t_convert(_hive_scan()).plan
-    with pytest.raises(NotImplementedError, match="step 11"):
-        create_plan(plan)
+    day = datetime.date(2024, 1, 2)
+    assert plan["partition_values"] == [[[day]]]
+    assert [f.name for f in create_plan(plan).schema] == ["k", "dt"]
+    files = _kv_files(tmp_path, 1)
+    got, want = _run_both(_hive_scan(files))
+    assert got.num_rows == 37 and got.equals(want)
+    assert set(got["dt"].to_pylist()) == {day}
 
 
-def test_round_robin_converts_and_waits_for_step_10(cpu):
+def test_round_robin_converts_and_runs_as_the_jax_package(cpu, tmp_path):
     from blaze_tpu_torch.plan import create_plan
     plan = t_convert(UNIT_PLANS["round-robin exchange"]()).plan
     assert plan["partitioning"] == {"kind": "round_robin",
                                     "num_partitions": 3}
-    with pytest.raises(NotImplementedError, match="step 10"):
-        create_plan(plan)
+    assert create_plan(plan).num_partitions == 3
+    files = _kv_files(tmp_path, 2)
+    plan_json = plan_node(
+        "exchange.ShuffleExchangeExec",
+        {"outputPartitioning": [{"class": CAT + "RoundRobinPartitioning",
+                                 "num-children": 0, "numPartitions": 3}]},
+        [scan_node([K[0], V[0]], files)])
+    got, want = _run_both(plan_json)
+    # two map tasks of 37 and 48 rows, one cursor run on in the local
+    # mode's exchange: rows in the JAX package's order
+    assert got.num_rows == 85 and got.equals(want)
 
 
 def test_a_wrapped_udf_converts_and_waits_for_item_16(cpu):

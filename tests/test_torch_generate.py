@@ -17,8 +17,10 @@ against the JAX `proto_serde`.
     a rename_columns node over a scan with a LIST field encodes to the
     JAX package's bytes and decodes to its dicts, and the decoded dicts
     plan the same schema in both packages; json_tuple plans, the UDTF
-    generator raises naming ROADMAP item 16, and each node kind the port
-    does not plan yet names its ROADMAP item.
+    generator raises naming ROADMAP item 16, each node kind the port
+    does not plan yet names its ROADMAP item, and the five kinds of the
+    plan-kinds slice (ffi_reader, coalesce_batches, empty_partitions,
+    debug, ipc_writer) plan and run as the JAX package's.
 
 Tolerance: exact (Arrow equality of every output batch)."""
 
@@ -265,11 +267,54 @@ def test_json_tuple_raises_naming_its_item(tmp_path):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("ffi_reader", "item 4"), ("coalesce_batches", "item 4"),
-    ("empty_partitions", "item 4"), ("debug", "item 4"),
     ("orc_sink", "item 16"), ("orc_scan", "item 16"),
-    ("ipc_writer", "item 16"), ("parquet_sink", "item 16"),
-    ("kafka_scan", "item 16"), ("rss_shuffle_writer", "item 16")])
+    ("parquet_sink", "item 16"), ("kafka_scan", "item 16"),
+    ("rss_shuffle_writer", "item 16")])
 def test_unported_kinds_name_their_item(kind, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         t_create({"kind": kind})
+
+
+@pytest.mark.parametrize("kind", ["ffi_reader", "coalesce_batches",
+                                  "empty_partitions", "debug",
+                                  "ipc_writer"])
+def test_ported_kinds_plan_and_run_as_the_jax_package(kind, tmp_path):
+    """The five node kinds that named ROADMAP item 4 (and ipc_writer,
+    item 16) until the plan-kinds slice: each plans in both packages over
+    a generator's list batches (an FFI resource, or the scan) and gives
+    the JAX node's batches, in order; the IPC writer's sink bytes equal
+    the JAX writer's."""
+    import io
+    from blaze_tpu.bridge.resource import put_resource as j_put
+    from blaze_tpu_torch.bridge.resource import put_resource as t_put
+    tconf.conf.set(tconf.BATCH_SIZE.key, 64)
+    jconf.conf.set(jconf.BATCH_SIZE.key, 64)
+    batches = _list_batches(np.random.default_rng(9), 5, 40)
+    schema = schema_to_dict(TSchema.from_arrow(LIST_SCHEMA))
+    ffi = {"kind": "ffi_reader", "resource_id": "gen-ffi", "schema": schema,
+           "num_partitions": 1}
+    plan = {"ffi_reader": ffi,
+            "coalesce_batches": {"kind": "coalesce_batches", "input": ffi},
+            "empty_partitions": {"kind": "empty_partitions",
+                                 "schema": schema, "num_partitions": 2},
+            "debug": {"kind": "debug", "tag": "g", "input": _scan(tmp_path)},
+            "ipc_writer": {"kind": "ipc_writer",
+                           "sink_resource_id": "gen-sink",
+                           "input": ffi}}[kind]
+    sinks = {"jax": io.BytesIO(), "torch": io.BytesIO()}
+    for put, side in ((j_put, "jax"), (t_put, "torch")):
+        put("gen-ffi", batches)
+        put("gen-sink", lambda p, _s=sinks[side]: _s)
+    j_plan, t_plan = j_create(plan), t_create(plan)
+    assert t_plan.num_partitions == j_plan.num_partitions
+    assert [f.name for f in t_plan.schema] == \
+        [f.name for f in j_plan.schema]
+    for p in range(t_plan.num_partitions):
+        want = [b.compact().to_arrow() for b in j_plan.execute(p)]
+        got = [b.compact().to_arrow() for b in t_plan.execute(p)]
+        assert [b.num_rows for b in got] == [b.num_rows for b in want]
+        assert all(g.equals(w) for g, w in zip(got, want))
+        if kind in ("ffi_reader", "debug"):
+            assert got
+    if kind == "ipc_writer":
+        assert sinks["torch"].getvalue() == sinks["jax"].getvalue() != b""

@@ -67,10 +67,44 @@ def test_same_bytes_decode_to_equal_dicts(i):
 
 
 def test_out_of_slice_nodes_raise():
+    """coalesce_batches, out of slice until the plan-kinds slice, encodes
+    to the JAX bytes, decodes to the JAX dict and runs as the JAX node
+    over the same rows; a kind still unported (parquet_sink, ROADMAP
+    item 16) raises both ways."""
+    import pyarrow as pa
+    from blaze_tpu.bridge.resource import put_resource as j_put
+    from blaze_tpu.plan.planner import create_plan as j_create
+    from blaze_tpu_torch import config as tconf
+    from blaze_tpu_torch.bridge.resource import put_resource as t_put
+    from blaze_tpu_torch.plan.planner import create_plan as t_create
+    inp = {"kind": "ffi_reader", "resource_id": "wire-coalesce",
+           "schema": q01.PARTIAL_SCHEMA_D, "num_partitions": 1}
     td = {"plan": {"kind": "coalesce_batches", "batch_size": 1024,
-                   "input": q01.stage2_td(0, 2)["plan"]["input"]}}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TP.task_definition_to_bytes(td)
+                   "input": inp}}
     data = JP.task_definition_to_bytes(td)
+    assert TP.task_definition_to_bytes(td) == data
+    assert t_decode(data) == j_decode(data)
+    batches = [pa.record_batch({
+        "ctr_customer_sk": pa.array(range(i, i + n), type=pa.int64()),
+        "ctr_store_sk": pa.array([i % 7] * n, type=pa.int64()),
+        "ctr_total_return.sum": pa.array([0.5 * i] * n)})
+        for i, n in enumerate((300, 400, 900, 5, 2000))]
+    j_put("wire-coalesce", batches)
+    t_put("wire-coalesce", batches)
+    tconf.conf.set(tconf.TORCH_DEVICE.key, "cpu")
+    try:
+        want = [b.compact().to_arrow()
+                for b in j_create(j_decode(data)["plan"]).execute(0)]
+        got = [b.compact().to_arrow()
+               for b in t_create(t_decode(data)["plan"]).execute(0)]
+    finally:
+        tconf.conf.unset(tconf.TORCH_DEVICE.key)
+    assert [b.num_rows for b in got] == [b.num_rows for b in want] == \
+        [1600, 2005]
+    assert all(g.equals(w) for g, w in zip(got, want))
+    sink = {"plan": {"kind": "parquet_sink", "fs_resource_id": "fs",
+                     "num_dyn_parts": 0, "props": {}, "input": inp}}
     with pytest.raises(NotImplementedError, match="later slice"):
-        t_decode(data)
+        TP.task_definition_to_bytes(sink)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        t_decode(JP.task_definition_to_bytes(sink))
