@@ -7,8 +7,13 @@ of blaze_tpu/batch.py).
   * nullability is a separate bool `validity` tensor per column;
   * filters do not compact: they AND a row `selection` mask, and
     `compact` packs rows at the operator boundaries that need it;
-  * host<->device copies go through numpy, host-to-device through pinned
-    memory.
+  * a batch crosses to the device in ONE copy: every fixed-width
+    column's values and validity are packed into one staging buffer
+    (pinned, on the card) at aligned offsets, copied once, and the
+    columns are views of the one device buffer (`_stage_columns`,
+    `DeviceStager`); `to_arrow` reads the mask and every column back in
+    one copy.  `bridge/device_stats.py` counts the bytes each way
+    (`note_h2d`, `note_d2h`), as the JAX package's transfer counters do.
 
 The batch's device is the device of its tensors; constructors take it
 from `device.resolve()` unless told otherwise.
@@ -16,6 +21,7 @@ from `device.resolve()` unless told otherwise.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Union
 
@@ -24,6 +30,7 @@ import pyarrow as pa
 import torch
 
 from blaze_tpu_torch import config
+from blaze_tpu_torch.bridge import device_stats
 from blaze_tpu_torch.schema import DataType, Schema, TypeId
 
 LANE = 128  # device buffers are padded to a multiple of this
@@ -47,10 +54,12 @@ def bucket_capacity(n: int) -> int:
     """Quantize a requested row capacity onto the geometric bucket ladder
     (plain lane rounding when bucketing is off)."""
     if not config.BATCH_BUCKETING_ENABLE.get():
-        return round_capacity(n)
-    cap, growth = _bucket_policy()
-    while cap < n:
-        cap = _next_rung(cap, growth)
+        cap = round_capacity(n)
+    else:
+        cap, growth = _bucket_policy()
+        while cap < n:
+            cap = _next_rung(cap, growth)
+    device_stats.note_bucket(cap, cap - min(int(n), cap))
     return cap
 
 
@@ -68,6 +77,173 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+#: byte alignment of each column region in a batch's staging buffer
+#: (cudaMalloc's, so every view is as aligned as a tensor of its own)
+_ALIGN = 256
+_TORCH_DTYPES: dict = {}
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    np_dtype = np.dtype(np_dtype)
+    t = _TORCH_DTYPES.get(np_dtype)
+    if t is None:
+        t = _TORCH_DTYPES[np_dtype] = torch.from_numpy(
+            np.empty(0, dtype=np_dtype)).dtype
+    return t
+
+
+class DeviceStager:
+    """The host-to-device lane of one prefetcher, or of one thread's
+    synchronous calls: a copy stream of its own, a ring of pinned staging
+    buffers, and the stream that consumes the batches.
+
+    `stage` packs a batch into the next pinned buffer (after the event of
+    that buffer's previous copy has completed), issues ONE copy into a
+    fresh device buffer on the copy stream, records an event there, makes
+    the consumer's stream wait on it, and marks the device buffer as used
+    by the consumer's stream (`record_stream`), so the caching allocator
+    does not hand it out again before the consumer's work on it is done.
+
+    A graph capture in global mode (runtime/loop.py) forbids another
+    thread's allocations, event waits and syncs while it runs: every CUDA
+    call here is made under `device.CAPTURE_LOCK`, which the capture
+    holds; the host packing runs outside it."""
+
+    RING = 4
+
+    def __init__(self, device: torch.device, consumer=None):
+        self.device = device
+        # None: the calling thread's current stream at each call
+        self.consumer = consumer
+        self._copy = None
+        self._ring: list = [None] * self.RING  # (pinned buffer, event)
+        self._next = 0
+
+    def stage(self, nbytes: int, pack) -> torch.Tensor:
+        """`pack(host_bytes)` fills a uint8 numpy view of `nbytes` staging
+        bytes; returns the device uint8 buffer they were copied into."""
+        from blaze_tpu_torch.device import CAPTURE_LOCK
+        consumer = (self.consumer if self.consumer is not None
+                    else torch.cuda.current_stream(self.device))
+        slot = self._next
+        with CAPTURE_LOCK:
+            if self._copy is None:
+                self._copy = torch.cuda.Stream(self.device)
+            held = self._ring[slot]
+            if held is not None:
+                held[1].synchronize()  # its last copy has landed
+            if held is None or held[0].numel() < nbytes:
+                size = max(nbytes, 1 << 20)
+                pinned = torch.empty(-(-size // (1 << 20)) << 20,
+                                     dtype=torch.uint8, pin_memory=True)
+            else:
+                pinned = held[0]
+        pack(pinned.numpy()[:nbytes])
+        with CAPTURE_LOCK:
+            with torch.cuda.stream(self._copy):
+                dev = torch.empty(nbytes, dtype=torch.uint8,
+                                  device=self.device)
+                dev.copy_(pinned[:nbytes], non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._copy)
+            consumer.wait_event(event)
+            dev.record_stream(consumer)
+            self._ring[slot] = (pinned, event)
+            self._next = (slot + 1) % self.RING
+        return dev
+
+
+_stagers = threading.local()
+
+
+def _thread_stager(device: torch.device) -> DeviceStager:
+    """The calling thread's own lane, for batches placed synchronously."""
+    by_dev = getattr(_stagers, "by_dev", None)
+    if by_dev is None:
+        by_dev = _stagers.by_dev = {}
+    st = by_dev.get(device)
+    if st is None:
+        st = by_dev[device] = DeviceStager(device)
+    return st
+
+
+def _stage_columns(specs, device: torch.device,
+                   stager: Optional["DeviceStager"] = None) -> list:
+    """Place fixed-width columns with ONE host-to-device copy.
+
+    `specs`: (values, valid, capacity) per column, `values` a numpy array
+    of the column's storage dtype and `valid` a bool array or None (no
+    nulls).  Every column's padded values and validity go into one
+    staging buffer at `_ALIGN`-aligned offsets; returns (data, validity)
+    tensor pairs, views of the one buffer on `device` (on the card they
+    share the one block `DeviceStager.stage` marked as used by the
+    consumer's stream).  The transfer counter gets the padded bytes
+    (values and validity over capacity), as the JAX package's batched put
+    counts them.  No column, no copy: [] without touching the stager."""
+    if not specs:
+        return []
+    layout, off, moved = [], 0, 0
+    for values, _valid, cap in specs:
+        nb = cap * values.dtype.itemsize
+        layout.append((off, nb, off + -(-nb // _ALIGN) * _ALIGN))
+        off = layout[-1][2] + -(-cap // _ALIGN) * _ALIGN
+        moved += nb + cap
+    total = max(off, _ALIGN)
+
+    def pack(buf: np.ndarray) -> None:
+        for (values, valid, cap), (d_off, nb, v_off) in zip(specs, layout):
+            n = len(values)
+            d = buf[d_off:d_off + nb].view(values.dtype)
+            d[:n] = values
+            d[n:] = 0
+            v = buf[v_off:v_off + cap].view(np.bool_)
+            v[:n] = True if valid is None else valid
+            v[n:] = False
+
+    if device.type == "cuda":
+        if stager is None:
+            stager = _thread_stager(device)
+        flat = stager.stage(total, pack)
+    else:
+        flat = torch.empty(total, dtype=torch.uint8)
+        pack(flat.numpy())
+    device_stats.note_h2d(moved)
+    return [(flat[d_off:d_off + nb].view(_torch_dtype(values.dtype)),
+             flat[v_off:v_off + cap].view(torch.bool))
+            for (values, _valid, cap), (d_off, nb, v_off)
+            in zip(specs, layout)]
+
+
+def _fetch_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Tensors -> numpy arrays; from the card in ONE device-to-host copy
+    (their bytes concatenated on the device, then one copy and one wait),
+    CPU tensors viewed as they are.  Counts the bytes fetched."""
+    if not tensors:
+        return []
+    device_stats.note_d2h(sum(t.numel() * t.element_size()
+                              for t in tensors))
+    if tensors[0].device.type != "cuda":
+        return [to_host(t) for t in tensors]
+    raw = torch.cat([t.detach().contiguous().view(-1).view(torch.uint8)
+                     for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        nb = t.numel() * t.element_size()
+        out.append(raw[off:off + nb].view(_np_dtype(t.dtype)))
+        off += nb
+    return out
+
+
+_NP_DTYPES: dict = {}
+
+
+def _np_dtype(t: torch.dtype):
+    d = _NP_DTYPES.get(t)
+    if d is None:
+        d = _NP_DTYPES[t] = torch.empty(0, dtype=t).numpy().dtype
+    return d
 
 
 def _unpack_validity(arr: pa.Array) -> np.ndarray:
@@ -154,29 +330,39 @@ class DeviceColumn:
     def from_numpy(values: np.ndarray, valid: Optional[np.ndarray],
                    dtype: DataType, capacity: int,
                    device: torch.device) -> "DeviceColumn":
+        """One column from host arrays: padded values and validity in one
+        copy (`_stage_columns`), the values in the column's storage dtype
+        (the scaled-int32 tier keeps int32)."""
         n = len(values)
         if capacity < n:
             raise ValueError(f"capacity {capacity} < {n} rows")
+        if valid is not None and len(valid) != n:
+            raise ValueError(f"{len(valid)} validity flags for {n} rows")
         np_dtype = dtype.np_dtype()
         if dtype.id == TypeId.DECIMAL and values.dtype == np.int32:
             np_dtype = np.int32  # the scaled-int32 tier
-        data = np.zeros(capacity, dtype=np_dtype)
-        data[:n] = values
-        v = np.zeros(capacity, dtype=bool)
-        v[:n] = True if valid is None else valid
-        return DeviceColumn(dtype, to_device(data, device),
-                            to_device(v, device))
+        values = np.asarray(values).astype(np_dtype, copy=False)
+        (data, v), = _stage_columns([(values, valid, capacity)], device)
+        return DeviceColumn(dtype, data, v)
 
     @staticmethod
-    def from_arrow(arr: pa.Array, dtype: DataType, capacity: int,
-                   device: torch.device) -> "DeviceColumn":
+    def host_arrow(arr: pa.Array, dtype: DataType) -> tuple:
+        """(values, valid) host arrays of a fixed-width Arrow array: the
+        values in the column's storage dtype (its buffer read as that
+        dtype), valid None when it has no nulls."""
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
         values = _arrow_fixed_values(arr, dtype)
         if dtype.id == TypeId.DECIMAL:
             values = values.astype(_decimal_store(dtype), copy=False)
-        return DeviceColumn.from_numpy(values, _unpack_validity(arr), dtype,
-                                       capacity, device)
+        return values, (_unpack_validity(arr) if arr.null_count else None)
+
+    @staticmethod
+    def from_arrow(arr: pa.Array, dtype: DataType, capacity: int,
+                   device: torch.device) -> "DeviceColumn":
+        values, valid = DeviceColumn.host_arrow(arr, dtype)
+        return DeviceColumn.from_numpy(values, valid, dtype, capacity,
+                                       device)
 
     def to_arrow(self, num_rows: int, selection: Optional[np.ndarray] = None,
                  prefetched: Optional[tuple] = None) -> pa.Array:
@@ -257,7 +443,14 @@ class ColumnBatch:
     @staticmethod
     def from_arrow(rb: Union[pa.RecordBatch, pa.Table],
                    capacity: Optional[int] = None,
-                   device: Optional[torch.device] = None) -> "ColumnBatch":
+                   device: Optional[torch.device] = None,
+                   stager: Optional[DeviceStager] = None) -> "ColumnBatch":
+        """A batch from Arrow: every fixed-width column crosses to the
+        device in one copy (`_stage_columns`; on the card through
+        `stager`, the prefetcher's lane, else the calling thread's).
+        This is the JAX package's `from_arrow` and `place_device` in one
+        pass: the port never holds a column as numpy, so there is no
+        second pass over staged columns to make."""
         if device is None:
             from blaze_tpu_torch.device import resolve
             device = resolve()
@@ -270,13 +463,19 @@ class ColumnBatch:
         schema = Schema.from_arrow(rb.schema)
         n = rb.num_rows
         cap = capacity if capacity is not None else bucket_capacity(n)
-        cols: List[Column] = []
-        for arr, f in zip(arrays, schema):
+        if cap < n:
+            raise ValueError(f"capacity {cap} < {n} rows")
+        specs, fixed = [], []
+        for i, (arr, f) in enumerate(zip(arrays, schema)):
             if f.data_type.is_fixed_width:
-                cols.append(DeviceColumn.from_arrow(arr, f.data_type, cap,
-                                                    device))
-            else:
-                cols.append(HostColumn(f.data_type, arr))
+                specs.append((*DeviceColumn.host_arrow(arr, f.data_type),
+                              cap))
+                fixed.append(i)
+        placed = dict(zip(fixed, _stage_columns(specs, device, stager)))
+        cols: List[Column] = [
+            DeviceColumn(f.data_type, *placed[i]) if i in placed
+            else HostColumn(f.data_type, arr)
+            for i, (arr, f) in enumerate(zip(arrays, schema))]
         return ColumnBatch(schema, cols, n)
 
     @property
@@ -340,16 +539,21 @@ class ColumnBatch:
         return ColumnBatch(self.schema, cols, count, None)
 
     def to_arrow(self) -> pa.RecordBatch:
-        sel = (to_host(self.row_mask()) if self.selection is not None
-               else None)
-        arrays = []
-        for c in self.columns:
-            if isinstance(c, DeviceColumn):
-                arrays.append(c.to_arrow(
-                    self.num_rows, sel,
-                    prefetched=(to_host(c.data), to_host(c.validity))))
-            else:
-                arrays.append(c.to_arrow(self.num_rows, sel))
+        """Host Arrow batch of the surviving rows: the row mask and every
+        device column's values and validity come back in one fetch."""
+        fetch = [self.row_mask()] if self.selection is not None else []
+        dev_idx = [i for i, c in enumerate(self.columns)
+                   if isinstance(c, DeviceColumn)]
+        for i in dev_idx:
+            fetch.append(self.columns[i].data)
+            fetch.append(self.columns[i].validity)
+        fetched = _fetch_host(fetch)
+        sel = fetched.pop(0) if self.selection is not None else None
+        pre = {i: (fetched[2 * j], fetched[2 * j + 1])
+               for j, i in enumerate(dev_idx)}
+        arrays = [c.to_arrow(self.num_rows, sel, prefetched=pre[i])
+                  if i in pre else c.to_arrow(self.num_rows, sel)
+                  for i, c in enumerate(self.columns)]
         return pa.RecordBatch.from_arrays(arrays,
                                           schema=self.schema.to_arrow())
 

@@ -1,6 +1,8 @@
 """Metric tree mirroring the operator tree.
 
-Copy of blaze_tpu/bridge/metrics.py.  Parity: auron-core MetricNode (ref: auron-core/.../metric/MetricNode.java:27 —
+Copy of blaze_tpu/bridge/metrics.py, with one addition: `add_pending` keeps
+a count that lives on the card until `resolve()` reads it back (the
+operator meter's rows of a selection nobody counted).  Parity: auron-core MetricNode (ref: auron-core/.../metric/MetricNode.java:27 —
 a tree of named counters the native side pushes into on finalize,
 native-engine/auron/src/metrics.rs:22 update_metric_node) surfaced to Spark
 SQLMetrics (SparkMetricNode.scala).  Operators own a MetricNode; the runtime
@@ -29,11 +31,40 @@ BASELINE_METRICS = (
 )
 
 
+#: device scalars a metric holds before they are folded into one
+_PENDING_FOLD = 64
+
+
 @dataclass
 class MetricNode:
     name: str = ""
     values: Dict[str, int] = field(default_factory=dict)
     children: List["MetricNode"] = field(default_factory=list)
+    # metric -> device scalars not read back yet (add_pending)
+    _pending: Dict[str, list] = field(default_factory=dict, repr=False,
+                                      compare=False)
+
+    def add_pending(self, metric: str, count) -> None:
+        """Add a count that lives on the device (a 0-dim tensor) without
+        reading it back: it joins `values` at the next `resolve()`, with
+        one device-to-host copy for everything pending."""
+        pend = self._pending.setdefault(metric, [])
+        pend.append(count)
+        if len(pend) >= _PENDING_FOLD:
+            import torch
+            pend[:] = [torch.stack(pend).sum()]
+
+    def resolve(self) -> None:
+        """Fold every pending device count into `values`."""
+        if not self._pending:
+            return
+        import torch
+        pending, self._pending = self._pending, {}
+        keys = list(pending)
+        sums = torch.stack([torch.stack(pending[k]).sum()
+                            for k in keys]).tolist()
+        for k, v in zip(keys, sums):
+            self.add(k, v)
 
     def add(self, metric: str, value: int = 1) -> None:
         self.values[metric] = self.values.get(metric, 0) + int(value)
@@ -47,6 +78,7 @@ class MetricNode:
             self.values[metric] = int(value)
 
     def get(self, metric: str) -> int:
+        self.resolve()
         return self.values.get(metric, 0)
 
     def child(self, i: int, name: str = "") -> "MetricNode":

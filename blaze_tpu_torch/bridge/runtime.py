@@ -8,8 +8,11 @@ batches.  Before fusing it rewrites the tree as the JAX package does:
 `collapse_filter_project` (plan/planner.py), then `prune_columns`
 (plan/column_pruning.py), so every scan reads only the columns the task
 uses.  It runs synchronously on the caller's thread: `start()` only
-resolves the device, `batches()` pulls the tree.  The JAX package's
-producer thread and placement probe belong to later slices.
+resolves the device, `batches()` pulls the tree under a `task` span
+(bridge/tracing.py) in the task's (stage, partition) trace context; the
+scan and the shuffle reader prefetch on worker threads of their own
+(ops/base.py).  The JAX package's producer thread and placement probe
+belong to later slices.
 
 The device is `auron.torch.device` (default "cuda"); asking for CUDA on a
 machine without a visible card raises here, before any work starts.
@@ -52,7 +55,11 @@ class NativeExecutionRuntime:
 
     def batches(self) -> Iterator[pa.RecordBatch]:
         """The root's non-empty output batches, in order."""
-        with task_scope(self.task):
+        from blaze_tpu_torch.bridge import tracing
+        with task_scope(self.task), \
+                tracing.execution_context(stage=self.task.stage_id,
+                                          partition=self.task.partition_id), \
+                tracing.span("task", mode="sync"):
             for rb in self.plan.arrow_batches(self.task.partition_id):
                 if self._finalized:
                     return

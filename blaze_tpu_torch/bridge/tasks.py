@@ -44,36 +44,63 @@ def _backoff_jitter(what: str, task: int, attempt: int) -> float:
 
 
 def _run_with_retries(fn: Callable[[int], Any], i: int, what: str) -> Any:
-    """Bounded attempts around `fn(i)`."""
+    """Bounded attempts around `fn(i)`, each under a `task_attempt` span;
+    the terminal state counts in bridge/device_stats.py (attempts,
+    backoff, failure, a successful attempt's duration)."""
     from blaze_tpu_torch import config
+    from blaze_tpu_torch.bridge import device_stats, tracing
     from blaze_tpu_torch.plan.stage_compiler import decline_loop_scope
     max_attempts = max(1, config.TASK_MAX_ATTEMPTS.get())
     base_s = max(0, config.TASK_RETRY_BACKOFF_MS.get()) / 1e3
     attempt = 1
-    while True:
-        try:
-            if attempt == 1:
-                return fn(i)
-            # a retry declines the device stage loop, an optimization
-            # that was live during the attempt that failed
-            with decline_loop_scope():
-                return fn(i)
-        except BaseException as e:
-            if classify_exception(e) != "retryable" \
-                    or attempt >= max_attempts:
-                raise
-            delay = min(base_s * (2 ** (attempt - 1)), _BACKOFF_CAP_S)
-            delay *= 1.0 + 0.25 * _backoff_jitter(what, i, attempt)
-            log.warning("%s: task %d attempt %d/%d failed (%s: %s); "
-                        "retrying in %.2fs", what, i, attempt, max_attempts,
-                        type(e).__name__, e, delay)
-            time.sleep(delay)
-            attempt += 1
+    wait_ns = 0
+    t0 = time.monotonic()
+    with tracing.execution_context(task=i, what=what):
+        while True:
+            try:
+                with tracing.span("task_attempt", task=i, attempt=attempt,
+                                  what=what):
+                    if attempt == 1:
+                        out = fn(i)
+                    else:
+                        # a retry declines the device stage loop, an
+                        # optimization that was live during the attempt
+                        # that failed
+                        with decline_loop_scope():
+                            out = fn(i)
+                device_stats.note_task_attempts(attempt, wait_ns)
+                device_stats.note_task_duration(
+                    int((time.monotonic() - t0) * 1e9))
+                return out
+            except BaseException as e:
+                if classify_exception(e) != "retryable" \
+                        or attempt >= max_attempts:
+                    device_stats.note_task_attempts(attempt, wait_ns,
+                                                    failed=True)
+                    raise
+                delay = min(base_s * (2 ** (attempt - 1)), _BACKOFF_CAP_S)
+                delay *= 1.0 + 0.25 * _backoff_jitter(what, i, attempt)
+                log.warning("%s: task %d attempt %d/%d failed (%s: %s); "
+                            "retrying in %.2fs", what, i, attempt,
+                            max_attempts, type(e).__name__, e, delay)
+                tracing.instant("task_retry", task=i, attempt=attempt,
+                                error=type(e).__name__, what=what)
+                w0 = time.perf_counter_ns()
+                with tracing.span("backoff_wait", task=i, attempt=attempt,
+                                  what=what, delay_s=round(delay, 4)):
+                    time.sleep(delay)
+                wait_ns += time.perf_counter_ns() - w0
+                attempt += 1
 
 
 def run_tasks(fn: Callable[[int], Any], n: int, what: str) -> List[Any]:
     """`fn(i)` for every i < n in order, each with bounded retries, on the
     caller's thread; results in task order.  The first terminal failure
     is raised and no later task starts, so nothing of a failed wave runs
-    on behind the caller."""
-    return [_run_with_retries(fn, i, what) for i in range(n)]
+    on behind the caller.  The wave's wall counts in
+    bridge/device_stats.py."""
+    from blaze_tpu_torch.bridge import device_stats
+    t0 = time.monotonic()
+    out = [_run_with_retries(fn, i, what) for i in range(n)]
+    device_stats.note_wave_wall(int((time.monotonic() - t0) * 1e9))
+    return out

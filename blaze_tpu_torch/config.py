@@ -142,6 +142,17 @@ BATCH_BUCKET_GROWTH = float_conf(
     "auron.tpu.batch.bucket.growth", 2.0,
     "Geometric growth factor between bucket-ladder rungs; 2.0 gives the "
     "128*2^k ladder.")
+IO_PREFETCH_ENABLE = bool_conf(
+    "auron.tpu.io.prefetch", True,
+    "Async pipelined executor at host-IO edges (ops/base.py "
+    "PrefetchIterator): parquet row-group decode with the batch's one "
+    "host-to-device copy, and shuffle IPC segment reads, run on a bounded "
+    "background worker so the device never idles on host IO.  Kill-switch "
+    "for debugging; depth comes from auron.tpu.io.prefetch.depth.")
+IO_PREFETCH_DEPTH = int_conf(
+    "auron.tpu.io.prefetch.depth", 2,
+    "Bounded queue depth of the IO prefetcher; <= 0 degrades to a "
+    "synchronous passthrough (same as disabling the kill-switch).")
 ON_DEVICE_AGG_CAPACITY = int_conf(
     "auron.tpu.agg.table.capacity", 1 << 18,
     "Slots of the open-addressing hash aggregation table (rounded up to a "
@@ -308,6 +319,15 @@ TORCH_DEVICE = str_conf(
     "Device the PyTorch port runs on: `cuda` (the default; raises when no "
     "card is visible) or `cpu`, where every kernel wrapper runs its plain "
     "PyTorch version.")
+
+# -- observability (bridge/tracing.py, bridge/profiling.py) ------------------
+
+TRACE_ENABLE = bool_conf(
+    "auron.tpu.trace.enable", False,
+    "Collect execution spans process-wide without an explicit "
+    "start_tracing() call (bridge/tracing.py).  Probed once lazily; "
+    "disabled tracing stays a one-boolean check at every span site.",
+    category="observability")
 
 # -- the stage DAG (plan/stages.py) and task retry (bridge/tasks.py) --------
 

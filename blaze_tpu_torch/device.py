@@ -7,6 +7,8 @@ carries on quietly on the CPU.  The CPU tests set the key to `"cpu"`.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from blaze_tpu_torch import config
@@ -24,3 +26,13 @@ def resolve() -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"auron.torch.device={name!r}: expected cuda or cpu")
     return dev
+
+
+#: Held by a CUDA graph capture (runtime/loop.py) for its whole length.
+#: The capture runs in the default (global) error mode, where a CUDA call
+#: from ANOTHER thread that may synchronise or allocate (cudaMalloc,
+#: cudaHostAlloc, an event query or wait, work on the legacy default
+#: stream) invalidates the capture or fails; so a background thread that
+#: issues CUDA work while the caller may capture (the prefetch worker's
+#: staging, batch.py `DeviceStager`) takes this lock around that work.
+CAPTURE_LOCK = threading.RLock()

@@ -9,6 +9,10 @@ digest of its source, so an edited source is rebuilt.  `build_all` starts
 one `nvcc` per source, all at once.  A missing toolchain or a failed build
 raises: there is no fallback to the plain PyTorch versions.
 
+Each nvcc build counts in bridge/device_stats.py `compile_report` (under
+`nvcc:<library>`, with its wall nanoseconds) and emits a `kernel_build`
+trace instant; a library found built counts as a cache hit.
+
 Binding happens once: `load` sets every entry point's `restype` and
 `argtypes` from `SIGNATURES` when it first opens a library, and `bound`
 hands wrappers the bound function from a module-level cache, so a launch
@@ -26,6 +30,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
+
+from blaze_tpu_torch.bridge import device_stats, tracing
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -127,7 +133,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     failures = []
     for name, (proc, tmp, out, t0) in procs.items():
         _stdout, stderr = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": stderr}
+        seconds = time.perf_counter() - t0
+        report[name] = {"seconds": seconds, "log": stderr}
+        device_stats.note_compile(f"nvcc:{name}", int(seconds * 1e9))
+        tracing.instant("kernel_build", kernel=name, ns=int(seconds * 1e9))
         if proc.returncode != 0:
             failures.append(f"{SOURCES[name]} (nvcc rc={proc.returncode}):\n"
                             f"{stderr}")
@@ -146,7 +155,9 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         path = library_path(name)
-        if not path.exists():
+        if path.exists():
+            device_stats.note_compile_hit(f"nvcc:{name}")
+        else:
             build_all([name])
         lib = ctypes.CDLL(str(path))
         for fn_name, (restype, argtypes) in SIGNATURES[name].items():

@@ -249,7 +249,7 @@ def place_in_carry(h, limbs, mask, used, tab, probe_rounds: int,
         empty = torch.empty(0, dtype=torch.int32, device=h.device)
         return empty, empty.clone(), torch.zeros(1, dtype=torch.int32,
                                                  device=h.device)
-    if lane.route(h) == "cuda":
+    if lane.route(h, "hash") == "cuda":
         return _place_cuda(h, limbs, mask, used, tab, probe_rounds,
                            rollback, scratch)
     return place_in_carry_plain(h, limbs, mask, used, tab, probe_rounds,

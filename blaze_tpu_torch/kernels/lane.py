@@ -20,13 +20,26 @@ concerns:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from blaze_tpu_torch.bridge import device_stats
 
-def route(t: torch.Tensor) -> str:
-    """'cuda' for a tensor on a CUDA device, 'plain' for a CPU tensor."""
+
+def route(t: torch.Tensor, kind: Optional[str] = None) -> str:
+    """'cuda' for a tensor on a CUDA device, 'plain' for a CPU tensor.
+    A `kind` (hash, partition) counts the resolution in
+    bridge/device_stats.py under the reference's lane names: the hand
+    kernel is its `pallas` lane, the plain version its `scatter`
+    formulation."""
     if t.device.type == "cuda":
-        return "cuda"
-    if t.device.type == "cpu":
-        return "plain"
-    raise ValueError(f"no kernel route for device {t.device}")
+        lane = "cuda"
+    elif t.device.type == "cpu":
+        lane = "plain"
+    else:
+        raise ValueError(f"no kernel route for device {t.device}")
+    if kind is not None:
+        device_stats.note_scatter_lane(
+            kind, "pallas" if lane == "cuda" else "scatter")
+    return lane

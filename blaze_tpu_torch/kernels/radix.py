@@ -171,7 +171,7 @@ def partition_ranks(pid: torch.Tensor, num_partitions: int, capacity: int):
         return (z, z.clone(), z.clone(),
                 torch.zeros(int(num_partitions), dtype=torch.int32,
                             device=pid.device))
-    if lane.route(pid) == "cuda":
+    if lane.route(pid, "partition") == "cuda":
         return _partition_ranks_cuda(pid, int(num_partitions), int(capacity))
     return partition_ranks_plain(pid, num_partitions, capacity)
 
@@ -223,7 +223,7 @@ def partition_order(pids: torch.Tensor, n_parts: int):
     n = int(pids.shape[0])
     if n == 0:
         return _empty_grouping(n_parts)
-    if lane.route(pids) == "cuda":
+    if lane.route(pids, "partition") == "cuda":
         pid = pids.to(torch.int32).contiguous()  # no copy for the writer's
         return _grouping(*_order_cuda(pid, int(n_parts), _bucket(n)))
     return partition_order_plain(pids, n_parts)

@@ -30,10 +30,11 @@ the fraction.
 
 `TaskContext.query` (bridge/context.py `active_query`) is None until the
 query service is ported (ROADMAP item 16), so quotas and cross-query
-arbitration are reached only by consumers given a query object.  Not
-carried over: the JAX package's `mem_spill` and `quota_breach` trace
-instants (the tracing module, item 15) and its `mem-pressure` and
-`quota-breach` fault sites (item 16).
+arbitration are reached only by consumers given a query object.  Every
+spill emits a `mem_spill` trace instant (its consumer, bytes and cause)
+and a quota breach a `quota_breach` one (bridge/tracing.py).  Not
+carried over: the `mem-pressure` and `quota-breach` fault sites (item
+16).
 """
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.memory.spill import SpillMetrics
 
 MEM_SPILL_FACTOR = 0.8  # the pool must shrink below budget x factor
+
+
+def _trace_spill(consumer, released: int, cause: str) -> None:
+    """The mem_spill trace instant: which consumer shed how much, why,
+    and for which query."""
+    from blaze_tpu_torch.bridge import tracing
+    tracing.instant("mem_spill", consumer=consumer.name, bytes=released,
+                    cause=cause,
+                    query=getattr(getattr(consumer, "query", None),
+                                  "query_id", None))
 
 
 class MemConsumer:
@@ -163,29 +174,31 @@ class MemManager:
             return self.total // max(1, len(self._consumers))
 
     # -- pressure ----------------------------------------------------------
-    def _spill(self, c: MemConsumer) -> int:
+    def _spill(self, c: MemConsumer, cause: str) -> int:
         released = c.spill()
         self.total_spill_count += 1
         self.total_spilled_bytes += released
         kind = self.spills_by_consumer.setdefault(c.name, [0, 0])
         kind[0] += 1
         kind[1] += released
+        _trace_spill(c, released, cause)
         return released
 
-    def _release(self, c: MemConsumer) -> int:
+    def _release(self, c: MemConsumer, cause: str) -> int:
         """c's cheaper release where it offers one, else its spill."""
         released = c.try_release_pressure()
         if released > 0:
             self.total_pressure_releases += 1
             return released
-        return self._spill(c)
+        return self._spill(c, cause)
 
     def on_mem_updated(self, updated: MemConsumer) -> None:
         with self._lock:
             if updated._release_requested and updated.mem_used > 0:
                 updated._release_requested = False
-                self._attribute_shed(updated, self._release(updated),
-                                     global_pressure=True)
+                self._attribute_shed(
+                    updated, self._release(updated, "cross-query-release"),
+                    global_pressure=True)
             used = self.mem_used
             if used > self.peak_used:
                 self.peak_used = used
@@ -205,7 +218,7 @@ class MemManager:
                 if c.query is not None and c.query is not upd_q:
                     c._release_requested = True
                     break
-                self._attribute_shed(c, self._release(c),
+                self._attribute_shed(c, self._release(c, "pool-pressure"),
                                      global_pressure=True)
 
     def _attribute_shed(self, c: MemConsumer, released: int,
@@ -243,14 +256,17 @@ class MemManager:
         if quota <= 0 or used <= quota:
             return
         self.total_quota_breaches += 1
-        q.degrade()
+        rung = q.degrade()
+        from blaze_tpu_torch.bridge import tracing
+        tracing.instant("quota_breach", query=getattr(q, "query_id", None),
+                        used=used, quota=quota, rung=rung)
         target = int(quota * MEM_SPILL_FACTOR)
         for c in sorted(mine, key=lambda c: -c.mem_used):
             if sum(x.mem_used for x in mine) <= target:
                 break
             if c.mem_used == 0:
                 continue
-            self._attribute_shed(c, self._release(c))
+            self._attribute_shed(c, self._release(c, "query-quota"))
 
     def dump_status(self) -> str:
         with self._lock:

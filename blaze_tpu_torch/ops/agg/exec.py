@@ -56,6 +56,7 @@ import pyarrow as pa
 import torch
 
 from blaze_tpu_torch import config
+from blaze_tpu_torch.bridge import device_stats
 from blaze_tpu_torch.batch import (ColumnBatch, DeviceColumn,
                                    bucket_capacity, decimal_from_unscaled,
                                    to_device)
@@ -194,6 +195,7 @@ class _AggState(MemConsumer):
         if self._should_skip_partials():
             self.skipping = True
             self.op.metrics.add("partial_skipped", 1)
+            device_stats.note_partial_agg_skip(self.rows_seen)
             flushed, self.buffer, self.buffered_bytes = self.buffer, [], 0
             self.update_mem_used(self._dict_bytes())
             yield from self._emit(flushed)
@@ -227,6 +229,7 @@ class _AggState(MemConsumer):
         self._probe_done = True
         self._combine_buffer()
         distinct = sum(rb.num_rows for rb in self.buffer)
+        device_stats.note_partial_agg_probe(self.rows_seen, distinct)
         ratio = distinct / max(1, self.rows_seen)
         return ratio > config.PARTIAL_AGG_SKIPPING_RATIO.get()
 
@@ -263,6 +266,7 @@ class _AggState(MemConsumer):
                   for a, f in zip(sink.materialize(), out_schema)]
         out = pa.RecordBatch.from_arrays(arrays, schema=out_schema)
         op.metrics.add("passthrough_rows", n)
+        device_stats.note_partial_agg_rows(n)
         return ColumnBatch.from_arrow(out)
 
     # ------------------------------------------------------------------
@@ -466,6 +470,7 @@ class _AggState(MemConsumer):
         self.buffered_bytes = 0
         self._mem_used = self._dict_bytes()  # the dictionaries stay
         self.op.metrics.add("partial_skipped", 1)
+        device_stats.note_partial_agg_skip(self.rows_seen, on_spill=True)
         return released
 
     def spill(self) -> int:

@@ -230,14 +230,12 @@ class ExpandExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
-        """Counters: `output_rows`, and the projected batches by device
-        (`cuda_batches` / `cpu_batches`)."""
+        """Counters: the projected batches by device (`cuda_batches` /
+        `cpu_batches`), beside the standard meter's."""
         out_schema = self.schema
 
         def gen():
             for batch in self.children[0].execute(partition):
-                self.metrics.add("output_rows", batch.selected_count()
-                                 * len(self._projections))
                 for exprs in self._projections:
                     out = apply_project(batch, exprs, out_schema)
                     self.metrics.add(f"{out.device.type}_batches")

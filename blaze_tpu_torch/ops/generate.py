@@ -170,7 +170,7 @@ class GenerateExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
-        """Counter: `output_rows`, the generated rows."""
+        """The generated rows (counted by the standard meter)."""
         def gen():
             out_schema = self.schema.to_arrow()
             for batch in self.children[0].execute(partition):
@@ -186,7 +186,6 @@ class GenerateExec(ExecutionPlan):
                 arrays = [a if a.type.equals(f.type)
                           else a.cast(f.type, safe=False)
                           for a, f in zip(arrays, out_schema)]
-                self.metrics.add("output_rows", len(idx))
                 yield ColumnBatch.from_arrow(
                     pa.RecordBatch.from_arrays(arrays, schema=out_schema))
         return iter(CoalesceStream(gen(), metrics=self.metrics))

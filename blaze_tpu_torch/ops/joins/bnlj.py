@@ -13,8 +13,8 @@ join type of the reference, the existence output and the join filter;
 the build is collected once per `broadcast_id` and shared by every probe
 partition.
 
-Counters: `output_rows`, and `cuda_batches`/`cpu_batches` for the
-chunks whose condition ran on each device.
+Counters: the standard meter's (ops/base.py), and `cuda_batches`/
+`cpu_batches` for the chunks whose condition ran on each device.
 """
 
 from __future__ import annotations
@@ -133,11 +133,7 @@ class BroadcastNestedLoopJoinExec(ExecutionPlan):
                 yield from self._emit_unmatched_build(
                     build_tbl, build_matched, probe_is_left)
 
-        def counted():
-            for cb in gen():
-                self.metrics.add("output_rows", cb.num_rows)
-                yield cb
-        return iter(CoalesceStream(counted(), metrics=self.metrics))
+        return iter(CoalesceStream(gen(), metrics=self.metrics))
 
     # ------------------------------------------------------------------
     def _pairs(self, probe_rb: pa.RecordBatch, build_tbl: pa.Table):

@@ -328,7 +328,6 @@ class BaseJoinExec(ExecutionPlan):
         if jt == JoinType.EXISTENCE:
             arrays = list(probe_rb.columns) + \
                 [pa.array(match_count > 0, type=pa.bool_())]
-            self.metrics.add("output_rows", n)
             yield ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
                 arrays, schema=self.schema.to_arrow()))
             return
@@ -345,14 +344,11 @@ class BaseJoinExec(ExecutionPlan):
                                         np.full(len(un), -1, dtype=np.int64)])
         if not len(p_idx):
             return
-        self.metrics.add("output_rows", len(p_idx))
         yield self._materialize(probe_rb, jmap, p_idx, b_idx, probe_is_left)
 
     def _emit_probe_rows(self, probe_rb: pa.RecordBatch, keep: np.ndarray
                          ) -> Iterator[ColumnBatch]:
-        """The probe rows at `keep` (a semi or anti join's output),
-        counted in `output_rows`."""
-        self.metrics.add("output_rows", len(keep))
+        """The probe rows at `keep` (a semi or anti join's output)."""
         if len(keep):
             yield ColumnBatch.from_arrow(
                 probe_rb.take(pa.array(keep, type=pa.int64())))
@@ -413,7 +409,6 @@ class BaseJoinExec(ExecutionPlan):
         if build_semi or build_anti:
             want = jmap.matched if build_semi else ~jmap.matched
             idx = np.nonzero(want)[0]
-            self.metrics.add("output_rows", len(idx))
             if len(idx):
                 rb = jmap.table.take(pa.array(idx, type=pa.int64())) \
                     .combine_chunks()
@@ -424,7 +419,6 @@ class BaseJoinExec(ExecutionPlan):
         idx = np.nonzero(~jmap.matched)[0]
         if not len(idx):
             return
-        self.metrics.add("output_rows", len(idx))
         bt = jmap.table.take(pa.array(idx, type=pa.int64()))
         probe_schema = self.children[0 if probe_is_left else 1].schema
         null_probe = [pa.nulls(len(idx), f.data_type.to_arrow())
@@ -469,7 +463,6 @@ class SortMergeJoinExec(BaseJoinExec):
         return SortExec(child, [(k, False, True) for k in keys])
 
     def execute(self, partition: int) -> BatchIterator:
-        """Counter: `output_rows`."""
         from blaze_tpu_torch.ops.joins.smj import MergeJoiner, _Side
 
         def gen():
@@ -481,7 +474,6 @@ class SortMergeJoinExec(BaseJoinExec):
                       self.left_keys if i == 0 else self.right_keys,
                       self.children[i].schema) for i in (0, 1))
             for rb in joiner.join(left, right):
-                self.metrics.add("output_rows", rb.num_rows)
                 yield ColumnBatch.from_arrow(rb)
         return iter(CoalesceStream(gen(), metrics=self.metrics))
 

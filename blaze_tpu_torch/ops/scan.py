@@ -3,7 +3,9 @@
 blaze_tpu/ops/scan.py).
 
 Parquet decoding is host work (pyarrow's C++ reader) producing Arrow
-batches that cross to the device as padded columns.  The batch boundaries
+batches that cross to the device as padded columns, one copy a batch;
+decode and copy run on the IO prefetch worker (ops/base.py
+`PrefetchIterator`), as does the Arrow-resident stream.  The batch boundaries
 follow the JAX package's rules, so both packages see the same batches:
 one multithreaded read for a multi-file group with no pruning predicate
 and no partition column, else per-file reads (eager up to
@@ -38,7 +40,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from blaze_tpu_torch import config
-from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.batch import ColumnBatch, DeviceStager
 from blaze_tpu_torch.ops.base import BatchIterator, ExecutionPlan
 from blaze_tpu_torch.schema import Schema
 
@@ -206,11 +208,46 @@ class ParquetScanExec(ExecutionPlan):
         return len(self._file_groups)
 
     def execute(self, partition: int) -> BatchIterator:
-        # the JAX package also ANDs the predicate's row mask into each
-        # decoded batch here (`_post_decode_filter`, over exprs/program.py:
-        # ROADMAP Queue 1 step 13); the Filter above gives the same rows
-        for rb in self._decode_batches(partition):
-            yield ColumnBatch.from_arrow(rb)
+        """Decode AND the batch's one host-to-device copy run on the
+        prefetch worker (kill-switch auron.tpu.io.prefetch): the next
+        batch's pyarrow decode and copy overlap downstream compute.  On
+        the card the copy goes through a `DeviceStager` of this stream's
+        own, on the consumer's current stream.  (The JAX package also
+        ANDs the predicate's row mask into each decoded batch here,
+        `_post_decode_filter`, over exprs/program.py: ROADMAP Queue 1
+        step 13; the Filter above gives the same rows.)"""
+        from blaze_tpu_torch.device import resolve
+        from blaze_tpu_torch.ops.base import prefetch
+        device = resolve()
+        stager = None
+        if device.type == "cuda":
+            import torch
+            stager = DeviceStager(device, torch.cuda.current_stream(device))
+
+        def transform(rb):
+            return ColumnBatch.from_arrow(rb, device=device, stager=stager)
+        return prefetch(self._decode_batches(partition),
+                        depth=self._prefetch_depth(), transform=transform,
+                        name="parquet_scan")
+
+    @staticmethod
+    def _prefetch_depth() -> int:
+        """The configured depth, widened to one stage-loop chunk while the
+        device loop is active: the loop takes a whole chunk of batches a
+        step, so a depth-2 queue would stall it on decode every chunk."""
+        if not config.IO_PREFETCH_ENABLE.get():
+            return 0
+        depth = config.IO_PREFETCH_DEPTH.get()
+        from blaze_tpu_torch.plan.stage_compiler import stage_loop_active
+        if stage_loop_active():
+            depth = max(depth, config.STAGE_DEVICE_LOOP_CHUNK.get())
+        return depth
+
+    def arrow_batches(self, partition: int):
+        """The prefetched Arrow-resident scan stream (_decode_batches)."""
+        from blaze_tpu_torch.ops.base import prefetch
+        return prefetch(self._decode_batches(partition),
+                        name="parquet_scan")
 
     def _decode_batches(self, partition: int):
         """Arrow-resident scan stream.  (The JAX package's joins also pass

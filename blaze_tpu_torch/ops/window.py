@@ -211,7 +211,7 @@ class WindowExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
-        """Counters: `output_rows`, the processed batches by device
+        """Counters: the processed batches by device
         (`cuda_batches` / `cpu_batches`), and the buffer's `spill_count`
         and `spilled_bytes`."""
         buf = _WindowBuffer(self)
@@ -316,7 +316,6 @@ class WindowExec(ExecutionPlan):
             # window group limit: keep the rows ranked <= k
             out = out.filter(pa.array(to_host(rank_val) <= self.group_limit))
         self.metrics.add(f"{dev.type}_batches")
-        self.metrics.add("output_rows", out.num_rows)
         return ColumnBatch.from_arrow(out, device=dev)
 
     def _part_keys(self, cb: ColumnBatch, n: int) -> List[np.ndarray]:

@@ -477,8 +477,12 @@ class FusedPartialAggExec(ExecutionPlan):
             try:
                 yield from execute_loop(prog, partition)
                 return
-            except StageLoopFallback:
+            except StageLoopFallback as e:
+                from blaze_tpu_torch.bridge import device_stats, tracing
                 self.metrics.add("stage_loop_fallback", 1)
+                device_stats.note_stage_loop_fallback()
+                tracing.instant("stage_loop_fallback", partition=partition,
+                                reason=str(e))
         if self._has_var_keys:
             yield from self._execute_var_keys(partition)
             return

@@ -150,11 +150,16 @@ def compile_fused_agg(agg) -> StageProgram:
 
 
 def try_compile(agg) -> Optional[StageProgram]:
-    """compile_fused_agg, with ineligibility as None."""
+    """compile_fused_agg, with ineligibility as None; a program built
+    counts in bridge/device_stats.py (the port keeps no program cache:
+    its graphs are cached by runtime/loop.py's fold entries)."""
     try:
-        return compile_fused_agg(agg)
+        prog = compile_fused_agg(agg)
     except StageLoopIneligible:
         return None
+    from blaze_tpu_torch.bridge import device_stats
+    device_stats.note_stage_program()
+    return prog
 
 
 def compile_task_plan(plan) -> Optional[StageProgram]:

@@ -36,7 +36,10 @@ stage loop).  `task_runs` counts how often each map task ran.
 
 Each stage runs inside a `torch.profiler.record_function` range named
 `STAGE_RANGE + str(sid)` and ends in a device synchronisation;
-`stage_walls` holds its host-clock seconds.
+`stage_walls` holds its host-clock seconds.  A producer stage's tasks run
+under a `shuffle_exchange` span and a recovery under `stage_recovery`
+(bridge/tracing.py); the map outputs' bytes and each recovery count in
+bridge/device_stats.py.
 
 Not ported, each raising where the JAX scheduler would take it: the
 device-exchange, remote-shuffle, adaptive, subplan-cache, statistics,
@@ -117,8 +120,17 @@ class DagScheduler:
         self.exec_mode: Optional[str] = None  # "local" | "staged"
 
     def _record_task_metrics(self, sid: int, tree: MetricNode) -> None:
+        from blaze_tpu_torch.bridge import profiling
         self.stage_metrics.setdefault(
             sid, MetricNode(name=tree.name)).merge_from(tree)
+        profiling.record_metrics(tree.to_dict())
+
+    def collect_metrics(self) -> Optional[MetricNode]:
+        """Merged metric tree of the result stage (the operator tree the
+        caller's rows flowed through), or None before any run."""
+        if not self.stage_metrics:
+            return None
+        return self.stage_metrics[max(self.stage_metrics)]
 
     # -- splitting ---------------------------------------------------------
 
@@ -298,12 +310,18 @@ class DagScheduler:
             for p in (data, data[:-5] + ".index"):
                 if p not in self._files:
                     self._files.append(p)
-        with self._stage_scope(stage.sid):
+        from blaze_tpu_torch.bridge import device_stats, tracing
+        with self._stage_scope(stage.sid), \
+                tracing.span("shuffle_exchange", stage=stage.sid,
+                             tasks=stage.num_tasks,
+                             partitioning=part.get("kind")):
             run_tasks(lambda m: self._run_map_task(stage, part, m),
                       stage.num_tasks, f"stage {stage.sid} (shuffle write)")
         self._stage_outputs[stage.sid] = {
             m: self._read_map_output(stage, m, n_out)
             for m in range(stage.num_tasks)}
+        device_stats.note_host_exchange(sum(
+            int(off[-1]) for _, off in self._stage_outputs[stage.sid].values()))
 
         sid = stage.sid
 
@@ -335,11 +353,15 @@ class DagScheduler:
         if stage is None or stage.partitioning is None \
                 or not 0 <= ff.map_id < stage.num_tasks:
             raise ff  # no lineage to recover from
+        from blaze_tpu_torch.bridge import device_stats, tracing
         part = self._part_of(stage)
-        run_tasks(lambda _i: self._run_map_task(stage, part, ff.map_id), 1,
-                  f"stage {ff.stage_id} recovery (map {ff.map_id})")
+        with tracing.span("stage_recovery", stage=ff.stage_id,
+                          map_task=ff.map_id):
+            run_tasks(lambda _i: self._run_map_task(stage, part, ff.map_id),
+                      1, f"stage {ff.stage_id} recovery (map {ff.map_id})")
         self._stage_outputs[stage.sid][ff.map_id] = self._read_map_output(
             stage, ff.map_id, int(part.get("num_partitions", 1)))
+        device_stats.note_stage_recovery(1)
 
     # -- the single-task local mode -----------------------------------------
 

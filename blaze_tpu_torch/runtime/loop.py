@@ -42,11 +42,18 @@ the task to another entry, carrying the table across; every move goes up
 one order (table slots, then capacity, then fewer batch slots), so two
 tasks never wait on each other's entries.
 
+Each window of a partition runs under a `stage_loop_chunk` span that
+closes at the read of the step's flags, the sync the loop makes anyway;
+a capture emits a `graph_capture` instant and counts in
+bridge/device_stats.py `compile_report`, and a finished task in its
+stage-loop counters.  A capture holds `device.CAPTURE_LOCK`, so the
+scan's prefetch worker makes no CUDA call while it runs (global mode
+would fail it).
+
 Not carried over yet, each where it would hook: the `device-loop` fault
-site (the JAX loop's chunk boundary, Queue 1 item 16), the
-`stage_loop_chunk` span (item 15), query degradation (`capacity_shrink`
-and `force_agg_passthrough`, item 16) and the dictionary-key stream guard
-(item 13).  `auron.tpu.stage.deviceLoop.donate` is not a key of the port:
+site (the JAX loop's chunk boundary, Queue 1 item 16), query degradation
+(`capacity_shrink` and `force_agg_passthrough`, item 16) and the
+dictionary-key stream guard (item 13).  `auron.tpu.stage.deviceLoop.donate` is not a key of the port:
 a graph always updates its own carry in place.
 """
 
@@ -61,6 +68,7 @@ import torch
 
 from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import ColumnBatch, DeviceColumn
+from blaze_tpu_torch.bridge import device_stats, tracing
 from blaze_tpu_torch.bridge.context import current_task
 from blaze_tpu_torch.kernels import hash_update as HU
 from blaze_tpu_torch.kernels import sort as K
@@ -178,6 +186,11 @@ class _Fold:
         stays as it is), then capture the body in the default (global)
         error mode, so that any operation that cannot be captured
         raises."""
+        from blaze_tpu_torch.device import CAPTURE_LOCK
+        with CAPTURE_LOCK:
+            self._capture_locked(program)
+
+    def _capture_locked(self, program) -> None:
         t0 = time.perf_counter()
         self._set_start(self.chunk)
         self._body(program, slots=1)
@@ -202,8 +215,11 @@ class _Fold:
                                   for f, c in sums_before.items()}
         self.graph = graph
         self._set_start(0)
+        ns = int((time.perf_counter() - t0) * 1e9)
         graph_stats["captures"] += 1
-        graph_stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        graph_stats["capture_ms"] += ns / 1e6
+        device_stats.note_compile("stage_loop_graph", ns)
+        tracing.instant("graph_capture", kernel="stage_loop_graph", ns=ns)
 
     def _body(self, program, slots: int = 0) -> None:
         """Fold the first `slots` (all) batch slots of the chunk into the
@@ -329,46 +345,54 @@ def _folded(program, partition: int, source_stream=None):
         for window in _batch_windows(stream, chunk):
             # chunk boundary: cooperative cancel
             task.check_running()
-            cap = max([b.capacity for b in window] +
-                      [fold.cap if fold is not None else 0])
-            width = min(chunk, 1 << (len(window) - 1).bit_length())
-            if fold is None or cap > fold.cap or width != fold.chunk:
-                fold, captured = _move(program, fold, cap, width, slots,
-                                       device)
-                captures += captured
-            fold.load(window)
-            start, counted = 0, False
-            while True:
-                ovf, first, nrows = fold.run(program, start)
-                fold_calls += 1
-                if not counted:
-                    rows += nrows
-                    counted = True
-                if not ovf:
-                    break
-                if not program.grow:
-                    # PARTIAL mode: skip semantics belong to the staged
-                    # path; growing here would diverge from its bits
-                    raise StageLoopFallback(
-                        "hash table overflow in partial mode")
-                _run_fences()
-                re_ovf = 1
-                while re_ovf > 0:
-                    # batches start..first-1 are already in fold.carry:
-                    # rare probe clustering doubles and rehashes that
-                    # carry again, never replaying the chunk
-                    if slots * 2 > _MAX_SLOTS:
-                        raise StageLoopFallback(
-                            f"table would exceed {_MAX_SLOTS} slots")
-                    slots *= 2
-                    bigger, re_ovf, _ = rehash_carry(
-                        fold.carry, list(program.kinds), slots)
-                fold, captured = _move(program, fold, fold.cap, fold.chunk,
-                                       slots, device, carry=bigger)
-                captures += captured
+            with tracing.span("stage_loop_chunk", stage=task.stage_id,
+                              partition=partition, chunk=ci,
+                              batches=len(window)):
+                cap = max([b.capacity for b in window] +
+                          [fold.cap if fold is not None else 0])
+                width = min(chunk, 1 << (len(window) - 1).bit_length())
+                if fold is None or cap > fold.cap or width != fold.chunk:
+                    fold, captured = _move(program, fold, cap, width,
+                                           slots, device)
+                    captures += captured
                 fold.load(window)
-                regrows += 1
-                start = first
+                start, counted = 0, False
+                while True:
+                    # the span closes after the step that reads no
+                    # overflow: the read of its flags is the sync
+                    ovf, first, nrows = fold.run(program, start)
+                    fold_calls += 1
+                    if not counted:
+                        rows += nrows
+                        counted = True
+                    if not ovf:
+                        break
+                    if not program.grow:
+                        # PARTIAL mode: skip semantics belong to the
+                        # staged path; growing here would diverge from
+                        # its bits
+                        raise StageLoopFallback(
+                            "hash table overflow in partial mode")
+                    _run_fences()
+                    re_ovf = 1
+                    while re_ovf > 0:
+                        # batches start..first-1 are already in
+                        # fold.carry: rare probe clustering doubles and
+                        # rehashes that carry again, never replaying the
+                        # chunk
+                        if slots * 2 > _MAX_SLOTS:
+                            raise StageLoopFallback(
+                                f"table would exceed {_MAX_SLOTS} slots")
+                        slots *= 2
+                        bigger, re_ovf, _ = rehash_carry(
+                            fold.carry, list(program.kinds), slots)
+                    fold, captured = _move(program, fold, fold.cap,
+                                           fold.chunk, slots, device,
+                                           carry=bigger)
+                    captures += captured
+                    fold.load(window)
+                    regrows += 1
+                    start = first
             ci += 1
             batches += len(window)
             task.loop_chunks = ci
@@ -383,6 +407,9 @@ def _folded(program, partition: int, source_stream=None):
                      ("stage_loop_graph_captures", captures),
                      (f"{device.type}_batches", batches)):
             program.agg.metrics.add(k, v)
+        device_stats.note_stage_loop_task(
+            chunks=fold_calls, batches=batches, rows=rows, regrows=regrows,
+            dispatches_avoided=max(0, batches - fold_calls))
         yield carry
     finally:
         if fold is not None:

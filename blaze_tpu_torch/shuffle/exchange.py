@@ -39,6 +39,8 @@ class ShuffleIndexError(FetchFailedError):
     producer's stage and map id."""
 
     def __init__(self, reason: str):
+        from blaze_tpu_torch.bridge import device_stats
+        device_stats.note_fetch_failure()
         super().__init__(reason=reason)
 
 

@@ -4,7 +4,8 @@ blaze_tpu/shuffle/reader.py).
 `IpcReaderExec` pulls the blocks registered for its partition in the
 resource map: a list of blocks, or a callable `partition -> blocks`.  A
 block is a file segment `(path, offset, length)` of a map task's `.data`
-file, or the bytes of one.  Decoded Arrow batches cross to the device
+file, or the bytes of one.  Block reads and decode run on the IO
+prefetch worker (ops/base.py).  Decoded Arrow batches cross to the device
 and are re-batched by the same CoalesceStream rules as the JAX package,
 so the reduce side sees the same batches.  A file segment that cannot be
 read back intact (a failed CRC32C, a short read, a lost file) raises
@@ -64,6 +65,8 @@ def read_block(block: Block) -> Iterator[pa.RecordBatch]:
             yield from _read_segment(block)
         except (ShuffleChecksumError, EOFError, OSError,
                 struct.error) as e:  # struct.error: a short frame header
+            from blaze_tpu_torch.bridge import device_stats
+            device_stats.note_fetch_failure()
             raise FetchFailedError(
                 block.stage_id, block.map_id,
                 f"{block.path}@{block.offset}+{block.length}: {e}") from e
@@ -108,6 +111,13 @@ class IpcReaderExec(ExecutionPlan):
         return iter(CoalesceStream(gen(), metrics=self.metrics))
 
     def arrow_batches(self, partition: int):
+        """Arrow-resident read: the block reads and the IPC decode run on
+        the prefetch worker, so reduce-side compute overlaps them
+        (kill-switch auron.tpu.io.prefetch)."""
+        from blaze_tpu_torch.ops.base import prefetch
+        return prefetch(self._read_blocks(partition), name="ipc_reader")
+
+    def _read_blocks(self, partition: int):
         source = get_resource(self.resource_id)
         if source is None:
             raise KeyError(f"shuffle resource {self.resource_id!r} not found")

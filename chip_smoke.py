@@ -42,8 +42,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                the map side, one window-step launch per map batch; hash
                lane on the reduce side);
   6. where the time goes: each path again under torch.profiler with the
-     stage loop under auto, and q01 again staged (off), with the card's
-     busy share of the wall, the top
+     stage loop under auto (q01's staged re-run was cut for the staging
+     phase's time), with the card's busy share of the wall, the top
      kernels and host ops, the host launches (cudaLaunch* and
      cudaGraphLaunch apart) and graph replays, and a check that each of
      the port's device kernels ran on the card exactly as often as its
@@ -72,7 +72,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      sort-merge join, under auto and off, each held to the pandas oracle
      (the 100 c_customer_id exact and in order); fails unless no batch
      and no join probe ran off the card, the device probe calls equal the
-     probe batches, and placement and radix launched; one run profiled,
+     probe batches, and placement and radix launched; the auto run is
+     explain_analyze's (plan/explain.py), traced, its tree printed: fails
+     unless the bottleneck attribution's categories sum to the span
+     extent and the extent to the wall within 1%, the counter registry's
+     placement, radix and segment_sum launches equal the wrappers'
+     counts, every graph capture left its trace instant, no synchronising
+     call (torch's sync debug mode, per stage) came from the operator
+     meter, and the profiling service on localhost (port 0) serves
+     /metrics.prom and the query's timeline; one run profiled,
      each stage under its own profiler with device activity only (stage
      walls, tasks and cudaLaunch* per stage, busy share, top device ops
      and CUDA runtime calls, placement and radix on the card as often as
@@ -147,7 +155,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      exact against its plain version, every join keeping rows and gq1's
      generator emitting one row per click; prints stage walls, tasks,
      peak memory, data and oracle seconds, io_bytes and the rows out of
-     each join and generator;
+     each join and generator; then the staging and accounting phase's
+     second part: one map task of q19's store_sales stage (task 1: the
+     first file holds no row of its window) and of q67's fact stage (task
+     0), alone, with the IO prefetcher (ops/base.py) on and off, each
+     under a profiler of device activity, after the task's scan alone
+     under its own profiler: fails unless both ways write the same rows
+     (some), map bytes (sha256) and count of cudaMemcpyAsync calls, the
+     scan alone makes exactly one cudaMemcpyAsync a batch (its
+     host-to-device copies on the card, any stream, short of that by no
+     more than the records the profiler lost) and no more batches than
+     the task's scans (its broadcast dimension scans too), every scanned
+     batch is one placement (`DeviceStager.stage`
+     call) and one count of the registry's h2d_transfers, the
+     host-to-device copies on the card's copy streams no more than the
+     placements and short of them by no more than the lost records, and
+     prefetch batches flow only when it is on; prints each task's wall,
+     cudaMemcpyAsync calls and host ms, the scan's measured copies a
+     batch, the placements a scanned batch and the consumer's prefetch
+     wait;
  15. breadth (the single-task local mode, Union, Cast and the
      nested-loop join): catalog_returns (4 files), reason and time_dim at
      SF10 from their seeds, the other tables from phases 10-13; the
@@ -1909,14 +1935,16 @@ def full_data(root):
                                      partitions=FULL_PARTS)[0]
 
 
-def full_path(plan, want, mode, profiled=False, corrupt=False):
+def full_path(plan, want, mode, profiled=False, corrupt=False,
+              explain=False):
     """Full q01 through the port's DagScheduler with the stage loop under
     `mode`: 6 stages, the 100 c_customer_id exact and in order against the
     pandas oracle, every batch and every join probe on the card, the
     kernels launched.  With `profiled`, each stage under torch.profiler
     (see _dag_profile).  With `corrupt`, the lineage probe: one byte of the
     first non-empty map output of stage 0 is flipped after it commits, and
-    exactly that map task must run twice."""
+    exactly that map task must run twice.  With `explain`, the run is
+    `explain_analyze`'s, traced, with its checks (_explain_checks)."""
     import pandas as pd
     import torch
     from blaze_tpu_torch import config
@@ -1926,18 +1954,25 @@ def full_path(plan, want, mode, profiled=False, corrupt=False):
     from blaze_tpu_torch.plan.stages import DagScheduler
 
     label = (f"q01 full {mode}" + (" profiled" if profiled else "")
-             + (" lineage probe" if corrupt else ""))
-    phase(f"main path {label}: TPC-DS q01 through the stage DAG, SF10, "
+             + (" lineage probe" if corrupt else "")
+             + (" under explain_analyze" if explain else ""))
+    phase(("staging and accounting: " if explain else "main path ")
+          + f"{label}: TPC-DS q01 through the stage DAG, SF10, "
           f"{N_FILES} file splits, {FULL_PARTS} exchange partitions")
     _loop_mode(mode)
     config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
     sched = (QD.CorruptingScheduler(0) if corrupt else
-             _stage_profiling_scheduler() if profiled else DagScheduler())
+             _stage_profiling_scheduler() if profiled else
+             _sync_counting_scheduler() if explain else DagScheduler())
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     probes0 = dict(JK.probe_calls)
     t0 = time.perf_counter()
-    out = sched.run_collect(plan)
+    if explain:
+        prof, spans = _explained(plan, sched)
+        out = prof.result
+    else:
+        out = sched.run_collect(plan)
     wall = time.perf_counter() - t0
     launches = _read_launches()
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
@@ -1997,7 +2032,168 @@ def full_path(plan, want, mode, profiled=False, corrupt=False):
                          for k, v in sched.task_runs.items()}}
     if profiled:
         res.update(_dag_profile(sched, label, wall, launches, probes))
+    if explain:
+        res.update(_explain_checks(label, prof, spans, sched, launches))
     return res
+
+
+#: the query id of full q01's explain_analyze run
+EXPLAIN_QID = "q01-full-explain"
+
+
+def _explained(plan, sched):
+    """explain_analyze of `plan` on `sched`, traced, the stage loop's fold
+    cache emptied first (so its graphs are captured in this run, and each
+    capture's trace instant is read); returns (the profile, the spans)."""
+    from blaze_tpu_torch.bridge import tracing
+    from blaze_tpu_torch.plan.explain import explain_analyze
+    from blaze_tpu_torch.runtime import loop
+    loop._FOLDS.clear()
+    tracing.start_tracing()
+    try:
+        with sched.counting_syncs():
+            prof = explain_analyze(plan, query_id=EXPLAIN_QID,
+                                   scheduler=sched, keep_result=True)
+    finally:
+        spans = tracing.stop_tracing()
+    return prof, spans
+
+
+def _sync_counting_scheduler():
+    """A DagScheduler that counts, per stage, the synchronising CUDA calls
+    made while the stage runs: torch's sync debug mode set to warn turns
+    each into a warning, whose Python stack says whether the operator
+    meter (ops/base.py `_count_rows`, `_MeteredIter._finish`) or a metric
+    read (bridge/metrics.py `MetricNode.resolve`) made it."""
+    import warnings
+    import torch
+    from blaze_tpu_torch.plan.stages import DagScheduler
+
+    meter = {("base.py", "_count_rows"), ("base.py", "_finish")}
+    resolve = {("metrics.py", "resolve")}
+
+    class SyncCounting(DagScheduler):
+        def __init__(self):
+            super().__init__()
+            self.syncs = {}
+            self._sid = "outside a stage"
+
+        def _stage_scope(self, sid):
+            inner = super()._stage_scope(sid)
+
+            @contextlib.contextmanager
+            def scope():
+                prev, self._sid = self._sid, sid
+                try:
+                    with inner:
+                        yield
+                finally:
+                    self._sid = prev
+            return scope()
+
+        def _note(self, message, category, filename, lineno, file=None,
+                  line=None):
+            if "synchroniz" not in str(message):
+                return
+            frames, f = set(), sys._getframe()
+            while f is not None:
+                frames.add((os.path.basename(f.f_code.co_filename),
+                            f.f_code.co_name))
+                f = f.f_back
+            c = self.syncs.setdefault(str(self._sid), {
+                "syncs": 0, "in_meter": 0, "in_metric_reads": 0})
+            c["syncs"] += 1
+            c["in_meter"] += bool(frames & meter)
+            c["in_metric_reads"] += bool(frames & resolve)
+
+        @contextlib.contextmanager
+        def counting_syncs(self):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = self._note
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+    return SyncCounting()
+
+
+def _explain_checks(label, prof, spans, sched, launches):
+    """explain_analyze's tree and footers printed; fails unless the
+    bottleneck attribution's categories sum to the span extent and the
+    extent to the query's wall within 1%, the registry's placement,
+    radix and segment_sum launches equal the wrappers' counts the script
+    reads, every graph capture of the run left its trace instant, no
+    synchronising call came from the operator meter, and the profiling
+    service on localhost serves /metrics.prom and the query's timeline."""
+    import urllib.request
+    from blaze_tpu_torch.bridge import profiling
+    from blaze_tpu_torch.runtime import loop
+    print(prof.render_text())
+    bn = prof.bottleneck
+    if bn is None:
+        raise SystemExit(f"{label}: no spans for the attribution")
+    cats = sum(bn["categories"].values())
+    wall_s = prof.wall_ns / 1e9
+    print(f"attribution: categories sum {cats:.6f} s, span extent "
+          f"{bn['wall_s']:.6f} s, query wall {wall_s:.6f} s; dominant "
+          f"{bn['dominant']} ({100 * bn['dominant_fraction']:.1f}%); "
+          f"{bn['span_count']} spans")
+    if abs(cats - bn["wall_s"]) > 0.01 * bn["wall_s"] or \
+            abs(bn["wall_s"] - wall_s) > 0.01 * wall_s:
+        raise SystemExit(f"{label}: the categories ({cats:.6f} s), the "
+                         f"extent ({bn['wall_s']:.6f} s) and the wall "
+                         f"({wall_s:.6f} s) differ by more than 1%")
+    reg = {"hash_placement": prof.counters["placement_launches"],
+           "radix_partition": prof.counters["radix_launches"],
+           "segment_sum": prof.counters["segment_sum_launches"]}
+    mine = {k: launches[k] for k in reg}
+    print(f"kernel launches: the registry {reg}, the wrappers' counters "
+          f"{mine}")
+    if reg != mine:
+        raise SystemExit(f"{label}: the registry's launches {reg} differ "
+                         f"from the wrappers' {mine}")
+    captures = [s for s in spans if s["name"] == "graph_capture"]
+    compiled = prof.kernels.get("stage_loop_graph", {}).get("compiles", 0)
+    print(f"graph captures: {len(captures)} trace instants, "
+          f"{prof.counters['total_compiles']} compiles in the registry's "
+          f"delta, {loop.graph_stats['captures']} since the start")
+    if not captures or len(captures) != prof.counters["total_compiles"] \
+            or compiled < len(captures):
+        raise SystemExit(f"{label}: {len(captures)} graph_capture instants "
+                         f"for {prof.counters['total_compiles']} compiles")
+    print("synchronising calls per stage (torch's sync debug mode): "
+          + "; ".join(f"{sid} {c}" for sid, c in sched.syncs.items()))
+    in_meter = sum(c["in_meter"] for c in sched.syncs.values())
+    if in_meter:
+        raise SystemExit(f"{label}: {in_meter} synchronising calls in the "
+                         f"operator meter")
+    port = profiling.start_http_service(0)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/metrics.prom",
+                                    timeout=30) as r:
+            prom = r.read().decode()
+        with urllib.request.urlopen(
+                f"{base}/query/{EXPLAIN_QID}/timeline", timeout=30) as r:
+            timeline = json.loads(r.read().decode())
+    finally:
+        profiling.stop_http_service()
+    want = "blaze_placement_launches_total"
+    events = [e for e in timeline["traceEvents"] if e.get("ph") != "M"]
+    print(f"profiling service on port {port}: /metrics.prom "
+          f"{len(prom.splitlines())} lines; /query/{EXPLAIN_QID}/timeline "
+          f"{len(events)} events, attribution {timeline['attribution']}")
+    if want not in prom or len(events) != bn["span_count"]:
+        raise SystemExit(f"{label}: the service's exposition or timeline "
+                         f"is short ({len(events)} events for "
+                         f"{bn['span_count']} spans)")
+    return {"explain": {"tree": prof.render_text().splitlines(),
+                        "attribution": bn, "syncs": sched.syncs,
+                        "registry_launches": reg,
+                        "graph_captures": len(captures),
+                        "timeline_events": len(events)}}
 
 
 def _stage_profiling_scheduler():
@@ -3075,6 +3271,7 @@ def q19_q07_gq1_data(root, tables, paths):
         want = make()[1]()
         secs[f"oracle {name}"] = time.perf_counter() - t
         runs[name] = ((lambda m=make: m()[0]), want)
+        ORACLES[name] = runs[name]
         print(f"pandas oracle {name}: {len(want)} rows in "
               f"{secs[f'oracle {name}']:.1f} s")
     return runs, secs, clicks
@@ -3118,6 +3315,225 @@ def q19_q07_gq1_phase(root, tables, paths):
     out["gq1 profiled"] = _profiled(lambda: q19_q07_gq1_path(
         "gq1", *runs["gq1"], "auto", clicks, profiled=True), "gq1")
     return {"data_s": secs, "clicks": clicks, "runs": out}
+
+
+#: the staging phase: (query, the table of the fact stage, the map task
+#: it runs: q19's first file holds no row of its date window)
+STAGED_FACTS = (("q19", "store_sales", 1), ("q67", "store_sales", 0))
+
+
+def _table_scan(d, table):
+    """The parquet_scan node under plan dict `d` that reads `table`'s
+    files, or None."""
+    stack = [d]
+    while stack:
+        d = stack.pop()
+        if d.get("kind") == "parquet_scan" and any(
+                f"{os.sep}{table}{os.sep}" in p
+                for g in d.get("file_groups", []) for p in g):
+            return d
+        for v in d.values():
+            if isinstance(v, dict):
+                stack.append(v)
+            elif isinstance(v, list):
+                stack.extend(x for x in v if isinstance(x, dict))
+    return None
+
+
+def _fact_stage(sched, plan, table):
+    """The leaf map stage of `plan` whose scans read `table`'s files."""
+    for st in sched.split(plan):
+        if st.partitioning is None or st.deps:
+            continue
+        if _table_scan(st.plan, table) is not None:
+            return st
+    raise SystemExit(f"no leaf stage of the plan scans {table}")
+
+
+def _scan_copies(sched, st, table, task, label):
+    """The stage's scan of `table` alone, map task `task`, drained under a
+    profiler of device activity: its batches and fixed-width columns, the
+    cudaMemcpyAsync calls it made, and the host-to-device copies the card
+    recorded on any stream.  Nothing but the scan runs, so these are the
+    scan's own copies a batch, measured (the task's other operators, and
+    its broadcast dimension scans, make copies of their own).  The prefetcher's setting is the caller's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch.plan.planner import create_plan
+    scan = create_plan(sched._per_task(_table_scan(st.plan, table), task,
+                                       st.num_tasks))
+    fixed = sum(f.data_type.is_fixed_width for f in scan.schema)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        batches = sum(1 for _ in scan.execute(task))
+        torch.cuda.synchronize()
+    calls, copied, htod = set(), set(), 0
+    for e in prof.profiler.kineto_results.events():
+        n = e.name()
+        if n == "cudaMemcpyAsync":
+            calls.add(e.correlation_id())
+        elif n.startswith("Memcpy"):
+            copied.add(e.correlation_id())
+            htod += n.startswith("Memcpy HtoD")
+    lost = len(calls - copied)
+    print(f"{label}, the scan alone: {batches} batches of {fixed} "
+          f"fixed-width columns; cudaMemcpyAsync {len(calls)}, "
+          f"host-to-device copies on the card {htod}, {lost} without a "
+          f"device record: {len(calls) / max(1, batches):.3f} copies a "
+          f"scanned batch")
+    if batches <= 0 or len(calls) != batches or \
+            not htod <= batches <= htod + lost:
+        raise SystemExit(f"{label}: the scan alone made {len(calls)} "
+                         f"copies ({htod} host-to-device seen, {lost} "
+                         f"records lost) for {batches} batches: not one "
+                         f"copy a scanned batch")
+    return {"batches": batches, "fixed_columns": fixed,
+            "copies": len(calls), "htod_seen": htod, "lost": lost}
+
+
+def _staged_task(name, table, task, prefetch):
+    """Map task `task` of `name`'s stage over `table`, alone, with the IO
+    prefetcher on or off, under a profiler of device activity: its wall,
+    the cudaMemcpyAsync calls and their host ms, the host-to-device
+    copies on the card by stream (a stream that runs no kernel is a
+    stager's copy stream), the batch placements by stager (a scan's
+    stager, or a thread's for the other batches built on the host), the
+    scan batches, the consumer's prefetch wait, and the map output's rows
+    and bytes (sha256 of .data and .index)."""
+    import hashlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.batch import DeviceStager
+    from blaze_tpu_torch.bridge import device_stats
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    label = (f"{name} {table} task {task}, prefetch "
+             f"{'on' if prefetch else 'off'}")
+    _loop_mode("auto")
+    config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    config.conf.set(config.IO_PREFETCH_ENABLE.key, prefetch)
+    sched = DagScheduler()
+    st = _fact_stage(sched, ORACLES[name][0](), table)
+    scan = _scan_copies(sched, st, table, task, label)
+    placed = {"scan": 0, "thread": 0}
+    stage = DeviceStager.stage
+
+    def counted(self, nbytes, pack):
+        placed["scan" if self.consumer is not None else "thread"] += 1
+        return stage(self, nbytes, pack)
+    DeviceStager.stage = counted
+    before = device_stats.snapshot()
+    try:
+        os.makedirs(sched._dir, exist_ok=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sched._run_map_task(st, sched._part_of(st), task)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        delta = device_stats.delta(before)
+        data = sched._map_data_path(st.sid, task)
+        digest = {}
+        for suffix, path in (("data", data), ("index", data[:-5] + ".index")):
+            with open(path, "rb") as f:
+                digest[suffix] = hashlib.sha256(f.read()).hexdigest()
+        tree = sched.stage_metrics[st.sid]
+    finally:
+        DeviceStager.stage = stage
+        sched.cleanup()
+        config.conf.unset(config.IO_PREFETCH_ENABLE.key)
+    memcpy = memcpy_ns = 0
+    htod, kernels, calls, copied = {}, set(), set(), set()
+    for e in prof.profiler.kineto_results.events():
+        n = e.name()
+        if n == "cudaMemcpyAsync":
+            memcpy += 1
+            memcpy_ns += (e.duration_ns() if hasattr(e, "duration_ns")
+                          else e.duration_us() * 1e3)
+            calls.add(e.correlation_id())
+        elif n.startswith("Memcpy"):
+            copied.add(e.correlation_id())
+            if n.startswith("Memcpy HtoD"):
+                htod[e.device_resource_id()] = \
+                    htod.get(e.device_resource_id(), 0) + 1
+        elif e.device_type() == torch.autograd.DeviceType.CUDA and \
+                not n.startswith("Memset"):
+            kernels.add(e.device_resource_id())
+    on_copy_streams = sum(c for sid, c in htod.items() if sid not in kernels)
+    # copies whose device record the profiler lost (PERF.md §7)
+    lost = len(calls - copied)
+    scans, todo = 0, [tree]
+    while todo:
+        node = todo.pop()
+        if node.name == "ParquetScanExec":
+            scans += node.values.get("output_batches", 0)
+        todo.extend(node.children)
+    res = {"query": name, "stage": st.sid, "task": task,
+           "prefetch": prefetch, "lost_copy_records": lost,
+           "wall_s": wall, "rows": tree.values.get("output_rows", 0),
+           "digest": digest, "scan_batches": scans, "scan_alone": scan,
+           "placements": placed, "htod_copies": sum(htod.values()),
+           "htod_on_copy_streams": on_copy_streams,
+           "cudaMemcpyAsync": memcpy, "memcpy_host_ms": memcpy_ns / 1e6,
+           "prefetch_batches": delta["prefetch_batches"],
+           "prefetch_wait_ns": delta["prefetch_wait_ns"],
+           "h2d_transfers": delta["h2d_transfers"],
+           "h2d_bytes": delta["h2d_bytes"]}
+    print(f"{label} (stage {st.sid}): wall {wall:.3f} s, {res['rows']} rows "
+          f"written; cudaMemcpyAsync {memcpy} ({memcpy_ns / 1e6:.1f} host "
+          f"ms); host-to-device copies on the card {sum(htod.values())}, "
+          f"{on_copy_streams} of them on copy streams; placements (stage "
+          f"calls) {placed} for {res['scan_batches']} scanned batches "
+          f"({placed['scan'] / max(1, res['scan_batches']):.3f} placements "
+          f"a batch); "
+          f"prefetch {delta['prefetch_batches']} batches, consumer wait "
+          f"{delta['prefetch_wait_ns'] / 1e6:.1f} ms; {lost} copies without "
+          f"a device record")
+    staged = placed["scan"] + placed["thread"]
+    if scan["batches"] > res["scan_batches"] or \
+            placed["scan"] != res["scan_batches"] or \
+            delta["h2d_transfers"] != staged or res["rows"] <= 0:
+        raise SystemExit(f"{label}: not one placement a scanned batch, "
+                         f"the scan alone gave more batches than all the "
+                         f"task's scans, or no row written: {res}")
+    # the profiler drops some copies' device records in every run of
+    # this size (PERF.md §7): none may be missing beyond those
+    if not on_copy_streams <= staged <= on_copy_streams + lost:
+        raise SystemExit(f"{label}: {on_copy_streams} copies on copy "
+                         f"streams for {staged} placements, {lost} records "
+                         f"lost: not one copy a placement")
+    if (delta["prefetch_batches"] > 0) != prefetch:
+        raise SystemExit(f"{label}: prefetch batches "
+                         f"{delta['prefetch_batches']}")
+    return res
+
+
+def staging_phase():
+    """q19's store_sales stage and q67's fact stage, one map task of each
+    (STAGED_FACTS), with the IO prefetcher on and off: the same rows and
+    map bytes both ways, the same cudaMemcpyAsync count both ways, one
+    copy a placement, and the scan alone one copy a scanned batch."""
+    phase("staging and accounting: q19's store_sales stage and q67's fact "
+          "stage (one map task of 4 each, SF10) with the IO prefetcher on "
+          "and off")
+    t0 = time.perf_counter()
+    out = {}
+    for name, table, task in STAGED_FACTS:
+        on, off = (_staged_task(name, table, task, p) for p in (True, False))
+        if (on["rows"], on["digest"]) != (off["rows"], off["digest"]):
+            raise SystemExit(f"{name}: prefetch on and off differ: rows "
+                             f"{on['rows']} and {off['rows']}, map bytes "
+                             f"{on['digest']} and {off['digest']}")
+        if on["cudaMemcpyAsync"] != off["cudaMemcpyAsync"]:
+            raise SystemExit(f"{name}: cudaMemcpyAsync {on['cudaMemcpyAsync']}"
+                             f" with the prefetcher on, "
+                             f"{off['cudaMemcpyAsync']} off")
+        print(f"{name}: the same {on['rows']} rows, map bytes and "
+              f"{on['cudaMemcpyAsync']} cudaMemcpyAsync both ways; "
+              f"task wall {on['wall_s']:.3f} s on, {off['wall_s']:.3f} s off")
+        out[name] = {"on": on, "off": off}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 BREADTH_PARTS = 4           # the breadth phase: the exchanges' partitions
@@ -4734,15 +5150,14 @@ def main():
                 lambda: profile_path(name, run, root, mode), name)
             for name, run, mode, label in (
                 ("q01", q01_run, "auto", ""),
-                ("rollup", rollup_run, "auto", ""),
-                ("q01", q01_run, "off", " off"))}
+                ("rollup", rollup_run, "auto", ""))}
         oracle = branches_oracle(sr_paths, lo, hi)
         branches = {
             "auto": branches_path(root, sr_paths, lo, hi, "auto", oracle),
             "off": branches_path(root, sr_paths, lo, hi, "off", oracle)}
         by_path["q01 branches"] = branches["auto"]["launches"]
         plan, q01_want, make_q01 = full_data(root)
-        full = {"auto": full_path(plan, q01_want, "auto"),
+        full = {"auto": full_path(plan, q01_want, "auto", explain=True),
                 "off": full_path(plan, q01_want, "off"),
                 "profiled": _profiled(lambda: full_path(
                     plan, q01_want, "auto", profiled=True), "q01 full"),
@@ -4767,6 +5182,7 @@ def main():
         q19_q07_gq1 = q19_q07_gq1_phase(root, all_tables, all_paths)
         for name in ("q19", "q07", "gq1"):
             by_path[name] = q19_q07_gq1["runs"][f"{name} auto"]["launches"]
+        staging = staging_phase()
         breadth = breadth_phase(root, all_tables, all_paths, make_q01,
                                 q01_want)
         for k, r in breadth["runs"].items():
@@ -5079,6 +5495,18 @@ def main():
           f"radix W1/W2/W3 " + "/".join(
               str(wire['runs'][k]['launches']['radix_partition'])
               for k in ('W1', 'W2', 'W3')))
+    print(f"staging: phase {staging['wall_s']:.1f} s; " + "; ".join(
+        f"{k} {w} task wall {r[w]['wall_s']:.3f} s, cudaMemcpyAsync "
+        f"{r[w]['cudaMemcpyAsync']} ({r[w]['memcpy_host_ms']:.1f} ms), "
+        f"the scan alone {r[w]['scan_alone']['copies']} copies for "
+        f"{r[w]['scan_alone']['batches']} batches, placements a scanned "
+        f"batch "
+        f"{r[w]['placements']['scan'] / max(1, r[w]['scan_batches']):.3f}, "
+        f"prefetch wait {r[w]['prefetch_wait_ns'] / 1e6:.1f} ms"
+        for k, r in staging.items() if k != "wall_s" for w in ("on", "off")))
+    print(f"q01 full explain_analyze: syncs per stage "
+          f"{full['auto']['explain']['syncs']}; attribution "
+          f"{full['auto']['explain']['attribution']['categories']}")
     print(f"q70 at SF1: wall {q70['wall_s']:.3f} s, {q70['exec_mode']}, "
           f"{len(q70['segment_sums'])} float segment sums, segment_sum "
           f"launches {q70['launches']['segment_sum']}; equal to its oracle")
@@ -5117,7 +5545,7 @@ def main():
                       "q19_q07_gq1": q19_q07_gq1, "breadth": breadth,
                       "strings": strings, "decimal": decimals,
                       "spill": spill, "front_door": front_door,
-                      "wire_kinds": wire,
+                      "wire_kinds": wire, "staging": staging,
                       "q70": q70, "row_order_lanes": lanes,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))

@@ -440,7 +440,10 @@ def test_fused_lane_is_the_same_after_collapse(tmp_path, key_hi, mode):
         e = TE.BoundReference(i)
         assert _column_bounds(on.children[0], e) == \
             _column_bounds(off.children[0], e) is not None
-    assert on.metrics.values == off.metrics.values
+    # every counter equal; the meter's elapsed time is a wall clock's
+    counters = [{k: v for k, v in m.metrics.values.items()
+                 if k != "elapsed_compute_ns"} for m in (on, off)]
+    assert counters[0] == counters[1]
     assert on.metrics.values["cpu_batches"] == 5  # 20,000 rows / 4,096
     assert pa.Table.from_batches(got).equals(pa.Table.from_batches(want))
 
