@@ -6,15 +6,17 @@ The counterpart of blaze_tpu/bridge/xla_stats.py, under the reference's
 counter names wherever the port has the same site.  The port compiles
 nothing with XLA, so `compile_report` counts the port's own compilation
 instead: the hand kernels' lazy `nvcc` builds (kernels/build.py) and the
-stage loop's CUDA graph captures (runtime/loop.py), each a "kernel" of
-the report with its calls and nanoseconds.  `snapshot()` also reads the
+CUDA graph captures of the stage loop and of the expression programs
+(runtime/loop.py, exprs/program.py), each a "kernel" of the report with
+its calls and nanoseconds.  `snapshot()` also reads the
 launch counters the kernel wrappers keep (placement, radix, segment_sum,
 window_step, the join probe), so `explain_analyze` shows them beside the
 rest.
 
-Not carried over (ROADMAP Queue 1): the expression-program, worker-pool,
-speculation, observability-plane, cache, statistics, AQE, encoding,
-streaming, fleet and device-exchange families, the injected-fault count,
+Not carried over (ROADMAP Queue 1): the worker-pool, speculation,
+observability-plane, cache, statistics, AQE, streaming, fleet and
+device-exchange families, the encoding family but its host evictions
+(the dictionary and decimal-tier counters), the injected-fault count,
 frame compression, the stage-program cache and the lane declines and
 fault fallbacks; the port has no site for them yet (item 16 and the
 slices of those subsystems add each back with its site).
@@ -37,6 +39,18 @@ _pipeline = {"bucket_batches": 0, "bucket_pad_rows": 0,
              "prefetch_batches": 0, "prefetch_wait_ns": 0,
              "prefetch_waits": 0}
 _bucket_caps: set = set()
+
+# expression programs (exprs/program.py): programs resolve by
+# fingerprint, so every partition's evaluator shares one program; a batch
+# runs fused (one program) or eager
+_exprs = {"expr_programs_built": 0, "expr_program_cache_hits": 0,
+          "expr_program_evictions": 0,
+          "expr_fused_batches": 0, "expr_eager_batches": 0}
+
+# chains that left the device lanes, by the dtype of the first column the
+# gates rejected (exprs/program.py eviction_reason)
+_encoding = {"host_evictions_string": 0, "host_evictions_decimal": 0,
+             "host_evictions_other": 0}
 
 # fault tolerance (bridge/tasks.py, the shuffle readers, plan/stages.py
 # lineage recovery)
@@ -117,6 +131,39 @@ def note_prefetch(batches: int = 0, wait_ns: int = 0) -> None:
         if wait_ns > 0:
             _pipeline["prefetch_wait_ns"] += int(wait_ns)
             _pipeline["prefetch_waits"] += 1
+
+
+def note_expr_program(built: bool = False, cache_hit: bool = False,
+                      evicted: bool = False) -> None:
+    """One program-cache resolution (exprs/program.py get_program)."""
+    with _lock:
+        _exprs["expr_programs_built"] += int(built)
+        _exprs["expr_program_cache_hits"] += int(cache_hit)
+        _exprs["expr_program_evictions"] += int(evicted)
+
+
+def note_expr_dispatch(fused: int = 0, eager: int = 0) -> None:
+    """Batches through a program (`fused`) or the eager evaluator."""
+    with _lock:
+        _exprs["expr_fused_batches"] += int(fused)
+        _exprs["expr_eager_batches"] += int(eager)
+
+
+def note_host_eviction(reason: str) -> None:
+    """A chain left the device lanes; `reason` string/decimal/other."""
+    with _lock:
+        _encoding[f"host_evictions_{reason}"] += 1
+
+
+def expr_stats() -> dict:
+    """The expression-program counters and `expr_cache_hit_rate`, hits
+    over cache resolutions (a ratio, so not in `snapshot`)."""
+    with _lock:
+        d = dict(_exprs)
+    looked_up = d["expr_programs_built"] + d["expr_program_cache_hits"]
+    d["expr_cache_hit_rate"] = (d["expr_program_cache_hits"] / looked_up
+                                if looked_up else 0.0)
+    return d
 
 
 def note_task_attempts(attempts: int = 1, retry_wait_ns: int = 0,
@@ -332,7 +379,9 @@ def counter_families() -> Dict[str, Dict[str, int]]:
                 "shuffle": dict(_shuffle),
                 "stage_loop": dict(_stage_loop),
                 "agg": dict(_agg),
-                "scatter_lane": dict(_scatter_lane)}
+                "scatter_lane": dict(_scatter_lane),
+                "exprs": dict(_exprs),
+                "encoding": dict(_encoding)}
     fams["launches"] = launch_counts()
     return fams
 
@@ -359,7 +408,7 @@ def reset() -> None:
     wrappers' launch counters are theirs)."""
     with _lock:
         for d in (_transfers, _pipeline, _faults, _shuffle, _stage_loop,
-                  _agg, _scatter_lane):
+                  _agg, _scatter_lane, _exprs, _encoding):
             for k in d:
                 d[k] = 0
         _compiles.clear()

@@ -96,6 +96,8 @@ _FAMILY_HELP = {
     "stage_loop": "device stage loop",
     "agg": "adaptive partial aggregation",
     "scatter_lane": "kernel-lane resolution",
+    "exprs": "expression program",
+    "encoding": "host-lane eviction",
     "launches": "hand-kernel wrapper launches",
 }
 

@@ -294,6 +294,20 @@ COLUMN_PRUNING_ENABLE = bool_conf(
     "(plan/column_pruning.py): scans narrow to the columns referenced "
     "above them.  Plans from Spark arrive pruned already; this recovers "
     "the behavior for directly-authored IR.")
+EXPR_FUSE = bool_conf(
+    "auron.tpu.expr.fuse", True,
+    "Whole-chain expression programs (exprs/program.py): each eligible "
+    "Filter/Project/FilterProject chain runs as ONE program, on a CUDA "
+    "device a CUDA graph captured once per (program, bucket rung) and "
+    "replayed per batch, cached process-wide by expression fingerprint so "
+    "repeated queries and all partitions share it.  Chains with host-only "
+    "expressions (strings, UDFs, decimals past the device routes) and ANSI "
+    "mode run the eager evaluator; this is the kill-switch.")
+EXPR_CACHE_SIZE = int_conf(
+    "auron.tpu.expr.cache.size", 256,
+    "Bounded LRU capacity of the process-wide expression-program cache "
+    "(distinct fingerprints; each entry also holds its per-rung CUDA "
+    "graphs).")
 COLLAPSE_FILTER_PROJECT = bool_conf(
     "auron.tpu.plan.collapseFilterProject", True,
     "Planner rewrite (plan/planner.py collapse_filter_project): merge "
@@ -407,6 +421,6 @@ UNPORTED_SCHEDULER_KEYS = {
     "auron.tpu.cache.enable": "item 16 (subplan cache)",
     "auron.tpu.stats.enable": "item 16 (statistics store)",
     "auron.tpu.aqe.enable": "item 16 (adaptive execution)",
-    "auron.tpu.history.enable": "item 15 (query history)",
+    "auron.tpu.history.enable": "item 16 (query history)",
     "auron.tpu.shuffle.device": "item 14 (device exchange)",
 }

@@ -119,9 +119,37 @@ class PhysicalExpr:
     def evaluate(self, batch: ColumnBatch) -> ColVal:
         raise NotImplementedError
 
+    def cache_key(self) -> Any:
+        """Hashable identity of what the expression computes: its class
+        and fields, children by their own keys (the evaluator's
+        per-batch cache and the program fingerprints read it).  A
+        stateful expression keys on its identity, so it is never
+        shared."""
+        import dataclasses
+        if not dataclasses.is_dataclass(self):
+            return (type(self).__name__, id(self))
+        parts = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, PhysicalExpr):
+                parts.append(v.cache_key())
+            elif isinstance(v, (tuple, list)):
+                parts.append(tuple(_key_part(x) for x in v))
+            else:
+                parts.append(repr(v))
+        return (type(self).__name__, *parts)
+
     def __repr__(self):
         cs = ", ".join(repr(c) for c in self.children())
         return f"{type(self).__name__}({cs})"
+
+
+def _key_part(x):
+    if isinstance(x, PhysicalExpr):
+        return x.cache_key()
+    if isinstance(x, (tuple, list)):
+        return tuple(_key_part(y) for y in x)
+    return repr(x)
 
 
 @dataclass(frozen=True, repr=False)
@@ -139,6 +167,9 @@ class BoundReference(PhysicalExpr):
         if isinstance(col, HostColumn):
             return ColVal(col.dtype, array=col.array)
         return ColVal(col.dtype, col.data, col.validity)
+
+    def cache_key(self):
+        return ("col", self.index)
 
     def __repr__(self):
         return f"#{self.index}" + (f"({self.name})" if self.name else "")
@@ -178,6 +209,12 @@ class Literal(PhysicalExpr):
                       torch.full((cap,), value, dtype=dt, device=dev),
                       torch.ones(cap, dtype=torch.bool, device=dev),
                       literal=True)
+
+    def cache_key(self):
+        # the whole type and the value's repr: -0.0 stays apart from 0.0,
+        # and one decimal value apart at two scales
+        return ("lit", repr(self.dtype), type(self.value).__name__,
+                repr(self.value))
 
     def __repr__(self):
         return f"lit({self.value!r})"

@@ -203,11 +203,37 @@ class InList(PhysicalExpr):
     values: Tuple[object, ...]
     negated: bool = False
 
+    def __post_init__(self):
+        # the members as a sorted tensor, per (device, dtype): made once,
+        # outside any graph capture (a copy from pageable memory cannot
+        # be captured)
+        object.__setattr__(self, "_on_device", {})
+
     def children(self):
         return (self.child,)
 
     def data_type(self, schema):
         return BOOL
+
+    def _sorted_members(self, members, dtype: torch.dtype,
+                        device: torch.device) -> torch.Tensor:
+        key = (str(device), dtype)
+        m = self._on_device.get(key)
+        if m is None:
+            m = torch.sort(torch.tensor(members, dtype=dtype)).values
+            m = self._on_device[key] = m.to(device)
+        return m
+
+    def _device_hit(self, data: torch.Tensor, members) -> torch.Tensor:
+        """Row by row, whether the value equals a member (==, so a NaN
+        matches nothing and -0.0 matches 0.0): a binary search over the
+        sorted members, with no sync (torch.isin sorts and syncs past a
+        few dozen members)."""
+        if data.dtype == torch.bool:
+            data = data.to(torch.int8)
+        m = self._sorted_members(members, data.dtype, data.device)
+        idx = torch.searchsorted(m, data).clamp_(max=m.shape[0] - 1)
+        return m.index_select(0, idx) == data
 
     def evaluate(self, batch: ColumnBatch) -> ColVal:
         v = self.child.evaluate(batch)
@@ -215,8 +241,7 @@ class InList(PhysicalExpr):
         members = [x for x in self.values if x is not None]
         if v.is_device:
             if members:
-                hit = torch.isin(v.data, torch.tensor(
-                    members, dtype=v.data.dtype, device=v.data.device))
+                hit = self._device_hit(v.data, members)
             else:
                 hit = torch.zeros_like(v.validity)
             valid = (v.validity & hit) if has_null_member else v.validity

@@ -18,9 +18,13 @@ and the scalar-subquery wrapper.
     (host columns of the batch); a fixed-width result is uploaded;
   * `ScalarSubqueryWrapper` reads its value from the resource map.
 
-The bloom-filter probe waits for `kernels/bloom.py` (ROADMAP Queue 1
-item 11) and the UDF wrapper for the host bridge (item 16): the decoder
-raises for both.
+  * `BloomFilterMightContain` probes the Spark bloom filter registered
+    in the resource map under its uuid (kernels/bloom.py, built by the
+    `bloom_filter` aggregate) on the batch's device; with no filter
+    there, every row might match.
+
+The UDF wrapper waits for the host bridge (ROADMAP Queue 1 item 16): the
+decoder raises for it.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from blaze_tpu_torch import config
 from blaze_tpu_torch.batch import ColumnBatch
 from blaze_tpu_torch.bridge.context import current_task
 from blaze_tpu_torch.exprs.base import ColVal, Literal, PhysicalExpr
-from blaze_tpu_torch.schema import (DataType, Field, FLOAT64, INT32, INT64,
-                                    TypeId)
+from blaze_tpu_torch.schema import (BOOL, DataType, Field, FLOAT64, INT32,
+                                    INT64, TypeId)
 
 
 def _rows(batch: ColumnBatch) -> torch.Tensor:
@@ -115,6 +119,9 @@ class Rand(PhysicalExpr):
         data = draw(batch.capacity, generator=gen, dtype=torch.float64,
                     device=batch.device)
         return ColVal.device(FLOAT64, data)
+
+    def cache_key(self):
+        return ("rand", id(self))  # a stream: never shared
 
 
 @dataclass(frozen=True, repr=False)
@@ -228,3 +235,32 @@ class ScalarSubqueryWrapper(PhysicalExpr):
         from blaze_tpu_torch.bridge.resource import get_resource
         return Literal(get_resource(self.uuid),
                        self.out_type).evaluate(batch)
+
+
+@dataclass(frozen=True, repr=False)
+class BloomFilterMightContain(PhysicalExpr):
+    """might_contain(filter, value): TRUE where the row's int64 value may
+    be in the filter, FALSE where it surely is not, NULL for a NULL
+    value.  The filter (a `SparkBloomFilter`) comes from the resource map
+    under `uuid`; none there means the build side was empty, and every
+    row passes (the JAX package's rule)."""
+
+    uuid: str
+    value: PhysicalExpr
+
+    def children(self):
+        return (self.value,)
+
+    def data_type(self, schema):
+        return BOOL
+
+    def evaluate(self, batch: ColumnBatch) -> ColVal:
+        from blaze_tpu_torch.bridge.resource import get_resource
+        filt = get_resource(self.uuid)
+        if filt is None:
+            return ColVal.device(BOOL, torch.ones(
+                batch.capacity, dtype=torch.bool, device=batch.device))
+        v = self.value.evaluate(batch).to_device(batch.capacity,
+                                                 batch.device)
+        hit = filt.might_contain_longs(v.data.to(torch.int64))
+        return ColVal(BOOL, hit & v.validity, v.validity)

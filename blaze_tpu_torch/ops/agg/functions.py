@@ -1,13 +1,13 @@
 """Aggregate functions over segmented (sort-based) group layouts (port of
-SumAgg, CountAgg, AvgAgg, MinMaxAgg, FirstAgg, CollectAgg and
-CombineUniqueAgg of blaze_tpu/ops/agg/functions.py).
+SumAgg, CountAgg, AvgAgg, MinMaxAgg, FirstAgg, CollectAgg,
+CombineUniqueAgg and BloomFilterAgg of blaze_tpu/ops/agg/functions.py).
 
 Groups arrive as sorted segments with dense group ids (ops/agg/exec.py),
 so every device accumulator update is one segmented reduction on the
 batch's device (kernels/sort.py).  A device accumulator is a tuple of
 (data, validity) tensors indexed by group id.  A host accumulator
 (`is_host`: collect_list/collect_set/combine_unique, whose values are
-lists, and min/max over utf8 or binary) folds Arrow arrays with numpy
+lists, bloom_filter, and min/max over utf8 or binary) folds Arrow arrays with numpy
 group ids in row order (`host_update`, `host_merge`, `host_eval`), as in
 the JAX package.  The fused lanes (plan/fused.py) read only each
 function's kind, accumulator fields and output type.
@@ -15,13 +15,14 @@ function's kind, accumulator fields and output type.
 Decimal sums and averages accumulate the unscaled int64s, exactly, and
 take the JAX package's result types: sum decimal(min(p + 10, 18), s), avg
 decimal(min(p + 4, 18), min(s + 4, 18)) as unscaled x 10^4 / count,
-HALF_UP (Spark caps both at 38: ROADMAP Queue 3).  bloom (item 11) and
-UDAFs (item 16) belong to later slices.
+HALF_UP (Spark caps both at 38: ROADMAP Queue 3).  `bloom_filter`
+builds a Spark bloom filter on the host (kernels/bloom.py).  UDAFs
+(item 16) belong to a later slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -379,12 +380,74 @@ class CombineUniqueAgg(CollectAgg):
                          type=lists.type)]
 
 
+class BloomFilterAgg(AggFunction):
+    """bloom_filter: a Spark bloom filter of the group's int64 values (the
+    build side of a runtime-filter join), a host accumulator holding the
+    filter's serialized bytes; merge ORs the words.  Sized from
+    `expected_items` at Spark's fpp of 0.03, or `num_bits`."""
+
+    name = "bloom_filter"
+
+    def __init__(self, children, expected_items: int = 1_000_000,
+                 num_bits: Optional[int] = None):
+        super().__init__(children)
+        from blaze_tpu_torch.kernels import bloom
+        self.num_bits = num_bits or bloom.optimal_num_bits(expected_items,
+                                                           0.03)
+        self.num_hashes = bloom.optimal_num_hashes(expected_items,
+                                                   self.num_bits)
+
+    @property
+    def is_host(self) -> bool:
+        return True
+
+    def acc_fields(self, s):
+        return [Field("bloom", DataType(TypeId.BINARY))]
+
+    def output_type(self, s):
+        return DataType(TypeId.BINARY)
+
+    def host_update(self, args, gids, num_segments):
+        from blaze_tpu_torch.kernels.bloom import SparkBloomFilter
+        vals = args[0].cast(pa.int64())
+        npg = np.asarray(gids)
+        npv = np.asarray(vals.fill_null(0), dtype=np.int64)
+        valid = np.asarray(vals.is_valid())
+        out = []
+        for g in range(num_segments):
+            f = SparkBloomFilter(self.num_bits, self.num_hashes)
+            f.put_longs(npv[(npg == g) & valid])
+            out.append(f.to_bytes())
+        return [pa.array(out, type=pa.binary())]
+
+    def host_merge(self, accs, gids, num_segments):
+        from blaze_tpu_torch.kernels.bloom import SparkBloomFilter
+        npg = np.asarray(gids)
+        out = []
+        for g in range(num_segments):
+            f: Optional[SparkBloomFilter] = None
+            for i in np.nonzero(npg == g)[0]:
+                v = accs[0][int(i)]
+                if not v.is_valid:
+                    continue
+                other = SparkBloomFilter.from_bytes(v.as_py())
+                if f is None:
+                    f = other
+                else:
+                    f.merge(other)
+            out.append(f.to_bytes() if f is not None else None)
+        return [pa.array(out, type=pa.binary())]
+
+    def host_eval(self, accs):
+        return accs[0]
+
+
 #: ROADMAP Queue 1 item of each function the port does not have yet
-_LATER = {"bloom_filter": 11, "udaf": 16}
+_LATER = {"udaf": 16}
 
 
 def make_agg(name: str, children: Sequence[PhysicalExpr],
-             **_kw) -> AggFunction:
+             **kw) -> AggFunction:
     name = name.lower()
     if name == "sum":
         return SumAgg(children)
@@ -401,6 +464,8 @@ def make_agg(name: str, children: Sequence[PhysicalExpr],
         return CollectAgg(children, distinct=(name != "collect_list"))
     if name in ("combine_unique", "brickhouse.combine_unique"):
         return CombineUniqueAgg(children)
+    if name == "bloom_filter":
+        return BloomFilterAgg(children, **kw)
     if name in _LATER:
         raise NotImplementedError(
             f"aggregate function {name!r} belongs to a later slice of the "

@@ -4,12 +4,17 @@ FilterProjectExec, LimitExec, UnionExec, RenameColumnsExec, ExpandExec,
 EmptyPartitionsExec and DebugExec, blaze_tpu/ops/basic.py).
 
 A filter ANDs its predicates into the batch's selection mask and never
-compacts; CoalesceStream re-batches.  On the q01 path both operators are
-absorbed into the fused aggregation (plan/fused.py), which evaluates the
-same expressions inside its step.  `FilterProjectExec` is the planner's
-collapse of a Filter under a Project (plan/planner.py
-`collapse_filter_project`): it filters, projects and re-batches, so its
-batches are the ones the two operators would emit.  `DebugExec` passes
+compacts; CoalesceStream re-batches.  Filter, Project and FilterProject
+evaluate through `FusedExprsEvaluator` (exprs/program.py): an eligible
+chain runs as one shared program (a CUDA graph replay on the card), the
+rest through the eager evaluator, batch by batch.  On the q01 path both
+operators are absorbed into the fused aggregation (plan/fused.py), which
+evaluates the same expressions inside its step (`apply_filter`,
+`apply_project`).  `FilterProjectExec` is the planner's collapse of a
+Filter under a Project (plan/planner.py `collapse_filter_project`): it
+filters, projects and re-batches, so its batches are the ones the two
+operators would emit.  `ExpandExec` projects through the eager
+evaluator, one per projection list.  `DebugExec` passes
 its child's batches through and logs one INFO line a batch to the logger
 `blaze_tpu_torch.debug`.
 """
@@ -21,7 +26,8 @@ from typing import Optional, Sequence
 import torch
 
 from blaze_tpu_torch.batch import ColumnBatch, bucket_capacity
-from blaze_tpu_torch.exprs import PhysicalExpr
+from blaze_tpu_torch.exprs import (CachedExprsEvaluator, FusedExprsEvaluator,
+                                   PhysicalExpr)
 from blaze_tpu_torch.ops.base import BatchIterator, CoalesceStream, ExecutionPlan
 from blaze_tpu_torch.schema import Field, Schema
 
@@ -57,9 +63,14 @@ class FilterExec(ExecutionPlan):
         return self.children[0].schema
 
     def execute(self, partition: int) -> BatchIterator:
+        # one evaluator per partition; the program behind it comes from
+        # the process-wide cache
+        ev = FusedExprsEvaluator(filters=self._predicates,
+                                 in_schema=self.schema)
+
         def gen():
             for batch in self.children[0].execute(partition):
-                yield apply_filter(batch, self._predicates)
+                yield ev.filter(batch)
         return iter(CoalesceStream(gen(), metrics=self.metrics))
 
 
@@ -81,9 +92,11 @@ class ProjectExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
+        ev = FusedExprsEvaluator(projections=self._exprs,
+                                 in_schema=self.children[0].schema)
         out_schema = self.schema
         for batch in self.children[0].execute(partition):
-            yield apply_project(batch, self._exprs, out_schema)
+            yield ev.project(batch, out_schema)
 
 
 class FilterProjectExec(ExecutionPlan):
@@ -108,12 +121,14 @@ class FilterProjectExec(ExecutionPlan):
         return self._out_schema
 
     def execute(self, partition: int) -> BatchIterator:
+        ev = FusedExprsEvaluator(filters=self._predicates,
+                                 projections=self._exprs,
+                                 in_schema=self.children[0].schema)
         out_schema = self.schema
 
         def gen():
             for batch in self.children[0].execute(partition):
-                yield apply_project(apply_filter(batch, self._predicates),
-                                    self._exprs, out_schema)
+                yield ev.filter_project(batch, out_schema)
         return iter(CoalesceStream(gen(), metrics=self.metrics))
 
 
@@ -233,11 +248,13 @@ class ExpandExec(ExecutionPlan):
         """Counters: the projected batches by device (`cuda_batches` /
         `cpu_batches`), beside the standard meter's."""
         out_schema = self.schema
+        evs = [CachedExprsEvaluator(projections=p)
+               for p in self._projections]
 
         def gen():
             for batch in self.children[0].execute(partition):
-                for exprs in self._projections:
-                    out = apply_project(batch, exprs, out_schema)
+                for ev in evs:
+                    out = ev.project(batch, out_schema)
                     self.metrics.add(f"{out.device.type}_batches")
                     yield out
         return iter(CoalesceStream(gen(), metrics=self.metrics))

@@ -14,8 +14,10 @@ that survive pruning.
 
 A scan's `predicate` prunes row groups by their footer statistics
 (ops/pruning.py, gated by `auron.parquet.enable.pageFiltering`; the
-`pruned_row_groups` metric counts the dropped ones); the Filter above
-the scan still filters every row.  Hive partition columns
+`pruned_row_groups` metric counts the dropped ones); an unprojected scan
+ANDs the predicate's row mask into each decoded batch on the prefetch
+worker when the predicate is traceable (`_post_decode_filter`), and the
+Filter above the scan still filters every row.  Hive partition columns
 (`partition_schema`, with `partition_values[group][file][field]`) are
 per-file constants assembled after decoding, null where a file's list is
 short; the file holds only its own columns (`_file_part`).  Footers are
@@ -23,9 +25,8 @@ cached (`parquet_metadata`, an LRU of `auron.parquet.metadataCacheSize`
 entries keyed by path, refreshed when the file's mtime moves).
 
 Later slices: a scheme'd path (`hdfs://`, `s3://`: bridge/fs.py, ROADMAP
-Queue 1 item 16), scan sharing (the cache, item 16), the post-decode
-filter program and a join's runtime pruning filter (exprs/program.py,
-step 13), and dictionary encoding: a plan built with
+Queue 1 item 16), scan sharing (the cache, item 16), a join's runtime
+pruning filter (step 13), and dictionary encoding: a plan built with
 `auron.tpu.encoding.dict.enable` set raises.
 """
 
@@ -212,10 +213,9 @@ class ParquetScanExec(ExecutionPlan):
         prefetch worker (kill-switch auron.tpu.io.prefetch): the next
         batch's pyarrow decode and copy overlap downstream compute.  On
         the card the copy goes through a `DeviceStager` of this stream's
-        own, on the consumer's current stream.  (The JAX package also
-        ANDs the predicate's row mask into each decoded batch here,
-        `_post_decode_filter`, over exprs/program.py: ROADMAP Queue 1
-        step 13; the Filter above gives the same rows.)"""
+        own, on the consumer's current stream.  The post-decode filter
+        (`_post_decode_filter`) runs there too, on the consumer's stream,
+        after the copy."""
         from blaze_tpu_torch.device import resolve
         from blaze_tpu_torch.ops.base import prefetch
         device = resolve()
@@ -223,12 +223,34 @@ class ParquetScanExec(ExecutionPlan):
         if device.type == "cuda":
             import torch
             stager = DeviceStager(device, torch.cuda.current_stream(device))
+        post = self._post_decode_filter()
 
         def transform(rb):
-            return ColumnBatch.from_arrow(rb, device=device, stager=stager)
+            cb = ColumnBatch.from_arrow(rb, device=device, stager=stager)
+            if post is None:
+                return cb
+            if stager is None:
+                return post(cb)
+            import torch
+            with torch.cuda.stream(stager.consumer):
+                return post(cb)
         return prefetch(self._decode_batches(partition),
                         depth=self._prefetch_depth(), transform=transform,
                         name="parquet_scan")
+
+    def _post_decode_filter(self):
+        """The predicate's exact row mask ANDed into each decoded batch on
+        the prefetch worker (exprs/program.py `fused_filter`), so the
+        mask's work overlaps downstream compute; the Filter above, which
+        evaluates the same conjuncts, ANDs an identical mask again.  Only
+        an unprojected scan without partition columns takes it: the
+        predicate is bound to the file's column ordinals.  None where the
+        predicate is not wholly traceable."""
+        if self._predicate is None or self._projection is not None \
+                or self._partition_schema is not None:
+            return None
+        from blaze_tpu_torch.exprs.program import fused_filter
+        return fused_filter([self._predicate], self._schema)
 
     @staticmethod
     def _prefetch_depth() -> int:

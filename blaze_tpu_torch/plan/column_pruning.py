@@ -43,13 +43,13 @@ def expr_columns(e: PhysicalExpr, out: Set[int]) -> None:
 
 def rewrite_expr(e: PhysicalExpr, mapping: Dict[int, int]) -> PhysicalExpr:
     """`e` rebuilt with its BoundReference indices remapped (expressions
-    are frozen dataclasses, rebuilt by planner.map_children); any other
+    are frozen dataclasses, rebuilt by exprs/fold.py map_exprs); any other
     expression makes the whole plan unprunable."""
-    from blaze_tpu_torch.plan.planner import map_children
+    from blaze_tpu_torch.exprs.fold import map_exprs
     if isinstance(e, BoundReference):
         return BoundReference(mapping[e.index], e.name)
     try:
-        return map_children(e, lambda c: rewrite_expr(c, mapping))
+        return map_exprs(e, lambda c: rewrite_expr(c, mapping))
     except TypeError:
         raise _Unprunable() from None
 

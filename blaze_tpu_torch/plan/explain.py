@@ -15,9 +15,9 @@ The profile is registered with the observability service
 (bridge/profiling.py `record_profile`), so the same data is served at
 /profile/<qid> and folded into /metrics.prom.  Footers appear only for
 counters that moved; the reference's footers of subsystems the port
-lacks (speculation, work sharing, AQE, encodings, workers, streams,
-expression programs: ROADMAP Queue 1) have no counters here, so they
-never render, as the reference's do not when their stats are empty.
+lacks (speculation, work sharing, AQE, encodings, workers, streams:
+ROADMAP Queue 1) have no counters here, so they never render, as the
+reference's do not when their stats are empty.
 """
 
 from __future__ import annotations
@@ -130,6 +130,19 @@ def _footers(x: Dict[str, int]) -> List[str]:
             f"prefetch: batches={x.get('prefetch_batches', 0)} "
             f"consumer_wait={_fmt_ns(x.get('prefetch_wait_ns', 0))} "
             f"({x.get('prefetch_waits', 0)} waits)")
+    if (x.get("expr_fused_batches") or x.get("expr_eager_batches")
+            or x.get("expr_programs_built")):
+        looked_up = (x.get("expr_programs_built", 0)
+                     + x.get("expr_program_cache_hits", 0))
+        rate = (x.get("expr_program_cache_hits", 0) / looked_up
+                if looked_up else 0.0)
+        lines.append(
+            f"expr programs: built={x.get('expr_programs_built', 0)} "
+            f"cache_hits={x.get('expr_program_cache_hits', 0)} "
+            f"(hit_rate={rate:.2f}) "
+            f"fused_batches={x.get('expr_fused_batches', 0)} "
+            f"eager_batches={x.get('expr_eager_batches', 0)} "
+            f"evictions={x.get('expr_program_evictions', 0)}")
     if x.get("partial_agg_skip_events") or x.get("partial_agg_probe_rows"):
         probe_rows = x.get("partial_agg_probe_rows", 0)
         ratio = (x.get("partial_agg_probe_groups", 0) / probe_rows

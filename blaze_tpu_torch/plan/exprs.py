@@ -5,19 +5,22 @@ Kinds: column, literal, binary, is_null, is_not_null, not, case, if,
 coalesce, in_list, cast, try_cast, like, rlike, string_starts_with,
 string_ends_with, string_contains, scalar_function, named_struct,
 get_indexed_field, get_map_value, row_num, spark_partition_id,
-monotonically_increasing_id, rand, randn and scalar_subquery.
-`bloom_filter_might_contain` raises NotImplementedError naming ROADMAP
-item 11 and `udf` naming item 16.
+monotonically_increasing_id, rand, randn, bloom_filter_might_contain
+and scalar_subquery.  `udf` raises NotImplementedError naming ROADMAP
+item 16.
 
-Constant folding of all-literal subtrees (the JAX package's
-exprs/fold.py) is not carried over: it changes no result.
+Each decoded node is constant-folded when every child is a Literal
+(exprs/fold.py; always, where the JAX package has a key to turn it off);
+children decode through the same entry, so the fold runs bottom-up across
+the tree, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from blaze_tpu_torch.exprs import (BinaryExpr, BoundReference, CaseWhen,
+from blaze_tpu_torch.exprs import (BinaryExpr, BloomFilterMightContain,
+                                   BoundReference, CaseWhen,
                                    Cast, Coalesce, GetIndexedField,
                                    GetMapValue, If, InList, IsNotNull,
                                    IsNull, Like, Literal,
@@ -33,13 +36,19 @@ _UNARY = {"is_null": IsNull, "is_not_null": IsNotNull, "not": Not}
 _NULLARY = {"row_num": RowNum, "spark_partition_id": SparkPartitionId,
             "monotonically_increasing_id": MonotonicallyIncreasingId}
 #: decoded kinds whose expression waits for a later item
-_LATER = {"bloom_filter_might_contain": "item 11 (kernels/bloom.py)",
-          "udf": "item 16 (the host UDF bridge)"}
+_LATER = {"udf": "item 16 (the host UDF bridge)"}
 
 
 def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
                    ) -> PhysicalExpr:
-    """Decode one expression node and its children."""
+    """Decode one expression node and its children, then fold it if every
+    child is a Literal."""
+    from blaze_tpu_torch.exprs.fold import fold_node
+    return fold_node(_expr_from_dict(d, schema), schema)
+
+
+def _expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
+                    ) -> PhysicalExpr:
     k = d["kind"]
 
     def sub(x):
@@ -102,6 +111,8 @@ def expr_from_dict(d: Dict[str, Any], schema: Optional[Schema] = None
         return Rand(d.get("seed", 0), normal=(k == "randn"))
     if k == "scalar_subquery":
         return ScalarSubqueryWrapper(d["uuid"], type_from_dict(d["type"]))
+    if k == "bloom_filter_might_contain":
+        return BloomFilterMightContain(d["uuid"], sub(d["value"]))
     if k in _LATER:
         raise NotImplementedError(
             f"expression kind {k!r} belongs to a later slice of the PyTorch "

@@ -174,7 +174,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         for a in d.get("aggs", []):
             children = [expr_from_dict(c, in_schema)
                         for c in a.get("args", [])]
-            aggs.append((make_agg(a["fn"], children),
+            aggs.append((make_agg(a["fn"], children,
+                                  **a.get("options", {})),
                          AggMode(a.get("mode", "partial")), a["name"]))
         mode = (AggExecMode.HASH_AGG if k == "hash_agg"
                 else AggExecMode.SORT_AGG)
@@ -314,44 +315,17 @@ def _substitute_all(outer, inner):
     if not all(_pure(e) for e in inner):
         return None
     from blaze_tpu_torch.exprs import BoundReference
+    from blaze_tpu_torch.exprs.fold import map_exprs
 
     def subst(e):
         if isinstance(e, BoundReference):
             return inner[e.index]
-        return map_children(e, subst)
+        return map_exprs(e, subst)
 
     try:
         return [subst(e) for e in outer]
     except (TypeError, IndexError):
         return None
-
-
-def map_children(e, fn):
-    """`e` rebuilt with `fn` applied to each direct expression child (a
-    field, or an element of a tuple or list field, as CaseWhen's
-    branches); TypeError for an expression that is not a dataclass."""
-    import dataclasses
-
-    from blaze_tpu_torch.exprs import PhysicalExpr
-    if not dataclasses.is_dataclass(e):
-        raise TypeError(f"cannot rebuild {type(e).__name__}")
-
-    def one(v):
-        if isinstance(v, PhysicalExpr):
-            return fn(v)
-        if isinstance(v, tuple):
-            return tuple(one(x) for x in v)
-        if isinstance(v, list):
-            return [one(x) for x in v]
-        return v
-
-    changes = {}
-    for f in dataclasses.fields(e):
-        v = getattr(e, f.name)
-        nv = one(v)
-        if nv is not v:
-            changes[f.name] = nv
-    return dataclasses.replace(e, **changes) if changes else e
 
 
 def partitioning_from_dict(d: Dict[str, Any],

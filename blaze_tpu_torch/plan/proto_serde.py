@@ -209,7 +209,8 @@ _STRING_PRED = {"string_starts_with": ("string_starts_with_expr", "prefix"),
                 "string_contains": ("string_contains_expr", "infix")}
 
 _AGG_FN_DECODE = {pb.MIN: "min", pb.MAX: "max", pb.SUM: "sum",
-                  pb.AVG: "avg", pb.COUNT: "count"}
+                  pb.AVG: "avg", pb.COUNT: "count",
+                  pb.BLOOM_FILTER: "bloom_filter"}
 _AGG_FN_ENCODE = {v: k for k, v in _AGG_FN_DECODE.items()}
 
 _WINDOW_RANK_DECODE = {
@@ -226,7 +227,8 @@ _JOIN_TYPE_ENCODE = {v: k for k, v in _JOIN_TYPE_DECODE.items()}
 
 #: acc-column counts per agg kind (ops/agg/functions.py acc_fields): avg
 #: carries (sum, count)
-_ACC_FIELD_COUNT = {"sum": 1, "count": 1, "min": 1, "max": 1, "avg": 2}
+_ACC_FIELD_COUNT = {"sum": 1, "count": 1, "min": 1, "max": 1, "avg": 2,
+                    "bloom_filter": 1}
 
 
 def expr_from_proto(e: pb.PhysicalExprNode) -> Dict[str, Any]:
@@ -890,7 +892,7 @@ def _agg_from_proto(agg: pb.AggExecNode) -> Dict[str, Any]:
         if fn_name is None:
             raise NotImplementedError(
                 f"AggFunction {an.agg_function} belongs to a later slice of "
-                f"the PyTorch port (ROADMAP Queue 1 items 11, 13 and 16)")
+                f"the PyTorch port (ROADMAP Queue 1 items 13 and 16)")
         mode_name = {pb.PARTIAL: "partial", pb.PARTIAL_MERGE: "partial_merge",
                      pb.FINAL: "final"}[mode]
         entry: Dict[str, Any] = {"fn": fn_name, "mode": mode_name,

@@ -116,6 +116,36 @@ def _chain_on_device(agg) -> bool:
                [a for _rk, _ok, a in agg._specs if a is not None])
 
 
+def _resources(agg) -> Tuple:
+    """What the program's expressions read from the resource map
+    (bridge/resource.py), resolved now, as (uuid, value) pairs.  A graph
+    capture bakes in a scalar subquery's value and a bloom filter's bits
+    (the address of its device words), so the fold cache keys on them: a
+    value by equality, a filter by identity (no `__eq__`), which also
+    keeps the words a graph reads alive while the entry lives.  A filter
+    registered under a uuid is never modified."""
+    from blaze_tpu_torch.bridge.resource import get_resource
+    from blaze_tpu_torch.exprs.special import (BloomFilterMightContain,
+                                               ScalarSubqueryWrapper)
+    found: list = []
+
+    def walk(e):
+        if isinstance(e, (BloomFilterMightContain, ScalarSubqueryWrapper)):
+            found.append((e.uuid, get_resource(e.uuid)))
+        for c in e.children():
+            walk(c)
+
+    for _kind, preds, exprs, _schema in agg._chain:
+        for e in list(preds or ()) + list(exprs or ()):
+            walk(e)
+    for e, _n in agg._group_exprs:
+        walk(e)
+    for _rk, _ok, a in agg._specs:
+        if a is not None:
+            walk(a)
+    return tuple(found)
+
+
 def compile_fused_agg(agg) -> StageProgram:
     """StageProgram for one FusedPartialAggExec, or StageLoopIneligible
     with the reason."""
@@ -143,7 +173,8 @@ def compile_fused_agg(agg) -> StageProgram:
                   for kind, preds, exprs, out_schema in agg._chain)
     fingerprint = (agg._source.schema, chain, tuple(agg._group_exprs),
                    tuple(agg._specs), tuple(map(str, key_dtypes)),
-                   tuple(map(str, acc_dtypes)), bool(agg._grow))
+                   tuple(map(str, acc_dtypes)), bool(agg._grow),
+                   _resources(agg))
     return StageProgram(agg=agg, kinds=kinds, key_dtypes=key_dtypes,
                         acc_dtypes=acc_dtypes, grow=bool(agg._grow),
                         fingerprint=fingerprint)

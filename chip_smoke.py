@@ -146,7 +146,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      phases 11 and 12; q19 (two broadcasts, a shuffled hash join to
      customer, two more broadcasts), q07 (four broadcasts, four averages
      by item id) and gq1 (posexplode of the list on the host, renamed,
-     a broadcast to item) under auto, q07 under off, and gq1 profiled;
+     a broadcast to item) under auto, and gq1 profiled (no run under
+     off: q07 has no stage the loop takes, so off is auto's route);
      4 exchange partitions, a fresh plan each, held to the pandas frame
      in order (floats within 1e-9 relative); fails unless the
      reference's stage count, no batch and no join probe off the card,
@@ -155,7 +156,34 @@ Phases, each printing its own lines; any failure exits non-zero:
      exact against its plain version, every join keeping rows and gq1's
      generator emitting one row per click; prints stage walls, tasks,
      peak memory, data and oracle seconds, io_bytes and the rows out of
-     each join and generator; then the staging and accounting phase's
+     each join and generator; then the expressions phase
+     (exprs/program.py, itest/runtime_filter.py): (a) three chains (q01's
+     date filter over store_returns; a FilterProject with arithmetic,
+     Cast, CASE WHEN and COALESCE over store_sales; an IN list of 50
+     members) at 32,768 rows and at a lower rung, each replayed as its
+     CUDA graph against the same chain eagerly on the card and on the
+     CPU, bit for bit, with ms a batch both ways (CUDA events, median of
+     25), cudaLaunch* and cudaGraphLaunch a batch, the copy out of the
+     graph's buffer, the capture's ms, the chain's operator nodes and
+     the route the evaluator takes on the card; fails unless equal, one
+     replay a batch and one capture a rung; then the route's break-even:
+     filters of 1 to 6 comparisons, replay against eager at 32,768 rows
+     (the same bits; ms both ways, eager cudaLaunch*); (b) q19 (its
+     date_dim filter, two operator nodes, stays outside the fused
+     aggregations) once more under auto with auron.tpu.expr.fuse=false:
+     fails unless its frame equals the fused run's bit for bit, with
+     fused batches in that run and none off; (c) the runtime filter:
+     date_dim's bloom filter (the bloom_filter aggregate over the
+     d_year=2000 keys) registered by uuid and probed beside q01 inner's
+     range filter at SF10, 4 maps x 16 reduces, then once more in the
+     same process under the same uuid with a filter rebuilt over the
+     first half of the range: fails unless each run equals the oracle of
+     its own filter (phase 5's for the first), no store_returns key in
+     the build range fails the probe, the keys and rows outside it pass
+     at no more than Spark's fpp of 0.03 plus three standard deviations,
+     the second run drops rows the first kept and captures its own map
+     graphs, and placement and radix ran on the card; then the staging
+     and accounting phase's
      second part: one map task of q19's store_sales stage (task 1: the
      first file holds no row of its window) and of q67's fact stage (task
      0), alone, with the IO prefetcher (ops/base.py) on and off, each
@@ -240,7 +268,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      customer nulls first and ticket, the bounds from
      `sample_range_bounds` over a seeded 1% sample; 16 reduce tasks:
      ipc_reader, coalesce_batches, sort, ipc_writer into memory), radix
-     profiled; W2, a round-robin exchange through
+     profiled, then four times more with the scan's post-decode filter
+     on, off, off, on (the map walls and fused batches, each run equal
+     to the oracle); W2, a round-robin exchange through
      `execute_spark_plan_json` (a Spark plan: FileScan, Exchange
      RoundRobinPartitioning(16), partial and final HashAggregate around a
      hash exchange); W3, q01's inner query over a Hive layout of the same
@@ -290,7 +320,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      integers exact, float sums within 1e-9);
  25. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
-     chains, as the JAX package does) and the kernel table as JSON lines
+     chains, as the JAX package does; each path's expression programs:
+     fused and eager batches, programs built, cache hits, graph
+     captures, capture ms and replays) and the kernel table as JSON lines
      (the three ported kernels, the row-order sum with its launches by
      form and the host CRC32C: all five built libraries), the card's name
      and power limit, and the result line.
@@ -310,6 +342,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -327,6 +360,11 @@ T0 = time.perf_counter()
 #: query -> (maker of a fresh plan, its pandas frame), as the phases that
 #: first ran it made them; the spill phase runs them again
 ORACLES = {}
+#: the query the expressions phase runs again with the fuse off (its
+#: date_dim filter, two operator nodes and so a graph on the card, stays
+#: outside the fused aggregations), and its result frames by run label
+FUSE_OFF_QUERY = "q19"
+FRAMES = {}
 
 
 def phase(name):
@@ -1313,6 +1351,8 @@ def _zero_launches():
     for form in K.form_launches:
         K.form_launches[form] = 0
     C.built_calls = 0
+    _EXPR0.clear()
+    _EXPR0.update(_expr_snapshot())
 
 
 def _read_launches():
@@ -1327,7 +1367,8 @@ def _read_launches():
             "segment_sum": sum(K.form_launches.values()),
             "segment_sum_forms": dict(K.form_launches),
             "crc32c": C.built_calls,
-            "radix_kernels": dict(R.kernel_launches)}
+            "radix_kernels": dict(R.kernel_launches),
+            "expr": _expr_delta()}
 
 
 def _check_on_card(res, launches, needed, path):
@@ -2155,7 +2196,11 @@ def _explain_checks(label, prof, spans, sched, launches):
         raise SystemExit(f"{label}: the registry's launches {reg} differ "
                          f"from the wrappers' {mine}")
     captures = [s for s in spans if s["name"] == "graph_capture"]
-    compiled = prof.kernels.get("stage_loop_graph", {}).get("compiles", 0)
+    # the stage loop's graphs and the expression programs' (exprs/
+    # program.py) each leave an instant
+    compiled = sum(e.get("compiles", 0) for k, e in prof.kernels.items()
+                   if k == "stage_loop_graph"
+                   or k.startswith("expr_program_"))
     print(f"graph captures: {len(captures)} trace instants, "
           f"{prof.counters['total_compiles']} compiles in the registry's "
           f"delta, {loop.graph_stats['captures']} since the start")
@@ -3108,6 +3153,8 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
     peak = torch.cuda.max_memory_allocated()
     got = frame(out)
+    if name == FUSE_OFF_QUERY:
+        FRAMES[label] = got
     counters = stage_counters(sched, D.STAGE_COUNTERS)
     tasks = {st.sid: st.num_tasks for st in sched.stages}
     print(sched.describe())
@@ -3305,13 +3352,14 @@ def q19_q07_gq1_path(name, make_plan, want, mode, clicks, profiled=False):
 
 
 def q19_q07_gq1_phase(root, tables, paths):
-    """q19, q07 and gq1 under auto, q07 under off, then gq1 once more
-    under auto, profiled."""
+    """q19, q07 and gq1 under auto, then gq1 once more under auto,
+    profiled (no run under off: no stage of q07 enters the loop, so off
+    takes auto's route; q19 runs again with the fuse off in the
+    expressions phase's (b))."""
     from blaze_tpu_torch.itest.q19_q07_gq1 import QUERIES
     runs, secs, clicks = q19_q07_gq1_data(root, tables, paths)
     out = {f"{n} auto": q19_q07_gq1_path(n, *runs[n], "auto", clicks)
            for n in QUERIES}
-    out["q07 off"] = q19_q07_gq1_path("q07", *runs["q07"], "off", clicks)
     out["gq1 profiled"] = _profiled(lambda: q19_q07_gq1_path(
         "gq1", *runs["gq1"], "auto", clicks, profiled=True), "gq1")
     return {"data_s": secs, "clicks": clicks, "runs": out}
@@ -4299,7 +4347,8 @@ def wire_kinds_phase(root, sr_paths, lo, hi, q01_want):
     (itest/wire_kinds.py) at SF10 over phase 5's store_returns, each once
     under the stage loop's `auto`: W1, a range exchange into a sort and an
     IPC writer as TaskDefinitions (radix profiled: its kernels on the card
-    as often as counted, every grouping exact against the plain version);
+    as often as counted, every grouping exact against the plain version),
+    then unprofiled with the post-decode filter on, off, off, on;
     W2, a round-robin exchange through `execute_spark_plan_json`; W3, q01
     over a Hive layout of the same rows (12 files, one a store) with a
     debug node at the reduce root; and the FFI probe.  Fails unless each
@@ -4373,6 +4422,34 @@ def wire_kinds_phase(root, sr_paths, lo, hi, q01_want):
           f"counted ({attempt[0]} profiled attempt(s))")
     del w1["sinks"], w1["shuffle"]
     out["runs"]["W1"] = w1
+
+    # W1 with the scan's post-decode filter (ops/scan.py) on, off, off, on:
+    # the map wall and the fused batches, each run equal to the oracle
+    from blaze_tpu_torch.ops.scan import ParquetScanExec
+    post = ParquetScanExec._post_decode_filter
+    w1_post = []
+    for on in (True, False, False, True):
+        d = os.path.join(top, f"w1_post_{len(w1_post)}")
+        os.makedirs(d)
+        if not on:
+            ParquetScanExec._post_decode_filter = lambda self: None
+        e0 = _expr_snapshot()
+        try:
+            res = W.run_w1(sr_paths, lo, hi, bounds, d, N_MAPS, N_REDUCES)
+        finally:
+            ParquetScanExec._post_decode_filter = post
+        fused = _expr_snapshot()["expr_fused_batches"] - \
+            e0["expr_fused_batches"]
+        err = W.w1_error(res.pop("table"), want1)
+        if err is not None:
+            raise SystemExit(f"wire kinds W1 with the post-decode filter "
+                             f"{'on' if on else 'off'}: {err}")
+        w1_post.append({"post_decode_filter": on, "map_s": res["map_s"],
+                        "reduce_s": res["reduce_s"], "fused_batches": fused})
+    print("W1 with the post-decode filter on, off, off, on: map " + ", ".join(
+        f"{r['map_s']:.4f}" for r in w1_post) + " s; fused batches "
+        + ", ".join(str(r["fused_batches"]) for r in w1_post))
+    out["w1_post_decode"] = w1_post
 
     # W2 through the front door
     sched = DagScheduler()
@@ -5085,6 +5162,404 @@ def row_order_lanes(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the expressions phase (exprs/program.py, kernels/bloom.py)
+# ---------------------------------------------------------------------------
+
+#: rows of the lower rung's batch in (a)
+EXPR_LOW_ROWS = 4000
+#: the expression counters each path reads (`_read_launches` "expr"), the
+#: expression graphs' captures, capture ms and replays beside them
+EXPR_COUNTERS = ("expr_fused_batches", "expr_eager_batches",
+                 "expr_programs_built", "expr_program_cache_hits")
+_EXPR0 = {}
+
+
+def _expr_snapshot():
+    from blaze_tpu_torch.bridge import device_stats
+    from blaze_tpu_torch.exprs import program
+    stats = device_stats.expr_stats()
+    snap = {k: stats[k] for k in EXPR_COUNTERS}
+    snap.update({f"graph_{k}": v for k, v in program.graph_stats.items()})
+    return snap
+
+
+def _expr_delta():
+    now = _expr_snapshot()
+    return {k: round(v - _EXPR0.get(k, 0), 3) for k, v in now.items()}
+
+
+def _expr_chains(lo, hi):
+    """(a)'s three chains: (table, columns, filters, projections) as
+    expression dicts over the columns by name."""
+    def col(n):
+        return {"kind": "column", "name": n}
+
+    def lit(v, t):
+        return {"kind": "literal", "value": v, "type": {"id": t}}
+
+    def b(op, x, y):
+        return {"kind": "binary", "op": op, "l": x, "r": y}
+
+    def cast(e, t):
+        return {"kind": "cast", "child": e, "type": {"id": t}}
+    ss = ["ss_sold_date_sk", "ss_customer_sk", "ss_item_sk",
+          "ss_ext_sales_price", "ss_quantity", "ss_list_price",
+          "ss_sales_price", "ss_net_profit"]
+    return {
+        "q01 date filter": (
+            "store_returns", ["sr_returned_date_sk", "sr_customer_sk",
+                              "sr_store_sk", "sr_return_amt"],
+            [b(">=", col("sr_returned_date_sk"), lit(lo, "int64")),
+             b("<=", col("sr_returned_date_sk"), lit(hi, "int64"))], []),
+        "filter_project: arithmetic, cast, case, coalesce": (
+            "store_sales", ss,
+            [b(">", col("ss_quantity"), lit(10, "int32"))],
+            [b("+", b("*", col("ss_ext_sales_price"), lit(0.9, "float64")),
+               cast(col("ss_quantity"), "float64")),
+             {"kind": "case",
+              "branches": [[b(">", col("ss_net_profit"), lit(0.0, "float64")),
+                            col("ss_net_profit")]],
+              "else": b("-", lit(0.0, "float64"), col("ss_net_profit"))},
+             {"kind": "coalesce", "args": [col("ss_customer_sk"),
+                                           col("ss_item_sk")]},
+             b("-", col("ss_list_price"), col("ss_sales_price")),
+             cast(col("ss_sold_date_sk"), "int32")]),
+        "in list (50 members)": (
+            "store_sales", ss,
+            [{"kind": "in_list", "child": col("ss_item_sk"),
+              "values": list(range(1, 2000, 40))}],
+            [col("ss_item_sk"), col("ss_quantity")]),
+    }
+
+
+def _same_bits(a, b):
+    """Two Arrow tables with the same validity and, where valid, the same
+    value bits (floats as their int64 bits)."""
+    import numpy as np
+    import pyarrow as pa
+    if a.num_rows != b.num_rows or a.column_names != b.column_names:
+        return False
+    for name in a.column_names:
+        x, y = a.column(name).combine_chunks(), b.column(name).combine_chunks()
+        xv, yv = np.asarray(x.is_valid()), np.asarray(y.is_valid())
+        if not (xv == yv).all():
+            return False
+        if pa.types.is_floating(x.type):
+            xf = np.asarray(x.fill_null(0.0))[xv].view(np.int64)
+            yf = np.asarray(y.fill_null(0.0))[yv].view(np.int64)
+            if not (xf == yf).all():
+                return False
+        elif not x.filter(x.is_valid()).equals(y.filter(y.is_valid())):
+            return False
+    return True
+
+
+def _expr_case(name, table, cols, filters, projections, rows):
+    """One chain over `rows` rows: the graph replay (fused: the chain's
+    program run directly, whatever route the evaluator picks) against the
+    same chain eagerly on the card and against the CPU, bit for bit; ms
+    a batch both ways (CUDA events, median of 25); cudaLaunch* and
+    cudaGraphLaunch a batch (torch.profiler over 10 batches); the
+    device time of the copy out of the graph's buffer; the captures and
+    their ms; the chain's operator nodes and the route the evaluator
+    takes on the card (`GRAPH_MIN_NODES`)."""
+    import pyarrow as pa
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import program
+    from blaze_tpu_torch.exprs.evaluator import split_conjuncts
+    from blaze_tpu_torch.plan.exprs import expr_from_dict
+    from blaze_tpu_torch.schema import Field, Schema
+    rb = pa.Table.from_batches(
+        table.select(cols).slice(0, rows).combine_chunks().to_batches()
+    ).to_batches()[0]
+    schema = Schema.from_arrow(rb.schema)
+    fs = [expr_from_dict(f, schema) for f in filters]
+    ps = [expr_from_dict(p, schema) for p in projections]
+    out_schema = Schema([Field(f"c{i}", p.data_type(schema))
+                         for i, p in enumerate(ps)])
+
+    conjuncts = [c for f in fs for c in split_conjuncts(f)]
+    mode = ("filter_project" if fs and ps else "filter" if fs
+            else "project")
+    prog = program.get_program(mode, conjuncts, ps, schema)
+
+    # the program itself: a graph replay on the card, whatever the chain's
+    # length
+    forced = types.SimpleNamespace(filter=prog.run_filter,
+                                   project=prog.run_project,
+                                   filter_project=prog.run_filter_project)
+
+    config.conf.set(config.EXPR_FUSE.key, False)
+    try:
+        eager_ev = program.FusedExprsEvaluator(fs, ps, schema)
+    finally:
+        config.conf.unset(config.EXPR_FUSE.key)
+
+    def run(ev, batch):
+        if fs and ps:
+            return ev.filter_project(batch, out_schema)
+        if fs:
+            return ev.filter(batch)
+        return ev.project(batch, out_schema)
+
+    cuda = ColumnBatch.from_arrow(rb, device=torch.device("cuda"))
+    cpu = ColumnBatch.from_arrow(rb, device=torch.device("cpu"))
+    fused_ev = forced
+    g0 = dict(program.graph_stats)
+    def table(b):
+        return pa.Table.from_batches([b.compact().to_arrow()])
+    fused = table(run(fused_ev, cuda))
+    torch.cuda.synchronize()
+    captures = {k: round(program.graph_stats[k] - g0[k], 3)
+                for k in ("captures", "capture_ms")}
+    eager = table(run(eager_ev, cuda))
+    on_cpu = table(run(fused_ev, cpu))
+    same = {"eager on the card": _same_bits(fused, eager),
+            "the CPU": _same_bits(fused, on_cpu)}
+
+    def per_batch(ev, calls=10):
+        run(ev, cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run(ev, cuda)
+            torch.cuda.synchronize()
+        launched = _host_launches(prof)
+        copy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if _on_card(e) and e.name.startswith("Memcpy DtoD"))
+        return ({k: v / calls for k, v in launched.items()},
+                copy_us / calls)
+
+    fused_launches, copy_us = per_batch(fused_ev)
+    eager_launches, _ = per_batch(eager_ev)
+    nodes = program.op_nodes(conjuncts + ps)
+    route = "graph" if prog.replays_pay else "eager"
+    case = {"chain": name, "rows": rb.num_rows, "capacity": cuda.capacity,
+            "op_nodes": nodes, "route": route,
+            "out_rows": fused.num_rows, "same_bits": same,
+            "fused_ms": time_ms(lambda: run(fused_ev, cuda)),
+            "eager_ms": time_ms(lambda: run(eager_ev, cuda)),
+            "fused_launches": fused_launches,
+            "eager_launches": eager_launches,
+            "copy_out_us": copy_us, "captures": captures}
+    print(f"{name}, {rb.num_rows} rows (capacity {cuda.capacity}), {nodes} "
+          f"operator nodes, the evaluator's route {route}: fused "
+          f"{case['fused_ms']:.4f} ms, eager {case['eager_ms']:.4f} ms a "
+          f"batch; cudaLaunch*/cudaGraphLaunch a batch fused "
+          f"{fused_launches['kernel']:.1f}/{fused_launches['graph']:.1f}, "
+          f"eager {eager_launches['kernel']:.1f}/"
+          f"{eager_launches['graph']:.1f}; copy out {copy_us:.2f} us; "
+          f"captures {captures}; {fused.num_rows} rows out; same bits as "
+          f"{same}")
+    if not all(same.values()):
+        raise SystemExit(f"expressions (a) {name}: the graph replay differs "
+                         f"{same}")
+    if fused_launches["graph"] != 1 or captures["captures"] != 1:
+        raise SystemExit(f"expressions (a) {name}: {fused_launches} launches "
+                         f"a batch, {captures} on the first")
+    return case
+
+
+#: (a)'s sweep: filters of 1 to EXPR_SWEEP_MAX comparison conjuncts
+EXPR_SWEEP_MAX = 6
+
+
+def _expr_sweep(table):
+    """The route's break-even: filters of k = 1..EXPR_SWEEP_MAX comparisons
+    over store_sales columns at 32,768 rows, the graph replay against the
+    eager chain on the card (the same bits; ms a batch, CUDA events,
+    median of 25; cudaLaunch* a batch eager).  The break-even is the
+    fewest nodes from which the replay is faster at every k measured;
+    `exprs/program.py` GRAPH_MIN_NODES is set from it."""
+    import pyarrow as pa
+    import torch
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import program
+    from blaze_tpu_torch.exprs.evaluator import CachedExprsEvaluator
+    from blaze_tpu_torch.plan.exprs import expr_from_dict
+    from blaze_tpu_torch.schema import Schema
+    cols = ["ss_quantity", "ss_item_sk", "ss_customer_sk",
+            "ss_sold_date_sk", "ss_list_price", "ss_sales_price"]
+    lits = [(2, "int32"), (100, "int64"), (1000, "int64"), (0, "int64"),
+            (1.0, "float64"), (0.5, "float64")]
+    rb = pa.Table.from_batches(
+        table.select(cols).slice(0, N).combine_chunks().to_batches()
+    ).to_batches()[0]
+    schema = Schema.from_arrow(rb.schema)
+    cuda = ColumnBatch.from_arrow(rb, device=torch.device("cuda"))
+    rows = []
+    for k in range(1, EXPR_SWEEP_MAX + 1):
+        fs = [expr_from_dict({"kind": "binary", "op": ">",
+                              "l": {"kind": "column", "name": c},
+                              "r": {"kind": "literal", "value": v,
+                                    "type": {"id": t}}}, schema)
+              for c, (v, t) in zip(cols[:k], lits[:k])]
+        prog = program.get_program("filter", fs, (), schema)
+        eager = CachedExprsEvaluator(filters=fs)
+        same = _same_bits(
+            pa.Table.from_batches([prog.run_filter(cuda).compact().to_arrow()]),
+            pa.Table.from_batches([eager.filter(cuda).compact().to_arrow()]))
+        if not same:
+            raise SystemExit(f"expressions (a) sweep: {k} conjuncts, the "
+                             f"graph replay differs from the eager chain")
+        launched = _launches_a_call(lambda: eager.filter(cuda))
+        row = {"op_nodes": program.op_nodes(fs),
+               "fused_ms": time_ms(lambda: prog.run_filter(cuda)),
+               "eager_ms": time_ms(lambda: eager.filter(cuda)),
+               "eager_launches": launched}
+        rows.append(row)
+    even = None
+    for r in reversed(rows):
+        if r["fused_ms"] >= r["eager_ms"]:
+            break
+        even = r["op_nodes"]
+    print("expressions (a) sweep at 32,768 rows, operator nodes: fused / "
+          "eager ms a batch (eager cudaLaunch*): " + "; ".join(
+              f"{r['op_nodes']}: {r['fused_ms']:.4f} / {r['eager_ms']:.4f} "
+              f"({r['eager_launches']:.1f})" for r in rows)
+          + f"; break-even {even} nodes, GRAPH_MIN_NODES "
+          f"{program.GRAPH_MIN_NODES}")
+    return {"rows": rows, "break_even_nodes": even,
+            "graph_min_nodes": program.GRAPH_MIN_NODES}
+
+
+def _launches_a_call(fn, calls=10):
+    """cudaLaunchKernel a call of `fn` (torch.profiler over `calls`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _host_launches(prof)["kernel"] / calls
+
+
+def _frame_bits(a, b):
+    """Two pandas frames with the same columns, rows and value bits."""
+    import numpy as np
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False
+    for c in a.columns:
+        x, y = a[c].to_numpy(), b[c].to_numpy()
+        if x.dtype.kind == "f" and y.dtype.kind == "f":
+            if not (np.isnan(x) == np.isnan(y)).all() or not (
+                    x[~np.isnan(x)].view(np.int64)
+                    == y[~np.isnan(y)].view(np.int64)).all():
+                return False
+        elif not a[c].equals(b[c]):
+            return False
+    return True
+
+
+def expressions_phase(root, tables, sr_paths, lo, hi, fused_query):
+    """(a) three chains at the main path's shapes, each at 32,768 rows and
+    at a lower rung, and the route's break-even; (b) `fused_query` once
+    more under auto with the fuse off, equal bit for bit to its fused run
+    (every path's expression counters are in the summary); (c) the
+    runtime-filter path (itest/runtime_filter.py) at SF10, 4 maps x 16
+    reduces, twice under one uuid, the second filter rebuilt over half
+    the range."""
+    import pyarrow.parquet as pq
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import runtime_filter as RF
+    t_phase = time.perf_counter()
+    phase("expressions (a): three chains as CUDA graph replays against "
+          "the same chains eagerly on the card and on the CPU")
+    sr = pq.ParquetFile(sr_paths[0]).read_row_group(0)
+    inputs = {"store_returns": sr, "store_sales": tables["store_sales"]}
+    cases = []
+    for name, (table, cols, fs, ps) in _expr_chains(lo, hi).items():
+        for rows in (N, EXPR_LOW_ROWS):
+            cases.append(_expr_case(name, inputs[table], cols, fs, ps,
+                                    rows))
+    sweep = _expr_sweep(tables["store_sales"])
+
+    q, (make_plan, want, fused_frame, fused_counters) = fused_query
+    phase(f"expressions (b): {q} with auron.tpu.expr.fuse=false against "
+          f"its fused run, both under auto")
+    from blaze_tpu_torch.itest import q19_q07_gq1 as D
+    config.conf.set(config.EXPR_FUSE.key, False)
+    try:
+        res, _sched = _dag_query(D, q, make_plan, want, "auto", QNEW_PARTS)
+    finally:
+        config.conf.unset(config.EXPR_FUSE.key)
+    off_frame = FRAMES.pop(res["label"])
+    off = res["launches"]["expr"]
+    print(f"{q}: fused {fused_counters}; fuse off {off}")
+    if not _frame_bits(fused_frame, off_frame):
+        raise SystemExit(f"expressions (b): {q} with the fuse off differs "
+                         f"from its fused run")
+    if fused_counters["expr_fused_batches"] <= 0 or \
+            off["expr_fused_batches"] != 0:
+        raise SystemExit(f"expressions (b): {q} fused batches "
+                         f"{fused_counters['expr_fused_batches']} fused, "
+                         f"{off['expr_fused_batches']} off")
+    fuse_off = {"query": q, "fused": fused_counters, "off": off,
+                "wall_s": res["wall_s"], "same_bits": True}
+
+    phase(f"expressions (c): the runtime filter: q01 inner at SF10, "
+          f"{N_MAPS} maps x {N_REDUCES} reduces, date_dim's bloom filter "
+          f"beside the range, then again under the same uuid with a filter "
+          f"over the first half of the range")
+    _loop_mode("auto")
+    runtime = []
+    for n, build in enumerate(((lo, hi), (lo, lo + (hi - lo) // 2))):
+        shuffle_dir = os.path.join(root, f"shuffle_runtime_filter_{n}")
+        os.makedirs(shuffle_dir)
+        _zero_launches()
+        t0 = time.perf_counter()
+        rf = RF.run_runtime_filter(
+            sr_paths, os.path.join(root, "date_dim.parquet"), lo, hi,
+            shuffle_dir, N_MAPS, N_REDUCES, build=build)
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        same = RF.same_as_oracle(rf, sr_paths, lo, hi)
+        bad = RF.check(rf["probe"])
+        p = rf["probe"]
+        rows = sum(b.num_rows for bs in rf["reduce_outputs"] for b in bs)
+        captures = rf["counters"]["map"]["stage_loop_graph_captures"]
+        print(f"build range {rf['build']}: filter {rf['filter']} built in "
+              f"{rf['build_s']:.3f} s; map {rf['map_s']:.3f} s, reduce "
+              f"{rf['reduce_s']:.3f} s, run {wall:.3f} s; {rows} groups; "
+              f"map graph captures {captures}; probe {p}: in the build "
+              f"range {p['rows_in_range_passed']} of {p['rows_in_range']} "
+              f"pass, outside it {p['keys_out_of_range_passed']} of "
+              f"{p['keys_out_of_range']} keys and "
+              f"{p['rows_out_of_range_passed']} of {p['rows_out_of_range']} "
+              f"rows (limit {RF.fpp_limit(p['keys_out_of_range']):.4f}); "
+              f"launches {launches}")
+        if not same or bad:
+            raise SystemExit(f"expressions (c) build range {rf['build']}: "
+                             f"equal to its oracle {same}; {bad}")
+        _check_on_card(rf, launches, ("hash_placement", "radix_partition"),
+                       "runtime filter")
+        runtime.append({"wall_s": wall, "build": rf["build"],
+                        "build_s": rf["build_s"], "map_s": rf["map_s"],
+                        "reduce_s": rf["reduce_s"], "filter": rf["filter"],
+                        "probe": p, "groups": rows,
+                        "counters": rf["counters"], "launches": launches})
+    # a graph of the first run replayed for the second would read the
+    # first filter's words: the second keeps fewer groups and captures
+    # its own map graphs
+    if not (runtime[1]["groups"] < runtime[0]["groups"]) or \
+            runtime[1]["counters"]["map"]["stage_loop_graph_captures"] < 1:
+        raise SystemExit(f"expressions (c): the rebuilt filter's run kept "
+                         f"{runtime[1]['groups']} of the first run's "
+                         f"{runtime[0]['groups']} groups with map captures "
+                         f"{runtime[1]['counters']['map']}")
+    return {"wall_s": time.perf_counter() - t_phase, "cases": cases,
+            "sweep": sweep, "fuse_off": fuse_off,
+            "runtime_filter": runtime[0], "runtime_filter_rebuilt": runtime[1]}
+
+
 def pq_rows(path):
     import pyarrow.parquet as pq
     return pq.ParquetFile(path).metadata.num_rows
@@ -5182,6 +5657,14 @@ def main():
         q19_q07_gq1 = q19_q07_gq1_phase(root, all_tables, all_paths)
         for name in ("q19", "q07", "gq1"):
             by_path[name] = q19_q07_gq1["runs"][f"{name} auto"]["launches"]
+        q = FUSE_OFF_QUERY
+        exprs = expressions_phase(
+            root, all_tables, sr_paths, lo, hi,
+            (q, (*ORACLES[q], FRAMES.pop(f"{q} auto"),
+                 q19_q07_gq1["runs"][f"{q} auto"]["launches"]["expr"])))
+        by_path["runtime filter"] = exprs["runtime_filter"]["launches"]
+        by_path["runtime filter rebuilt"] = \
+            exprs["runtime_filter_rebuilt"]["launches"]
         staging = staging_phase()
         breadth = breadth_phase(root, all_tables, all_paths, make_q01,
                                 q01_want)
@@ -5483,7 +5966,10 @@ def main():
           f"written in {front_door['data_s']['write']:.1f} s; " + "; ".join(
               f"{k} {r['exec_mode']} {r['stages']} stages "
               f"{r['wall_s']:.3f} s" for k, r in front_door["runs"].items()))
-    print(f"wire kinds: phase {wire['wall_s']:.1f} s; W1 map "
+    print(f"wire kinds: phase {wire['wall_s']:.1f} s; W1 map with the "
+          f"post-decode filter on, off, off, on " + ", ".join(
+              f"{r['map_s']:.4f}" for r in wire["w1_post_decode"])
+          + f" s; W1 map "
           f"{wire['runs']['W1']['map_s']:.3f} s reduce "
           f"{wire['runs']['W1']['reduce_s']:.3f} s; W2 "
           f"{wire['runs']['W2']['exec_mode']} {wire['runs']['W2']['wall_s']:.3f}"
@@ -5507,6 +5993,30 @@ def main():
     print(f"q01 full explain_analyze: syncs per stage "
           f"{full['auto']['explain']['syncs']}; attribution "
           f"{full['auto']['explain']['attribution']['categories']}")
+    print(f"expressions phase {exprs['wall_s']:.1f} s: " + "; ".join(
+        f"{c['chain']} at {c['rows']} rows ({c['op_nodes']} nodes, route "
+        f"{c['route']}) fused {c['fused_ms']:.4f} ms / "
+        f"eager {c['eager_ms']:.4f} ms, cudaLaunch* "
+        f"{c['fused_launches']['kernel']:.1f} / "
+        f"{c['eager_launches']['kernel']:.1f}, capture "
+        f"{c['captures']['capture_ms']:.1f} ms" for c in exprs["cases"]))
+    sw = exprs["sweep"]
+    print(f"expressions sweep (nodes: fused / eager ms): " + "; ".join(
+        f"{r['op_nodes']}: {r['fused_ms']:.4f} / {r['eager_ms']:.4f}"
+        for r in sw["rows"]) + f"; break-even {sw['break_even_nodes']}, "
+        f"GRAPH_MIN_NODES {sw['graph_min_nodes']}")
+    rf, rf2 = exprs["runtime_filter"], exprs["runtime_filter_rebuilt"]
+    print(f"{exprs['fuse_off']['query']} with the fuse off: same bits; "
+          f"fused {exprs['fuse_off']['fused']}, off "
+          f"{exprs['fuse_off']['off']}; runtime filter run "
+          f"{rf['wall_s']:.3f} s, {rf['groups']} groups, probe {rf['probe']};"
+          f" rebuilt over {rf2['build']}: run {rf2['wall_s']:.3f} s, "
+          f"{rf2['groups']} groups, map captures "
+          f"{rf2['counters']['map']['stage_loop_graph_captures']}, probe "
+          f"{rf2['probe']}")
+    print("expression programs by path (fused and eager batches, programs "
+          "built, cache hits, graph captures, capture ms, replays): "
+          + "; ".join(f"{k} {p['expr']}" for k, p in by_path.items()))
     print(f"q70 at SF1: wall {q70['wall_s']:.3f} s, {q70['exec_mode']}, "
           f"{len(q70['segment_sums'])} float segment sums, segment_sum "
           f"launches {q70['launches']['segment_sum']}; equal to its oracle")
@@ -5547,6 +6057,7 @@ def main():
                       "spill": spill, "front_door": front_door,
                       "wire_kinds": wire, "staging": staging,
                       "q70": q70, "row_order_lanes": lanes,
+                      "expressions": exprs,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

@@ -294,9 +294,8 @@ def test_avg_result_type_and_decimal_raise():
         == [DataType(TypeId.DECIMAL, 18, 2), DataType(TypeId.INT64)]
     assert AvgAgg([TRef(0)]).output_type(schema) == \
         DataType(TypeId.DECIMAL, 14, 6)
-    for name, item in (("bloom_filter", "11"), ("udaf", "16")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            t_make_agg(name, [TRef(1)])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        t_make_agg("udaf", [TRef(1)])
     # first and collect_list are ported with the strings slice
     assert t_make_agg("first", [TRef(1)]).output_type(schema).id == \
         TypeId.INT32

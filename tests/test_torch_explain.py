@@ -8,8 +8,12 @@ local mode and an operator tree run too; the profile is recorded for the
 HTTP service; the footers render.
 
 The JAX side runs serial on its device route (tests/test_torch_meter.py
-`jax_explain`).  Tolerance: exact for names, counts and bytes; 1% for
-the attribution against the wall."""
+`jax_explain`).  Both packages' counter registries and expression-program
+caches are cleared right before each side's run, so the process-wide
+counters compared (the distinct bucket rungs, the expression programs
+built) do not depend on what earlier test files ran in the same worker.
+Tolerance: exact for names, counts and bytes; 1% for the attribution
+against the wall."""
 
 import pyarrow as pa
 import pytest
@@ -22,7 +26,8 @@ from test_torch_meter import jax_explain, q01_plan
 
 SAME = ("shuffle_host_bytes", "task_attempts", "task_retries",
         "scatter_lane_hash_scatter", "scatter_lane_partition_scatter",
-        "distinct_buckets", "fetch_failures", "stage_recoveries")
+        "distinct_buckets", "fetch_failures", "stage_recoveries",
+        "expr_fused_batches", "expr_eager_batches", "expr_programs_built")
 
 
 @pytest.fixture(autouse=True)
@@ -37,10 +42,18 @@ def confs():
 @pytest.fixture(scope="module")
 def q01(tmp_path_factory):
     """(the plan, the JAX profile, the port's traced profile)."""
+    from blaze_tpu.bridge import xla_stats
+    from blaze_tpu.exprs import program as jprogram
+    from blaze_tpu_torch.bridge import device_stats
+    from blaze_tpu_torch.exprs import program as tprogram
     plan = q01_plan(tmp_path_factory.mktemp("q01"))
+    xla_stats.reset()
+    jprogram.clear_program_cache()
     jprof = jax_explain(plan)
     tconf.conf.set(tconf.TORCH_DEVICE.key, "cpu")
     tconf.conf.set(tconf.DAG_SINGLE_TASK_BYTES.key, 0)
+    device_stats.reset()
+    tprogram.clear_program_cache()
     tracing.start_tracing()
     try:
         prof = explain_analyze(plan, query_id="explain-q01",

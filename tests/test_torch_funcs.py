@@ -22,8 +22,9 @@ JAX package's on the same numpy-seeded inputs.
   * every expression kind of plan/exprs.py round-trips through the wire
     to the JAX package's bytes and dicts (but a case-insensitive RLIKE,
     which the JAX encoder writes as a case-sensitive one: ROADMAP Queue
-    3); bloom_filter_might_contain and udf decode on the wire and raise
-    at planning, naming items 11 and 16;
+    3); udf decodes on the wire and raises at planning, naming item 16
+    (bloom_filter_might_contain runs since the expression slice:
+    tests/test_torch_bloom.py);
   * MemoryScanExec and the json_tuple generator (and its wire node) give
     the JAX package's batches.
 
@@ -613,8 +614,7 @@ def test_struct_and_map_types_ride_the_wire():
         assert TP.type_from_proto(TP.type_to_proto(t)) == t
 
 
-@pytest.mark.parametrize("kind,item", [("bloom_filter_might_contain", "11"),
-                                       ("udf", "16")])
+@pytest.mark.parametrize("kind,item", [("udf", "16")])
 def test_unported_kinds_raise_naming_their_item(kind, item):
     d = next(e for e in WIRE_EXPRS if e["kind"] == kind)
     schema = TSchema.from_arrow(pa.schema([("s", pa.string()),
@@ -625,7 +625,7 @@ def test_unported_kinds_raise_naming_their_item(kind, item):
 
 def test_every_jax_expression_kind_decodes():
     """The kinds of blaze_tpu/plan/exprs.py's docstring: each decodes in
-    the port, or raises naming its item (bloom 11, udf 16)."""
+    the port, or raises naming its item (udf 16)."""
     import blaze_tpu.plan.exprs as JX
     doc = JX.__doc__.split("Expression kinds")[1]
     kinds = {k.strip() for k in doc.replace("(the `kind` discriminator):",
