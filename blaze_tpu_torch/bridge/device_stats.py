@@ -13,9 +13,12 @@ launch counters the kernel wrappers keep (placement, radix, segment_sum,
 window_step, the join probe), so `explain_analyze` shows them beside the
 rest.
 
+The statistics-plane (`stats`) and adaptive-execution (`aqe`) families
+are the reference's, fed by plan/statstore.py and plan/adaptive.py.
+
 Not carried over (ROADMAP Queue 1): the worker-pool, speculation,
-observability-plane, cache, statistics, AQE, streaming, fleet and
-device-exchange families, the encoding family but its host evictions
+observability-plane, cache, streaming, fleet and device-exchange
+families, the encoding family but its host evictions
 (the dictionary and decimal-tier counters), the injected-fault count,
 frame compression, the stage-program cache and the lane declines and
 fault fallbacks; the port has no site for them yet (item 16 and the
@@ -84,6 +87,23 @@ _scatter_lane = {"scatter_lane_hash_pallas": 0,
                  "scatter_lane_partition_pallas": 0,
                  "scatter_lane_partition_scatter": 0}
 
+# the statistics feedback plane (plan/statstore.py): observations ingested,
+# ingests that merged onto an earlier run, advisor findings, ETA seeds
+# (no site in the port: they come with the serving progress registry), and
+# the store's fingerprint count
+_stats = {"stats_ingests": 0, "stats_runs_merged": 0,
+          "stats_advisor_findings": 0, "stats_eta_seeded": 0,
+          "stats_fingerprints_last": 0}
+
+# adaptive execution (plan/adaptive.py): runtime rewrites at stage
+# boundaries by rule, plans seeded from history at bind time, producer
+# stages elided (their exchange never ran) and the estimated shuffle bytes
+# those rewrites avoided
+_aqe = {"aqe_rewrites": 0, "aqe_broadcast_switches": 0,
+        "aqe_partitions_coalesced": 0, "aqe_skew_splits": 0,
+        "aqe_history_seeds": 0, "aqe_bytes_saved": 0,
+        "aqe_stages_elided": 0}
+
 # what the port compiles: name -> {"calls", "compiles", "cache_hits",
 # "compile_ns"}; kernels/build.py notes each nvcc build, runtime/loop.py
 # each graph capture
@@ -94,6 +114,8 @@ _compiles: Dict[str, Dict[str, int]] = {}
 _task_duration_ns: List[int] = []
 _wave_wall_ns: List[int] = []
 _SAMPLE_CAP = 8192
+# per-thread lists of open task-duration sinks (open_task_sink)
+_task_sinks = threading.local()
 
 HISTOGRAM_BUCKETS_S = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                        1.0, 2.5, 5.0, 10.0, 30.0)
@@ -195,10 +217,30 @@ def note_stage_recovery(map_tasks: int = 1) -> None:
 
 
 def note_task_duration(ns: int) -> None:
-    """One successful task attempt's wall time."""
+    """One successful task attempt's wall time, into the reservoir and
+    into every sink this thread has open."""
     with _lock:
         if len(_task_duration_ns) < _SAMPLE_CAP:
             _task_duration_ns.append(int(ns))
+    for sink in getattr(_task_sinks, "open", ()):
+        sink.append(int(ns))
+
+
+def open_task_sink() -> List[int]:
+    """A list that takes every task duration this thread notes until
+    `close_task_sink`, uncapped: one run's durations for plan/stages.py's
+    statistics ingest, which the reservoir stops taking at _SAMPLE_CAP.
+    bridge/tasks.py runs a scheduler's tasks on its own thread."""
+    sink: List[int] = []
+    if not hasattr(_task_sinks, "open"):
+        _task_sinks.open = []
+    _task_sinks.open.append(sink)
+    return sink
+
+
+def close_task_sink(sink: List[int]) -> None:
+    _task_sinks.open = [s for s in getattr(_task_sinks, "open", ())
+                        if s is not sink]
 
 
 def note_wave_wall(ns: int) -> None:
@@ -208,6 +250,13 @@ def note_wave_wall(ns: int) -> None:
             _wave_wall_ns.append(int(ns))
 
 
+def duration_samples() -> Dict[str, List[int]]:
+    """Raw ns samples: {"task_ns": [...], "wave_ns": [...]}, the first
+    _SAMPLE_CAP of each since the last reset (one run's task durations
+    come from `open_task_sink`)."""
+    with _lock:
+        return {"task_ns": list(_task_duration_ns),
+                "wave_ns": list(_wave_wall_ns)}
 
 
 def _histogram(samples_ns: List[int]) -> Dict[str, Any]:
@@ -297,6 +346,42 @@ def note_partial_agg_rows(rows: int) -> None:
 
 
 
+def _note_family(family: Dict[str, int], prefix: str,
+                 deltas: Dict[str, int]) -> None:
+    """kwargs name the family's keys with or without `prefix`; gauges
+    (`*_last`) are set absolutely, counters are incremented, unknown keys
+    are ignored."""
+    with _lock:
+        for k, v in deltas.items():
+            key = k if k.startswith(prefix) else prefix + k
+            if key not in family:
+                continue
+            if key.endswith("_last"):
+                family[key] = int(v)
+            else:
+                family[key] += int(v)
+
+
+def note_stats(**deltas: int) -> None:
+    """Statistics-plane mutator (keys with or without `stats_`)."""
+    _note_family(_stats, "stats_", deltas)
+
+
+def statstore_stats() -> dict:
+    with _lock:
+        return dict(_stats)
+
+
+def note_aqe(**deltas: int) -> None:
+    """Adaptive-execution mutator (keys with or without `aqe_`)."""
+    _note_family(_aqe, "aqe_", deltas)
+
+
+def aqe_stats() -> dict:
+    with _lock:
+        return dict(_aqe)
+
+
 def note_scatter_lane(kind: str, lane: str) -> None:
     """One kernel-lane resolution: kind hash/partition, lane
     pallas/scatter."""
@@ -381,6 +466,8 @@ def counter_families() -> Dict[str, Dict[str, int]]:
                 "agg": dict(_agg),
                 "scatter_lane": dict(_scatter_lane),
                 "exprs": dict(_exprs),
+                "stats": dict(_stats),
+                "aqe": dict(_aqe),
                 "encoding": dict(_encoding)}
     fams["launches"] = launch_counts()
     return fams
@@ -408,7 +495,7 @@ def reset() -> None:
     wrappers' launch counters are theirs)."""
     with _lock:
         for d in (_transfers, _pipeline, _faults, _shuffle, _stage_loop,
-                  _agg, _scatter_lane, _exprs, _encoding):
+                  _agg, _scatter_lane, _exprs, _stats, _aqe, _encoding):
             for k in d:
                 d[k] = 0
         _compiles.clear()

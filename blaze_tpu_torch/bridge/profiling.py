@@ -97,6 +97,7 @@ _FAMILY_HELP = {
     "agg": "adaptive partial aggregation",
     "scatter_lane": "kernel-lane resolution",
     "exprs": "expression program",
+    "stats": "statistics feedback plane",
     "encoding": "host-lane eviction",
     "launches": "hand-kernel wrapper launches",
 }
@@ -135,7 +136,11 @@ def prometheus_text() -> str:
     for fam in sorted(families):
         label = _FAMILY_HELP.get(fam, fam)
         for k in sorted(families[fam]):
-            emit(f"blaze_{k}_total", families[fam][k], f"{label} counter")
+            if k.endswith("_last"):  # a point-in-time gauge
+                emit(f"blaze_{k[:-5]}", families[fam][k], f"{label} gauge")
+            else:
+                emit(f"blaze_{k}_total", families[fam][k],
+                     f"{label} counter")
 
     def emit_histogram(name, hist, help_):
         if name not in seen:

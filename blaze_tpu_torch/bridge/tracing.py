@@ -75,6 +75,12 @@ SPAN_NAMES: Dict[str, str] = {
     "mem_spill": "a memory consumer spilled under pressure or quota "
                  "shed (memory/manager.py; attrs consumer/bytes/cause/"
                  "query)",
+    "aqe_rewrite": "an adaptive-execution rule rewrote a not-yet-"
+                   "dispatched consumer stage at the boundary "
+                   "(plan/adaptive.py; attrs stage/rule)",
+    "aqe_history_seed": "bind-time planning applied statstore-derived "
+                        "seeds to the plan (plan/adaptive.py; attrs "
+                        "seeds)",
 }
 
 

@@ -342,6 +342,53 @@ TRACE_ENABLE = bool_conf(
     "start_tracing() call (bridge/tracing.py).  Probed once lazily; "
     "disabled tracing stays a one-boolean check at every span site.",
     category="observability")
+HISTORY_DIR = str_conf(
+    "auron.tpu.history.dir", "",
+    "Directory for query event logs; empty uses "
+    "<system tempdir>/blaze_history.  The port writes no event log "
+    "(auron.tpu.history.enable raises); the statistics store's default "
+    "directory rides this one.", category="observability")
+
+# -- the statistics feedback plane (plan/statstore.py, plan/advisor.py) and
+# -- adaptive execution (plan/adaptive.py), as the JAX package has them
+
+STATS_ENABLE = bool_conf(
+    "auron.tpu.stats.enable", False,
+    "Enable the statistics feedback plane: the per-fingerprint "
+    "observed-stats store (plan/statstore.py) and the advisor findings "
+    "derived from it.  Probed once lazily; disabled it stays a near-free "
+    "boolean check — zero writes, zero allocation on the query path.",
+    category="observability")
+STATS_DIR = str_conf(
+    "auron.tpu.stats.dir", "",
+    "Directory for the per-fingerprint statistics store; empty uses "
+    "<history dir>/stats.", category="observability")
+AQE_ENABLE = bool_conf(
+    "auron.tpu.aqe.enable", False,
+    "Enable adaptive query execution (plan/adaptive.py): the "
+    "DagScheduler re-plans not-yet-dispatched consumer stages from the "
+    "exact map-output bytes of committed producers — broadcast-join "
+    "switch, reduce-partition coalescing, and skew-split.  Probed once "
+    "lazily; disabled AQE stays a near-free boolean check at the stage "
+    "boundary and the executed plan is byte-identical to the static "
+    "plan.", category="observability")
+AQE_BROADCAST_THRESHOLD = int_conf(
+    "auron.tpu.aqe.broadcastThreshold", 8 << 20,
+    "Observed build-side map-output bytes under this rewrite a "
+    "shuffle-hash join to a broadcast build at runtime; the advisor's "
+    "broadcast findings read the same threshold, so report and rewrite "
+    "never disagree.  The reference's default is -1, which inherits its "
+    "auron.tpu.stats.advisor.broadcastBytes (8 MiB); the port has the "
+    "one key.", category="observability")
+AQE_HISTORY_SEED = bool_conf(
+    "auron.tpu.aqe.historySeed", False,
+    "Seed the plan at bind time from the statistics store's "
+    "per-fingerprint quantiles (requires auron.tpu.stats.enable): "
+    "pre-broadcast historically-small build sides, shrink partition "
+    "counts toward the coalesce target (plan/adaptive.py "
+    "COALESCE_TARGET_BYTES), and pre-select the partial-agg "
+    "skip strategy when history shows high group cardinality.",
+    category="observability")
 
 # -- the stage DAG (plan/stages.py) and task retry (bridge/tasks.py) --------
 
@@ -419,8 +466,6 @@ UNPORTED_SCHEDULER_KEYS = {
     "auron.tpu.speculation.enable": "item 16 (speculative execution)",
     "auron.tpu.shuffle.service": "item 16 (remote shuffle service)",
     "auron.tpu.cache.enable": "item 16 (subplan cache)",
-    "auron.tpu.stats.enable": "item 16 (statistics store)",
-    "auron.tpu.aqe.enable": "item 16 (adaptive execution)",
     "auron.tpu.history.enable": "item 16 (query history)",
     "auron.tpu.shuffle.device": "item 14 (device exchange)",
 }

@@ -42,8 +42,13 @@ only.  A host accumulator (collect_*, combine_unique, min/max over
 strings) folds the batch's Arrow values with the group ids in row order
 on the host, beside the device accumulators.
 
-Not carried over: the AQE skip hint and query degradation (item 16) and
-xla_stats notes (item 15).
+The wire's `supports_partial_skipping` flag (a host engine's, or
+adaptive execution's history seed, plan/adaptive.py) reaches the
+operator as `skip_partial_hint`: an eligible partial aggregation then
+skips the probe window and passes rows through from its first batch.
+The probe, the skip and the pass-through rows count in
+bridge/device_stats.py (`partial_agg_*`).  Not carried over: the serving
+layer's degradation rung that forces pass-through (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -89,11 +94,15 @@ class AggExec(ExecutionPlan):
     def __init__(self, child: ExecutionPlan,
                  group_exprs: Sequence[Tuple[PhysicalExpr, str]],
                  aggs: Sequence[Tuple[AggFunction, AggMode, str]],
-                 exec_mode: AggExecMode = AggExecMode.HASH_AGG):
+                 exec_mode: AggExecMode = AggExecMode.HASH_AGG,
+                 skip_partial_hint: bool = False):
         super().__init__([child])
         self._group_exprs = list(group_exprs)
         self._aggs = list(aggs)
         self._exec_mode = exec_mode
+        # the wire's supports_partial_skipping: go straight to pass-through
+        # without the probe window; _skip_eligible still decides
+        self.skip_partial_hint = bool(skip_partial_hint)
         in_schema = child.schema
         for fn, _, _ in self._aggs:
             fn.bind(in_schema)
@@ -221,6 +230,9 @@ class _AggState(MemConsumer):
     def _should_skip_partials(self) -> bool:
         if self._probe_done or not self._skip_eligible():
             return False
+        if self.op.skip_partial_hint:
+            self._probe_done = True
+            return True
         if not config.PARTIAL_AGG_SKIPPING_ENABLE.get():
             return False
         if self.rows_seen < config.PARTIAL_AGG_SKIPPING_MIN_ROWS.get():

@@ -14,9 +14,10 @@ spans (bridge/critical_path.py).  It runs on the card unless
 The profile is registered with the observability service
 (bridge/profiling.py `record_profile`), so the same data is served at
 /profile/<qid> and folded into /metrics.prom.  Footers appear only for
-counters that moved; the reference's footers of subsystems the port
-lacks (speculation, work sharing, AQE, encodings, workers, streams:
-ROADMAP Queue 1) have no counters here, so they never render, as the
+counters that moved (the "aqe:" footer when adaptive execution rewrote
+or seeded the plan); the reference's footers of subsystems the port
+lacks (speculation, work sharing, encodings, workers, streams: ROADMAP
+Queue 1) have no counters here, so they never render, as the
 reference's do not when their stats are empty.
 """
 
@@ -59,6 +60,22 @@ def format_bottleneck_footer(report) -> Optional[str]:
         head += (f" dominant={dom} "
                  f"({report.get('dominant_fraction', 0):.0%})")
     return head + ((" " + " ".join(parts)) if parts else "")
+
+
+def format_aqe_footer(x) -> Optional[str]:
+    """The "aqe:" footer (runtime rewrites and history-seeded planning),
+    or None when adaptive execution never fired — AQE is off by default
+    and the profile stays byte-identical then."""
+    if not (x.get("aqe_rewrites") or x.get("aqe_history_seeds")):
+        return None
+    return (
+        f"aqe: rewrites={x.get('aqe_rewrites', 0)} "
+        f"broadcast={x.get('aqe_broadcast_switches', 0)} "
+        f"coalesced={x.get('aqe_partitions_coalesced', 0)} "
+        f"skew_splits={x.get('aqe_skew_splits', 0)} "
+        f"history_seeds={x.get('aqe_history_seeds', 0)} "
+        f"stages_elided={x.get('aqe_stages_elided', 0)} "
+        f"saved={_fmt_bytes(x.get('aqe_bytes_saved', 0))}")
 
 
 def _node_line(node: MetricNode) -> str:
@@ -165,6 +182,9 @@ def _footers(x: Dict[str, int]) -> List[str]:
             f"fetch_failures={x.get('fetch_failures', 0)} "
             f"recoveries={x.get('stage_recoveries', 0)} "
             f"recovered_map_tasks={x.get('recovered_map_tasks', 0)}")
+    aqe_line = format_aqe_footer(x)
+    if aqe_line is not None:
+        lines.append(aqe_line)
     if x.get("shuffle_host_bytes"):
         lines.append(
             f"shuffle: host={_fmt_bytes(x.get('shuffle_host_bytes', 0))}")

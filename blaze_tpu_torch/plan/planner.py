@@ -179,7 +179,9 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
                          AggMode(a.get("mode", "partial")), a["name"]))
         mode = (AggExecMode.HASH_AGG if k == "hash_agg"
                 else AggExecMode.SORT_AGG)
-        return AggExec(child, groups, aggs, mode)
+        return AggExec(child, groups, aggs, mode,
+                       skip_partial_hint=bool(
+                           d.get("supports_partial_skipping")))
     part = partitioning_from_dict(d["partitioning"], in_schema)
     if k == "local_exchange":
         return LocalShuffleExchange(child, part,

@@ -41,10 +41,21 @@ under a `shuffle_exchange` span and a recovery under `stage_recovery`
 (bridge/tracing.py); the map outputs' bytes and each recovery count in
 bridge/device_stats.py.
 
+Adaptive execution and the statistics plane (plan/adaptive.py,
+plan/statstore.py), as the JAX scheduler hooks them: `run_collect`
+fingerprints the plan and baselines the counters (`_stats_begin`) and
+ingests the run's observation on success (`_stats_end`); the staged route
+seeds the plan from history before `split`, captures each file exchange's
+per-partition bytes at its commit (`_note_boundary`, into
+`stage_boundaries`) and lets `AqeRuntime.on_producer_commit` rewrite the
+consumers that have not run yet (`aqe_events`, `Stage.aqe`).  Both off
+(the defaults), each hook is one lazily probed boolean and the executed
+plan and every map output byte are the static ones.
+
 Not ported, each raising where the JAX scheduler would take it: the
-device-exchange, remote-shuffle, adaptive, subplan-cache, statistics,
-history, worker-pool and speculation branches (ROADMAP items 14, 15 and
-16): a conf key that turns one on raises.
+device-exchange, remote-shuffle, subplan-cache, history, worker-pool and
+speculation branches (ROADMAP items 14 and 16): a conf key that turns
+one on raises.
 """
 
 from __future__ import annotations
@@ -80,6 +91,10 @@ class Stage:
     num_tasks: int = 1            # producer-side task count
     deps: List[int] = field(default_factory=list)
     out_schema: Optional[Dict[str, Any]] = None
+    # adaptive execution (plan/adaptive.py): set when a runtime rule
+    # rewrote this stage — the rule name and the DERIVED fingerprint that
+    # replaces the static subtree identity in the statstore
+    aqe: Optional[Dict[str, Any]] = None
 
 
 def _check_ported_branches() -> None:
@@ -118,6 +133,19 @@ class DagScheduler:
         # synchronisation
         self.stage_walls: Dict[int, float] = {}
         self.exec_mode: Optional[str] = None  # "local" | "staged"
+        # statistics feedback plane (plan/statstore.py; armed per run by
+        # _stats_begin only under auron.tpu.stats.enable): the run's plan
+        # fingerprint, per-shuffle-boundary observations captured at
+        # producer commit (cleanup clears the map-output table), and the
+        # counter and reservoir baselines the final ingest deltas
+        self.stats_fingerprint: Optional[str] = None
+        self.stage_boundaries: Dict[int, Dict[str, Any]] = {}
+        # adaptive execution (plan/adaptive.py): the run's rewrite and
+        # seed events
+        self.aqe_events: List[Dict[str, Any]] = []
+        self._stats_base: Optional[dict] = None
+        self._stats_task_ns: Optional[List[int]] = None
+        self._stats_t0: float = 0.0
 
     def _record_task_metrics(self, sid: int, tree: MetricNode) -> None:
         from blaze_tpu_torch.bridge import profiling
@@ -322,6 +350,12 @@ class DagScheduler:
             for m in range(stage.num_tasks)}
         device_stats.note_host_exchange(sum(
             int(off[-1]) for _, off in self._stage_outputs[stage.sid].values()))
+        from blaze_tpu_torch.plan import adaptive, statstore
+        if statstore.enabled() or adaptive.enabled():
+            self._note_boundary(stage, [
+                sum(int(off[r + 1] - off[r])
+                    for _, off in self._stage_outputs[stage.sid].values())
+                for r in range(n_out)], "file")
 
         sid = stage.sid
 
@@ -417,9 +451,126 @@ class DagScheduler:
                 stack.extend(n.children)
         return pa.Table.from_batches([out])
 
+    # -- what plan/adaptive.py's rules read and register ------------------
+
+    @property
+    def run_id(self) -> str:
+        """This scheduler's id in its stage:// resource ids."""
+        return self._run_id
+
+    def partitioning_of(self, stage: Stage) -> Dict[str, Any]:
+        """`stage`'s output partitioning as its writer takes it."""
+        return self._part_of(stage)
+
+    def scan_input_bytes(self, plan: Dict[str, Any]) -> int:
+        """The bytes `plan`'s file scans read."""
+        return self._scan_input_bytes(plan)
+
+    def map_outputs(self, sid: int) -> Optional[Dict[int, Any]]:
+        """The live map-output table of stage `sid`: map id -> (data
+        path, offsets), None for an invalidated output."""
+        return self._stage_outputs.get(sid)
+
+    def register_resource(self, rid: str, closure: Any) -> None:
+        """Register a derived block source, removed with this run's
+        stage resources."""
+        put_resource(rid, closure)
+        if rid not in self._resources:
+            self._resources.append(rid)
+
+    # -- the statistics plane's hooks ---------------------------------------
+
+    def _note_boundary(self, stage: Stage, part_bytes: List[int],
+                       exchange: str) -> None:
+        """Capture one shuffle boundary's per-partition bytes for the
+        statistics store and the adaptive rules, keyed by the producer's
+        subtree fingerprint.  Must run at producer commit: cleanup() clears
+        the map-output table before run_collect returns."""
+        from blaze_tpu_torch.plan import fingerprint as fp_mod
+        part = (self._part_of(stage) if stage.partitioning is not None
+                else None)
+        # a rewritten stage records under its DERIVED fingerprint: its
+        # plan embeds run-scoped derived resource ids, and the static
+        # identity must never accrete stats from a rewritten shape
+        fp = (stage.aqe or {}).get("fingerprint") or \
+            fp_mod.subplan_fingerprint(stage.plan, part,
+                                       stage.num_tasks)
+        node = self.stage_metrics.get(stage.sid)
+        rows = (int(node.values.get("output_rows", 0) or 0)
+                if node is not None else 0)
+        self.stage_boundaries[stage.sid] = {
+            "fingerprint": fp, "sid": stage.sid,
+            "tasks": stage.num_tasks,
+            "partitions": len(part_bytes),
+            "partition_bytes": [int(b) for b in part_bytes],
+            "exchange": exchange, "output_rows": rows}
+
+    def _stats_begin(self, plan: Dict[str, Any]) -> None:
+        """Arm the statistics feedback plane for this run: fingerprint the
+        plan, baseline the counters and open a sink for the run's task
+        durations.  One boolean when auron.tpu.stats.enable is off."""
+        from blaze_tpu_torch.plan import statstore
+        self.stats_fingerprint = None
+        self.stage_boundaries = {}
+        self._stats_base = None
+        if not statstore.enabled():
+            return
+        from blaze_tpu_torch.bridge import device_stats
+        from blaze_tpu_torch.plan import fingerprint as fp_mod
+        self.stats_fingerprint = fp_mod.plan_fingerprint(plan)
+        self._stats_base = device_stats.snapshot()
+        self._stats_task_ns = device_stats.open_task_sink()
+        self._stats_t0 = time.perf_counter()
+
+    def _stats_end(self, ok: bool) -> None:
+        """Close the feedback loop: on success, ingest this run's
+        observation into the statstore (a failed run would poison the
+        priors).  A failed ingest is logged (plan/statstore.py)."""
+        base, self._stats_base = self._stats_base, None
+        task_ns, self._stats_task_ns = self._stats_task_ns, None
+        if base is None:
+            return
+        from blaze_tpu_torch.bridge import device_stats
+        device_stats.close_task_sink(task_ns)
+        if not ok:
+            return
+        from blaze_tpu_torch.plan import statstore
+        wall_s = time.perf_counter() - self._stats_t0
+        delta = device_stats.delta(base)
+        # host-lane eviction evidence, as counter deltas (a per-query
+        # slice of the process-wide registry)
+        reasons = {}
+        for key, reason in (("stage_loop_fallbacks", "stage_loop"),
+                            ("scatter_lane_declines", "scatter_lane"),
+                            ("expr_eager_batches", "expr_eager"),
+                            ("host_evictions_string", "string_column"),
+                            ("host_evictions_decimal",
+                             "decimal_column"),
+                            ("host_evictions_other", "other_column")):
+            n = int(delta.get(key, 0))
+            if n > 0:
+                reasons[reason] = n
+        statstore.ingest({
+            "fingerprint": self.stats_fingerprint,
+            "wall_s": wall_s,
+            "task_ns": task_ns,
+            "counters": {k: int(delta.get(k, 0))
+                         for k in statstore.INGEST_COUNTERS},
+            "fallback_reasons": reasons,
+            "stages": sorted(self.stage_boundaries.values(),
+                             key=lambda b: b["sid"]),
+        })
+
     def run_collect(self, plan: Dict[str, Any]) -> pa.Table:
         """Execute the whole query; returns the result stage's output."""
-        return self._run_collect(plan)
+        self._stats_begin(plan)
+        ok = False
+        try:
+            out = self._run_collect(plan)
+            ok = True
+            return out
+        finally:
+            self._stats_end(ok)
 
     def _run_collect(self, plan: Dict[str, Any]) -> pa.Table:
         from blaze_tpu_torch import config
@@ -441,6 +592,14 @@ class DagScheduler:
                 self.cleanup()
         self.exec_mode = "staged"
         os.makedirs(self._dir, exist_ok=True)
+        # history-driven planning (plan/adaptive.py): seed broadcast
+        # choices, partition counts and the agg strategy from statstore
+        # priors BEFORE the split; _stats_begin fingerprinted the ORIGINAL
+        # plan, so priors stay keyed alike across cold and warm runs.  The
+        # plan comes back unchanged when seeding is off
+        from blaze_tpu_torch.plan import adaptive
+        self.aqe_events = []
+        plan = adaptive.seed_plan(plan, self)
         stages = self.split(plan)
         stages_by_id = {st.sid: st for st in stages}
         max_recoveries = max(0, config.STAGE_MAX_RECOVERIES.get())
@@ -466,12 +625,18 @@ class DagScheduler:
             # completed
             completed: set = set()
             recoveries = 0
+            # the adaptive re-planning hook: between a producer's commit
+            # and the next dispatch; None when auron.tpu.aqe.enable is off
+            aqe_rt = adaptive.runtime_for(self)
             while True:
                 try:
                     for st in stages[:-1]:
                         if st.sid not in completed:
                             self._run_producer_file(st)
                             completed.add(st.sid)
+                            if aqe_rt is not None:
+                                aqe_rt.on_producer_commit(
+                                    st, completed, stages_by_id)
                     with self._stage_scope(result.sid):
                         parts = run_tasks(run_result, result.num_tasks,
                                           f"stage {result.sid} (result)")

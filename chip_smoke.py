@@ -182,7 +182,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      the build range fails the probe, the keys and rows outside it pass
      at no more than Spark's fpp of 0.03 plus three standard deviations,
      the second run drops rows the first kept and captures its own map
-     graphs, and placement and radix ran on the card; then the staging
+     graphs, and placement and radix ran on the card; then the adaptive
+     phase (plan/adaptive.py, plan/statstore.py, itest/adaptive.py):
+     four legs over seeded data, each static and then adaptive with the
+     statistics store on, staged, the default thresholds (broadcast 8 MiB,
+     coalesce 16 MiB, skew factor 4, 8 splits) unless a leg says other:
+     broadcast (a 2^18-key dim shuffle-joined with a 2^24-row fact in 8
+     files, 32 partitions), skew (the fact's keys 70% on one key, 160
+     partitions, broadcast threshold 0), coalesce (partial sum by 2^16
+     keys over 2^24 rows, 200 partitions, the final sum) and history
+     (the broadcast leg's adaptive run, made in a fresh store, then one
+     run more with auron.tpu.aqe.historySeed), then full q01 and q17 on
+     its linked
+     tables at SF10 under AQE against their earlier static runs; fails
+     unless every run equals its static run (order-insensitive, bit for
+     bit) and its pandas oracle, each leg's counters moved (one broadcast
+     switch, one stage elided and bytes saved; a skew split and
+     partitions coalesced; partitions coalesced; a history seed in the
+     second run), radix launched on the card in every leg and the
+     coalesce leg's sums ran an aggregation kernel (placement, the
+     row-order sum or the window step, by lane), and no rule, history
+     seed or ingest logged a warning (a rule that fails keeps the static
+     plan); each adaptive run is traced; prints each leg's walls, tasks
+     per stage, events, the traced run's bottleneck report
+     (bridge/critical_path.py) and the advisor's findings for its stored
+     record and that report, with the card's name and power limit; then
+     the staging
      and accounting phase's
      second part: one map task of q19's store_sales stage (task 1: the
      first file holds no row of its window) and of q67's fact stage (task
@@ -211,7 +236,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      rows in the same order both ways; full q01 as one local task (the
      key one byte above its scan bytes, which exceed the default); q05
      (a Union of the three channels' sales and returns), q93 (Casts in a
-     left join's measures) and q90 (a ratio of two global counts through
+     left join's measures, over the first of store_sales' 4 files since
+     the adaptive phase came in) and q90 (a ratio of two global counts through
      a nested-loop join) under the default, staged at SF10; 4 exchange
      partitions, a fresh plan each,
      held to the pandas frame as a set (floats within 1e-9 relative);
@@ -309,7 +335,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      batches whose masked rows stay among the others (AggExec, no keys),
      each run twice on the card: fails unless both runs give the same
      bits and the CPU's, and the engine's sums ran the kernel;
- 23. spill: q06, q17 and q95 at SF10 under 32 MiB and q51 under half its
+ 23. spill: q17 and q95 at SF10 under 32 MiB, q06 under 325 bytes (half
+     the 651 its consumers hold) and q51 under half its
      window buffers' peak (memory/manager.py, memory/spill.py), staged,
      each held to its earlier phase's pandas frame; fails unless each
      spilled, every consumer kind spilled and the writer's spill route's
@@ -365,6 +392,10 @@ ORACLES = {}
 #: outside the fused aggregations), and its result frames by run label
 FUSE_OFF_QUERY = "q19"
 FRAMES = {}
+#: the adaptive phase's TPC-DS legs, by the label of the earlier static
+#: run whose frame each is held to
+ADAPTIVE_TPCDS = {"q01 full auto": "q01 full", "q17 linked auto": "q17"}
+ADAPTIVE_ROWS_LOG2 = 24     # the adaptive legs' fact rows: 2^24
 
 
 def phase(name):
@@ -2020,6 +2051,8 @@ def full_path(plan, want, mode, profiled=False, corrupt=False,
     peak = torch.cuda.max_memory_allocated()
     got = out.to_pandas() if out.num_rows else pd.DataFrame(
         {n: [] for n in out.schema.names})
+    if mode == "auto" and not (profiled or corrupt):
+        FRAMES["q01 full auto"] = got  # the adaptive phase's static run
     counters = QD.stage_counters(sched, FULL_COUNTERS)
     tasks = {st.sid: st.num_tasks for st in sched.stages}
     print(sched.describe())
@@ -2769,6 +2802,7 @@ def q17_q18_data(root, fam_tables, fam_paths):
               f"{secs[f'oracle {name}']:.1f} s")
     ORACLES["q17"] = runs["q17"]
     ORACLES["q18"] = runs["q18"]
+    ORACLES["q17 linked"] = runs["q17 linked"]
     return runs, secs, k, tables, paths
 
 
@@ -2949,6 +2983,8 @@ def q17_q18_path(name, make_plan, want, mode, profiled=False):
     probes = {k: JK.probe_calls[k] - probes0[k] for k in probes0}
     peak = torch.cuda.max_memory_allocated()
     got = frame(out)
+    if label in ADAPTIVE_TPCDS:
+        FRAMES[label] = got  # the adaptive phase's static run
     counters = stage_counters(sched, D.STAGE_COUNTERS)
     ops = {op: F.operator_counters(sched, op, keys) for op, keys in (
         ("ExpandExec", ("cuda_batches", "cpu_batches", "output_rows")),
@@ -3591,6 +3627,10 @@ LOCAL_CANDIDATES = ("q84", "q41")
 #: the new shapes: Union, Cast and the nested-loop join
 BREADTH_SHAPES = {"q05": "Union", "q93": "Cast",
                   "q90": "the nested-loop join"}
+#: breadth queries run over the first of their fact table's N_FILES files
+#: (a quarter of its rows), to hold the script's time with the adaptive
+#: phase: q93's store_sales (its full depth took 46.6 s)
+BREADTH_DEPTH_CUT = {"q93": "store_sales"}
 BREADTH_COUNTERS = ("cuda_batches", "cpu_batches", "probe_batches",
                     "io_bytes")
 BREADTH_JOINS = ("BroadcastJoinExec", "ShuffledHashJoinExec",
@@ -3628,7 +3668,13 @@ def breadth_data(root, tables, paths):
     runs = {}
     for name in names:
         def make(n=name):
-            return Q.plans(paths, tables, BREADTH_PARTS, [n])[n]
+            p, t = paths, tables
+            if n in BREADTH_DEPTH_CUT:  # the first file of the fact only
+                fact = BREADTH_DEPTH_CUT[n]
+                per = -(-tables[fact].num_rows // len(paths[fact]))
+                p = dict(paths, **{fact: paths[fact][:1]})
+                t = dict(tables, **{fact: tables[fact].slice(0, per)})
+            return Q.plans(p, t, BREADTH_PARTS, [n])[n]
         t = time.perf_counter()
         want = make()[1]()
         secs[f"oracle {name}"] = time.perf_counter() - t
@@ -4115,6 +4161,10 @@ def decimal_phase(root, tables, paths, corpus):
 
 
 SPILL_QUERIES = ("q06", "q17", "q95", "q51")
+#: q06's consumers hold at most 651 bytes at SF10 (under 32 MiB it never
+#: spilled): it starts at half of that, the budget the phase's rule
+#: would reach on its second run
+SPILL_Q06_BUDGET = 325
 SPILL_BUDGET = 32 << 20     # bytes: the JAX package's SF10 spill set's
 #: the memory consumers the spill phase must see spill, by their names
 SPILL_KINDS = ("sort", "agg", "WindowExec.buffer", "shuffle")
@@ -4193,7 +4243,8 @@ def _spill_run(name, budget, unbudgeted_wall):
 
 
 def spill_phase(unbudgeted):
-    """q06, q17 and q95 at SF10 under a 32 MiB memory budget, and q51 under
+    """q17 and q95 at SF10 under a 32 MiB memory budget, q06 under
+    SPILL_Q06_BUDGET, and q51 under
     half of the bytes its window buffers held at most in the q95 phase's
     run (so that a buffer itself spills, not only the sort under it):
     staged, 4 exchange partitions, the stage loop under auto, unprofiled,
@@ -4215,6 +4266,7 @@ def spill_phase(unbudgeted):
     peaks = unbudgeted["q51 window buffer peaks"]
     budgets = {n: SPILL_BUDGET for n in SPILL_QUERIES}
     budgets["q51"] = max(peaks) // 2
+    budgets["q06"] = SPILL_Q06_BUDGET
     print(f"budgets: {budgets} bytes (q51: half the larger of its window "
           f"buffers' peaks {peaks} in the q95 phase's run)")
     out, kinds = {}, {}
@@ -5565,6 +5617,160 @@ def pq_rows(path):
     return pq.ParquetFile(path).metadata.num_rows
 
 
+def _sorted_frame(df):
+    """A result frame in a canonical row order (columns by position)."""
+    df = df.set_axis(range(df.shape[1]), axis=1)
+    return df.sort_values(list(df.columns)).reset_index(drop=True)
+
+
+def _bottleneck_text(bn):
+    """A traced run's bottleneck report in one phrase."""
+    if not bn:
+        return "no bottleneck report (no spans)"
+    cats = ", ".join(f"{c} {v:.3f}" for c, v in bn["categories"].items()
+                     if v > 0)
+    return (f"bottleneck {bn['dominant']} {bn['dominant_fraction']:.1%} of "
+            f"{bn['wall_s']:.3f} s traced (s by category: {cats})")
+
+
+def _adaptive_print(label, r, smi):
+    """A leg's walls, tasks per stage, events, counter deltas, kernel
+    launches and the advisor's findings, with the card's name and power
+    limit."""
+    if r["leg"] == "history":  # its static and first runs are shared
+        names = ["static (the broadcast leg's)",
+                 "adaptive 0 (the broadcast leg's)", "adaptive 1 (seeded)"]
+    else:
+        names = ["static", "adaptive"]
+    runs = list(zip(names, [r["static"]] + r["adaptive"]))
+    for name, x in runs:
+        print(f"{label} {name}: wall {x['wall_s']:.3f} s ({smi}); "
+              f"{x['stages']} stages, tasks by stage {x['tasks']}"
+              + (f", elided {x['elided']}" if x["elided"] else "")
+              + "; stage walls " + ", ".join(
+                  f"{sid} {w:.3f}" for sid, w in
+                  sorted(x["stage_walls"].items()))
+              + (f"; events {x['events']}; deltas {x['delta']}"
+                 if not name.startswith("static") else ""))
+    launches = {k: v for k, v in r["launches"].items()
+                if k in ("hash_placement", "radix_partition", "segment_sum",
+                         "window_step")}
+    print(f"{label}: launches over its own adaptive run {launches}; "
+          f"{_bottleneck_text(r['adaptive'][-1]['bottleneck'])}; advisor "
+          f"findings for the stored record and that report: "
+          + ("; ".join(f["summary"] for f in r["findings"]) or "none"))
+
+
+def adaptive_phase(root, q01_plan, q01_want, static_walls, smi):
+    """Adaptive execution on the card (itest/adaptive.py): the four legs
+    over seeded data at 2^ADAPTIVE_ROWS_LOG2 fact rows, each static and
+    then adaptive, then full q01 and q17 on its linked tables at SF10
+    under AQE against their earlier static runs (FRAMES; their walls in
+    `static_walls`, full q01's traced under explain_analyze) and
+    oracles.
+    Every kernel count is set to 0 just before each leg's adaptive run(s)
+    and read just after."""
+    import pandas as pd
+    from blaze_tpu_torch.itest import adaptive as A
+    from blaze_tpu_torch.itest.runner import compare_frames, frame
+    t_phase = time.perf_counter()
+    aroot = os.path.join(root, "adaptive")
+    os.makedirs(aroot)
+    phase(f"adaptive: data (a dim of 2^{ADAPTIVE_ROWS_LOG2 - 6} keys, two "
+          f"facts and an aggregation input of 2^{ADAPTIVE_ROWS_LOG2} rows, "
+          f"{A.FACT_FILES} files each)")
+    t0 = time.perf_counter()
+    data = A.make_data(aroot, ADAPTIVE_ROWS_LOG2)
+    data_s = time.perf_counter() - t0
+    print(f"data generated and written in {data_s:.1f} s")
+    _loop_mode("auto")
+    legs = {}
+    for leg in A.LEGS:
+        phase(f"adaptive {leg}: {A.PARTITIONS[leg]} partitions, "
+              + ("the broadcast leg's runs, then a seeded run"
+                 if leg == "history" else "static then adaptive"))
+        launches = {}
+
+        @contextlib.contextmanager
+        def counted(out=launches):
+            _zero_launches()
+            yield
+            out.update(_read_launches())
+        r = legs[leg] = A.run_leg(leg, data, aroot, counted,
+                                  broadcast=legs.get("broadcast"))
+        r["launches"] = launches
+        _adaptive_print(f"adaptive {leg}", r, smi)
+        if r["failures"]:
+            raise SystemExit(f"adaptive {leg}: {r['failures']}")
+        # the history leg's seeded run has no exchange: its first run,
+        # the broadcast leg's adaptive one, wrote its shuffle
+        radix = launches["radix_partition"] + (
+            legs["broadcast"]["launches"]["radix_partition"]
+            if leg == "history" else 0)
+        if radix <= 0:
+            raise SystemExit(f"adaptive {leg}: radix was never launched")
+        if leg == "coalesce" and not (launches["hash_placement"]
+                                      or launches["segment_sum"]
+                                      or launches["window_step"]):
+            raise SystemExit("adaptive coalesce: the sums ran no "
+                             "aggregation kernel on the card")
+    del data
+    makers = {"q01 full": (lambda: q01_plan, q01_want),
+              "q17": ORACLES["q17 linked"]}
+    tpcds = {}
+    for static_label, name in ADAPTIVE_TPCDS.items():
+        phase(f"adaptive {name}: TPC-DS {name} at SF10 under AQE "
+              f"(the default thresholds) against its static run")
+        make_plan, want = makers[name]
+        launches = {}
+
+        @contextlib.contextmanager
+        def counted(out=launches):
+            _zero_launches()
+            yield
+            out.update(_read_launches())
+        with counted():
+            r = A.run_plan(make_plan(), A.leg_conf(
+                name, os.path.join(aroot, f"stats-{name}")),
+                os.path.join(aroot, name.replace(" ", "-")), traced=True)
+        got = frame(r.pop("table"))
+        static = FRAMES.pop(static_label)
+        r.update(launches=launches, rows=len(got),
+                 static_wall_s=static_walls[name], findings=A.findings(
+                     os.path.join(aroot, f"stats-{name}"),
+                     r["fingerprint"], r["bottleneck"]))
+        tpcds[name] = r
+        rules = sorted({e["rule"] for e in r["events"]})
+        shown = {k: launches[k] for k in ("hash_placement",
+                                           "radix_partition", "segment_sum")}
+        print(f"adaptive {name}: wall {r['wall_s']:.3f} s (the static run "
+              f"{static_walls[name]:.3f} s) ({smi}); "
+              f"{r['stages']} stages, tasks by stage {r['tasks']}; rules "
+              f"fired {rules or 'none'}; events {r['events']}; deltas "
+              f"{r['delta']}; launches {shown}; "
+              f"{_bottleneck_text(r['bottleneck'])}; advisor findings: "
+              + ("; ".join(f["summary"] for f in r["findings"]) or "none"))
+        if r["warnings"]:
+            raise SystemExit(f"adaptive {name}: {r['warnings']}")
+        err = compare_frames(got, want, 1e-9)
+        if err or not len(got):
+            raise SystemExit(f"adaptive {name}: {len(got)} rows against the "
+                             f"oracle's {len(want)}: {err}")
+        if not _frame_bits(_sorted_frame(got), _sorted_frame(
+                pd.DataFrame(static))):
+            raise SystemExit(f"adaptive {name}: differs from its static run")
+        if r["task_runs"] or r["leaks"]:
+            raise SystemExit(f"adaptive {name}: tasks ran twice "
+                             f"{r['task_runs']} or leaked {r['leaks']}")
+        if launches["radix_partition"] <= 0:
+            raise SystemExit(f"adaptive {name}: radix was never launched")
+        print(f"adaptive {name}: {len(got)} rows, equal to its oracle and "
+              f"to its static run")
+    wall = time.perf_counter() - t_phase
+    print(f"adaptive phase: {wall:.1f} s ({smi})")
+    return {"data_s": data_s, "legs": legs, "tpcds": tpcds, "wall_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5665,6 +5871,13 @@ def main():
         by_path["runtime filter"] = exprs["runtime_filter"]["launches"]
         by_path["runtime filter rebuilt"] = \
             exprs["runtime_filter_rebuilt"]["launches"]
+        adaptive = adaptive_phase(
+            root, plan, q01_want,
+            {"q01 full": full["auto"]["wall_s"],
+             "q17": q17_q18["runs"]["q17 linked auto"]["wall_s"]}, smi)
+        for k, r in list(adaptive["legs"].items()) + list(
+                adaptive["tpcds"].items()):
+            by_path[f"adaptive {k}"] = r["launches"]
         staging = staging_phase()
         breadth = breadth_phase(root, all_tables, all_paths, make_q01,
                                 q01_want)
@@ -6014,6 +6227,17 @@ def main():
           f"{rf2['groups']} groups, map captures "
           f"{rf2['counters']['map']['stage_loop_graph_captures']}, probe "
           f"{rf2['probe']}")
+    print(f"adaptive phase {adaptive['wall_s']:.1f} s (data "
+          f"{adaptive['data_s']:.1f} s), {smi}: " + "; ".join(
+              f"{k} static {r['static']['wall_s']:.3f} s, adaptive "
+              + " then ".join(f"{a['wall_s']:.3f}" for a in r["adaptive"])
+              + f" s, tasks {sum(r['static']['tasks'].values())} -> "
+              + " then ".join(str(sum(a["tasks"].values()))
+                              for a in r["adaptive"])
+              for k, r in adaptive["legs"].items()) + "; " + "; ".join(
+              f"{k} adaptive {r['wall_s']:.3f} s, rules "
+              f"{sorted({e['rule'] for e in r['events']}) or 'none'}"
+              for k, r in adaptive["tpcds"].items()))
     print("expression programs by path (fused and eager batches, programs "
           "built, cache hits, graph captures, capture ms, replays): "
           + "; ".join(f"{k} {p['expr']}" for k, p in by_path.items()))
@@ -6057,7 +6281,7 @@ def main():
                       "spill": spill, "front_door": front_door,
                       "wire_kinds": wire, "staging": staging,
                       "q70": q70, "row_order_lanes": lanes,
-                      "expressions": exprs,
+                      "expressions": exprs, "adaptive": adaptive,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

@@ -297,9 +297,7 @@ def test_a_bad_index_is_a_fetch_failure(tmp_path):
     ("auron.tpu.workers.enable", "true"),
     ("auron.tpu.speculation.enable", "true"),
     ("auron.tpu.shuffle.service", "/tmp/rss"),
-    ("auron.tpu.aqe.enable", "true"),
-    ("auron.tpu.shuffle.device", "on"),
-    ("auron.tpu.stats.enable", "true")])
+    ("auron.tpu.shuffle.device", "on")])
 def test_unported_scheduler_branches_raise(q01, key, value):
     plan, _, _ = q01
     tconf.conf.set(key, value)

@@ -35,8 +35,13 @@ def clean():
     _drop()
     for opt in (tconf.TORCH_DEVICE, tconf.TRACE_ENABLE,
                 tconf.DAG_SINGLE_TASK_BYTES, tconf.STAGE_DEVICE_LOOP_ENABLE,
-                tconf.ON_DEVICE_AGG_CAPACITY, tconf.TASK_RETRY_BACKOFF_MS):
+                tconf.ON_DEVICE_AGG_CAPACITY, tconf.TASK_RETRY_BACKOFF_MS,
+                tconf.AQE_ENABLE, tconf.AQE_HISTORY_SEED, tconf.STATS_ENABLE,
+                tconf.STATS_DIR):
         tconf.conf.unset(opt.key)
+    from blaze_tpu_torch.plan import adaptive, statstore
+    adaptive.reset_conf_probe()
+    statstore.reset_conf_probe()
 
 
 def test_disabled_tracing_records_nothing():
@@ -161,6 +166,20 @@ def test_every_registered_name_is_emitted_by_a_port_path(tmp_path,
     tconf.conf.unset(tconf.ON_DEVICE_AGG_CAPACITY.key)
     # a corrupt block: stage_recovery
     QD.CorruptingScheduler(0).run_collect(plan)
+    # adaptive execution: a coalesced reduce stage (aqe_rewrite), then a
+    # run that records its boundaries and one seeded from them
+    # (aqe_history_seed)
+    from blaze_tpu_torch.plan import adaptive, statstore
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    tconf.conf.set(tconf.AQE_ENABLE.key, "true")
+    tconf.conf.set(tconf.STATS_DIR.key, str(tmp_path / "stats"))
+    adaptive.reset_conf_probe()
+    DagScheduler().run_collect(plan)
+    tconf.conf.set(tconf.STATS_ENABLE.key, "true")
+    tconf.conf.set(tconf.AQE_HISTORY_SEED.key, "true")
+    statstore.reset_conf_probe()
+    for _ in range(2):
+        DagScheduler().run_collect(plan)
     # a retryable failure: task_retry, backoff_wait
     first = []
 
