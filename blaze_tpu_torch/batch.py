@@ -105,11 +105,9 @@ class DeviceStager:
     the consumer's stream wait on it, and marks the device buffer as used
     by the consumer's stream (`record_stream`), so the caching allocator
     does not hand it out again before the consumer's work on it is done.
-
-    A graph capture in global mode (runtime/loop.py) forbids another
-    thread's allocations, event waits and syncs while it runs: every CUDA
-    call here is made under `device.CAPTURE_LOCK`, which the capture
-    holds; the host packing runs outside it."""
+    Every graph capture runs in the thread-local error mode
+    (device.CAPTURE_LOCK), so the stager's allocations, event waits and
+    syncs need no lock against another thread's capture."""
 
     RING = 4
 
@@ -124,34 +122,30 @@ class DeviceStager:
     def stage(self, nbytes: int, pack) -> torch.Tensor:
         """`pack(host_bytes)` fills a uint8 numpy view of `nbytes` staging
         bytes; returns the device uint8 buffer they were copied into."""
-        from blaze_tpu_torch.device import CAPTURE_LOCK
         consumer = (self.consumer if self.consumer is not None
                     else torch.cuda.current_stream(self.device))
         slot = self._next
-        with CAPTURE_LOCK:
-            if self._copy is None:
-                self._copy = torch.cuda.Stream(self.device)
-            held = self._ring[slot]
-            if held is not None:
-                held[1].synchronize()  # its last copy has landed
-            if held is None or held[0].numel() < nbytes:
-                size = max(nbytes, 1 << 20)
-                pinned = torch.empty(-(-size // (1 << 20)) << 20,
-                                     dtype=torch.uint8, pin_memory=True)
-            else:
-                pinned = held[0]
+        if self._copy is None:
+            self._copy = torch.cuda.Stream(self.device)
+        held = self._ring[slot]
+        if held is not None:
+            held[1].synchronize()  # its last copy has landed
+        if held is None or held[0].numel() < nbytes:
+            size = max(nbytes, 1 << 20)
+            pinned = torch.empty(-(-size // (1 << 20)) << 20,
+                                 dtype=torch.uint8, pin_memory=True)
+        else:
+            pinned = held[0]
         pack(pinned.numpy()[:nbytes])
-        with CAPTURE_LOCK:
-            with torch.cuda.stream(self._copy):
-                dev = torch.empty(nbytes, dtype=torch.uint8,
-                                  device=self.device)
-                dev.copy_(pinned[:nbytes], non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(self._copy)
-            consumer.wait_event(event)
-            dev.record_stream(consumer)
-            self._ring[slot] = (pinned, event)
-            self._next = (slot + 1) % self.RING
+        with torch.cuda.stream(self._copy):
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dev.copy_(pinned[:nbytes], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy)
+        consumer.wait_event(event)
+        dev.record_stream(consumer)
+        self._ring[slot] = (pinned, event)
+        self._next = (slot + 1) % self.RING
         return dev
 
 

@@ -14,13 +14,16 @@ window_step, the join probe), so `explain_analyze` shows them beside the
 rest.
 
 The statistics-plane (`stats`) and adaptive-execution (`aqe`) families
-are the reference's, fed by plan/statstore.py and plan/adaptive.py.
+are the reference's, fed by plan/statstore.py and plan/adaptive.py; the
+`serving` family sums the query services' admission and outcome counters
+(serving/service.py), and `faults_injected` counts the injector's fires
+(faults.py).  These counters are process-wide: with several queries in
+flight none of them can be read per query.
 
 Not carried over (ROADMAP Queue 1): the worker-pool, speculation,
 observability-plane, cache, streaming, fleet and device-exchange
 families, the encoding family but its host evictions
-(the dictionary and decimal-tier counters), the injected-fault count,
-frame compression, the stage-program cache and the lane declines and
+(the dictionary and decimal-tier counters), frame compression, the stage-program cache and the lane declines and
 fault fallbacks; the port has no site for them yet (item 16 and the
 slices of those subsystems add each back with its site).
 """
@@ -59,7 +62,15 @@ _encoding = {"host_evictions_string": 0, "host_evictions_decimal": 0,
 # lineage recovery)
 _faults = {"task_attempts": 0, "task_retries": 0, "task_retry_wait_ns": 0,
            "task_failures": 0, "fetch_failures": 0, "stage_recoveries": 0,
-           "recovered_map_tasks": 0}
+           "recovered_map_tasks": 0, "faults_injected": 0}
+
+# the query service (serving/service.py), over every service of the
+# process: its per-service `counters` under a `serving_` prefix
+_serving = {"serving_admitted": 0, "serving_completed": 0,
+            "serving_failed": 0, "serving_cancelled": 0,
+            "serving_deadline": 0, "serving_shed_queue_full": 0,
+            "serving_shed_tenant_quota": 0, "serving_shed_memory": 0,
+            "serving_shed_injected": 0}
 
 # the host file exchange (plan/stages.py)
 _shuffle = {"shuffle_host_bytes": 0}
@@ -205,6 +216,22 @@ def note_fetch_failure() -> None:
     (FetchFailedError)."""
     with _lock:
         _faults["fetch_failures"] += 1
+
+
+def note_fault_injected() -> None:
+    """The chaos injector fired one scripted fault (faults.py)."""
+    with _lock:
+        _faults["faults_injected"] += 1
+
+
+def note_serving(**counts: int) -> None:
+    """Add to the query service's counters (serving/service.py), by their
+    names without the `serving_` prefix; an unknown name is ignored."""
+    with _lock:
+        for k, v in counts.items():
+            key = f"serving_{k}"
+            if key in _serving:
+                _serving[key] += int(v)
 
 
 def note_stage_recovery(map_tasks: int = 1) -> None:
@@ -468,7 +495,8 @@ def counter_families() -> Dict[str, Dict[str, int]]:
                 "exprs": dict(_exprs),
                 "stats": dict(_stats),
                 "aqe": dict(_aqe),
-                "encoding": dict(_encoding)}
+                "encoding": dict(_encoding),
+                "serving": dict(_serving)}
     fams["launches"] = launch_counts()
     return fams
 
@@ -495,7 +523,8 @@ def reset() -> None:
     wrappers' launch counters are theirs)."""
     with _lock:
         for d in (_transfers, _pipeline, _faults, _shuffle, _stage_loop,
-                  _agg, _scatter_lane, _exprs, _stats, _aqe, _encoding):
+                  _agg, _scatter_lane, _exprs, _stats, _aqe, _encoding,
+                  _serving):
             for k in d:
                 d[k] = 0
         _compiles.clear()

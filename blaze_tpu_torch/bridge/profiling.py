@@ -9,19 +9,24 @@ A stdlib HTTP endpoint on localhost:
                   builds, graph captures), every counter family of
                   bridge/device_stats.py (transfers, pipeline, faults,
                   shuffle, stage loop, partial agg, kernel lanes, kernel
-                  launches), the latency histograms, the memory
+                  launches, serving), the latency histograms (per tenant,
+                  the query service's completed-query walls), the memory
                   manager's totals and per-operator aggregates
   /profile        the recorded query profiles (id and summary)
   /profile/<qid>  one query's explain_analyze profile (JSON)
   /query/<qid>/timeline   Chrome-trace-event JSON (Perfetto-loadable) of
                   the query's spans, with a resource-attribution block
   /query/<qid>/bottleneck the critical-path report of its spans
+  /query/<qid>/progress   the live progress of a query
+                  (serving/progress.py; under auron.tpu.stats.enable)
+  /progress       every live query's progress and the recent finished
+  /serving        stats() of every live QueryService (serving/service.py)
+  /serving/cancel?qid=<query id>   cancel a query in any live service
   /trace/start?dir=<path>, /trace/stop   a `torch.profiler` trace of the
                   process (where the reference drives the JAX profiler),
                   written as a Chrome trace under `dir`
-  /history*       404: the persistent query history, its flight recorder
-                  and routes come with the query service (ROADMAP Queue 1
-                  item 16)
+  /history*       404: the persistent query history and its flight
+                  recorder are not ported (ROADMAP Queue 1 item 16)
 
 The profile store is an LRU of `_MAX_PROFILES` entries.
 """
@@ -100,6 +105,7 @@ _FAMILY_HELP = {
     "stats": "statistics feedback plane",
     "encoding": "host-lane eviction",
     "launches": "hand-kernel wrapper launches",
+    "serving": "query service admission and outcome",
 }
 
 
@@ -142,16 +148,19 @@ def prometheus_text() -> str:
                 emit(f"blaze_{k}_total", families[fam][k],
                      f"{label} counter")
 
-    def emit_histogram(name, hist, help_):
+    def emit_histogram(name, hist, help_, labels=None):
         if name not in seen:
             seen.add(name)
             lines.append(f"# HELP {name} {help_}")
             lines.append(f"# TYPE {name} histogram")
+        extra = "".join(f',{k}="{_prom_escape(str(v))}"'
+                        for k, v in sorted((labels or {}).items()))
+        plain = "{" + extra[1:] + "}" if extra else ""
         for le, count in hist["buckets"]:
-            lines.append(f'{name}_bucket{{le="{le}"}} {count}')
-        lines.append(f'{name}_bucket{{le="+Inf"}} {hist["count"]}')
-        lines.append(f"{name}_sum {hist['sum']:.6f}")
-        lines.append(f"{name}_count {hist['count']}")
+            lines.append(f'{name}_bucket{{le="{le}"{extra}}} {count}')
+        lines.append(f'{name}_bucket{{le="+Inf"{extra}}} {hist["count"]}')
+        lines.append(f"{name}_sum{plain} {hist['sum']:.6f}")
+        lines.append(f"{name}_count{plain} {hist['count']}")
 
     hists = device_stats.latency_histograms()
     emit_histogram("blaze_task_duration_seconds",
@@ -159,6 +168,12 @@ def prometheus_text() -> str:
                    "successful task-attempt wall time")
     emit_histogram("blaze_wave_wall_seconds", hists["wave_wall_seconds"],
                    "run_tasks wave wall, first task to last result")
+    from blaze_tpu_torch.serving.service import tenant_wall_samples
+    for tenant, samples in sorted(tenant_wall_samples().items()):
+        emit_histogram(
+            "blaze_tenant_query_wall_seconds",
+            device_stats._histogram([int(s * 1e9) for s in samples]),
+            "per-tenant completed-query wall time", {"tenant": tenant})
     mm = MemManager.get()
     emit("blaze_mem_spill_count_total", mm.total_spill_count,
          "memory-manager spills")
@@ -270,7 +285,8 @@ def engine_status() -> dict:
 #: every GET route the service answers (the 404 payload lists them)
 ROUTES = ("/status", "/metrics", "/metrics.prom", "/profile",
           "/profile/<qid>", "/query/<qid>/timeline",
-          "/query/<qid>/bottleneck", "/trace/start", "/trace/stop",
+          "/query/<qid>/bottleneck", "/query/<qid>/progress", "/progress",
+          "/serving", "/serving/cancel", "/trace/start", "/trace/stop",
           "/history", "/history/<qid>", "/history/rollup")
 
 _trace = {"owner": None, "dir": None}
@@ -335,13 +351,40 @@ class _Handler(BaseHTTPRequestHandler):
                                           f"{qid!r} (is tracing enabled?)"})
             else:
                 self._send(200, json.dumps(report, sort_keys=True))
+        elif route.startswith("/query/") and route.endswith("/progress"):
+            from blaze_tpu_torch.serving import progress as progress_mod
+            qid = urllib.parse.unquote(
+                route[len("/query/"):-len("/progress")])
+            p = progress_mod.progress(qid)
+            if p is None:
+                self._json(404, {"error": f"no progress for query {qid!r} "
+                                          f"(is auron.tpu.stats.enable on?)",
+                                 "live": progress_mod.live()})
+            else:
+                self._send(200, json.dumps(p, sort_keys=True))
+        elif route == "/progress":
+            from blaze_tpu_torch.serving import progress as progress_mod
+            self._send(200, json.dumps(progress_mod.snapshot_all(),
+                                       sort_keys=True))
+        elif route == "/serving":
+            from blaze_tpu_torch.serving import serving_stats
+            self._json(200, {"services": serving_stats()})
+        elif route == "/serving/cancel":
+            from blaze_tpu_torch.serving import cancel_query
+            params = urllib.parse.parse_qs(parsed.query,
+                                           keep_blank_values=True)
+            qid = params.get("qid", [""])[0]
+            if not qid:
+                self._json(400, {"error": "expected ?qid=<query id>"})
+                return
+            self._json(200, {"query_id": qid,
+                             "cancelled": cancel_query(qid)})
         elif route == "/trace/start":
             self._trace_start(parsed)
         elif route == "/trace/stop":
             self._trace_stop()
         elif route == "/history" or route.startswith("/history/"):
-            self._json(404, {"error": "the query history is not ported: it "
-                                      "comes with the query service "
+            self._json(404, {"error": "the query history is not ported "
                                       "(ROADMAP Queue 1 item 16)"})
         else:
             self._json(404, {"error": "unknown path", "paths": list(ROUTES)})

@@ -1,6 +1,7 @@
 """Process-wide resource map.
 
-Copy of blaze_tpu/bridge/resource.py.  Parity: the JVM resource map the native side pulls shuffle-read block
+Copy of blaze_tpu/bridge/resource.py, with `created_scope`, which lets
+a stage scheduler remove the broadcast build maps its run added.  Parity: the JVM resource map the native side pulls shuffle-read block
 iterators, broadcast byte arrays and cached build-side hash maps from
 (ref: auron-core/.../jni/JniBridge.java getResource/putResource statics;
 consumed at ipc_reader_exec.rs:144 and broadcast_join_exec.rs build-map
@@ -51,19 +52,49 @@ def unregister_resolver(prefix: str) -> None:
         _resolvers.pop(prefix, None)
 
 
+_created = threading.local()
+
+
+class created_scope:
+    """`with created_scope() as keys:` lists the keys `get_or_create`
+    adds on this thread inside the block (a stage scheduler's run, whose
+    broadcast build maps it removes at its cleanup: in a long-lived
+    process the reference's cache would keep every query's)."""
+
+    def __init__(self):
+        self._prev = None
+        self.keys: list = []
+
+    def __enter__(self) -> list:
+        self._prev = getattr(_created, "keys", None)
+        _created.keys = self.keys
+        return self.keys
+
+    def __exit__(self, *exc):
+        _created.keys = self._prev
+        return False
+
+
 def get_or_create(key: str, factory: Callable[[], Any]) -> Any:
     """Cache for shared build artifacts (broadcast hash maps).
 
     The factory runs OUTSIDE the lock: building one broadcast map may
     recursively build another (nested broadcast joins), and holding the
     non-reentrant lock across the factory self-deadlocks.  Two racing
-    threads may both build; setdefault keeps exactly one."""
+    threads may both build; setdefault keeps exactly one.  A key this
+    call adds is listed in the thread's `created_scope`, if any."""
     with _lock:
         if key in _map:
             return _map[key]
     value = factory()
     with _lock:
-        return _map.setdefault(key, value)
+        if key in _map:
+            return _map[key]
+        _map[key] = value
+    keys = getattr(_created, "keys", None)
+    if keys is not None:
+        keys.append(key)
+    return value
 
 
 def remove_resource(key: str) -> None:

@@ -11,8 +11,10 @@ uses.  It runs synchronously on the caller's thread: `start()` only
 resolves the device, `batches()` pulls the tree under a `task` span
 (bridge/tracing.py) in the task's (stage, partition) trace context; the
 scan and the shuffle reader prefetch on worker threads of their own
-(ops/base.py).  The JAX package's producer thread and placement probe
-belong to later slices.
+(ops/base.py).  The task's context carries the thread's serving query
+(bridge/context.py `current_query`), whose cancellation its batch probes
+raise.  The JAX package's producer thread and placement probe belong to
+later slices.
 
 The device is `auron.torch.device` (default "cuda"); asking for CUDA on a
 machine without a visible card raises here, before any work starts.
@@ -40,12 +42,16 @@ class NativeExecutionRuntime:
         from blaze_tpu_torch.plan.fused import fuse_plan
         from blaze_tpu_torch.plan.planner import collapse_filter_project
         self.device = resolve()
+        from blaze_tpu_torch.bridge.context import current_query
         td: Dict[str, Any] = decode_task_definition(task_definition)
         self.task = TaskContext(
             stage_id=td.get("stage_id", 0),
             partition_id=td.get("partition_id", 0),
             num_partitions=td.get("num_partitions", 1),
-            task_attempt_id=td.get("task_attempt_id", 0))
+            task_attempt_id=td.get("task_attempt_id", 0),
+            # built on the task's thread inside the service's query_scope:
+            # the query rides the TaskContext into the prefetch threads
+            query=current_query())
         self.plan = fuse_plan(prune_columns(collapse_filter_project(
             plan if plan is not None else create_plan(td["plan"]))))
         self._finalized = False

@@ -56,6 +56,11 @@ SPAN_NAMES: Dict[str, str] = {
                         "at the read of its overflow flags "
                         "(runtime/loop.py)",
     "explain_analyze": "whole-query profiled execution (plan/explain.py)",
+    "admission_wait": "queue wait from QueryService.submit() to the pool "
+                      "slot's pop that starts the query "
+                      "(serving/service.py; attrs query/tenant)",
+    "query": "one admitted query's execution on its pool slot, after its "
+             "admission wait (serving/service.py; attrs query/tenant)",
     "operator:*": "per-operator stream total accumulated across next() "
                   "calls; suffix is the ExecutionPlan class name "
                   "(ops/base.py stream meter)",
@@ -81,6 +86,8 @@ SPAN_NAMES: Dict[str, str] = {
     "aqe_history_seed": "bind-time planning applied statstore-derived "
                         "seeds to the plan (plan/adaptive.py; attrs "
                         "seeds)",
+    "fault_injected": "the chaos injector fired a scripted fault "
+                      "(faults.py; attrs site)",
 }
 
 

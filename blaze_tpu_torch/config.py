@@ -413,6 +413,58 @@ STAGE_MAX_RECOVERIES = int_conf(
     "the poisoned producer map task and restarts the consuming stage; "
     "beyond this many rounds the failure propagates.")
 
+# -- the query service (serving/service.py) and the per-query limits
+# -- (serving/context.py), as the JAX package names them
+
+SERVING_MAX_CONCURRENT = int_conf(
+    "auron.tpu.serving.maxConcurrent", 4,
+    "Queries executing at once in the QueryService (serving/service.py), "
+    "one pool slot and one CUDA stream each; admitted queries beyond "
+    "this wait in the bounded queue.", category="serving")
+SERVING_MAX_QUEUE = int_conf(
+    "auron.tpu.serving.maxQueue", 32,
+    "Bounded admission queue depth: a submission past it is shed at once "
+    "with QueryRejected(kind='queue-full').", category="serving")
+SERVING_TENANT_MAX_INFLIGHT = int_conf(
+    "auron.tpu.serving.tenant.maxInflight", 8,
+    "Per-tenant in-flight cap (queued + running): a submission past it "
+    "is shed with QueryRejected(kind='tenant-quota').", category="serving")
+SERVING_ADMIT_MEM_BYTES = int_conf(
+    "auron.tpu.serving.admitMemBytes", 0,
+    "Admission ceiling on a query's file-scan bytes: a query estimated "
+    "above it is shed with QueryRejected(kind='memory').  0 disables; an "
+    "input that cannot be stat'ed always admits.", category="serving")
+QUERY_DEADLINE_MS = int_conf(
+    "auron.tpu.query.deadlineMs", 0,
+    "Default per-query deadline in ms, applied at submission when the "
+    "caller passes none: past it the query is cancelled (DeadlineExceeded) "
+    "within one batch and torn down.  0 = no deadline.", category="serving")
+QUERY_MEM_QUOTA = int_conf(
+    "auron.tpu.query.memQuota", 0,
+    "Default per-query quota in bytes over the MemManager's consumers: a "
+    "breaching query sheds its own state and climbs the degradation "
+    "ladder (partial-agg pass-through, then batch-capacity shrink), and "
+    "is killed (QueryMemoryExceeded) at its third rung.  0 = no quota.",
+    category="serving")
+
+# -- deterministic fault injection (faults.py)
+
+FAULTS_ENABLE = bool_conf(
+    "auron.tpu.faults.enable", False,
+    "Activate the fault-injection registry (faults.py) from "
+    "auron.tpu.faults.rules and .seed: chaos testing only.",
+    category="fault-tolerance")
+FAULTS_SEED = int_conf(
+    "auron.tpu.faults.seed", 0,
+    "Seed of the injection decisions: the k-th evaluation of a site fires "
+    "as a pure function of (seed, site, k).", category="fault-tolerance")
+FAULTS_RULES = str_conf(
+    "auron.tpu.faults.rules", "",
+    "Comma-separated injection rules: `site=p`, `site=p*max`, "
+    "`site@k1+k2`, an optional `:corrupt` action.  The port's sites: "
+    "task-start, shuffle-read, quota-breach, admit, cancel-race; a site "
+    "of the reference the port lacks raises.", category="fault-tolerance")
+
 # -- the Spark front door (convert/spark.py): the master switch, the UDF
 # -- routes and the per-operator switches, as the JAX package has them
 
@@ -465,7 +517,11 @@ UNPORTED_SCHEDULER_KEYS = {
     "auron.tpu.workers.enable": "item 16 (worker-process pool)",
     "auron.tpu.speculation.enable": "item 16 (speculative execution)",
     "auron.tpu.shuffle.service": "item 16 (remote shuffle service)",
-    "auron.tpu.cache.enable": "item 16 (subplan cache)",
-    "auron.tpu.history.enable": "item 16 (query history)",
+    "auron.tpu.cache.enable": "item 16 (subplan and result caches)",
+    "auron.tpu.history.enable": "item 16 (query history, its emitters)",
+    "auron.tpu.serving.singleFlight": "item 16 (single-flight)",
+    "auron.tpu.serving.useWorkerPool": "item 16 (the service's worker "
+                                       "pool)",
+    "auron.tpu.flightRecorder.enable": "item 16 (the flight recorder)",
     "auron.tpu.shuffle.device": "item 14 (device exchange)",
 }

@@ -30,7 +30,8 @@ side).  The graphs of every program share one memory pool per device
 (`torch.cuda.graph_pool_handle`); a replay runs under
 `device.CAPTURE_LOCK` and waits for the last replay's copy-out, so no two
 replays, on any thread or stream, overlap.  A capture holds
-`CAPTURE_LOCK` too, in the thread-local error mode: an operation of the
+`CAPTURE_LOCK` too, on the device's private capture stream
+(`device.capture_stream`), in the thread-local error mode: an operation of the
 chain that cannot be captured (a sync, a pageable copy) raises; no chain
 the whitelist admits falls back to the eager path quietly.  On the CPU
 the same body runs eagerly.
@@ -277,6 +278,7 @@ class _Graph:
     def __init__(self, prog: "ExprProgram", flat: List[torch.Tensor],
                  in_layout: _Layout, cap: int):
         from blaze_tpu_torch.bridge import tracing
+        from blaze_tpu_torch.device import capture_stream
         dev = flat[0].device
         t0 = time.perf_counter()
         self.in_layout = in_layout
@@ -293,7 +295,7 @@ class _Graph:
         if key not in _pools:
             _pools[key] = torch.cuda.graph_pool_handle()
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = capture_stream(dev)  # private: no query issues on it
         side.wait_stream(main)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
@@ -507,8 +509,13 @@ def program_cache_info() -> dict:
 
 
 def clear_program_cache() -> None:
+    """Forget every program, and with them the graphs' shared memory
+    pool: a graph captured afterwards into the old pool, whose graphs
+    are gone, would trip the caching allocator's assert on its use
+    count."""
     with _cache_lock:
         _programs.clear()
+        _pools.clear()
 
 
 # ---------------------------------------------------------------------------

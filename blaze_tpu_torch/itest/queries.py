@@ -608,14 +608,14 @@ def q95(paths, tables, partitions: int = 4):
                 (wsd.ws_web_site_sk <= 2)]
         f = f.merge(cad[cad.ca_state == "IL"],
                     left_on="ws_ship_addr_sk", right_on="ca_address_sk")
-        # EXISTS: some ws row of the same order with a different warehouse
-        wh_sets = wsd.groupby("ws_order_number").ws_warehouse_sk \
-            .agg(lambda s: set(s))
-        def qualifies(row):
-            whs = wh_sets.get(row.ws_order_number, set())
-            return bool(whs - {row.ws_warehouse_sk})
+        # EXISTS: some ws row of the same order with a different
+        # warehouse.  A row's own warehouse is one of its order's, so its
+        # order has two or more distinct ones (a NULL warehouse, as in
+        # SQL, differs from none)
+        n_wh = wsd.groupby("ws_order_number").ws_warehouse_sk.nunique()
         if len(f):
-            f = f[f.apply(qualifies, axis=1)]
+            f = f[(f.ws_order_number.map(n_wh).fillna(0) >= 2).to_numpy()
+                  & f.ws_warehouse_sk.notna().to_numpy()]
         f = f[~f.ws_order_number.isin(set(wrd.wr_order_number))]
         # SQL SUM over zero rows is NULL, not pandas' 0.0
         return pd.DataFrame({

@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels under `csrc/` (and the
-host-only CRC32C of the shuffle frames, `csrc/crc32c.cu`).
+host-only CRC32C of the shuffle frames, `csrc/crc32c.cu`, and private
+streams, `csrc/streams.cu`).
 
 Each source is compiled by `nvcc` for `sm_90a` into its own shared library
 with a plain C interface, loaded with `ctypes` (no PyTorch headers, so a
@@ -44,6 +45,7 @@ SOURCES = {
     "window_table": "window_table.cu",
     "crc32c": "crc32c.cu",
     "segment_sum": "segment_sum.cu",
+    "streams": "streams.cu",
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -83,6 +85,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, list]]] = {
         "blaze_crc32c": (ctypes.c_uint32, [ctypes.c_char_p,
                                            ctypes.c_longlong,
                                            ctypes.c_uint32]),
+    },
+    "streams": {
+        # device, out handle
+        "blaze_stream_create": (_I, [_I, ctypes.POINTER(_P)]),
     },
 }
 

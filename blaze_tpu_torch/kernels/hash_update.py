@@ -36,6 +36,7 @@ bit as one more limb, so equality over all limbs is SQL grouping equality.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -160,7 +161,7 @@ class Scratch:
     their tags from it alike; the host only counts the tags it has let
     launches take (`reserve`), and zeroes the scratch before they would
     run out.  Each CUDA graph of the device stage loop owns one; eager
-    calls share one per device."""
+    calls share one per (device, stream)."""
 
     #: tags are 32-bit; the scratch is zeroed again before they run out
     TAG_LIMIT = (1 << 32) - 1
@@ -185,18 +186,34 @@ class Scratch:
         self.next += tags
 
 
-#: device index -> the eager calls' Scratch, sized for the largest table
-#: placed there; kernels on one device run on PyTorch's current stream,
-#: one at a time
+#: (device index, stream handle) -> the eager calls' Scratch on that
+#: stream, sized for the largest table placed there.  A stream's calls run
+#: in order, so they may share its scratch; `_lock` makes the host side of
+#: a call (the scratch's tag count, a larger replacement, the launch) one
+#: step, so two threads on one stream cannot interleave there, and calls
+#: on two streams (two queries of the query service) never share claim
+#: and stamp arrays.  A scratch replaced by a larger one is freed on its
+#: own stream, after the launches that used it.
 _scratch: dict = {}
+_lock = threading.Lock()
 
 
-def _scratch_for(device, S: int, rounds: int) -> Scratch:
-    sc = _scratch.get(device.index)
+def _scratch_for(device, stream: int, S: int, rounds: int) -> Scratch:
+    """The eager scratch of (device, stream); the caller holds `_lock`."""
+    key = (device.index, stream)
+    sc = _scratch.get(key)
     if sc is None or sc.slots < S or sc.rounds < rounds:
-        sc = _scratch[device.index] = Scratch(
+        sc = _scratch[key] = Scratch(
             device, max(S, sc.slots if sc else 0), rounds)
     return sc
+
+
+def add_replayed(nodes: int) -> None:
+    """Count the placement launches of one graph replay holding `nodes`
+    captured calls (runtime/loop.py)."""
+    global placement_launches
+    with _lock:
+        placement_launches += nodes
 
 
 def _place_cuda(h, limbs, mask, used, tab, probe_rounds: int,
@@ -213,24 +230,28 @@ def _place_cuda(h, limbs, mask, used, tab, probe_rounds: int,
     if capturing and scratch is None:
         raise RuntimeError("place_in_carry: a captured launch needs the "
                            "graph's own scratch")
-    sc = scratch if scratch is not None else _scratch_for(h.device, S,
-                                                          probe_rounds)
-    if sc.slots < S or sc.rounds < probe_rounds:
-        raise ValueError(f"place_in_carry: scratch for {sc.slots} slots and "
-                         f"{sc.rounds} rounds, table {S} and {probe_rounds}")
-    if not capturing:
-        sc.reserve(probe_rounds + 1)
     out = torch.empty(2 * n + 1, dtype=torch.int32, device=h.device)
-    rc = build.bound("hash_update", "blaze_place_in_carry")(
-        h.data_ptr(), limbs.data_ptr(), mask.data_ptr(), used.data_ptr(),
-        tab.data_ptr(), out.data_ptr(), sc.buf.data_ptr(), sc.slots, n, S,
-        L, probe_rounds, int(h.dtype == torch.int64), int(rollback),
-        build.stream_of(h.device))
+    stream = build.stream_of(h.device)
+    with _lock:
+        sc = scratch if scratch is not None else _scratch_for(
+            h.device, stream, S, probe_rounds)
+        if sc.slots < S or sc.rounds < probe_rounds:
+            raise ValueError(f"place_in_carry: scratch for {sc.slots} slots "
+                             f"and {sc.rounds} rounds, table {S} and "
+                             f"{probe_rounds}")
+        if not capturing:
+            sc.reserve(probe_rounds + 1)
+        rc = build.bound("hash_update", "blaze_place_in_carry")(
+            h.data_ptr(), limbs.data_ptr(), mask.data_ptr(),
+            used.data_ptr(), tab.data_ptr(), out.data_ptr(),
+            sc.buf.data_ptr(), sc.slots, n, S, L, probe_rounds,
+            int(h.dtype == torch.int64), int(rollback), stream)
+        if rc == 0:
+            if capturing:
+                captured_launches += 1
+            else:
+                placement_launches += 1
     build.check(rc, "hash placement kernel")
-    if capturing:
-        captured_launches += 1
-    else:
-        placement_launches += 1
     return out[:n], out[n:2 * n], out[2 * n:]
 
 

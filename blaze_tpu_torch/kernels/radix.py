@@ -144,11 +144,13 @@ def _launch(pid, P: int, capacity: int, sentinel: int, part, slot, order,
         if rc != 0:
             # the parity no longer matches what ran: start afresh
             _scratch.pop(key, None)
+        else:
+            # counted under the lock: two query threads launch at once
+            partition_launches += 1
+            kernel_launches["downsweep"] += 1
+            if tiles > 1:
+                kernel_launches["upsweep"] += 1
     build.check(rc, "radix partition kernel")
-    partition_launches += 1
-    kernel_launches["downsweep"] += 1
-    if tiles > 1:
-        kernel_launches["upsweep"] += 1
 
 
 def _partition_ranks_cuda(pid: torch.Tensor, P: int, capacity: int):

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import threading
+
 import numpy as np
 import torch
 
@@ -57,13 +59,16 @@ _FORMS = {"sum": 0, "into": 1, "running": 2}
 form_launches = dict.fromkeys(_FORMS, 0)
 #: launches recorded into CUDA graphs while they were captured, by form
 captured_launches = dict.fromkeys(_FORMS, 0)
+#: the counts' lock: query threads of the query service launch at once
+_count_lock = threading.Lock()
 
 
 def add_replayed(nodes: dict) -> None:
     """Count the launches of one graph replay holding `nodes` captured
     launches by form."""
-    for form, count in nodes.items():
-        form_launches[form] += count
+    with _count_lock:
+        for form, count in nodes.items():
+            form_launches[form] += count
 
 
 def sort_indices(columns: Sequence[Tuple[torch.Tensor,
@@ -266,10 +271,11 @@ def _launch(form, ids, order, values, valid, out, S):
         scratch.data_ptr(), n, S, SHORT_MAX,
         int(values.dtype == torch.float64), build.stream_of(values.device))
     build.check(rc, f"segment_sum kernel ({form})")
-    if torch.cuda.is_current_stream_capturing():
-        captured_launches[form] += 1
-    else:
-        form_launches[form] += 1
+    with _count_lock:
+        if torch.cuda.is_current_stream_capturing():
+            captured_launches[form] += 1
+        else:
+            form_launches[form] += 1
 
 
 def _valid_bytes(valid):

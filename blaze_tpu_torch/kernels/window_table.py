@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -60,6 +61,7 @@ MM_IDENT = {True: (1 << 31) - 1, False: -(1 << 31)}
 #: launches of the CUDA step kernel (one per `window_step` call on a CUDA
 #: device)
 window_step_launches = 0
+_count_lock = threading.Lock()  # query threads launch at once
 
 
 class WindowTableLayout(NamedTuple):
@@ -422,7 +424,8 @@ def _window_step_cuda(meta, ranges, kd, kv, ad, av, m, carry):
     rc = build.bound("window_table", "blaze_window_step")(
         words, build.stream_of(m.device))
     build.check(rc, "window-step kernel")
-    window_step_launches += 1
+    with _count_lock:
+        window_step_launches += 1
     return table, mm_accs, ok
 
 

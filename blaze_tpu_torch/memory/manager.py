@@ -28,13 +28,17 @@ the JAX device's `bytes_limit`; on the CPU, as in the JAX package,
 min(physical memory x `auron.process.vmrss.memoryFraction`, 4 GiB) times
 the fraction.
 
-`TaskContext.query` (bridge/context.py `active_query`) is None until the
-query service is ported (ROADMAP item 16), so quotas and cross-query
-arbitration are reached only by consumers given a query object.  Every
-spill emits a `mem_spill` trace instant (its consumer, bytes and cause)
-and a quota breach a `quota_breach` one (bridge/tracing.py).  Not
-carried over: the `mem-pressure` and `quota-breach` fault sites (item
-16).
+A consumer's query is the serving query active where it registers
+(bridge/context.py `active_query`: the query service's slot binds it, and
+each task's context carries it), so quotas and cross-query arbitration
+act on the queries the service runs at once; a consumer of no query is a
+query of its own.  The ladder's third rung cancels the query
+(`QueryMemoryExceeded` at its next check).  The `quota-breach` fault
+site (faults.py) forces a breach at an evaluation, the quota then taken
+as the query's current bytes.  Every spill emits a `mem_spill` trace
+instant (its consumer, bytes and cause) and a quota breach a
+`quota_breach` one (bridge/tracing.py).  Not carried over: the
+`mem-pressure` fault site (item 16).
 """
 
 from __future__ import annotations
@@ -247,20 +251,22 @@ class MemManager:
         """A query over its `mem_quota` sheds its own consumers, largest
         first, down to 0.8 of the quota, and climbs one rung of its
         degradation ladder."""
+        from blaze_tpu_torch import faults
         q = updated.query
         if q is None:
             return
         quota = int(getattr(q, "mem_quota", 0) or 0)
         mine = [c for c in self._consumers if c.query is q]
         used = sum(c.mem_used for c in mine)
-        if quota <= 0 or used <= quota:
+        forced = faults.fires("quota-breach")
+        if not forced and (quota <= 0 or used <= quota):
             return
         self.total_quota_breaches += 1
         rung = q.degrade()
         from blaze_tpu_torch.bridge import tracing
         tracing.instant("quota_breach", query=getattr(q, "query_id", None),
                         used=used, quota=quota, rung=rung)
-        target = int(quota * MEM_SPILL_FACTOR)
+        target = int((quota if quota > 0 else used) * MEM_SPILL_FACTOR)
         for c in sorted(mine, key=lambda c: -c.mem_used):
             if sum(x.mem_used for x in mine) <= target:
                 break

@@ -46,9 +46,11 @@ The wire's `supports_partial_skipping` flag (a host engine's, or
 adaptive execution's history seed, plan/adaptive.py) reaches the
 operator as `skip_partial_hint`: an eligible partial aggregation then
 skips the probe window and passes rows through from its first batch.
-The probe, the skip and the pass-through rows count in
-bridge/device_stats.py (`partial_agg_*`).  Not carried over: the serving
-layer's degradation rung that forces pass-through (ROADMAP item 16).
+The first rung of a serving query's degradation ladder
+(`force_agg_passthrough`, serving/context.py, climbed by the memory
+manager on a quota breach) forces the same pass-through at the next
+batch, whatever the probe would say.  The probe, the skip and the
+pass-through rows count in bridge/device_stats.py (`partial_agg_*`).
 """
 
 from __future__ import annotations
@@ -230,6 +232,14 @@ class _AggState(MemConsumer):
     def _should_skip_partials(self) -> bool:
         if self._probe_done or not self._skip_eligible():
             return False
+        # degradation rung 1 (a serving quota breach): pass-through
+        # regardless of the probe, trading the merge ratio for bounded
+        # partial state
+        from blaze_tpu_torch.bridge.context import active_query
+        q = active_query()
+        if q is not None and getattr(q, "force_agg_passthrough", False):
+            self._probe_done = True
+            return True
         if self.op.skip_partial_hint:
             self._probe_done = True
             return True
@@ -466,12 +476,17 @@ class _AggState(MemConsumer):
                                           schema=self._internal_schema)
 
     def try_release_pressure(self) -> int:
-        """Skip-on-spill: with `auron.tpu.partialAgg.skipping.onSpill`, an
-        aggregation that may pass rows through hands its buffered
-        partials downstream un-merged (emitted at the next pull) and
-        switches to pass-through instead of spilling them."""
-        if not (config.PARTIAL_AGG_SKIPPING_ON_SPILL.get() and
-                not self.skipping and not self._output_started and
+        """Skip-on-spill: with `auron.tpu.partialAgg.skipping.onSpill`, or
+        for a query on its degradation ladder (its quota breach already
+        chose degradation over spill IO), an aggregation that may pass
+        rows through hands its buffered partials downstream un-merged
+        (emitted at the next pull) and switches to pass-through instead
+        of spilling them."""
+        q = self.query
+        degraded = q is not None and getattr(q, "force_agg_passthrough",
+                                             False)
+        if not ((config.PARTIAL_AGG_SKIPPING_ON_SPILL.get() or degraded)
+                and not self.skipping and not self._output_started and
                 self.buffer and self._skip_eligible()):
             return 0
         self.skipping = True

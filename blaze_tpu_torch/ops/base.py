@@ -175,7 +175,7 @@ class _Channel:
     iterator early (a LimitExec above a scan) lets it be collected, and
     its `__del__` stops and joins the worker."""
 
-    __slots__ = ("source", "transform", "queue", "stop", "ctx")
+    __slots__ = ("source", "transform", "queue", "stop", "ctx", "stream")
 
     def __init__(self, source, transform, depth, ctx):
         self.source = source
@@ -183,6 +183,12 @@ class _Channel:
         self.queue = queue.Queue(maxsize=depth)
         self.stop = threading.Event()
         self.ctx = ctx
+        # the consumer's current CUDA stream (a query service slot's own),
+        # which the worker makes its current stream too; None before any
+        # CUDA work, when both are the default stream
+        import torch
+        self.stream = (torch.cuda.current_stream()
+                       if torch.cuda.is_initialized() else None)
 
     def put(self, item) -> bool:
         while not self.stop.is_set():
@@ -195,11 +201,18 @@ class _Channel:
 
 
 def _work(ch: _Channel) -> None:
+    import contextlib
+
+    import torch
     from blaze_tpu_torch.bridge.context import task_scope
     try:
-        # the worker re-enters the consumer's TaskContext: cancellation
-        # checks and task-scoped state are thread-local
-        with task_scope(ch.ctx):
+        # the worker re-enters the consumer's TaskContext (cancellation
+        # checks and task-scoped state are thread-local) and its stream:
+        # whatever CUDA work the source or the transform issue here is
+        # ordered before the consumer's use of the batch
+        with task_scope(ch.ctx), (
+                torch.cuda.stream(ch.stream) if ch.stream is not None
+                else contextlib.nullcontext()):
             for item in ch.source:
                 if ch.transform is not None:
                     item = ch.transform(item)
@@ -404,10 +417,27 @@ class ExecutionPlan:
         return "\n".join(lines)
 
 
+def effective_batch_size(base: Optional[int] = None) -> int:
+    """The coalesce target under the active query's degradation ladder
+    (serving/context.py): each `shrink-capacity` rung halves it (floor
+    256 rows), so a quota-breaching query re-batches smaller and retains
+    less state."""
+    from blaze_tpu_torch.bridge.context import active_query
+    size = base or config.BATCH_SIZE.get()
+    q = active_query()
+    if q is not None:
+        shrink = getattr(q, "capacity_shrink", 0)
+        if shrink:
+            size = max(256, size >> shrink)
+    return size
+
+
 class CoalesceStream:
     """Re-batches a stream to ~batch_size dense rows, compacting batches
     whose surviving-row density is below `min_density` (same rules as the
-    JAX package, so batch boundaries match)."""
+    JAX package, so batch boundaries match).  The target is
+    `effective_batch_size`, read again at every batch, so a degradation
+    rung takes effect at the next batch."""
 
     def __init__(self, stream: BatchIterator, batch_size: Optional[int] = None,
                  min_density: float = 0.5,
@@ -421,9 +451,9 @@ class CoalesceStream:
         staged: List[ColumnBatch] = []
         staged_rows = 0
         ctx = current_task()
-        target = self._batch_size
         for batch in self._stream:
             ctx.check_running()
+            target = effective_batch_size(self._batch_size)
             n = batch.selected_count()
             if n == 0:
                 continue

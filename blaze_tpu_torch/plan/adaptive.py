@@ -50,13 +50,16 @@ untouched.  Disabled (`auron.tpu.aqe.enable`, default off) the whole
 module is one lazily-probed boolean — the executed plan is
 byte-identical to the static one.
 
-Left for ROADMAP item 16, with the subsystems they need: the serving
-progress registry's re-plan note (the reference's
-`progress.note_stage_replan`, under a serving query id the port's
-scheduler does not have), the rewrite-under-cancellation contract
-(`serving/context.py` `QueryContext`), the subplan cache's refusal of
-derived fingerprints, and the per-stage placement table the reference
-marks an elided stage in.
+Under a serving query (serving/context.py), a committed rewrite tells
+the live progress registry (`progress.note_stage_replan`, under
+`auron.tpu.stats.enable`), so its ETA stops trusting the static plan's
+prior; and a rewrite is abandoned, the static plan kept, when the query
+is cancelled before the rewrite commits: the scheduler's next check then
+raises the cancellation, and nothing of a rewrite is left half made.
+
+Left for ROADMAP item 16, with the subsystems they need: the subplan
+cache's refusal of derived fingerprints, and the per-stage placement
+table the reference marks an elided stage in.
 """
 
 from __future__ import annotations
@@ -247,9 +250,16 @@ class AqeRuntime:
         """Called by the scheduler right after `stage`'s map outputs
         commit.  Never raises: any failure abandons the rewrite and the
         static plan proceeds untouched."""
+        from blaze_tpu_torch.serving.context import is_cancellation
         try:
             self._on_commit(completed, stages_by_id)
-        except Exception:
+        except Exception as e:
+            if is_cancellation(e):
+                # abandoned: the static plan stays, and the scheduler's
+                # next check raises the cancellation
+                log.debug("aqe: query cancelled; rewrite after stage %s "
+                          "abandoned", stage.sid)
+                return
             log.warning("aqe: rewrite evaluation failed after stage %s; "
                         "the static plan proceeds", stage.sid,
                         exc_info=True)
@@ -269,6 +279,9 @@ class AqeRuntime:
 
     def _commit_rewrite(self, c, rule: str, new_plan, num_tasks: int,
                         derived_fp: str, detail: Dict[str, Any]) -> None:
+        query = getattr(self._sched, "_query", None)
+        if query is not None:
+            query.check()  # a cancelled query's rewrite is abandoned
         c.plan = new_plan
         c.num_tasks = int(num_tasks)
         c.aqe = {"rule": rule, "fingerprint": derived_fp, **detail}
@@ -279,6 +292,11 @@ class AqeRuntime:
         self._sched.aqe_events.append(
             {"rule": rule, "stage": c.sid, "tasks": c.num_tasks,
              "fingerprint": derived_fp, **detail})
+        from blaze_tpu_torch.plan import statstore
+        qid = getattr(query, "query_id", None)
+        if statstore.enabled() and qid is not None:
+            from blaze_tpu_torch.serving import progress
+            progress.note_stage_replan(qid, c.sid, c.num_tasks)
 
     def _join_with_reader_children(self, plan) -> Optional[Dict[str, Any]]:
         """The unique inner hash_join whose children are both direct

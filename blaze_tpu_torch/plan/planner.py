@@ -60,9 +60,9 @@ _LATER_KINDS = dict.fromkeys(("parquet_sink", "orc_sink", "orc_scan",
 class CoalesceBatchesExec(ExecutionPlan):
     """Plan-addressable re-batching node (ref CoalesceStream auto-wrap,
     rt.rs:160-166) over the port's CoalesceStream.  Its target is
-    `batch_size`, else `auron.batch.size`: the JAX package's
-    degradation ladder, which halves it under the serving layer's
-    `capacity_shrink`, belongs to ROADMAP Queue 1 item 16."""
+    `batch_size`, else `auron.batch.size`, halved per `shrink-capacity`
+    rung of a degraded serving query (ops/base.py
+    `effective_batch_size`)."""
 
     def __init__(self, child: ExecutionPlan, batch_size: Optional[int] = None):
         super().__init__([child])

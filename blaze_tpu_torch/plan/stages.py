@@ -35,11 +35,11 @@ through bridge/tasks.py (bounded retries; a retry declines the device
 stage loop).  `task_runs` counts how often each map task ran.
 
 Each stage runs inside a `torch.profiler.record_function` range named
-`STAGE_RANGE + str(sid)` and ends in a device synchronisation;
-`stage_walls` holds its host-clock seconds.  A producer stage's tasks run
-under a `shuffle_exchange` span and a recovery under `stage_recovery`
-(bridge/tracing.py); the map outputs' bytes and each recovery count in
-bridge/device_stats.py.
+`STAGE_RANGE + str(sid)` and ends in a synchronisation of the stream it
+ran on; `stage_walls` holds its host-clock seconds.  A producer stage's
+tasks run under a `shuffle_exchange` span and a recovery under
+`stage_recovery` (bridge/tracing.py); the map outputs' bytes and each
+recovery count in bridge/device_stats.py.
 
 Adaptive execution and the statistics plane (plan/adaptive.py,
 plan/statstore.py), as the JAX scheduler hooks them: `run_collect`
@@ -51,6 +51,24 @@ per-partition bytes at its commit (`_note_boundary`, into
 consumers that have not run yet (`aqe_events`, `Stage.aqe`).  Both off
 (the defaults), each hook is one lazily probed boolean and the executed
 plan and every map output byte are the static ones.
+
+The serving query (`query_ctx`, else the thread's
+`bridge.context.current_query()`, as the query service binds it) is
+checked before any work and before every task (bridge/tasks.py); its
+batch probes raise its cancellation inside a task, and on every exit
+path `run_collect`'s finally runs `cleanup`, which is idempotent and safe
+to call from a cancelling thread, so a torn-down query leaves no shuffle
+file, resource or scratch directory (`leak_report`).  The broadcast
+build maps a run's tasks add to the resource map go with it
+(bridge/resource.py `created_scope`), where the JAX package keeps them
+for the life of the process: a long-lived service would hold every
+query's.  Under `auron.tpu.stats.enable` a query with an id feeds the
+live progress registry (serving/progress.py): its start with the
+statstore prior, each stage's start and task count, each finished task,
+each task's rows and bytes, and its end.  A stage's closing synchronisation waits for the
+calling thread's stream only (a query service slot's own), so
+concurrent queries do not wait on each other's work and no capture on
+another thread is broken.
 
 Not ported, each raising where the JAX scheduler would take it: the
 device-exchange, remote-shuffle, subplan-cache, history, worker-pool and
@@ -72,7 +90,8 @@ from typing import Any, Dict, List, Optional
 import pyarrow as pa
 
 from blaze_tpu_torch.bridge.metrics import MetricNode
-from blaze_tpu_torch.bridge.resource import put_resource, remove_resource
+from blaze_tpu_torch.bridge.resource import (created_scope, put_resource,
+                                              remove_resource)
 from blaze_tpu_torch.bridge.tasks import run_tasks
 from blaze_tpu_torch.faults import FetchFailedError
 
@@ -112,11 +131,19 @@ def _check_ported_branches() -> None:
 class DagScheduler:
     """Split at exchanges, then run stages bottom-up over the proto wire."""
 
-    def __init__(self, work_dir: Optional[str] = None):
+    def __init__(self, work_dir: Optional[str] = None, query_ctx=None):
         self._owns_dir = work_dir is None
         self._dir = work_dir or tempfile.mkdtemp(prefix="blaze-dag-")
         os.makedirs(self._dir, exist_ok=True)
         self._files: List[str] = []
+        # resource-map keys the run's tasks added (broadcast build maps,
+        # bridge/resource.py created_scope), removed at cleanup
+        self._created: List[str] = []
+        # the governing serving QueryContext: its token interrupts the
+        # waves, the retries and the batch loops (None: a standalone
+        # query)
+        from blaze_tpu_torch.bridge.context import current_query
+        self._query = query_ctx if query_ctx is not None else current_query()
         self._cleanup_lock = threading.Lock()
         self._run_id = uuid.uuid4().hex[:10]
         self.stages: List[Stage] = []
@@ -147,11 +174,45 @@ class DagScheduler:
         self._stats_task_ns: Optional[List[int]] = None
         self._stats_t0: float = 0.0
 
+    @property
+    def work_dir(self) -> str:
+        """The directory of this scheduler's shuffle files."""
+        return self._dir
+
+    @property
+    def query_id(self) -> Optional[str]:
+        """The governing serving query's id, or None."""
+        return getattr(self._query, "query_id", None)
+
     def _record_task_metrics(self, sid: int, tree: MetricNode) -> None:
         from blaze_tpu_torch.bridge import profiling
         self.stage_metrics.setdefault(
             sid, MetricNode(name=tree.name)).merge_from(tree)
         profiling.record_metrics(tree.to_dict())
+        from blaze_tpu_torch.plan import statstore
+        if statstore.enabled() and self.query_id is not None:
+            from blaze_tpu_torch.serving import progress
+            values = tree.values or {}
+            progress.note_rows(
+                self.query_id, sid,
+                rows=int(values.get("output_rows", 0) or 0),
+                bytes_=int(values.get("io_bytes", 0) or 0))
+
+    def _wave(self, fn, n: int, what: str, sid: int):
+        """`run_tasks` under the query, with the progress registry told
+        of the stage's tasks and of each one that finishes."""
+        from blaze_tpu_torch.plan import statstore
+        qid = self.query_id
+        if statstore.enabled() and qid is not None:
+            from blaze_tpu_torch.serving import progress
+            progress.note_stage_start(qid, sid, n)
+            inner = fn
+
+            def fn(i, _inner=inner):
+                out = _inner(i)
+                progress.note_task_done(qid, sid)
+                return out
+        return run_tasks(fn, n, what, query=self._query)
 
     def collect_metrics(self) -> Optional[MetricNode]:
         """Merged metric tree of the result stage (the operator tree the
@@ -322,8 +383,13 @@ class DagScheduler:
             t0 = time.perf_counter()
             with torch.profiler.record_function(STAGE_RANGE + str(sid)):
                 yield
-                if resolve().type == "cuda":
-                    torch.cuda.synchronize()
+                dev = resolve()
+                if dev.type == "cuda":
+                    # the stage's stream, not the device: a device-wide
+                    # synchronisation fails beside another thread's graph
+                    # capture and breaks it (itest/capture_modes.py), and
+                    # a concurrent query's work is not this stage's
+                    torch.cuda.current_stream(dev).synchronize()
             self.stage_walls[sid] = time.perf_counter() - t0
         return scope()
 
@@ -343,8 +409,9 @@ class DagScheduler:
                 tracing.span("shuffle_exchange", stage=stage.sid,
                              tasks=stage.num_tasks,
                              partitioning=part.get("kind")):
-            run_tasks(lambda m: self._run_map_task(stage, part, m),
-                      stage.num_tasks, f"stage {stage.sid} (shuffle write)")
+            self._wave(lambda m: self._run_map_task(stage, part, m),
+                       stage.num_tasks, f"stage {stage.sid} (shuffle write)",
+                       stage.sid)
         self._stage_outputs[stage.sid] = {
             m: self._read_map_output(stage, m, n_out)
             for m in range(stage.num_tasks)}
@@ -392,7 +459,8 @@ class DagScheduler:
         with tracing.span("stage_recovery", stage=ff.stage_id,
                           map_task=ff.map_id):
             run_tasks(lambda _i: self._run_map_task(stage, part, ff.map_id),
-                      1, f"stage {ff.stage_id} recovery (map {ff.map_id})")
+                      1, f"stage {ff.stage_id} recovery (map {ff.map_id})",
+                      query=self._query)
         self._stage_outputs[stage.sid][ff.map_id] = self._read_map_output(
             stage, ff.map_id, int(part.get("num_partitions", 1)))
         device_stats.note_stage_recovery(1)
@@ -439,7 +507,8 @@ class DagScheduler:
         node = fuse_plan(prune_columns(
             collapse_filter_project(create_plan(plan))))
         try:
-            with self._stage_scope(0), task_scope(TaskContext()):
+            with self._stage_scope(0), \
+                    task_scope(TaskContext(query=self._query)):
                 out = node.execute_collect().to_arrow()
         finally:
             self._record_task_metrics(0, node.collect_metrics())
@@ -521,6 +590,16 @@ class DagScheduler:
         self._stats_base = device_stats.snapshot()
         self._stats_task_ns = device_stats.open_task_sink()
         self._stats_t0 = time.perf_counter()
+        if self.query_id is not None:
+            prior = statstore.prior(self.stats_fingerprint)
+            prior_wall = None
+            if prior is not None:
+                prior_wall = (prior.get("derived") or {}).get("wall_p50_s")
+                if prior_wall:
+                    device_stats.note_stats(eta_seeded=1)
+            from blaze_tpu_torch.serving import progress
+            progress.note_query_start(self.query_id, self.stats_fingerprint,
+                                      prior_wall)
 
     def _stats_end(self, ok: bool) -> None:
         """Close the feedback loop: on success, ingest this run's
@@ -532,10 +611,15 @@ class DagScheduler:
             return
         from blaze_tpu_torch.bridge import device_stats
         device_stats.close_task_sink(task_ns)
+        wall_s = time.perf_counter() - self._stats_t0
+        if self.query_id is not None:
+            from blaze_tpu_torch.serving import progress
+            progress.note_query_done(self.query_id,
+                                     "finished" if ok else "failed",
+                                     wall_s=wall_s)
         if not ok:
             return
         from blaze_tpu_torch.plan import statstore
-        wall_s = time.perf_counter() - self._stats_t0
         delta = device_stats.delta(base)
         # host-lane eviction evidence, as counter deltas (a per-query
         # slice of the process-wide registry)
@@ -563,14 +647,20 @@ class DagScheduler:
 
     def run_collect(self, plan: Dict[str, Any]) -> pa.Table:
         """Execute the whole query; returns the result stage's output."""
+        from blaze_tpu_torch.bridge import tracing
         self._stats_begin(plan)
         ok = False
-        try:
-            out = self._run_collect(plan)
-            ok = True
-            return out
-        finally:
-            self._stats_end(ok)
+        # every span below carries the governing query's id; the build
+        # maps the run's tasks add on this thread go at its cleanup
+        with tracing.execution_context(query=self.query_id), \
+                created_scope() as created:
+            self._created = created
+            try:
+                out = self._run_collect(plan)
+                ok = True
+                return out
+            finally:
+                self._stats_end(ok)
 
     def _run_collect(self, plan: Dict[str, Any]) -> pa.Table:
         from blaze_tpu_torch import config
@@ -579,6 +669,8 @@ class DagScheduler:
         from blaze_tpu_torch.plan.types import schema_from_dict
 
         _check_ported_branches()
+        if self._query is not None:
+            self._query.check()  # shed before any work if already overdue
         self.stage_metrics = {}  # an instance may be reused per query
         self.stage_walls = {}
         self.task_runs = {}
@@ -638,8 +730,9 @@ class DagScheduler:
                                 aqe_rt.on_producer_commit(
                                     st, completed, stages_by_id)
                     with self._stage_scope(result.sid):
-                        parts = run_tasks(run_result, result.num_tasks,
-                                          f"stage {result.sid} (result)")
+                        parts = self._wave(run_result, result.num_tasks,
+                                           f"stage {result.sid} (result)",
+                                           result.sid)
                     break
                 except FetchFailedError as ff:
                     recoveries += 1
@@ -657,17 +750,19 @@ class DagScheduler:
             self.cleanup()
 
     def cleanup(self) -> None:
-        """Idempotent and safe under concurrent callers: state lists are
-        swapped out under a lock, so each resource and file is released
-        exactly once."""
+        """Idempotent and safe under concurrent callers (run_collect's
+        finally, a cancelling service thread, the context manager's exit
+        and __del__ may race here): state lists are swapped out under a
+        lock, so each resource and file is released exactly once."""
         lock = getattr(self, "_cleanup_lock", None)
         if lock is None:
             return
         with lock:
             resources, self._resources = self._resources, []
+            created, self._created = self._created, []
             files, self._files = self._files, []
             self._stage_outputs = {}
-        for rid in resources:
+        for rid in resources + created:
             remove_resource(rid)
         for path in files:
             try:
@@ -680,14 +775,15 @@ class DagScheduler:
 
     def leak_report(self) -> Dict[str, List[str]]:
         """What this scheduler still holds: shuffle files on disk,
-        resource-map entries and the owned scratch dir.  Empty lists
-        everywhere: nothing leaked."""
+        resource-map entries (stage outputs and the run's broadcast build
+        maps) and the owned scratch dir.  Empty lists everywhere: nothing
+        leaked."""
         from blaze_tpu_torch.bridge.resource import get_resource
         report: Dict[str, List[str]] = {"files": [], "resources": [],
                                         "dirs": []}
         with self._cleanup_lock:
             files = list(self._files)
-            resources = list(self._resources)
+            resources = list(self._resources) + list(self._created)
         report["files"] = [p for p in files if os.path.exists(p)]
         report["resources"] = [r for r in resources
                                if get_resource(r) is not None]

@@ -24,7 +24,14 @@ The JAX loop's contract, kept:
   * PARTIAL mode keeps its skip semantics by raising StageLoopFallback,
     as does a table past `_MAX_SLOTS`: the loop emits nothing before its
     final drain, so the staged re-run is lossless.
-  * Cancellation is checked between chunks.
+  * Cancellation (a serving query's cancel, deadline or quota kill) is
+    checked between chunks; a task that raises there, or anywhere in the
+    fold, releases its fold entry on the way out (`_folded`'s finally),
+    so the next task of that shape does not wait on it.
+  * A query on the first rung of its degradation ladder
+    (`force_agg_passthrough`, serving/context.py) declines the loop with
+    StageLoopFallback before any work, and its `shrink-capacity` rungs
+    halve the chunk width (`loop_chunk_batches`), as the JAX loop does.
 A capture, build or launch error propagates: it is never a fallback.
 
 The fold cache keeps a few entries, keyed by (program fingerprint, batch
@@ -33,26 +40,32 @@ input slabs (batch slots x capacity per source column, and the row
 masks), its device scalars, its placement scratch and, on a CUDA device,
 its graph; a task resets the carry in place, so the tasks of a stage
 replay one graph.  A lock covers an entry from the reset through the
-drain.  A window of the full chunk runs on an entry of `chunk` slots; the
+drain; as queries on other streams share an entry, its release records an
+event on the releasing stream and its next user's stream waits on it
+before touching the carry, and an entry is evicted only when no task
+holds it, once its last event has completed.  A window of the full chunk runs on an entry of `chunk` slots; the
 last, shorter window of a partition on one of the next power of two (the
 JAX loop pads it to the full chunk, for one jit signature: the padding
 changes no result, and here each padded slot would cost a slot's device
 time).  A larger batch capacity, a shorter last window or a regrow moves
 the task to another entry, carrying the table across; every move goes up
 one order (table slots, then capacity, then fewer batch slots), so two
-tasks never wait on each other's entries.
+tasks never wait on each other's entries.  Two queries of one shape in
+the query service queue on one entry's lock, task by task.
 
 Each window of a partition runs under a `stage_loop_chunk` span that
 closes at the read of the step's flags, the sync the loop makes anyway;
 a capture emits a `graph_capture` instant and counts in
 bridge/device_stats.py `compile_report`, and a finished task in its
-stage-loop counters.  A capture holds `device.CAPTURE_LOCK`, so the
-scan's prefetch worker makes no CUDA call while it runs (global mode
-would fail it).
+stage-loop counters.  A capture runs in the thread-local error mode and
+holds `device.CAPTURE_LOCK` (which serialises the captures): another
+thread (a prefetch worker, another query) may allocate, copy, wait on
+events and synchronise its streams meanwhile without breaking it; only
+a device-wide synchronisation would (itest/capture_modes.py), and the
+port makes none.
 
 Not carried over yet, each where it would hook: the `device-loop` fault
-site (the JAX loop's chunk boundary, Queue 1 item 16), query degradation
-(`capacity_shrink` and `force_agg_passthrough`, item 16) and the
+site (the JAX loop's chunk boundary, Queue 1 item 16) and the
 dictionary-key stream guard (item 13).  `auron.tpu.stage.deviceLoop.donate` is not a key of the port:
 a graph always updates its own carry in place.
 """
@@ -121,8 +134,15 @@ def _run_fences() -> None:
 
 
 def loop_chunk_batches() -> int:
-    """Configured chunk width (at least 1)."""
-    return max(1, config.STAGE_DEVICE_LOOP_CHUNK.get())
+    """Configured chunk width, halved per `shrink-capacity` rung of the
+    active serving query (the policy of ops/base.py
+    `effective_batch_size`, floor 1)."""
+    from blaze_tpu_torch.bridge.context import active_query
+    chunk = max(1, config.STAGE_DEVICE_LOOP_CHUNK.get())
+    q = active_query()
+    if q is not None and getattr(q, "capacity_shrink", 0):
+        chunk = max(1, chunk >> q.capacity_shrink)
+    return chunk
 
 
 def _carry_tensors(c: HashAggCarry) -> List[torch.Tensor]:
@@ -163,14 +183,31 @@ class _Fold:
         self.placement_nodes = 0
         self.segment_sum_nodes = {}
         self._start_value = 0
+        #: tasks between `_fold_for` and `release` (an entry in use is
+        #: never evicted)
+        self.users = 0
+        # on a CUDA device, the stream of the entry's last user and an
+        # event after its last work there: queries on other streams share
+        # the entry, and the lock orders only their host threads
+        self.stream = self.event = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.event = torch.cuda.Event()
+            self.event.record(self.stream)
 
     def acquire(self, program) -> bool:
-        """Lock the entry; capture its graph on first use on a CUDA device.
-        Returns whether it captured."""
+        """Lock the entry and order the current stream after its last
+        user's work (the emission that read the carry, the zeroing of the
+        slabs); capture its graph on first use on a CUDA device.  Returns
+        whether it captured."""
         self.lock.acquire()
-        if self.scratch is None or self.graph is not None:
-            return False
         try:
+            if self.event is not None:
+                cur = torch.cuda.current_stream(self.start.device)
+                if cur != self.stream:
+                    cur.wait_event(self.event)
+            if self.scratch is None or self.graph is not None:
+                return False
             self._capture(program)
         except BaseException:
             self.lock.release()
@@ -178,33 +215,49 @@ class _Fold:
         return True
 
     def release(self) -> None:
+        """Record the current stream's work on the entry (the caller's
+        drain included), then unlock it."""
+        if self.event is not None:
+            self.stream = torch.cuda.current_stream(self.start.device)
+            self.event.record(self.stream)
+        with _FOLDS_LOCK:
+            self.users -= 1
         self.lock.release()
+
+    def retire(self) -> None:
+        """Wait for the entry's last work before its memory goes back to
+        the allocator (an evicted entry, which no task holds)."""
+        if self.event is not None:
+            self.event.synchronize()
 
     def _capture(self, program) -> None:
         """Warm up (one batch slot of the body, eagerly, gated off, so lazy
         initialisation happens outside the capture and the fresh carry
-        stays as it is), then capture the body in the default (global)
-        error mode, so that any operation that cannot be captured
-        raises."""
+        stays as it is), then capture the body in the thread-local error
+        mode: any operation of this thread that cannot be captured
+        raises, and other threads' allocations and stream syncs are
+        allowed."""
         from blaze_tpu_torch.device import CAPTURE_LOCK
         with CAPTURE_LOCK:
             self._capture_locked(program)
 
     def _capture_locked(self, program) -> None:
+        from blaze_tpu_torch.device import capture_stream
         t0 = time.perf_counter()
         self._set_start(self.chunk)
         self._body(program, slots=1)
-        # capture on a side stream, as torch.cuda.graph does, without its
-        # gc.collect() and empty_cache() (which would cost every later
-        # allocation a cudaMalloc)
+        # capture on the private side stream (no query issues on it), as
+        # torch.cuda.graph does on a side stream, without its gc.collect()
+        # and empty_cache() (which would cost every later allocation a
+        # cudaMalloc)
         main = torch.cuda.current_stream(self.start.device)
-        side = torch.cuda.Stream(self.start.device)
+        side = capture_stream(self.start.device)
         side.wait_stream(main)
         graph = torch.cuda.CUDAGraph()
         before = HU.captured_launches
         sums_before = dict(K.captured_launches)
         with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="global")
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self._body(program)
             finally:
@@ -276,8 +329,9 @@ class _Fold:
         else:
             self.scratch.reserve(self.placement_nodes * (PROBE_ROUNDS + 1))
             self.graph.replay()
-            graph_stats["replays"] += 1
-            HU.placement_launches += self.placement_nodes
+            with _FOLDS_LOCK:
+                graph_stats["replays"] += 1
+            HU.add_replayed(self.placement_nodes)
             K.add_replayed(self.segment_sum_nodes)
         ovf, first, rows = self.stats.tolist()
         return bool(ovf), int(first), int(rows)
@@ -293,14 +347,28 @@ _FOLDS_LOCK = threading.Lock()
 
 def _fold_for(program, cap: int, chunk: int, S: int,
               device: torch.device) -> _Fold:
+    """The entry for the key, made if missing, counted as in use until its
+    `release` (or `_unuse`).  A full cache evicts its oldest entries that
+    no task uses, after their last work; with none idle it grows past
+    `_FOLD_LIMIT` until some are."""
     key = (program.fingerprint, cap, chunk, S, str(device))
+    victims = []
     with _FOLDS_LOCK:
         fold = _FOLDS.get(key)
         if fold is None:
-            if len(_FOLDS) >= _FOLD_LIMIT:
-                _FOLDS.pop(next(iter(_FOLDS)))
+            idle = [k for k, f in _FOLDS.items() if f.users == 0]
+            while idle and len(_FOLDS) >= _FOLD_LIMIT:
+                victims.append(_FOLDS.pop(idle.pop(0)))
             fold = _FOLDS[key] = _Fold(program, cap, chunk, S, device)
-        return fold
+        fold.users += 1
+    for victim in victims:
+        victim.retire()
+    return fold
+
+
+def _unuse(fold: _Fold) -> None:
+    with _FOLDS_LOCK:
+        fold.users -= 1
 
 
 def _move(program, old, cap: int, chunk: int, S: int, device,
@@ -309,7 +377,11 @@ def _move(program, old, cap: int, chunk: int, S: int, device,
     the old entry's carry, `carry` (a regrown table), or a fresh one; then
     release the old entry.  Returns (entry, whether it captured)."""
     fold = _fold_for(program, cap, chunk, S, device)
-    captured = fold.acquire(program)
+    try:
+        captured = fold.acquire(program)
+    except BaseException:
+        _unuse(fold)
+        raise
     try:
         src = carry if carry is not None else (old.carry if old else None)
         if src is None:
@@ -331,9 +403,13 @@ def _folded(program, partition: int, source_stream=None):
     """Fold one partition; yields the final carry with its entry locked
     (the caller drains it inside the `with`).  Raises StageLoopFallback
     before yielding where the JAX loop does."""
+    from blaze_tpu_torch.bridge.context import active_query
     from blaze_tpu_torch.device import resolve
     from blaze_tpu_torch.plan.fused import _batch_windows, _pow2
     task = current_task()
+    q = task.query if task.query is not None else active_query()
+    if q is not None and q.force_agg_passthrough:
+        raise StageLoopFallback("query degraded to agg pass-through")
     device = resolve()
     chunk = loop_chunk_batches()
     slots = _pow2(config.ON_DEVICE_AGG_CAPACITY.get())

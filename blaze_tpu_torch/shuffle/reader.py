@@ -10,7 +10,8 @@ and are re-batched by the same CoalesceStream rules as the JAX package,
 so the reduce side sees the same batches.  A file segment that cannot be
 read back intact (a failed CRC32C, a short read, a lost file) raises
 `FetchFailedError` naming the map task that wrote it (its `stage_id` and
-`map_id`), so the stage scheduler re-runs only that task.
+`map_id`), so the stage scheduler re-runs only that task; so does a
+fetch the `shuffle-read` fault site (faults.py) fails.
 
 `FFIReaderExec` imports host Arrow batches (the ConvertToNative path; in
 process the "FFI" is a handoff of pyarrow batches through the resource
@@ -35,7 +36,8 @@ from blaze_tpu_torch.bridge.context import current_task
 from blaze_tpu_torch.bridge.resource import get_resource
 from blaze_tpu_torch.ops.base import BatchIterator, CoalesceStream, ExecutionPlan
 from blaze_tpu_torch.schema import Schema
-from blaze_tpu_torch.faults import FetchFailedError
+from blaze_tpu_torch import faults
+from blaze_tpu_torch.faults import FetchFailedError, InjectedFault
 from blaze_tpu_torch.shuffle.ipc import (IpcCompressionReader,
                                          IpcCompressionWriter,
                                          ShuffleChecksumError,
@@ -62,9 +64,10 @@ def read_block(block: Block) -> Iterator[pa.RecordBatch]:
         if block.length == 0:
             return
         try:
+            faults.maybe_fail("shuffle-read", path=block.path)
             yield from _read_segment(block)
-        except (ShuffleChecksumError, EOFError, OSError,
-                struct.error) as e:  # struct.error: a short frame header
+        except (ShuffleChecksumError, EOFError, OSError, struct.error,
+                InjectedFault) as e:  # struct.error: a short frame header
             from blaze_tpu_torch.bridge import device_stats
             device_stats.note_fetch_failure()
             raise FetchFailedError(

@@ -187,10 +187,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      four legs over seeded data, each static and then adaptive with the
      statistics store on, staged, the default thresholds (broadcast 8 MiB,
      coalesce 16 MiB, skew factor 4, 8 splits) unless a leg says other:
-     broadcast (a 2^18-key dim shuffle-joined with a 2^24-row fact in 8
-     files, 32 partitions), skew (the fact's keys 70% on one key, 160
-     partitions, broadcast threshold 0), coalesce (partial sum by 2^16
-     keys over 2^24 rows, 200 partitions, the final sum) and history
+     broadcast (a 2^17-key dim shuffle-joined with a 2^23-row fact in 8
+     files, 32 partitions; 2^18 and 2^24 before the serving phase came
+     in), skew (the fact's keys 70% on one key, 160 partitions,
+     broadcast threshold 0), coalesce (partial sum over 2^23 rows, 200
+     partitions, the final sum) and history
      (the broadcast leg's adaptive run, made in a fresh store, then one
      run more with auron.tpu.aqe.historySeed), then full q01 and q17 on
      its linked
@@ -345,7 +346,48 @@ Phases, each printing its own lines; any failure exits non-zero:
      partial aggregation over 6 batches whose brands grow from 10 to 260,
      re-laid out 4 times, against the same fold on the CPU (keys and
      integers exact, float sums within 1e-9);
- 25. the paths' profile summary (with io_bytes per stage of every path:
+ 25. serving (serving/service.py, itest/serving.py): first four checks
+     only the card can make: two threads on two private CUDA streams each make
+     100 eager placements and 100 `partition_order` calls at q01's shapes
+     at once, every result exact against the plain version and the
+     wrappers' counts exact; the stage loop's fold at q01's reduce shape
+     captured (the thread-local error mode) while another thread
+     allocates fresh sizes, copies, waits on events and synchronises on
+     its own stream and the legacy default one, equal to the CPU's fold
+     (itest/capture_modes.py shows which calls break a capture by mode:
+     in thread-local mode only a device-wide synchronisation); two
+     threads on two private streams folding through one stage-loop entry
+     back to back, the first with a long wait kernel before its drain,
+     each carry equal to the CPU's fold (the entry's event orders the
+     second's reset after the first's drain; the same run without the
+     event is printed, not checked); four running queries'
+     streams distinct from each other, from the capture stream and from
+     all 64 streams of PyTorch's pool.
+     Then full q01, q06 and q95 twice each through QueryService at
+     maxConcurrent 1 and then 4 (staged, the loop under auto, the SF10
+     tables of phases 10, 11 and 13), each result equal to its oracle and
+     to that query's serial run of those phases bit for bit, with each
+     level's p50, p99, wall, queries a second and peak memory; q95
+     cancelled from the progress hook as its second stage starts
+     (QueryCancelled before that stage runs a task), a deadline that
+     expires inside its first map task (DeadlineExceeded), then the
+     quota ladder over the bytes each task's consumers declared at level
+     1 (the quota's unit): full q01 one byte under its largest task's
+     peak climbs one or two rungs without the kill and equals its oracle,
+     q01 at an eighth of it is killed (QueryMemoryExceeded after three
+     breaches), q95 one byte under its peak is killed (its four map tasks
+     hold the peak alike), q06 one byte under its peak climbs, each
+     leaving no shuffle file, no scratch dir and no manager bytes,
+     and a rerun equal to the oracle; admission (maxQueue 1 behind a
+     blocked slot: two queue-full; tenant.maxInflight 1: two
+     tenant-quota; counts exact; the admitted queries cancelled before
+     their slots open); chaos (three full q01 at 2 exchange partitions,
+     the JAX soak's, at concurrency 3 under
+     task-start=0.05,shuffle-read=0.03, seed 23, 8 recovery rounds,
+     each equal to its oracle); then the leaks: device memory back to its level before the
+     phase once the fold and program caches are dropped (their size
+     printed), no service thread alive, no scratch dir left;
+ 26. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does; each path's expression programs:
      fused and eager batches, programs built, cache hits, graph
@@ -395,7 +437,8 @@ FRAMES = {}
 #: the adaptive phase's TPC-DS legs, by the label of the earlier static
 #: run whose frame each is held to
 ADAPTIVE_TPCDS = {"q01 full auto": "q01 full", "q17 linked auto": "q17"}
-ADAPTIVE_ROWS_LOG2 = 24     # the adaptive legs' fact rows: 2^24
+ADAPTIVE_ROWS_LOG2 = 23     # the adaptive legs' fact rows: 2^23 (2^24
+                            # before the serving phase came in)
 
 
 def phase(name):
@@ -2003,8 +2046,8 @@ def full_data(root):
                                f"file(s)" for k, t in tables.items())
           + f" ({t1 - t0:.1f} s); pandas oracle {time.perf_counter() - t1:.1f}"
           f" s, {len(want)} rows")
-    return plan, want, lambda: Q.q01(paths, tables,
-                                     partitions=FULL_PARTS)[0]
+    return plan, want, lambda parts=FULL_PARTS: Q.q01(
+        paths, tables, partitions=parts)[0]
 
 
 def full_path(plan, want, mode, profiled=False, corrupt=False,
@@ -2053,6 +2096,7 @@ def full_path(plan, want, mode, profiled=False, corrupt=False,
         {n: [] for n in out.schema.names})
     if mode == "auto" and not (profiled or corrupt):
         FRAMES["q01 full auto"] = got  # the adaptive phase's static run
+        SERIAL["q01"] = got            # and the serving phase's serial one
     counters = QD.stage_counters(sched, FULL_COUNTERS)
     tasks = {st.sid: st.num_tasks for st in sched.stages}
     print(sched.describe())
@@ -2569,6 +2613,8 @@ def family_path(name, make_plan, want, mode, profiled=False,
     peak = torch.cuda.max_memory_allocated()
     got = out.to_pandas() if out.num_rows else pd.DataFrame(
         {n: [] for n in out.schema.names})
+    if (name, mode, profiled, max_slots) == ("q06", "auto", False, None):
+        SERIAL["q06"] = got  # the serving phase's serial run
     counters = stage_counters(sched, D.STAGE_COUNTERS)
     engine = D.operator_counters(sched, "AggExec",
                                  ("cuda_batches", "cpu_batches"))
@@ -3191,6 +3237,8 @@ def _dag_query(D, name, make_plan, want, mode, parts, profiled=False,
     got = frame(out)
     if name == FUSE_OFF_QUERY:
         FRAMES[label] = got
+    if (name, mode, profiled) == ("q95", "auto", False):
+        SERIAL["q95"] = got  # the serving phase's serial run
     counters = stage_counters(sched, D.STAGE_COUNTERS)
     tasks = {st.sid: st.num_tasks for st in sched.stages}
     print(sched.describe())
@@ -5771,6 +5819,825 @@ def adaptive_phase(root, q01_plan, q01_want, static_walls, smi):
     return {"data_s": data_s, "legs": legs, "tpcds": tpcds, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the query service: the card under several query threads, then
+# concurrent TPC-DS queries through QueryService
+# ---------------------------------------------------------------------------
+
+#: the serving phase's mix (BENCH_SERVE.json's) and its levels
+SERVING_MIX = ("q01", "q06", "q95")
+SERVING_LEVELS = (1, 4)
+TWO_STREAM_CALLS = 100      # each thread's eager calls of each kernel
+RADIX_Q01_ROWS = 290_000    # a q01 map task's rows into the writer
+CAPTURE_FRESH_SIZES = 48    # the capture check's distinct fresh sizes
+CHAOS_RULES = "task-start=0.05,shuffle-read=0.03"
+CHAOS_SEED = 23
+CHAOS_MAX_RECOVERIES = 8    # lineage rounds a chaos query may take and
+CHAOS_PARTS = 2             # its exchanges' partitions: the JAX package's
+                            # serving soak's (bench.py --serve); at 16 a
+                            # consumer stage reads 256 blocks a round, and
+                            # at 3% a block no round would come through
+DEADLINE_MS = 1500          # the deadline leg's deadline
+#: the earlier phases' serial frames of the serving mix, by query
+SERIAL = {}
+
+
+def two_stream_check(gen, dev):
+    """Two threads, each on a CUDA stream of its own, each making
+    TWO_STREAM_CALLS eager placement calls (q01's map shape: a full batch
+    against a table at load 0.5) and as many `partition_order` calls
+    (q01's writer shape: 290,000 hashed pids over 16 partitions) at the
+    same time, every result held exact against the plain version on the
+    same inputs; the wrappers' counts must rise by exactly the calls
+    made (they count under their locks), and each stream must have had
+    its own placement scratch."""
+    import threading
+
+    import torch
+    from blaze_tpu_torch.device import lease_stream, release_stream
+    from blaze_tpu_torch.kernels import hash_update as HU
+    from blaze_tpu_torch.kernels import radix as R
+    phase(f"serving (a): two threads on two CUDA streams, "
+          f"{TWO_STREAM_CALLS} eager placements and {TWO_STREAM_CALLS} "
+          f"partition_order calls each at q01's shapes, at once")
+    h, limbs, mask, used0, tab0 = _placement_state(gen, dev, 0.5)
+    pid = _radix_column(gen, "hashed", RADIX_Q01_ROWS, N_REDUCES, dev)
+    ref_used, ref_tab = used0.clone(), tab0.clone()
+    ref = HU.place_in_carry_plain(h, limbs, mask, ref_used, ref_tab, ROUNDS)
+    ref_order = R.partition_order_plain(pid, N_REDUCES)
+    torch.cuda.synchronize()
+    placed0, radix0 = HU.placement_launches, R.partition_launches
+    barrier = threading.Barrier(2)
+    out = [None, None]
+    streams = [lease_stream(dev), lease_stream(dev)]
+
+    def worker(k):
+        try:
+            # a private stream each (torch.cuda.Stream() could hand both
+            # threads one of its pool's)
+            stream = streams[k]
+            bad = []
+            with torch.cuda.stream(stream):
+                barrier.wait(60)
+                for i in range(TWO_STREAM_CALLS):
+                    used, tab = used0.clone(), tab0.clone()
+                    got = HU.place_in_carry(h, limbs, mask, used, tab,
+                                            ROUNDS)
+                    order = R.partition_order(pid, N_REDUCES)
+                    if not (all(torch.equal(a, b) for a, b in zip(got, ref))
+                            and torch.equal(used, ref_used)
+                            and torch.equal(tab, ref_tab)):
+                        bad.append(f"placement call {i}")
+                    if not _order_exact(order, ref_order)[0]:
+                        bad.append(f"partition_order call {i}")
+            out[k] = {"stream": stream.cuda_stream, "bad": bad}
+        except BaseException as e:  # noqa: BLE001 - reported below
+            out[k] = {"error": repr(e)}
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for stream in streams:
+        release_stream(stream)
+    placed = HU.placement_launches - placed0
+    grouped = R.partition_launches - radix0
+    streams = [o.get("stream") for o in out if o]
+    scratch_streams = sorted(k[1] for k in HU._scratch
+                             if k[1] in streams)
+    print(f"two streams: {wall:.3f} s; placement launches {placed}, radix "
+          f"{grouped} (expected {2 * TWO_STREAM_CALLS} each); placement "
+          f"scratches on the two streams {len(scratch_streams)}; "
+          f"results {out}")
+    bad = [o for o in out if o is None or "error" in o or o["bad"]]
+    if bad or any(t.is_alive() for t in threads):
+        raise SystemExit(f"two streams: a result differs from its plain "
+                         f"version or a thread failed: {out}")
+    if placed != 2 * TWO_STREAM_CALLS or grouped != 2 * TWO_STREAM_CALLS:
+        raise SystemExit(f"two streams: the wrappers counted {placed} "
+                         f"placements and {grouped} groupings for "
+                         f"{2 * TWO_STREAM_CALLS} calls each")
+    if len(set(streams)) != 2 or len(scratch_streams) != 2:
+        raise SystemExit(f"two streams: streams {streams}, placement "
+                         f"scratches on them {scratch_streams}")
+    R._scratch.clear()
+    HU._scratch.clear()
+    return {"calls": TWO_STREAM_CALLS, "wall_s": wall,
+            "placement_launches": placed, "radix_launches": grouped}
+
+
+def concurrent_capture_check(dev):
+    """The stage loop's captures (thread-local error mode) while another
+    thread allocates fresh device memory (cudaMalloc), copies to the
+    host, waits on events and synchronises its streams, on its own stream
+    and on the legacy default stream (what another query's slot does):
+    the fold at q01's reduce shape (two captures, 8 and 4 batch slots)
+    must capture, replay and equal the same fold on the CPU, and the
+    other thread's calls must have run during the captures themselves.
+    A device-wide synchronisation is left out: it fails beside any
+    capture and breaks it whatever the mode (itest/capture_modes.py)."""
+    import threading
+
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.itest import q01
+    from blaze_tpu_torch.plan import create_plan, stage_compiler
+    from blaze_tpu_torch.plan.fused import fuse_plan
+    from blaze_tpu_torch.runtime import loop
+    phase("serving (b): the stage loop's captures beside another thread's "
+          "allocations, copies, event waits and syncs")
+    n_batches = 11
+    loop._FOLDS.clear()  # the fold parity's entries: capture afresh
+    torch.cuda.empty_cache()  # no capture runs: room for the fresh sizes
+
+    def fold(device):
+        config.conf.set(config.TORCH_DEVICE.key, device)
+        try:
+            agg = fuse_plan(create_plan(q01.stage2_td(0, N_REDUCES)["plan"]))
+            prog = stage_compiler.compile_fused_agg(agg)
+            batches = _reduce_batches(n_batches, torch.device(device))
+            return loop.run_partition(prog, 0, source_stream=iter(batches))
+        finally:
+            config.conf.set(config.TORCH_DEVICE.key, "cuda")
+
+    capturing = threading.Event()
+    done = threading.Event()
+    noise = {"calls": 0, "during_capture": 0, "error": None,
+             "bytes": 0}
+    real = loop._Fold._capture_locked
+
+    def capture(self, program):
+        capturing.set()
+        try:
+            return real(self, program)
+        finally:
+            capturing.clear()
+
+    def other_thread():
+        try:
+            own = torch.cuda.Stream(dev)
+            k = 0
+            while not done.is_set():
+                k += 1
+                during = capturing.is_set()
+                # its first CAPTURE_FRESH_SIZES rounds take sizes the
+                # caching allocator has not cached (a cudaMalloc each),
+                # then cycle through them
+                nbytes = (12 << 20) + (k % CAPTURE_FRESH_SIZES) * (2 << 20)
+                for stream in (own, torch.cuda.default_stream(dev)):
+                    with torch.cuda.stream(stream):
+                        x = torch.empty(nbytes if stream is own
+                                        else 4096 + k, dtype=torch.uint8,
+                                        device=dev)
+                        x.fill_(k & 0xFF)
+                        y = x[:4096].to("cpu")
+                        ev = torch.cuda.Event()
+                        ev.record(stream)
+                        ev.synchronize()
+                        ev.query()
+                        val = int(x[-1].item())
+                        stream.synchronize()
+                        noise["bytes"] += x.numel()
+                        del x
+                    if val != k & 0xFF or int(y[0]) != k & 0xFF:
+                        raise RuntimeError("the other thread read back "
+                                           "wrong bytes")
+                # no torch.cuda.synchronize(): a device-wide sync is the
+                # one call that fails beside a thread-local capture and
+                # breaks it (itest/capture_modes.py), and the port makes
+                # none (plan/stages.py syncs a stage's own stream)
+                noise["calls"] += 1
+                if during and capturing.is_set():
+                    noise["during_capture"] += 1
+        except BaseException as e:  # noqa: BLE001 - reported below
+            noise["error"] = repr(e)
+
+    stats0 = dict(loop.graph_stats)
+    t = threading.Thread(target=other_thread)
+    loop._Fold._capture_locked = capture
+    try:
+        t.start()
+        while noise["calls"] < 2 and t.is_alive():
+            time.sleep(0.01)
+        cuda = fold("cuda")
+        torch.cuda.synchronize()
+    finally:
+        loop._Fold._capture_locked = real
+        done.set()
+        t.join(120)
+    captured = {k: loop.graph_stats[k] - stats0[k] for k in stats0}
+    torch.cuda.empty_cache()  # the other thread's cached sizes
+    cpu = fold("cpu")
+    exact = torch.equal(cuda.used.cpu(), cpu.used) and torch.equal(
+        cuda.limbs.cpu(), cpu.limbs) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(cuda.keys, cpu.keys)) and \
+        _same_float_bits(cuda.accs[0].cpu(), cpu.accs[0])
+    print(f"captures {captured['captures']}, replays {captured['replays']} "
+          f"beside {noise['calls']} rounds of the other thread "
+          f"({noise['during_capture']} while a capture ran, "
+          f"{noise['bytes']} bytes allocated, error {noise['error']}); "
+          f"the fold equal to the CPU's: {exact}")
+    if noise["error"] or t.is_alive():
+        raise SystemExit(f"the other thread failed beside the captures: "
+                         f"{noise['error']}")
+    if captured["captures"] != 2 or not exact:
+        raise SystemExit(f"the fold captured beside another thread: "
+                         f"{captured}, equal to the CPU {exact}")
+    if noise["during_capture"] <= 0:
+        raise SystemExit("the other thread made no call while a capture "
+                         "ran: nothing was shown")
+    return {"captures": captured["captures"], "replays":
+            captured["replays"], "other_rounds": noise["calls"],
+            "other_rounds_during_capture": noise["during_capture"]}
+
+
+FOLD_SLEEP_CYCLES = 200_000_000  # ~0.1 s of a kernel that only waits
+
+
+def fold_cross_stream_check(dev, wait=True):
+    """Two threads, each on a private stream, fold through ONE stage-loop
+    entry back to back: thread A folds q01's 11 reduce batches (its last
+    window on the 4-slot entry), and, holding that entry, queues a kernel
+    that only waits (FOLD_SLEEP_CYCLES) and then its drain (a clone of the
+    carry) on its stream; thread B, started meanwhile, folds the first 3
+    batches, whose one window takes the same entry as soon as A releases
+    it, and resets the carry first thing.  Only the entry's event orders
+    B's reset after A's drain: each carry must equal the same fold on the
+    CPU.  `wait=False` leaves the event out of `acquire` (to show that
+    the check sees the race)."""
+    import threading
+
+    import torch
+    from blaze_tpu_torch import config
+    from blaze_tpu_torch.device import lease_stream, release_stream
+    from blaze_tpu_torch.itest import q01
+    from blaze_tpu_torch.parallel.stage import HashAggCarry
+    from blaze_tpu_torch.plan import create_plan, stage_compiler
+    from blaze_tpu_torch.plan.fused import fuse_plan
+    from blaze_tpu_torch.runtime import loop
+    phase(f"serving (c): two streams fold through one stage-loop entry "
+          f"back to back, a {FOLD_SLEEP_CYCLES}-cycle wait before the "
+          f"first one's drain" + ("" if wait else " (the event left out)"))
+
+    def program():
+        return stage_compiler.compile_fused_agg(fuse_plan(create_plan(
+            q01.stage2_td(0, N_REDUCES)["plan"])))
+
+    def clone(carry):
+        return HashAggCarry(*[tuple(t.clone() for t in f)
+                              if isinstance(f, tuple) else f.clone()
+                              for f in carry])
+
+    def cpu_fold(n):
+        config.conf.set(config.TORCH_DEVICE.key, "cpu")
+        try:
+            return loop.run_partition(program(), 0, source_stream=iter(
+                _reduce_batches(n, torch.device("cpu"))))
+        finally:
+            config.conf.set(config.TORCH_DEVICE.key, "cuda")
+
+    def same(got, want):
+        return torch.equal(got.used.cpu(), want.used) and torch.equal(
+            got.limbs.cpu(), want.limbs) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got.keys, want.keys)) \
+            and _same_float_bits(got.accs[0].cpu(), want.accs[0])
+
+    prog = program()
+    data = {"a": _reduce_batches(11, dev), "b": _reduce_batches(3, dev)}
+    holding = threading.Event()
+    out, errors = {}, {}
+    streams = {k: lease_stream(dev) for k in data}
+
+    def run_a():
+        try:
+            with torch.cuda.stream(streams["a"]):
+                with loop._folded(prog, 0, iter(data["a"])) as carry:
+                    holding.set()
+                    time.sleep(0.05)  # B reaches the entry's lock
+                    torch.cuda._sleep(FOLD_SLEEP_CYCLES)
+                    out["a"] = clone(carry)
+                streams["a"].synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors["a"] = repr(e)
+        finally:
+            holding.set()
+
+    def run_b():
+        try:
+            if not holding.wait(120):
+                raise RuntimeError("A never held the entry")
+            with torch.cuda.stream(streams["b"]):
+                out["b"] = loop.run_partition(prog, 0,
+                                              source_stream=iter(data["b"]))
+                streams["b"].synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors["b"] = repr(e)
+
+    real = loop._Fold.acquire
+    if not wait:
+        def acquire(self, program):
+            event, self.event = self.event, None
+            try:
+                return real(self, program)
+            finally:
+                self.event = event
+        loop._Fold.acquire = acquire
+    try:
+        threads = [threading.Thread(target=f) for f in (run_a, run_b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        loop._Fold.acquire = real
+    torch.cuda.synchronize()
+    for stream in streams.values():
+        release_stream(stream)
+    keys = [k for k in loop._FOLDS if k[0] == prog.fingerprint]
+    exact = {k: k in out and same(out[k], cpu_fold(len(data[k])))
+             for k in data}
+    print(f"fold entries of the shape {[k[2] for k in keys]}; errors "
+          f"{errors}; each carry equal to the CPU's fold: {exact}")
+    if not wait:
+        return {"exact": exact, "errors": errors}
+    if errors or any(t.is_alive() for t in threads) or \
+            not all(exact.values()):
+        raise SystemExit(f"fold entry across streams: {errors}, equal to "
+                         f"the CPU {exact}")
+    return {"exact": exact, "sleep_cycles": FOLD_SLEEP_CYCLES}
+
+
+def private_stream_check(dev):
+    """The service's slot streams are private: four queries running at
+    once through QueryService (executors gated on a barrier) each see a
+    current stream of their own, none of them is the graph captures' side
+    stream, and none is any of the 64 streams of PyTorch's pool
+    (`torch.cuda.Stream()` at both priorities, 32 each), which the scans'
+    stagers draw from."""
+    import threading
+
+    import torch
+    from blaze_tpu_torch.device import capture_stream
+    from blaze_tpu_torch.serving import QueryService
+    from blaze_tpu_torch.serving import service as SVC
+    phase("serving (d): four running queries' streams against the capture "
+          "stream and PyTorch's stream pool")
+    barrier = threading.Barrier(4)
+    seen = []
+
+    def executor(plan, ctx, handle):
+        seen.append(torch.cuda.current_stream(dev).cuda_stream)
+        barrier.wait(60)
+        return None
+    # the default executor's service (it runs on the configured device)
+    real, SVC._default_executor = SVC._default_executor, executor
+    try:
+        svc = QueryService(max_concurrent=4, max_queue=4)
+    finally:
+        SVC._default_executor = real
+    try:
+        handles = [svc.submit({}) for _ in range(4)]
+        errs = [h.exception(120) for h in handles]
+    finally:
+        svc.shutdown(wait=True, cancel_running=True)
+    cap = capture_stream(dev).cuda_stream
+    pool = {torch.cuda.Stream(dev, priority=p).cuda_stream
+            for p in (0, -1) for _ in range(32)}
+    print(f"slot streams {[hex(x) for x in seen]}; capture stream "
+          f"{cap:#x}; {len(pool)} distinct pool streams; errors {errs}")
+    if any(errs) or len(set(seen)) != 4 or cap in seen or \
+            pool & set(seen + [cap]):
+        raise SystemExit(f"serving streams: slots {seen}, capture {cap}, "
+                         f"shared with the pool {pool & set(seen + [cap])}, "
+                         f"errors {errs}")
+    return {"slot_streams": len(set(seen)), "pool_streams": len(pool)}
+
+
+def _service_consumers(qctx):
+    """Bytes the manager still holds for a query's consumers."""
+    from blaze_tpu_torch.memory import MemManager
+    mm = MemManager.get()
+    with mm._lock:
+        return sum(c.mem_used for c in mm._consumers if c.query is qctx)
+
+
+def _clean_after(label, h):
+    """The teardown a cancelled or killed query must leave: no shuffle
+    file, resource or scratch directory, and no bytes in the manager."""
+    import os as _os
+    held = _service_consumers(h.ctx)
+    if h.leak_report is None or any(h.leak_report.values()) or held or \
+            (h.work_dir and _os.path.exists(h.work_dir)):
+        raise SystemExit(f"serving {label}: left behind {h.leak_report}, "
+                         f"{held} bytes in the manager, work dir "
+                         f"{h.work_dir}")
+
+
+def _rerun_equal(label, svc, make, want, name):
+    """A rerun of the query through `svc` completes equal to its oracle
+    (no fold entry was left locked)."""
+    from blaze_tpu_torch.itest import serving as SV
+    h = svc.submit(make())
+    h.exception(600)
+    out = {"results": [{"name": name, "query_id": h.query_id,
+                        "status": h.status, "error": repr(h._error),
+                        "table": h._result}]}
+    err = SV.check_mix(out, {name: want})[h.query_id]
+    if err:
+        raise SystemExit(f"serving {label}: the rerun {err}")
+    return h.wall_s
+
+
+def _serving_runs(root, mix, smi):
+    """The serving phase's levels and legs (see serving_phase)."""
+    import threading
+
+    import torch
+    from blaze_tpu_torch import config, faults
+    from blaze_tpu_torch.bridge import device_stats
+    from blaze_tpu_torch.bridge.context import current_task
+    from blaze_tpu_torch.itest import serving as SV
+    from blaze_tpu_torch.memory.manager import MemManager
+    from blaze_tpu_torch.plan import statstore
+    from blaze_tpu_torch.plan.stages import DagScheduler
+    from blaze_tpu_torch.serving import (DeadlineExceeded, QueryCancelled,
+                                         QueryMemoryExceeded, QueryRejected,
+                                         QueryService, progress)
+    _loop_mode("auto")
+    config.conf.set(config.DAG_SINGLE_TASK_BYTES.key, 0)
+    oracles = {n: want for n, (_make, want) in mix.items()}
+    makers = {n: make for n, (make, _want) in mix.items()}
+    out = {"levels": {}, "launches": {}}
+    peaks, task_peaks = {}, {}
+
+    # -- levels -------------------------------------------------------------
+    for c in SERVING_LEVELS:
+        phase(f"serving (e): {', '.join(SERVING_MIX)} twice each through "
+              f"QueryService at maxConcurrent {c} (stage loop auto, "
+              f"staged)")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        # at level 1 (one query at a time) each query's peak of the bytes
+        # its consumers declare, the quota's unit, and each task's
+        enforce = MemManager._enforce_query_quota
+        seen = {}
+
+        def record(self, updated, seen=seen):
+            q = updated.query
+            if q is not None:
+                t = current_task()
+                used = sum(x.mem_used for x in self._consumers
+                           if x.query is q)
+                key = (q.query_id, t.stage_id, t.partition_id)
+                seen[key] = max(seen.get(key, 0), used)
+            return enforce(self, updated)
+        if c == 1:
+            MemManager._enforce_query_quota = record
+        try:
+            r = SV.run_mix([(n, makers[n]) for n in SERVING_MIX] * 2, c,
+                           timeout_s=600)
+        finally:
+            MemManager._enforce_query_quota = enforce
+        launches = _read_launches()
+        if c == 1:
+            names = {x["query_id"]: x["name"] for x in r["results"]}
+            for (qid, sid, part), v in seen.items():
+                name = names[qid]
+                peaks[name] = max(peaks.get(name, 0), v)
+                tp = task_peaks.setdefault(name, {})
+                tp[(sid, part)] = max(tp.get((sid, part), 0), v)
+        peak = torch.cuda.max_memory_allocated()
+        errs = SV.check_mix(r, oracles, SERIAL)
+        walls = {x["query_id"]: (x["name"], round(x["wall_s"], 3),
+                                 round(x["run_s"], 3))
+                 for x in r["results"]}
+        print(f"maxConcurrent {c} ({smi}): submitted {r['submitted']}, "
+              f"completed {r['completed']}, p50 {r['p50_ms']:.1f} ms, p99 "
+              f"{r['p99_ms']:.1f} ms, wall {r['wall_s']:.3f} s, "
+              f"{r['qps']:.3f} queries/s, sum of the runs' walls "
+              f"{r['serial_sum_s']:.3f} s, torch.cuda.max_memory_allocated "
+              f"{peak} bytes; (query, wall, run s) {walls}; launches "
+              f"{ {k: launches[k] for k in ('hash_placement', 'radix_partition', 'segment_sum', 'window_step')} }")
+        bad = {q: e for q, e in errs.items() if e}
+        if bad or r["completed"] != r["submitted"] or r["leaks"] or \
+                r["threads_alive"]:
+            raise SystemExit(f"serving maxConcurrent {c}: {bad}, leaks "
+                             f"{r['leaks']}, threads {r['threads_alive']}")
+        for k in ("hash_placement", "radix_partition", "segment_sum"):
+            if launches[k] <= 0:
+                raise SystemExit(f"serving maxConcurrent {c}: {k} never "
+                                 f"launched")
+        print(f"maxConcurrent {c}: every result equals its oracle and its "
+              f"serial run bit for bit")
+        for x in r["results"]:
+            x.pop("table")
+        out["levels"][c] = dict(r, peak_bytes=peak)
+        out["launches"][f"c{c}"] = launches
+
+    # -- cancel from the progress hook ---------------------------------------
+    phase("serving (f): q95 cancelled from the progress hook as its second "
+          "stage starts; the deadline; the quota ladder")
+    stats_dir = os.path.join(root, "serving-stats")
+    config.conf.set(config.STATS_ENABLE.key, "true")
+    config.conf.set(config.STATS_DIR.key, stats_dir)
+    statstore.reset_conf_probe()
+    legs = {}
+    svc = QueryService(max_concurrent=1, max_queue=8)
+    try:
+        start = progress.note_stage_start
+
+        def hook(qid, sid, tasks):
+            start(qid, sid, tasks)
+            if sid >= 1:
+                svc.cancel(qid, reason="cancelled from the progress hook")
+        progress.note_stage_start = hook
+        try:
+            h = svc.submit(makers["q95"]())
+            err = h.exception(600)
+        finally:
+            progress.note_stage_start = start
+        snap = progress.progress(h.query_id)
+        later = {s: st["tasks_done"] for s, st in snap["stages"].items()
+                 if s != "0"}
+        print(f"cancel: {type(err).__name__}: {err}; progress "
+              f"{snap['stages']}; leak report {h.leak_report}")
+        if not isinstance(err, QueryCancelled) or any(later.values()) or \
+                snap["stages"]["0"]["tasks_done"] != \
+                snap["stages"]["0"]["tasks_total"]:
+            raise SystemExit(f"serving cancel: {err!r}, progress "
+                             f"{snap['stages']}")
+        _clean_after("cancel", h)
+        legs["cancel"] = {"error": repr(err), "stages": snap["stages"],
+                          "rerun_s": _rerun_equal("cancel", svc,
+                                                  makers["q95"],
+                                                  oracles["q95"], "q95")}
+        config.conf.unset(config.STATS_ENABLE.key)
+        config.conf.unset(config.STATS_DIR.key)
+        statstore.reset_conf_probe()
+
+        # -- the deadline: it expires inside the first map task ---------------
+        real = DagScheduler._run_map_task
+        hit = []
+
+        def first_task_waits(self, stage, part, m):
+            if not hit and self._query is not None:
+                hit.append((stage.sid, m))
+                end = time.monotonic() + 30
+                while self._query.remaining_ms() > 0 and \
+                        time.monotonic() < end:
+                    self._query.wait_cancelled(0.01)
+            return real(self, stage, part, m)
+        DagScheduler._run_map_task = first_task_waits
+        try:
+            h = svc.submit(makers["q95"](), deadline_ms=DEADLINE_MS)
+            err = h.exception(600)
+        finally:
+            DagScheduler._run_map_task = real
+        print(f"deadline {DEADLINE_MS} ms: {type(err).__name__}: {err}; "
+              f"expired in the first map task of stage {hit}; wall "
+              f"{h.wall_s:.3f} s")
+        if not isinstance(err, DeadlineExceeded) or hit != [(0, 0)]:
+            raise SystemExit(f"serving deadline: {err!r}, {hit}")
+        _clean_after("deadline", h)
+        legs["deadline"] = {"error": repr(err), "wall_s": h.wall_s,
+                            "rerun_s": _rerun_equal(
+                                "deadline", svc, makers["q95"],
+                                oracles["q95"], "q95")}
+
+        # -- the quota ladder ---------------------------------------------------
+        def rungs_of(ctx):
+            """The rungs a context climbed, in order (the ladder is
+            one-way: level n entered its first n rungs, the third a
+            kill)."""
+            from blaze_tpu_torch.serving.context import DEGRADE_LADDER
+            return [DEGRADE_LADDER[min(i, len(DEGRADE_LADDER) - 1)]
+                    for i in range(ctx.degrade_level)]
+
+        def laddered(name, quota, label, expect=None):
+            """`name` under `quota`: its rungs, breaches and outcome;
+            `expect` "climb" (completes on one or two rungs, equal to its
+            oracle) or "kill" (QueryMemoryExceeded after the third)."""
+            mm = MemManager.get()
+            breaches0 = mm.total_quota_breaches
+            h = svc.submit(makers[name](), mem_quota=quota)
+            err = h.exception(600)
+            tops = sorted(task_peaks[name].values(), reverse=True)
+            r = {"query": name, "quota": quota, "peak_bytes": peaks[name],
+                 "task_peaks": tops[:4],
+                 "rungs": rungs_of(h.ctx),
+                 "breaches": mm.total_quota_breaches - breaches0,
+                 "tasks_above": sum(1 for v in tops if v > quota),
+                 "error": None if err is None else repr(err)}
+            print(f"quota {label}: {name} under {quota} bytes (its peak "
+                  f"{peaks[name]} bytes of its consumers; the largest task "
+                  f"peaks {r['task_peaks']}, {r['tasks_above']} task(s) "
+                  f"above the quota at level 1): rungs {r['rungs']}, "
+                  f"{r['breaches']} breaches, "
+                  f"{type(err).__name__ if err else 'completed'}")
+            if err is None:
+                res = {"results": [{"name": name, "query_id": h.query_id,
+                                    "status": h.status, "error": None,
+                                    "table": h.result(0)}]}
+                e = SV.check_mix(res, {name: oracles[name]})[h.query_id]
+                if e or not r["rungs"] or "kill" in r["rungs"] or \
+                        expect == "kill":
+                    raise SystemExit(f"serving quota {label}: {e}, {r}")
+            elif not isinstance(err, QueryMemoryExceeded) or \
+                    r["rungs"][-1] != "kill" or r["breaches"] < 3 or \
+                    expect == "climb":
+                raise SystemExit(f"serving quota {label}: {r}")
+            _clean_after(f"quota {label}", h)
+            return r
+
+        # full q01 scans store_returns twice (stages 0 and 2), so its
+        # largest task peak (the writer's staged rows) is reached by one
+        # task of each: one byte under it, two tasks breach, two rungs,
+        # no kill.  Each of q95's four web_sales map tasks holds its peak
+        # alike: one byte under it, four breach, and the third kills.
+        q01_top = max(task_peaks["q01"].values())
+        ladder = {"peaks": peaks}
+        ladder["q01 climb"] = laddered("q01", q01_top - 1,
+                                       "under q01's largest task", "climb")
+        ladder["q01 kill"] = laddered("q01", max(1, q01_top // 8),
+                                      "kill at an eighth of q01's", "kill")
+        ladder["q95 under the peak"] = laddered(
+            "q95", peaks["q95"] - 1, "q95 under its peak", "kill")
+        ladder["rerun_s"] = _rerun_equal("quota kill", svc, makers["q01"],
+                                         oracles["q01"], "q01")
+        legs["quota"] = ladder
+    finally:
+        svc.shutdown(wait=True, cancel_running=True)
+        config.conf.unset(config.STATS_ENABLE.key)
+        config.conf.unset(config.STATS_DIR.key)
+        statstore.reset_conf_probe()
+
+    # -- admission ------------------------------------------------------------
+    phase("serving (g): admission (maxQueue 1 with its slot blocked; "
+          "tenant.maxInflight 1), then chaos")
+    from blaze_tpu_torch.serving.service import _default_executor
+    gate, started = threading.Event(), threading.Event()
+
+    def gated(plan, ctx, handle):
+        started.set()
+        if not gate.wait(120):
+            raise SystemExit("serving admission: the gate never opened")
+        return _default_executor(plan, ctx, handle)
+
+    kinds = {}
+    for label, kw, tenants in (
+            ("queue-full", dict(max_concurrent=1, max_queue=1),
+             ("a", "a", "b", "c")),
+            ("tenant-quota", dict(max_concurrent=2, max_queue=8,
+                                  tenant_max_inflight=1),
+             ("a", "a", "b", "a"))):
+        gate.clear()
+        started.clear()
+        svc = QueryService(executor=gated, **kw)
+        try:
+            handles, got = [], []
+            for i, tenant in enumerate(tenants):
+                try:
+                    handles.append(svc.submit(makers["q95"](),
+                                              tenant=tenant))
+                    got.append("admitted")
+                except QueryRejected as e:
+                    got.append(e.kind)
+                if i == 0 and not started.wait(60):
+                    raise SystemExit("serving admission: no slot started")
+            # the admitted queries are cancelled before the gate opens:
+            # the levels ran the mix to completion already
+            for h in handles:
+                h.cancel(reason="admission leg done")
+            gate.set()
+            for h in handles:
+                if not isinstance(h.exception(600), QueryCancelled):
+                    raise SystemExit(f"serving admission: {h.status}")
+            counters = svc.stats()["counters"]
+        finally:
+            gate.set()
+            svc.shutdown(wait=True, cancel_running=True)
+        want = (["admitted", "admitted", "queue-full", "queue-full"]
+                if label == "queue-full" else
+                ["admitted", "tenant-quota", "admitted", "tenant-quota"])
+        print(f"admission {label}: {got}; counters {counters}")
+        key = "shed_" + label.replace("-", "_")
+        if got != want or counters[key] != 2 or \
+                counters["admitted"] != 2 or counters["cancelled"] != 2:
+            raise SystemExit(f"serving admission {label}: {got}, "
+                             f"{counters}")
+        kinds[label] = {"outcomes": got, "counters": counters}
+    out["admission"] = kinds
+
+    # -- chaos ----------------------------------------------------------------
+    config.conf.set(config.STAGE_MAX_RECOVERIES.key, CHAOS_MAX_RECOVERIES)
+    before = device_stats.snapshot()
+    faults.configure(CHAOS_RULES, seed=CHAOS_SEED)
+    try:
+        _zero_launches()
+        r = SV.run_mix([("q01", lambda: makers["q01"](CHAOS_PARTS))] * 3,
+                       3, timeout_s=600)
+        out["launches"]["chaos"] = _read_launches()
+        fired = faults.stats()
+    finally:
+        faults.clear()
+        config.conf.unset(config.STAGE_MAX_RECOVERIES.key)
+    delta = device_stats.delta(before)
+    errs = SV.check_mix(r, oracles)
+    chaos = {k: delta.get(k, 0) for k in (
+        "faults_injected", "task_retries", "task_failures",
+        "fetch_failures", "stage_recoveries", "recovered_map_tasks")}
+    print(f"chaos {CHAOS_RULES} seed {CHAOS_SEED}, 3 q01 ({CHAOS_PARTS} "
+          f"partitions, {CHAOS_MAX_RECOVERIES} recovery rounds) at "
+          f"concurrency 3: "
+          f"{r['outcomes']}, wall {r['wall_s']:.3f} s; sites {fired}; "
+          f"{chaos}")
+    if any(errs.values()) or r["leaks"] or r["threads_alive"]:
+        raise SystemExit(f"serving chaos: {errs}, leaks {r['leaks']}")
+    if chaos["faults_injected"] <= 0:
+        raise SystemExit("serving chaos: no fault fired")
+    out["chaos"] = dict(chaos, sites=fired, wall_s=r["wall_s"])
+    out["legs"] = legs
+    return out
+
+
+def serving_phase(root, mix, smi):
+    """The query service on the card (serving/service.py,
+    itest/serving.py): the mix (full q01, q06, q95) twice at
+    maxConcurrent 1 and then 4, each result against its oracle and its
+    serial run bit for bit; a cancel from the progress hook, a deadline,
+    the quota ladder, admission, chaos (`_serving_runs`); then the
+    leaks, once the runs' frames, handles and tracebacks are gone."""
+    import gc
+    import tempfile as _tempfile
+    import threading
+
+    import torch
+    from blaze_tpu_torch.exprs import program as EP
+    from blaze_tpu_torch.kernels import hash_update as HU
+    from blaze_tpu_torch.kernels import radix as R
+    from blaze_tpu_torch.runtime import loop
+    t_phase = time.perf_counter()
+
+    def cache_entries():
+        return {"fold entries": len(loop._FOLDS),
+                "expression programs": EP.program_cache_info()["size"],
+                "placement scratches": len(HU._scratch),
+                "radix scratches": len(R._scratch)}
+
+    def drop_caches():
+        """The fold and program caches, the kernels' per-stream scratch
+        and the cuBLAS workspaces of the streams used (after the work
+        queued on them)."""
+        torch.cuda.synchronize()
+        loop._FOLDS.clear()
+        EP.clear_program_cache()
+        HU._scratch.clear()
+        R._scratch.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+
+    drop_caches()
+    mem0 = torch.cuda.memory_allocated()
+    tmp0 = set(os.listdir(_tempfile.gettempdir()))
+    out = _serving_runs(root, mix, smi)
+
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    caches = cache_entries()
+    drop_caches()
+    mem2 = torch.cuda.memory_allocated()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("blaze-serve") and t.is_alive()]
+    left = sorted(p for p in set(os.listdir(_tempfile.gettempdir())) - tmp0
+                  if p.startswith("blaze-dag-"))
+    wall = time.perf_counter() - t_phase
+    print(f"serving leaks: torch.cuda.memory_allocated {mem0} before the "
+          f"phase (its caches dropped), {mem1} after it, {mem2} with the "
+          f"caches dropped again: the fold and program caches and the "
+          f"kernels' scratch held {mem1 - mem2} bytes ({caches}); service "
+          f"threads alive {alive}; scratch dirs left {left}")
+    if mem2 > mem0 or alive or left:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape),
+                        str(o.dtype)) for o in gc.get_objects()
+                       if torch.is_tensor(o) and o.is_cuda), reverse=True)
+        raise SystemExit(f"serving: device memory {mem0} -> {mem2} "
+                         f"bytes, threads {alive}, dirs {left}; the "
+                         f"largest live CUDA tensors {live[:12]}")
+    print(f"serving phase: {wall:.1f} s ({smi})")
+    out.update(wall_s=wall, memory={"before": mem0, "after": mem1,
+                                    "caches_dropped": mem2,
+                                    "cache_bytes": mem1 - mem2,
+                                    "caches": caches})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5913,9 +6780,23 @@ def main():
             "q51": q95_windows["runs"]["q51 auto"]["wall_s"],
             "q51 window buffer peaks":
                 q95_windows["runs"]["q51 auto"]["window_buffer_peaks"]})
-        ORACLES.clear()
         for k, r in spill["runs"].items():
             by_path[f"spill {k}"] = r["launches"]
+        serving_checks = {"two_streams": two_stream_check(gen, dev),
+                          "capture": concurrent_capture_check(dev),
+                          "fold_streams": fold_cross_stream_check(dev),
+                          # the same without the entry's event: printed,
+                          # to show what the check above can see
+                          "fold_streams_without_event":
+                              fold_cross_stream_check(dev, wait=False),
+                          "private_streams": private_stream_check(dev)}
+        serving = serving_phase(root, {"q01": (make_q01, q01_want),
+                                       "q06": ORACLES["q06"],
+                                       "q95": ORACLES["q95"]}, smi)
+        serving.update(serving_checks)
+        for k, v in serving["launches"].items():
+            by_path[f"serving {k}"] = v
+        ORACLES.clear()
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
         loop_phases["regrow"] = regrow_path(root, sr_paths, lo, hi)
@@ -6238,6 +7119,22 @@ def main():
               f"{k} adaptive {r['wall_s']:.3f} s, rules "
               f"{sorted({e['rule'] for e in r['events']}) or 'none'}"
               for k, r in adaptive["tpcds"].items()))
+    lv = serving["levels"]
+    print(f"serving phase {serving['wall_s']:.1f} s ({smi}): " + "; ".join(
+        f"maxConcurrent {c}: {r['completed']} of {r['submitted']} in "
+        f"{r['wall_s']:.3f} s (sum of the runs {r['serial_sum_s']:.3f} s), "
+        f"p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
+        f"{r['qps']:.3f} queries/s, peak {r['peak_bytes']} bytes"
+        for c, r in lv.items()) + f"; cancel {serving['legs']['cancel']}"
+        f"; deadline {serving['legs']['deadline']}; quota "
+        f"{serving['legs']['quota']}; admission {serving['admission']}; "
+        f"chaos {serving['chaos']}; two streams "
+        f"{serving['two_streams']}; capture {serving['capture']}; one fold "
+        f"entry across streams {serving['fold_streams']} (without the "
+        f"entry's event {serving['fold_streams_without_event']}); private "
+        f"streams "
+        f"{serving['private_streams']}; memory "
+        f"{serving['memory']}")
     print("expression programs by path (fused and eager batches, programs "
           "built, cache hits, graph captures, capture ms, replays): "
           + "; ".join(f"{k} {p['expr']}" for k, p in by_path.items()))
@@ -6282,6 +7179,7 @@ def main():
                       "wire_kinds": wire, "staging": staging,
                       "q70": q70, "row_order_lanes": lanes,
                       "expressions": exprs, "adaptive": adaptive,
+                      "serving": serving,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

@@ -51,3 +51,17 @@ def test_sources_name_no_jax_import():
                 top = m.split(".")[0]
                 assert top not in ("jax", "jaxlib", "blaze_tpu", "bench"), \
                     f"{path} imports {m}"
+
+
+def test_the_query_service_and_the_fault_engine_are_walked():
+    """The import probe above reaches the query service, its context and
+    progress registry, the fault engine and itest/serving.py."""
+    import pkgutil
+
+    import blaze_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(blaze_tpu_torch.__path__,
+                                                   "blaze_tpu_torch.")}
+    assert {"blaze_tpu_torch.serving", "blaze_tpu_torch.serving.context",
+            "blaze_tpu_torch.serving.progress",
+            "blaze_tpu_torch.serving.service", "blaze_tpu_torch.faults",
+            "blaze_tpu_torch.itest.serving"} <= names

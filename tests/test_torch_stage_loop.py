@@ -256,6 +256,35 @@ def test_last_window_takes_a_smaller_graph(tmp_path, loop_on):
     assert {8, 4} <= widths
 
 
+def test_an_entry_in_use_is_never_evicted(tmp_path, loop_on, monkeypatch):
+    """A full fold cache evicts only entries no task holds (another
+    stream's work may still be queued on one in use), grows past its
+    limit while every entry is held, and shrinks back once they are
+    released; each entry counts its users from lookup to release."""
+    from blaze_tpu_torch.plan import stage_compiler as tsc
+    from blaze_tpu_torch.runtime import loop as tloop
+    rng = np.random.default_rng(6)
+    table = _table(rng, 300)
+    plan_d = _plan(_write(tmp_path, table), table, ["k64"])
+    prog = tsc.compile_task_plan(_torch_plan(plan_d))
+    monkeypatch.setattr(tloop, "_FOLDS", {})
+    monkeypatch.setattr(tloop, "_FOLD_LIMIT", 2)
+    dev = torch.device("cpu")
+    held = [tloop._move(prog, None, 128, 8, S, dev)[0] for S in (64, 128)]
+    third, _ = tloop._move(prog, None, 128, 8, 256, dev)
+    assert len(tloop._FOLDS) == 3  # both held: nothing evicted
+    assert [f.users for f in tloop._FOLDS.values()] == [1, 1, 1]
+    held[0].release()
+    third.release()
+    fourth, _ = tloop._move(prog, None, 128, 8, 512, dev)
+    # the two idle entries went, oldest first; the held one stayed
+    assert list(tloop._FOLDS.values()) == [held[1], fourth]
+    for f in (held[1], fourth):
+        f.release()
+    assert [f.users for f in tloop._FOLDS.values()] == [0, 0]
+    assert not any(f.lock.locked() for f in tloop._FOLDS.values())
+
+
 def test_regrow_resumes_mid_chunk(tmp_path, loop_on, monkeypatch):
     """An exact-mode table of 64 slots regrows more than once, each time
     resuming its chunk at the overflowing batch."""

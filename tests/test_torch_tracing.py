@@ -202,6 +202,15 @@ def test_every_registered_name_is_emitted_by_a_port_path(tmp_path,
         assert q.rung == 1
     finally:
         MemManager.init(4 << 30)
+    # the query service: admission_wait and query; an injected admission
+    # fault: fault_injected
+    from blaze_tpu_torch import faults
+    from blaze_tpu_torch.serving import QueryRejected, QueryService
+    with QueryService(executor=lambda p, c, h: "ran") as svc:
+        assert svc.submit({"kind": "noop"}).result(30) == "ran"
+        with faults.scoped(("admit", dict(at=(1,)))):
+            with pytest.raises(QueryRejected):
+                svc.submit({"kind": "noop"})
     # an nvcc build: kernel_build
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path))
