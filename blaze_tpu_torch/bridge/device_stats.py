@@ -16,12 +16,14 @@ rest.
 The statistics-plane (`stats`) and adaptive-execution (`aqe`) families
 are the reference's, fed by plan/statstore.py and plan/adaptive.py; the
 `serving` family sums the query services' admission and outcome counters
-(serving/service.py), and `faults_injected` counts the injector's fires
-(faults.py).  These counters are process-wide: with several queries in
+(serving/service.py), `faults_injected` counts the injector's fires
+(faults.py), and the `stream` family is the streaming runtime's
+(streaming/executor.py, streaming/checkpoint.py,
+convert/flink_runtime.py), under the reference's names.  These counters are process-wide: with several queries in
 flight none of them can be read per query.
 
 Not carried over (ROADMAP Queue 1): the worker-pool, speculation,
-observability-plane, cache, streaming, fleet and device-exchange
+observability-plane, cache, fleet and device-exchange
 families, the encoding family but its host evictions
 (the dictionary and decimal-tier counters), frame compression, the stage-program cache and the lane declines and
 fault fallbacks; the port has no site for them yet (item 16 and the
@@ -31,7 +33,7 @@ slices of those subsystems add each back with its site).
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 _lock = threading.Lock()
 
@@ -114,6 +116,21 @@ _aqe = {"aqe_rewrites": 0, "aqe_broadcast_switches": 0,
         "aqe_partitions_coalesced": 0, "aqe_skew_splits": 0,
         "aqe_history_seeds": 0, "aqe_bytes_saved": 0,
         "aqe_stages_elided": 0}
+
+# the streaming runtime (streaming/executor.py StreamExecutor): committed
+# epochs and their wall, rows and records through the pipeline, late-record
+# routing, checkpoint commits, recovery rounds and the exactly-once sink's
+# outcomes; the *_last entries are gauges (the latest observation):
+# watermark delay, window-state bytes and source lag
+_stream = {"stream_epochs": 0, "stream_epoch_wall_ns": 0,
+           "stream_rows": 0, "stream_records": 0,
+           "stream_late_records": 0, "stream_late_side_rows": 0,
+           "stream_checkpoints": 0, "stream_checkpoint_bytes": 0,
+           "stream_recoveries": 0, "stream_replayed_epochs": 0,
+           "stream_sink_commits": 0, "stream_sink_dup_skips": 0,
+           "stream_watermark_delay_ms_last": 0,
+           "stream_window_state_bytes_last": 0,
+           "stream_source_lag_records_last": 0}
 
 # what the port compiles: name -> {"calls", "compiles", "cache_hits",
 # "compile_ns"}; kernels/build.py notes each nvcc build, runtime/loop.py
@@ -409,6 +426,68 @@ def aqe_stats() -> dict:
         return dict(_aqe)
 
 
+def note_stream_epoch(wall_ns: int, rows: int = 0,
+                      records: int = 0) -> None:
+    """One committed micro-batch epoch: wall time, sink rows emitted,
+    source records consumed."""
+    with _lock:
+        _stream["stream_epochs"] += 1
+        _stream["stream_epoch_wall_ns"] += int(wall_ns)
+        _stream["stream_rows"] += int(rows)
+        _stream["stream_records"] += int(records)
+
+
+def note_stream_late(records: int, side_rows: int = 0) -> None:
+    """Late records seen past the watermark; `side_rows` the ones routed
+    to the late-side output (policy `side`)."""
+    with _lock:
+        _stream["stream_late_records"] += int(records)
+        _stream["stream_late_side_rows"] += int(side_rows)
+
+
+def note_stream_checkpoint(nbytes: int = 0) -> None:
+    with _lock:
+        _stream["stream_checkpoints"] += 1
+        _stream["stream_checkpoint_bytes"] += int(nbytes)
+
+
+def note_stream_recovery(replayed_epochs: int = 0) -> None:
+    """One recovery round: a restore from the last committed manifest."""
+    with _lock:
+        _stream["stream_recoveries"] += 1
+        _stream["stream_replayed_epochs"] += int(replayed_epochs)
+
+
+def note_stream_sink(committed: int = 0, dup_skips: int = 0) -> None:
+    """Exactly-once sink outcomes: first-wins commits, and replays
+    skipped because their epoch's manifest already existed."""
+    with _lock:
+        _stream["stream_sink_commits"] += int(committed)
+        _stream["stream_sink_dup_skips"] += int(dup_skips)
+
+
+def note_stream_gauges(watermark_delay_ms: Optional[int] = None,
+                       window_state_bytes: Optional[int] = None,
+                       source_lag_records: Optional[int] = None) -> None:
+    """The latest watermark delay, window-state bytes and unread source
+    records."""
+    with _lock:
+        if watermark_delay_ms is not None:
+            _stream["stream_watermark_delay_ms_last"] = \
+                int(watermark_delay_ms)
+        if window_state_bytes is not None:
+            _stream["stream_window_state_bytes_last"] = \
+                int(window_state_bytes)
+        if source_lag_records is not None:
+            _stream["stream_source_lag_records_last"] = \
+                int(source_lag_records)
+
+
+def stream_stats() -> dict:
+    with _lock:
+        return dict(_stream)
+
+
 def note_scatter_lane(kind: str, lane: str) -> None:
     """One kernel-lane resolution: kind hash/partition, lane
     pallas/scatter."""
@@ -496,7 +575,8 @@ def counter_families() -> Dict[str, Dict[str, int]]:
                 "stats": dict(_stats),
                 "aqe": dict(_aqe),
                 "encoding": dict(_encoding),
-                "serving": dict(_serving)}
+                "serving": dict(_serving),
+                "stream": dict(_stream)}
     fams["launches"] = launch_counts()
     return fams
 
@@ -524,7 +604,7 @@ def reset() -> None:
     with _lock:
         for d in (_transfers, _pipeline, _faults, _shuffle, _stage_loop,
                   _agg, _scatter_lane, _exprs, _stats, _aqe, _encoding,
-                  _serving):
+                  _serving, _stream):
             for k in d:
                 d[k] = 0
         _compiles.clear()

@@ -106,6 +106,7 @@ _FAMILY_HELP = {
     "encoding": "host-lane eviction",
     "launches": "hand-kernel wrapper launches",
     "serving": "query service admission and outcome",
+    "stream": "streaming runtime",
 }
 
 

@@ -61,6 +61,9 @@ SPAN_NAMES: Dict[str, str] = {
                       "(serving/service.py; attrs query/tenant)",
     "query": "one admitted query's execution on its pool slot, after its "
              "admission wait (serving/service.py; attrs query/tenant)",
+    "stream_epoch": "one streaming epoch: poll, the plan's run, the window "
+                    "fold, the sink attempt and the checkpoint commit "
+                    "(streaming/executor.py; attrs epoch/query)",
     "operator:*": "per-operator stream total accumulated across next() "
                   "calls; suffix is the ExecutionPlan class name "
                   "(ops/base.py stream meter)",
@@ -86,6 +89,10 @@ SPAN_NAMES: Dict[str, str] = {
     "aqe_history_seed": "bind-time planning applied statstore-derived "
                         "seeds to the plan (plan/adaptive.py; attrs "
                         "seeds)",
+    "stream_recovery": "a streaming query restored its last committed "
+                       "checkpoint after a retryable epoch failure "
+                       "(streaming/executor.py; attrs resume_epoch/"
+                       "replayed_epochs/query)",
     "fault_injected": "the chaos injector fired a scripted fault "
                       "(faults.py; attrs site)",
 }

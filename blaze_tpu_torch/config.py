@@ -525,3 +525,37 @@ UNPORTED_SCHEDULER_KEYS = {
     "auron.tpu.flightRecorder.enable": "item 16 (the flight recorder)",
     "auron.tpu.shuffle.device": "item 14 (device exchange)",
 }
+
+
+# -- the streaming runtime (streaming/) --------------------------------------
+STREAM_EPOCH_INTERVAL_MS = int_conf(
+    "auron.tpu.stream.epoch.intervalMs", 0,
+    "Target pacing between micro-batch epochs of the streaming runtime "
+    "(streaming/executor.py).  0 = run epochs back to back (drain mode); "
+    ">0 sleeps out the rest of the interval after each epoch, like "
+    "Flink's checkpoint interval.", category="streaming")
+STREAM_CHECKPOINT_DIR = str_conf(
+    "auron.tpu.stream.checkpoint.dir", "",
+    "Directory of the streaming checkpoint manifests (ckpt-NNNNNN.json: "
+    "per-partition source offsets, watermark, window-state snapshot, "
+    "sink attempt).  Empty = the StreamExecutor makes a private temp "
+    "directory.", category="streaming")
+STREAM_WATERMARK_LATENESS_MS = int_conf(
+    "auron.tpu.stream.watermark.latenessMs", 0,
+    "Allowed event-time lateness: the watermark trails the minimum "
+    "per-partition max event time by this many ms, so records up to "
+    "this late still land in their window before it fires.",
+    category="streaming")
+STREAM_LATE_SIDE_POLICY = str_conf(
+    "auron.tpu.stream.lateSide.policy", "drop",
+    "Where records older than the watermark go: `drop` discards them "
+    "(counted as stream_late_records), `side` routes them to the "
+    "executor's late-side output, `accept` folds them into the pane's "
+    "retained accumulator so a re-opened window re-emits corrected "
+    "cumulative values.", category="streaming")
+STREAM_MAX_RECOVERIES = int_conf(
+    "auron.tpu.stream.maxRecoveries", 3,
+    "Checkpoint-recovery rounds a streaming query may take: each "
+    "retryable epoch failure replays from the last committed manifest, "
+    "at most this many times before the error propagates.",
+    category="streaming")

@@ -24,6 +24,10 @@ Sites of the port (the code points that call in here):
                    query with QueryRejected kind="injected")
     cancel-race    serving/service.py QueryService.cancel, widens the
                    cancel-vs-completion race window
+    stream-epoch   streaming/executor.py, at the start of each epoch (the
+                   stream recovers from its last committed checkpoint)
+    checkpoint-commit  streaming/checkpoint.py, before a manifest's link
+                   (a crash between the sink attempt and the commit)
 
 The reference's other sites (`LATER_SITES`) have no code point in the
 port: a rule that names one raises ValueError naming ROADMAP Queue 1
@@ -59,12 +63,12 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 #: the sites the port evaluates
 SITES = ("task-start", "shuffle-read", "quota-breach", "admit",
-         "cancel-race")
+         "cancel-race", "stream-epoch", "checkpoint-commit")
 
 #: the reference's sites with no code point in the port yet
 LATER_SITES = ("shuffle-write", "ipc-decode", "mem-pressure",
                "device-collective", "device-loop", "pallas-kernel",
-               "stream-epoch", "checkpoint-commit", "worker-crash",
+               "worker-crash",
                "worker-hang", "worker-slow",
                "speculation-loser-commit-race", "replica-crash",
                "replica-hang", "socket-torn-frame")

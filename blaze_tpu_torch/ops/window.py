@@ -35,8 +35,14 @@ output type (sum decimal(min(p + 10, 18), s)); avg follows AvgAgg's
 decimal rule, sum x 10^4 / count HALF_UP (the JAX package casts the
 unscaled sums as whole numbers there: ROADMAP Queue 3).
 
-Not here: the host route for small batches (item 15) and the event-time
-windows of the streaming runtime (item 16).
+The event-time windows of the streaming runtime (`EventTimeWindowSpec`,
+`WatermarkTracker`, `EventTimeWindowState`) are at the end: the JAX
+package's host state, copied as it is (Python accumulators, integer sums
+unbounded, panes fired in (window_start, str(key)) order, the whole open
+state in every checkpoint snapshot).
+
+Not here: the host route for small batches (ROADMAP step 13's
+`_window_xp`).
 """
 
 from __future__ import annotations
@@ -545,3 +551,296 @@ def _segmented_cumext(values: torch.Tensor, part_seg: torch.Tensor,
         out = torch.where(prev_pid == pid, ext(out, prev), out)
         shift *= 2
     return out
+
+
+# -- event-time windows (the streaming runtime) ------------------------------
+# Parity: Flink's SliceAssigners / WindowOperator watermark semantics (the
+# reference accelerates the operator body; window assignment and the
+# watermark clock stay on the host, as here).  streaming/executor.py feeds
+# each epoch's plan output through EventTimeWindowState and fires panes
+# when the watermark passes their end; the state's snapshot rides in the
+# checkpoint manifest.
+
+
+@dataclass(frozen=True)
+class EventTimeWindowSpec:
+    """Tumbling (slide_ms None) or sliding event-time window, epoch ms."""
+
+    size_ms: int
+    slide_ms: Optional[int] = None
+
+    def __post_init__(self):
+        if self.size_ms <= 0:
+            raise ValueError("window size_ms must be > 0")
+        if self.slide_ms is not None and self.slide_ms <= 0:
+            raise ValueError("window slide_ms must be > 0")
+
+    def assign(self, ts_ms: int) -> List[int]:
+        """The starts of the windows holding ts (Flink
+        SlidingEventTimeWindows.assignWindows; one start when tumbling)."""
+        slide = self.slide_ms or self.size_ms
+        last = ts_ms - (ts_ms % slide)
+        starts = []
+        w = last
+        while w > ts_ms - self.size_ms:
+            starts.append(w)
+            w -= slide
+        return starts
+
+    def end(self, start_ms: int) -> int:
+        return start_ms + self.size_ms
+
+
+class WatermarkTracker:
+    """Event-time clock: the max record timestamp a partition, watermark =
+    the min over the partitions that have emitted, less the allowed
+    lateness (Flink's per-split watermark combination: a partition never
+    seen is idle and holds nothing back).  A record with ts >= watermark
+    is on time; the watermark only moves forward."""
+
+    def __init__(self, lateness_ms: int = 0):
+        self.lateness_ms = int(lateness_ms)
+        self._max_ts: dict = {}
+        self._wm: Optional[int] = None
+
+    def observe(self, partition: int, ts_ms: int) -> None:
+        cur = self._max_ts.get(partition)
+        if cur is None or ts_ms > cur:
+            self._max_ts[partition] = int(ts_ms)
+
+    def watermark(self) -> Optional[int]:
+        if not self._max_ts:
+            return self._wm
+        wm = min(self._max_ts.values()) - self.lateness_ms
+        if self._wm is None or wm > self._wm:
+            self._wm = wm
+        return self._wm
+
+    def snapshot(self) -> dict:
+        return {"max_ts": {str(p): t for p, t in self._max_ts.items()},
+                "wm": self._wm}
+
+    def restore(self, state: dict) -> None:
+        self._max_ts = {int(p): int(t)
+                        for p, t in (state.get("max_ts") or {}).items()}
+        self._wm = state.get("wm")
+
+
+_ETW_AGGS = ("count", "sum", "min", "max", "avg")
+
+
+class EventTimeWindowState(MemConsumer):
+    """Keyed windowed-aggregation state of the streaming runtime.
+
+    Folds each epoch's output rows into per-(window, key) accumulators;
+    `advance(wm)` fires every pane whose window end <= watermark.  Late
+    rows (ts < watermark on arrival) follow the late-side policy: `drop`
+    counts them, `side` buffers them for `take_late()`, `accept` folds
+    them into the pane's RETAINED accumulator, so a fired pane re-opens
+    with the state it fired with and re-emits corrected cumulative
+    values.  Accept keeps the fired accumulators for the query's life;
+    drop and side retain nothing after a fire.  The whole state is
+    JSON-snapshotable, and the object is a MemConsumer charged with
+    `state_bytes()`, so a query's memory quota sees it (`spill()`
+    releases nothing: there is no cheaper tier than firing, so quota
+    pressure climbs the degrade ladder)."""
+
+    def __init__(self, spec: EventTimeWindowSpec, in_schema: pa.Schema,
+                 ts_field: str, key_fields: Sequence[str],
+                 aggs: Sequence[Tuple[str, Optional[str]]],
+                 late_policy: str = "drop"):
+        MemConsumer.__init__(self, "EventTimeWindowState")
+        self.spec = spec
+        self.ts_field = ts_field
+        self.key_fields = list(key_fields)
+        for fn, _col in aggs:
+            if fn not in _ETW_AGGS:
+                raise ValueError(f"unsupported window agg {fn!r}")
+        self.aggs = [(fn, col) for fn, col in aggs]
+        self.late_policy = late_policy
+        if late_policy not in ("drop", "side", "accept"):
+            raise ValueError(f"unknown late-side policy {late_policy!r}")
+        self._in_schema = in_schema
+        # (window_start, key tuple) -> [acc per agg]
+        self._state: dict = {}
+        self.late_records = 0
+        self._late_rows: List[dict] = []
+        # accept policy: the accumulators of fired panes, kept so a late
+        # row re-opens its pane with cumulative state
+        self._fired: dict = {}
+        self.set_spillable(MemManager.get())
+
+    # -- accumulators ---------------------------------------------------
+    @staticmethod
+    def _acc_init(fn: str):
+        if fn == "count":
+            return 0
+        if fn == "avg":
+            return [0.0, 0]
+        return None  # sum/min/max start empty (null on no input)
+
+    @staticmethod
+    def _acc_result(fn: str, acc):
+        if fn == "avg":
+            return acc[0] / acc[1] if acc[1] else None
+        return acc
+
+    # -- folding --------------------------------------------------------
+    def add_batch(self, rb, partition: Optional[int] = None,
+                  watermark: Optional[int] = None) -> int:
+        """Fold one RecordBatch or Table; returns this batch's late-record
+        count (already routed by the policy).  The loop is the JAX
+        package's, with `assign` and the JAX package's `_acc_fold`
+        (blaze_tpu/ops/window.py) written out in it: the same windows,
+        accumulators and order of adds."""
+        cols = {name: rb.column(i).to_pylist()
+                for i, name in enumerate(rb.schema.names)}
+        ts_col = cols[self.ts_field]
+        keys = [cols[k] for k in self.key_fields]
+        vals = [cols[c] if c is not None else None for _fn, c in self.aggs]
+        fns = [fn for fn, _col in self.aggs]
+        aggs = list(enumerate(zip(fns, vals)))
+        size = self.spec.size_ms
+        slide = self.spec.slide_ms or size
+        state, fired = self._state, self._fired
+        init, policy = self._acc_init, self.late_policy
+        late = 0
+        for r in range(len(ts_col)):
+            ts = ts_col[r]
+            key = tuple([k[r] for k in keys])
+            if (watermark is not None and ts is not None
+                    and ts < watermark):
+                late += 1
+                if policy == "drop":
+                    continue
+                if policy == "side":
+                    self._late_rows.append(
+                        {n: cols[n][r] for n in rb.schema.names})
+                    continue
+                # accept: fold (the pane may re-fire)
+            t = int(ts)
+            w = t - (t % slide)
+            while w > t - size:
+                slot = state.get((w, key))
+                if slot is None:
+                    # re-open a fired pane with the accumulators it fired
+                    # with (accept), else start fresh
+                    slot = fired.pop((w, key), None)
+                    if slot is None:
+                        slot = [init(fn) for fn in fns]
+                    state[(w, key)] = slot
+                for i, (fn, col) in aggs:
+                    # col None = count(*): every row counts
+                    v = col[r] if col is not None else 1
+                    acc = slot[i]
+                    if fn == "count":
+                        slot[i] = acc + (1 if v is not None else 0)
+                    elif v is None:
+                        pass
+                    elif fn == "sum":
+                        slot[i] = v if acc is None else acc + v
+                    elif fn == "max":
+                        slot[i] = v if acc is None or v > acc else acc
+                    elif fn == "min":
+                        slot[i] = v if acc is None or v < acc else acc
+                    else:  # avg
+                        slot[i] = [acc[0] + v, acc[1] + 1]
+                w -= slide
+        self.late_records += late
+        self.update_mem_used(self.state_bytes())
+        return late
+
+    # -- firing ---------------------------------------------------------
+    def _out_schema(self) -> pa.Schema:
+        fields = [self._in_schema.field(k) for k in self.key_fields]
+        fields += [pa.field("window_start", pa.int64()),
+                   pa.field("window_end", pa.int64())]
+        for fn, col in self.aggs:
+            name = f"{fn}_{col}" if col else fn
+            if fn == "count":
+                t = pa.int64()
+            elif fn == "avg":
+                t = pa.float64()
+            else:
+                t = self._in_schema.field(col).type
+            fields.append(pa.field(name, t))
+        return pa.schema(fields)
+
+    def advance(self, watermark: Optional[int]) -> pa.Table:
+        """Fire every pane whose window end <= watermark (every pane when
+        the watermark is None, the end-of-stream flush), in (window_start,
+        key) order."""
+        due = [wk for wk in self._state
+               if watermark is None or self.spec.end(wk[0]) <= watermark]
+        # sorted by (window_start, the key's strings), ties in insertion
+        # order: a stable sort's order, each key's strings made once
+        strs = {key: tuple(str(k) for k in key)
+                for key in {key for _w, key in due}}
+        due = [due[i] for _w, _s, i in sorted(
+            [(w, strs[key], i) for i, (w, key) in enumerate(due)])]
+        schema = self._out_schema()
+        rows: List[list] = [[] for _ in schema]
+        for w, key in due:
+            accs = self._state.pop((w, key))
+            c = 0
+            for k in key:
+                rows[c].append(k)
+                c += 1
+            rows[c].append(w)
+            rows[c + 1].append(self.spec.end(w))
+            c += 2
+            for i, (fn, _col) in enumerate(self.aggs):
+                rows[c + i].append(self._acc_result(fn, accs[i]))
+            if self.late_policy == "accept":
+                self._fired[(w, key)] = accs
+        self.update_mem_used(self.state_bytes())
+        arrays = [pa.array(v, type=f.type)
+                  for v, f in zip(rows, schema)]
+        return pa.Table.from_arrays(arrays, schema=schema)
+
+    def flush(self) -> pa.Table:
+        """End of stream: fire everything still open."""
+        return self.advance(None)
+
+    def take_late(self) -> List[dict]:
+        out, self._late_rows = self._late_rows, []
+        return out
+
+    # -- checkpoint snapshot --------------------------------------------
+    def state_bytes(self) -> int:
+        # the retained-bytes model: dict entry + key tuple + accumulators
+        per = 96 + 24 * (len(self.key_fields) + len(self.aggs))
+        return ((len(self._state) + len(self._fired)) * per
+                + 48 * len(self._late_rows))
+
+    @staticmethod
+    def _panes_out(panes: dict) -> list:
+        # sorted by (window_start, str(key)), ties in insertion order (a
+        # stable sort's order), str(key) made once a key
+        items = list(panes.items())
+        strs = {key: str(key) for key in {key for _w, key in panes}}
+        order = sorted([(w, strs[key], i)
+                        for i, ((w, key), _a) in enumerate(items)])
+        return [[items[i][0][0], list(items[i][0][1]), items[i][1]]
+                for _w, _s, i in order]
+
+    def snapshot(self) -> dict:
+        return {"windows": self._panes_out(self._state),
+                "fired": self._panes_out(self._fired),
+                "late_records": self.late_records}
+
+    def restore(self, state: dict) -> None:
+        self._state = {(int(w), tuple(key)): list(accs)
+                       for w, key, accs in (state.get("windows") or [])}
+        self._fired = {(int(w), tuple(key)): list(accs)
+                       for w, key, accs in (state.get("fired") or [])}
+        self.late_records = int(state.get("late_records", 0))
+        self.update_mem_used(self.state_bytes())
+
+    def spill(self) -> int:
+        # no colder tier (firing early would break event-time semantics):
+        # nothing released, so quota arbitration climbs the degrade ladder
+        return 0
+
+    def close(self) -> None:
+        self.unregister()

@@ -15,9 +15,10 @@ The profile is registered with the observability service
 (bridge/profiling.py `record_profile`), so the same data is served at
 /profile/<qid> and folded into /metrics.prom.  Footers appear only for
 counters that moved (the "aqe:" footer when adaptive execution rewrote
-or seeded the plan); the reference's footers of subsystems the port
-lacks (speculation, work sharing, encodings, workers, streams: ROADMAP
-Queue 1) have no counters here, so they never render, as the
+or seeded the plan, the "stream:" footer once the streaming runtime has
+committed an epoch); the reference's footers of subsystems the port
+lacks (speculation, work sharing, encodings, workers: ROADMAP Queue 1)
+have no counters here, so they never render, as the
 reference's do not when their stats are empty.
 """
 
@@ -198,6 +199,22 @@ def _footers(x: Dict[str, int]) -> List[str]:
             f"{x.get('stage_loop_staged_dispatches_avoided', 0)} "
             f"regrows={x.get('stage_loop_regrows', 0)} "
             f"fallbacks={x.get('stage_loop_fallbacks', 0)}")
+    if x.get("stream_epochs"):
+        epochs = x.get("stream_epochs", 0)
+        wall = x.get("stream_epoch_wall_ns", 0)
+        lines.append(
+            f"stream: epochs={epochs} "
+            f"epoch_wall={_fmt_ns(wall // max(1, epochs))}/avg "
+            f"rows={x.get('stream_rows', 0)} "
+            f"records={x.get('stream_records', 0)} "
+            f"late={x.get('stream_late_records', 0)} "
+            f"watermark_delay={x.get('stream_watermark_delay_ms_last', 0)}ms "
+            f"state={_fmt_bytes(x.get('stream_window_state_bytes_last', 0))} "
+            f"lag={x.get('stream_source_lag_records_last', 0)} "
+            f"ckpts={x.get('stream_checkpoints', 0)} "
+            f"recoveries={x.get('stream_recoveries', 0)} "
+            f"sink_commits={x.get('stream_sink_commits', 0)} "
+            f"dup_skips={x.get('stream_sink_dup_skips', 0)}")
     lane_keys = ("scatter_lane_hash_pallas", "scatter_lane_hash_scatter",
                  "scatter_lane_partition_pallas",
                  "scatter_lane_partition_scatter")

@@ -4,14 +4,15 @@ blaze_tpu/plan/planner.py the port uses).
 
 Node kinds: parquet_scan (with a pruning `predicate`, `partition_schema`
 and per-file `partition_values`), memory_scan (an Arrow table from the
-resource map), ffi_reader, empty_partitions, filter, project,
+resource map), kafka_scan (a poll callback in the resource map, or the
+node's inline mock records), ffi_reader, empty_partitions, filter, project,
 filter_project, hash_agg, sort_agg, sort, limit, union, rename_columns,
 expand, window, generate (explode, posexplode and json_tuple), debug,
 coalesce_batches, shuffle_writer, local_exchange (an in-process
 `LocalShuffleExchange`), ipc_reader, ipc_writer, broadcast_join,
 sort_merge_join, hash_join, broadcast_nested_loop_join and
-broadcast_join_build_hash_map; partitionings: hash, round_robin, single
-and range.  Every other kind raises NotImplementedError naming the
+broadcast_join_build_hash_map, parquet_sink and orc_sink; partitionings:
+hash, round_robin, single and range.  Every other kind raises NotImplementedError naming the
 ROADMAP item it belongs to.
 """
 
@@ -52,9 +53,7 @@ from blaze_tpu_torch.shuffle import (FFIReaderExec, HashPartitioning,
 
 #: node kinds of the JAX planner the port does not plan yet, with the
 #: ROADMAP item each belongs to
-_LATER_KINDS = dict.fromkeys(("parquet_sink", "orc_sink", "orc_scan",
-                              "kafka_scan", "rss_shuffle_writer"),
-                             "item 16")
+_LATER_KINDS = dict.fromkeys(("orc_scan", "rss_shuffle_writer"), "item 16")
 
 
 class CoalesceBatchesExec(ExecutionPlan):
@@ -106,6 +105,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         if table is None:
             raise KeyError(f"memory_scan resource {d['resource_id']!r}")
         return MemoryScanExec.from_arrow(table, d.get("num_partitions", 1))
+    if k == "kafka_scan":
+        return _create_kafka_scan(d)
 
     if k in ("sort_merge_join", "hash_join", "broadcast_join"):
         return _join_from_dict(d)
@@ -128,7 +129,8 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
                  "sort_agg", "sort", "limit", "rename_columns", "expand",
                  "window", "generate", "shuffle_writer", "local_exchange",
                  "broadcast_join_build_hash_map", "debug",
-                 "coalesce_batches", "ipc_writer"):
+                 "coalesce_batches", "ipc_writer", "parquet_sink",
+                 "orc_sink"):
         raise ValueError(f"unknown plan node kind {k!r}")
     child = create_plan(d["input"])
     in_schema = child.schema
@@ -154,6 +156,13 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return IpcWriterExec(child, get_resource(d["sink_resource_id"]))
     if k == "generate":
         return _generate_from_dict(d, child)
+    if k == "parquet_sink":
+        from blaze_tpu_torch.ops.sink import ParquetSinkExec
+        return ParquetSinkExec(child, _sink_path(d),
+                               partition_cols=d.get("partition_cols"))
+    if k == "orc_sink":
+        from blaze_tpu_torch.ops.sink import OrcSinkExec
+        return OrcSinkExec(child, _sink_path(d))
     if k == "sort":
         specs = [sort_spec_from_dict(s, in_schema) for s in d["specs"]]
         return SortExec(child, specs, fetch=d.get("fetch"))
@@ -187,6 +196,49 @@ def create_plan(d: Dict[str, Any]) -> ExecutionPlan:
         return LocalShuffleExchange(child, part,
                                     stage_id=d.get("stage_id", 0))
     return ShuffleWriterExec(child, part, d["data_file"], d["index_file"])
+
+
+def _sink_path(d: Dict[str, Any]) -> str:
+    """A sink's output: a direct `path`, else a host-registered FS
+    resource (ref NativeParquetSinkUtils through the JVM resource map,
+    jni_bridge.rs:452-453), else the resource id itself."""
+    if d.get("path"):
+        return d["path"]
+    rid = d.get("fs_resource_id", "")
+    from blaze_tpu_torch.bridge.resource import get_resource
+    resolved = get_resource(rid)
+    return resolved if resolved is not None else rid
+
+
+def _create_kafka_scan(d: Dict[str, Any]) -> ExecutionPlan:
+    """(ref flink/kafka_scan_exec.rs:81 + kafka_mock_scan_exec.rs) The
+    protobuf format hands the decoded `format_config_json` dict to the
+    deserializer as its message factory, as the JAX planner does: every
+    record then decodes to a row of nulls (ROADMAP Queue 3)."""
+    from blaze_tpu_torch.ops.kafka import (JsonDeserializer, KafkaRecord,
+                                           KafkaScanExec, MockKafkaScanExec,
+                                           PbDeserializer)
+    schema = schema_from_dict(d["schema"])
+    fmt = d.get("format", "json")
+    if fmt == "json":
+        deser = JsonDeserializer(schema)
+    elif fmt == "protobuf":
+        cfg = json.loads(d.get("format_config_json") or "{}")
+        deser = PbDeserializer(schema, cfg)
+    else:
+        raise ValueError(f"unknown kafka format {fmt!r}")
+    ts_field = d.get("event_time_field")
+    mock = d.get("mock_data_json_array")
+    if mock:
+        rows = json.loads(mock)
+        recs = [KafkaRecord(value=json.dumps(r).encode("utf-8"), offset=i)
+                for i, r in enumerate(rows)]
+        return MockKafkaScanExec(schema, deser, [recs],
+                                 event_time_field=ts_field)
+    source = d.get("operator_id") or d.get("topic")
+    return KafkaScanExec(schema, deser, f"kafka://{source}",
+                         d.get("num_partitions", 1),
+                         event_time_field=ts_field)
 
 
 def _join_from_dict(d: Dict[str, Any]) -> ExecutionPlan:

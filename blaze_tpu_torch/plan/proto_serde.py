@@ -6,7 +6,8 @@ Maps proto messages <-> the plan-IR dicts that `plan/planner.py`
 the same bytes decode to equal dicts in both.  Node kinds: parquet_scan
 (with its pruning predicates, ANDed into one `predicate`, and the
 partition schema with each file's partition values), ipc_reader,
-ffi_reader, empty_partitions, debug, ipc_writer, coalesce_batches,
+ffi_reader, empty_partitions, kafka_scan, debug, ipc_writer,
+coalesce_batches, parquet_sink, orc_sink,
 filter, projection, agg (hash_agg/sort_agg), sort, limit, union,
 shuffle_writer, the joins (sort_merge_join, hash_join,
 broadcast_join, with join type, build side, broadcast_id /
@@ -696,6 +697,19 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
         return {"kind": "empty_partitions",
                 "schema": schema_from_proto(n.empty_partitions.schema),
                 "num_partitions": int(n.empty_partitions.num_partitions)}
+    if kind == "kafka_scan":
+        ks = n.kafka_scan
+        return {"kind": "kafka_scan",
+                "schema": schema_from_proto(ks.schema),
+                "topic": ks.kafka_topic,
+                "properties_json": ks.kafka_properties_json,
+                "batch_size": int(ks.batch_size),
+                "startup_mode": pb.KafkaStartupMode.Name(ks.startup_mode)
+                .lower(),
+                "operator_id": ks.auron_operator_id,
+                "format": pb.KafkaFormat.Name(ks.data_format).lower(),
+                "format_config_json": ks.format_config_json,
+                "mock_data_json_array": ks.mock_data_json_array}
     if kind == "debug":
         return {"kind": "debug", "input": plan_from_proto(n.debug.input),
                 "tag": n.debug.debug_id}
@@ -768,6 +782,12 @@ def plan_from_proto(n: pb.PhysicalPlanNode) -> Dict[str, Any]:
                 "names": list(n.rename_columns.renamed_column_names)}
     if kind == "generate":
         return _generate_from_proto(n.generate)
+    if kind in ("parquet_sink", "orc_sink"):
+        sk = getattr(n, kind)
+        return {"kind": kind, "input": plan_from_proto(sk.input),
+                "fs_resource_id": sk.fs_resource_id,
+                "num_dyn_parts": int(sk.num_dyn_parts),
+                "props": {p.key: p.value for p in sk.prop}}
     raise NotImplementedError(f"plan node {kind!r} {_LATER}")
 
 
@@ -1065,6 +1085,27 @@ def plan_to_proto(d: Dict[str, Any]) -> pb.PhysicalPlanNode:
         return n
     if k == "generate":
         return _generate_to_proto(d)
+    if k == "kafka_scan":
+        ks = n.kafka_scan
+        ks.kafka_topic = d.get("topic", "")
+        ks.kafka_properties_json = d.get("properties_json", "")
+        ks.schema.CopyFrom(schema_to_proto(d["schema"]))
+        ks.batch_size = d.get("batch_size", 0)
+        ks.startup_mode = getattr(pb, d.get("startup_mode",
+                                            "group_offset").upper())
+        ks.auron_operator_id = d.get("operator_id", "")
+        ks.data_format = getattr(pb, d.get("format", "json").upper())
+        ks.format_config_json = d.get("format_config_json", "")
+        ks.mock_data_json_array = d.get("mock_data_json_array", "")
+        return n
+    if k in ("parquet_sink", "orc_sink"):
+        sk = getattr(n, k)
+        sk.input.CopyFrom(plan_to_proto(d["input"]))
+        sk.fs_resource_id = d.get("fs_resource_id", d.get("path", ""))
+        sk.num_dyn_parts = d.get("num_dyn_parts", 0)
+        for key, value in d.get("props", {}).items():
+            sk.prop.add(key=key, value=value)
+        return n
     raise NotImplementedError(f"plan kind {k!r} {_LATER}")
 
 
@@ -1117,7 +1158,7 @@ def _output_names_of(d: Dict[str, Any]) -> List[str]:
         if d.get("projection"):
             return list(d["projection"])
         return [f["name"] for f in d["schema"]["fields"]]
-    if k == "ipc_reader":
+    if k in ("ipc_reader", "kafka_scan"):
         return [f["name"] for f in d["schema"]["fields"]]
     if k in ("project", "filter_project", "rename_columns", "expand"):
         return list(d["names"])

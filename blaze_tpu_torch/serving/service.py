@@ -143,7 +143,9 @@ class QueryService:
     admission and cancellation against synthetic work; the default runs
     the staged DagScheduler, on the configured device (`auron.torch.device`,
     CUDA unless the caller asks for the CPU): constructing the default
-    service without a visible card raises."""
+    service without a visible card raises.  Where a card is visible every
+    executor, injected or not, runs on its slot's leased stream when the
+    configured device is CUDA."""
 
     def __init__(self, max_concurrent: Optional[int] = None,
                  max_queue: Optional[int] = None,
@@ -163,9 +165,14 @@ class QueryService:
         self.admit_mem_bytes = (admit_mem_bytes if admit_mem_bytes
                                 is not None
                                 else config.SERVING_ADMIT_MEM_BYTES.get())
+        # the slot's stream rule holds for every executor, the injected
+        # ones too (a streaming query's epochs run there); only an
+        # injected executor on a host without a card runs bare
+        import torch
+
+        from blaze_tpu_torch.device import resolve
         self._device = None
-        if executor is None:
-            from blaze_tpu_torch.device import resolve
+        if executor is None or torch.cuda.is_available():
             self._device = resolve()
         self._executor = executor or _default_executor
         self._pool = ThreadPoolExecutor(

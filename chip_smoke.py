@@ -187,10 +187,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      four legs over seeded data, each static and then adaptive with the
      statistics store on, staged, the default thresholds (broadcast 8 MiB,
      coalesce 16 MiB, skew factor 4, 8 splits) unless a leg says other:
-     broadcast (a 2^17-key dim shuffle-joined with a 2^23-row fact in 8
+     broadcast (a 2^16-key dim shuffle-joined with a 2^22-row fact in 8
      files, 32 partitions; 2^18 and 2^24 before the serving phase came
-     in), skew (the fact's keys 70% on one key, 160 partitions,
-     broadcast threshold 0), coalesce (partial sum over 2^23 rows, 200
+     in, 2^17 and 2^23 before the streaming phase), skew (the fact's
+     keys 70% on one key, 160 partitions, broadcast threshold 0),
+     coalesce (partial sum over 2^22 rows, 200
      partitions, the final sum) and history
      (the broadcast leg's adaptive run, made in a fresh store, then one
      run more with auron.tpu.aqe.historySeed), then full q01 and q17 on
@@ -387,7 +388,31 @@ Phases, each printing its own lines; any failure exits non-zero:
      each equal to its oracle); then the leaks: device memory back to its level before the
      phase once the fold and program caches are dropped (their size
      printed), no service thread alive, no scratch dir left;
- 26. the paths' profile summary (with io_bytes per stage of every path:
+ 26. streaming (itest/nexmark.py, itest/streaming.py): Nexmark's bid
+     stream (Beam's NEXMark defaults, bids only), 2^20 bids over 4 Kafka
+     partitions from seed 7, each bid a JSON record; N1, the Flink front
+     door: q2 and a reduced q17 (COMPILE PLAN JSONs) through
+     convert/flink_runtime.py's FlinkMicroBatchOperator in micro-batches
+     of 32,768 records a partition, each plan partition a TaskDefinition
+     through the runtime on the card, every micro-batch held to its
+     pyarrow oracle (q2 in order, q17 grouped within each partition;
+     integers exact, avg the integer sum over the count), then a committed
+     epoch fed again to an operator over the same checkpoints, which must
+     run nothing and count one dup skip; N2, the stream:
+     StreamExecutor.from_flink_plan on the projection of auction and price
+     with q5's hop window (10 s sliding 2 s) keyed by auction (count(*),
+     max and sum of price), lateness 0, policy drop, polls of 8,192
+     records a partition (32 epochs and the final one), through
+     QueryService at maxConcurrent 1 with one stream-epoch and one
+     checkpoint-commit fault; fails unless the sink equals a pyarrow
+     group-by over the bids row for row (0 lost, 0 duplicated), no late
+     record, 2 recoveries, the stream counters agree (epochs,
+     checkpoints, sink commits, records, rows) and every decoded batch
+     was copied to the card; prints the bids a second, the epoch walls'
+     p50 and p99, the checkpoint bytes, the window state's peak bytes, the
+     device memory before, after and at its peak, and each kernel's
+     launches on N1 and N2;
+ 27. the paths' profile summary (with io_bytes per stage of every path:
      every task prunes its scans' columns and collapses Filter->Project
      chains, as the JAX package does; each path's expression programs:
      fused and eager batches, programs built, cache hits, graph
@@ -403,6 +428,7 @@ exits non-zero where torch sees none.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -412,6 +438,7 @@ import sys
 import tempfile
 import time
 import types
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -437,8 +464,9 @@ FRAMES = {}
 #: the adaptive phase's TPC-DS legs, by the label of the earlier static
 #: run whose frame each is held to
 ADAPTIVE_TPCDS = {"q01 full auto": "q01 full", "q17 linked auto": "q17"}
-ADAPTIVE_ROWS_LOG2 = 23     # the adaptive legs' fact rows: 2^23 (2^24
-                            # before the serving phase came in)
+ADAPTIVE_ROWS_LOG2 = 22     # the adaptive legs' fact rows: 2^22 (2^24
+                            # before the serving phase came in, 2^23
+                            # before the streaming phase)
 
 
 def phase(name):
@@ -487,28 +515,58 @@ def _expected_kernels(kernel, launches):
     return {pattern: launches[kernel] for pattern in KERNEL_NAMES[kernel]}
 
 
+@functools.cache
+def _card_consts():
+    """The CUDA device type and the stage ranges' prefixes."""
+    import torch
+    from blaze_tpu_torch.itest.q01 import STAGE_RANGE
+    from blaze_tpu_torch.plan.stages import STAGE_RANGE as DAG_RANGE
+    return torch.autograd.DeviceType.CUDA, (STAGE_RANGE, DAG_RANGE)
+
+
 def _on_card(e):
     """Whether a profiler event is work the card ran: a kernel, copy or
     memset.  A named range (torch.profiler.record_function, as
     itest/q01.py `run_stages` and plan/stages.py's DagScheduler open one
     per stage) also appears on the device's timeline and is left out."""
-    import torch
-    from blaze_tpu_torch.itest.q01 import STAGE_RANGE
-    from blaze_tpu_torch.plan.stages import STAGE_RANGE as DAG_RANGE
-    return (e.device_type == torch.autograd.DeviceType.CUDA
+    cuda, ranges = _card_consts()
+    return (e.device_type == cuda
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith((STAGE_RANGE, DAG_RANGE)))
+            and not e.name.startswith(ranges))
+
+
+def _once_a_profile(fn):
+    """fn(prof) made once a profile, and dropped with the profile (no
+    profile is kept alive past its step)."""
+    made = weakref.WeakKeyDictionary()
+
+    @functools.wraps(fn)
+    def once(prof):
+        if prof not in made:
+            made[prof] = fn(prof)
+        return made[prof]
+    return once
+
+
+@_once_a_profile
+def _card_kernels(prof):
+    """A profile's kernels on the card (copies and memsets left out)."""
+    return [e for e in prof.events()
+            if _on_card(e) and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@_once_a_profile
+def _averages(prof):
+    """A profile's key_averages()."""
+    return prof.key_averages()
 
 
 def _device_events(prof, names):
     """(device microseconds, launches) of the kernels named `names` in a
     profile (copies and memsets left out; "" names every kernel)."""
-    import torch
     us, count = 0.0, 0
-    for e in prof.events():
-        if (_on_card(e)
-                and not e.name.startswith(("Memcpy", "Memset"))
-                and any(k in e.name for k in names)):
+    for e in _card_kernels(prof):
+        if any(k in e.name for k in names):
             us += e.time_range.elapsed_us()
             count += 1
     return us, count
@@ -851,7 +909,7 @@ def fold_graph_parity(dev):
                   if _on_card(e))
     nodes = sum(1 for e in prof.events()
                 if _on_card(e))
-    launch_us = sum(e.self_cpu_time_total for e in prof.key_averages()
+    launch_us = sum(e.self_cpu_time_total for e in _averages(prof)
                     if e.key.startswith("cudaGraphLaunch"))
     print(f"fold replays profiled: host cudaLaunch* {launches['kernel']}, "
           f"cudaGraphLaunch {launches['graph']} ({launch_us:.1f} us of host "
@@ -934,7 +992,7 @@ def replay_cost(prog, replays=10):
 def _host_launches(prof):
     """Host calls that launched work in a profile: cudaLaunch* (kernels)
     and cudaGraphLaunch (graph replays), counted apart."""
-    averages = prof.key_averages()
+    averages = _averages(prof)
     return {"kernel": sum(e.count for e in averages
                           if e.key.startswith("cudaLaunch")),
             "graph": sum(e.count for e in averages
@@ -1737,7 +1795,7 @@ def profile_path(name, run, root, mode):
             print(f"  own    {t / 1e3:9.3f} ms  calls {c:6d}  "
                   f"{t / c:8.3f} us/call  "
                   f"{kname.split('::')[1].split('(')[0]}")
-    averages = prof.key_averages()
+    averages = _averages(prof)
     host = sorted((e for e in averages
                    if not e.key.startswith(q01.STAGE_RANGE)),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
@@ -1989,7 +2047,7 @@ def branches_path(root, sr_paths, lo, hi, mode, oracle, profiled=False):
                                     reverse=True)[:10]:
             print(f"  device {t / 1e3:9.3f} ms  calls {c:6d}  {kname[:90]}")
         from blaze_tpu_torch.itest.q01 import STAGE_RANGE
-        for e in sorted((e for e in prof.key_averages()
+        for e in sorted((e for e in _averages(prof)
                          if not e.key.startswith(STAGE_RANGE)),
                         key=lambda e: e.self_cpu_time_total,
                         reverse=True)[:10]:
@@ -6638,6 +6696,104 @@ def serving_phase(root, mix, smi):
     return out
 
 
+STREAM_BIDS_LOG2 = 20      # Nexmark bids of the streaming phase
+STREAM_SEED = 7
+
+
+def streaming_phase(root, smi):
+    """The Flink front door and the streaming runtime on the card
+    (itest/nexmark.py, itest/streaming.py): Nexmark's bid stream, 2^20
+    bids over 4 Kafka partitions from a seed; N1, q2 and a reduced q17
+    through FlinkMicroBatchOperator in micro-batches of auron.batch.size
+    records a partition, every micro-batch against its oracle, and the
+    replay of a committed epoch; N2, the hop-windowed stream (10 s,
+    sliding 2 s) through QueryService at maxConcurrent 1 with one
+    stream-epoch and one checkpoint-commit fault, its sink against a
+    pyarrow group-by.  The kernels' launches are counted on each path."""
+    import torch
+    from blaze_tpu_torch.bridge import device_stats
+    from blaze_tpu_torch.itest import nexmark
+    from blaze_tpu_torch.itest import streaming as ST
+    t_phase = time.perf_counter()
+    phase(f"streaming: Nexmark's bid stream, 2^{STREAM_BIDS_LOG2} bids over "
+          f"{nexmark.N_PARTITIONS} Kafka partitions (seed {STREAM_SEED}); "
+          f"N1 q2 and a reduced q17 through the Flink front door, N2 the "
+          f"hop-windowed stream through QueryService with two faults")
+    t0 = time.perf_counter()
+    stream = nexmark.generate_bids(1 << STREAM_BIDS_LOG2, seed=STREAM_SEED)
+    gen_s = time.perf_counter() - t0
+    work = os.path.join(root, "streaming")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    out = {"generate_s": gen_s, "bids": stream.num_bids,
+           "json_bytes_per_bid": stream.json_bytes / stream.num_bids,
+           "decode_records_per_s": ST.decode_rate(stream)}
+    failures = []
+    for name, run in (("N1", lambda: ST.run_n1(stream, work)),
+                      ("N2", lambda: ST.run_n2(stream, work))):
+        before = device_stats.snapshot()
+        _zero_launches()
+        r = run()
+        torch.cuda.synchronize()
+        r["launches"] = _read_launches()
+        delta = device_stats.delta(before)
+        r["h2d_transfers"] = delta["h2d_transfers"]
+        r["h2d_bytes"] = delta["h2d_bytes"]
+        r["memory_after"] = torch.cuda.memory_allocated()
+        failures += r.pop("failures")
+        out[name] = r
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["memory_before"] = mem0
+    n1, n2 = out["N1"], out["N2"]
+    # each decoded batch crosses to the card in one copy: q2 scans each
+    # partition's micro-batch as one batch and copies nothing else; N2
+    # scans each partition's poll, its data epochs and the one replayed
+    # after the checkpoint-commit fault (the stream-epoch fault comes
+    # before the poll); q17's generic aggregation adds its own copies
+    q2_batches = n1["micro_batches"] * nexmark.N_PARTITIONS
+    n2_batches = (n2["data_epochs"] + 1) * nexmark.N_PARTITIONS
+    if n1["q2"]["h2d_transfers"] != q2_batches or \
+            n2["h2d_transfers"] != n2_batches:
+        failures.append(f"not one copy a decoded batch: q2 "
+                        f"{n1['q2']['h2d_transfers']} for {q2_batches}, N2 "
+                        f"{n2['h2d_transfers']} for {n2_batches}")
+    if failures:
+        raise SystemExit("streaming: " + "; ".join(failures))
+    out["wall_s"] = time.perf_counter() - t_phase
+    for k in ("q2", "q17"):
+        r = n1[k]
+        print(f"streaming N1 {k}: {r['equal_micro_batches']} of "
+              f"{n1['micro_batches']} micro-batches equal to the oracle, "
+              f"{r['rows']} rows, {r['wall_s']:.3f} s, {r['bids_per_s']:.0f}"
+              f" bids/s, micro-batch walls "
+              f"{[round(w, 3) for w in r['walls_s']]}")
+    print(f"streaming N1 replay of epoch 0: {n1['replay']}; copies to the "
+          f"card: q2 {n1['q2']['h2d_transfers']} for {q2_batches} scanned "
+          f"batches, q17 {n1['q17']['h2d_transfers']} (its aggregation's "
+          f"outputs too), {n1['h2d_bytes']} bytes; launches "
+          f"{n1['launches']}")
+    print(f"streaming N2: {n2['epochs']} epochs ({n2['data_epochs']} with "
+          f"records), {n2['wall_s']:.3f} s, {n2['bids_per_s']:.0f} bids/s, "
+          f"epoch walls p50 {n2['epoch_ms_p50']:.1f} ms p99 "
+          f"{n2['epoch_ms_p99']:.1f} ms, recoveries "
+          f"{n2['summary']['recoveries']} ({n2['recovery_ms']} ms) at epochs "
+          f"{n2['fault_epochs']}, sink {n2['sink_rows']} rows = oracle "
+          f"{n2['oracle_rows']} (lost {n2['lost']}, duplicated "
+          f"{n2['duplicated']}), late {n2['counters']['stream_late_records']},"
+          f" checkpoint bytes {n2['checkpoint_bytes']}, window-state peak "
+          f"{n2['window_state_peak_bytes']} bytes; copies to the card "
+          f"{n2['h2d_transfers']} for {n2_batches} scanned batches; launches "
+          f"{n2['launches']}")
+    print(f"streaming phase {out['wall_s']:.1f} s ({smi}): bids generated in "
+          f"{gen_s:.1f} s ({out['json_bytes_per_bid']:.1f} JSON bytes a "
+          f"bid), the JSON decode alone {out['decode_records_per_s']:.0f} "
+          f"records/s; device memory {mem0} before, {n1['memory_after']} after "
+          f"N1, {n2['memory_after']} after N2, peak {out['peak_bytes']}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6796,6 +6952,9 @@ def main():
         serving.update(serving_checks)
         for k, v in serving["launches"].items():
             by_path[f"serving {k}"] = v
+        streaming = streaming_phase(root, smi)
+        for k in ("N1", "N2"):
+            by_path[f"streaming {k}"] = streaming[k]["launches"]
         ORACLES.clear()
         relayout = dict_relayout_probe(dev)
         _loop_mode("auto")
@@ -7135,6 +7294,18 @@ def main():
         f"streams "
         f"{serving['private_streams']}; memory "
         f"{serving['memory']}")
+    s1, s2 = streaming["N1"], streaming["N2"]
+    print(f"streaming phase {streaming['wall_s']:.1f} s ({smi}): N1 q2 "
+          f"{s1['q2']['wall_s']:.3f} s, q17 {s1['q17']['wall_s']:.3f} s over "
+          f"{s1['micro_batches']} micro-batches, every one equal to its "
+          f"oracle, the replay ran nothing ({s1['replay']['dup_skips']} dup "
+          f"skip); N2 {s2['wall_s']:.3f} s, {s2['bids_per_s']:.0f} bids/s, "
+          f"{s2['epochs']} epochs, p50 {s2['epoch_ms_p50']:.1f} ms, p99 "
+          f"{s2['epoch_ms_p99']:.1f} ms, {s2['summary']['recoveries']} "
+          f"recoveries, sink = oracle ({s2['sink_rows']} rows), checkpoint "
+          f"bytes {s2['checkpoint_bytes']}, window-state peak "
+          f"{s2['window_state_peak_bytes']} bytes, device peak "
+          f"{streaming['peak_bytes']} bytes")
     print("expression programs by path (fused and eager batches, programs "
           "built, cache hits, graph captures, capture ms, replays): "
           + "; ".join(f"{k} {p['expr']}" for k, p in by_path.items()))
@@ -7179,7 +7350,7 @@ def main():
                       "wire_kinds": wire, "staging": staging,
                       "q70": q70, "row_order_lanes": lanes,
                       "expressions": exprs, "adaptive": adaptive,
-                      "serving": serving,
+                      "serving": serving, "streaming": streaming,
                       "io_bytes": io_bytes,
                       "dict_relayout": relayout, "crc32c": crc}))
     print(json.dumps({"kernels": kernels}))

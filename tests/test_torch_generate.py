@@ -267,9 +267,7 @@ def test_json_tuple_raises_naming_its_item(tmp_path):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("orc_sink", "item 16"), ("orc_scan", "item 16"),
-    ("parquet_sink", "item 16"), ("kafka_scan", "item 16"),
-    ("rss_shuffle_writer", "item 16")])
+    ("orc_scan", "item 16"), ("rss_shuffle_writer", "item 16")])
 def test_unported_kinds_name_their_item(kind, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         t_create({"kind": kind})

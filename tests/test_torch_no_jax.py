@@ -65,3 +65,22 @@ def test_the_query_service_and_the_fault_engine_are_walked():
             "blaze_tpu_torch.serving.progress",
             "blaze_tpu_torch.serving.service", "blaze_tpu_torch.faults",
             "blaze_tpu_torch.itest.serving"} <= names
+
+
+def test_the_streaming_modules_are_walked():
+    """The import probe above reaches the Flink front door, the Kafka scan,
+    the sinks, the streaming runtime and the Nexmark paths."""
+    import pkgutil
+
+    import blaze_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(blaze_tpu_torch.__path__,
+                                                   "blaze_tpu_torch.")}
+    assert {"blaze_tpu_torch.convert.flink",
+            "blaze_tpu_torch.convert.flink_runtime",
+            "blaze_tpu_torch.ops.kafka", "blaze_tpu_torch.ops.sink",
+            "blaze_tpu_torch.streaming",
+            "blaze_tpu_torch.streaming.checkpoint",
+            "blaze_tpu_torch.streaming.executor",
+            "blaze_tpu_torch.streaming.sink",
+            "blaze_tpu_torch.itest.nexmark",
+            "blaze_tpu_torch.itest.streaming"} <= names

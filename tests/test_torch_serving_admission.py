@@ -203,6 +203,38 @@ def test_the_default_service_needs_the_configured_device():
         tconf.conf.unset(tconf.TORCH_DEVICE.key)
 
 
+@pytest.mark.parametrize("name,leased", [("cuda", True), ("cpu", False)])
+def test_an_injected_executor_takes_the_slot_stream_where_a_card_is(
+        monkeypatch, name, leased):
+    """Where a card is visible every executor, injected or not, runs
+    through the slot's stream lease when the configured device is CUDA
+    (the lease itself is stubbed: there is no card here)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tconf.conf.set(tconf.TORCH_DEVICE.key, name)
+    on_stream = []
+
+    def own_stream(self, plan, ctx, handle):
+        on_stream.append(self._device.type)
+        return self._executor(plan, ctx, handle)
+
+    monkeypatch.setattr(tservice.QueryService, "_on_own_stream", own_stream)
+    try:
+        with tservice.QueryService(executor=lambda p, c, h: "ran") as svc:
+            assert svc.submit({}).result(timeout=WAIT) == "ran"
+    finally:
+        tconf.conf.unset(tconf.TORCH_DEVICE.key)
+    assert on_stream == (["cuda"] if leased else [])
+
+
+def test_an_injected_executor_runs_bare_without_a_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with tservice.QueryService(executor=lambda p, c, h: "ran") as svc:
+        assert svc._device is None
+        assert svc.submit({}).result(timeout=WAIT) == "ran"
+
+
 def test_the_config_keys_have_the_jax_names_and_defaults():
     from blaze_tpu import config as jconf
     for name in ("SERVING_MAX_CONCURRENT", "SERVING_MAX_QUEUE",

@@ -211,6 +211,28 @@ def test_every_registered_name_is_emitted_by_a_port_path(tmp_path,
         with faults.scoped(("admit", dict(at=(1,)))):
             with pytest.raises(QueryRejected):
                 svc.submit({"kind": "noop"})
+    # a stream with one failed epoch: stream_epoch, stream_recovery
+    import json as _json
+    from blaze_tpu_torch.ops.kafka import KafkaRecord
+    from blaze_tpu_torch.ops.window import EventTimeWindowSpec
+    from blaze_tpu_torch.streaming import (MemoryStreamSource,
+                                           StreamExecutor,
+                                           StreamWindowConfig)
+    recs = [KafkaRecord(value=_json.dumps({"v": i}).encode(), offset=i,
+                        timestamp_ms=100 * i) for i in range(6)]
+    stream = StreamExecutor(
+        {"kind": "kafka_scan", "topic": "t", "format": "json",
+         "schema": {"fields": [{"name": "v", "type": {"id": "int64"},
+                                "nullable": True}]}},
+        MemoryStreamSource([recs]),
+        StreamWindowConfig(spec=EventTimeWindowSpec(size_ms=200)),
+        sink_dir=str(tmp_path / "stream-sink"),
+        checkpoint_dir=str(tmp_path / "stream-ckpt"),
+        max_records_per_poll=2)
+    # (the local mode: the wire drops the scan's event-time field)
+    tconf.conf.unset(tconf.DAG_SINGLE_TASK_BYTES.key)
+    with faults.scoped(("stream-epoch", dict(at=(1,)))):
+        assert stream.run()["recoveries"] == 1
     # an nvcc build: kernel_build
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path))

@@ -69,8 +69,8 @@ def test_same_bytes_decode_to_equal_dicts(i):
 def test_out_of_slice_nodes_raise():
     """coalesce_batches, out of slice until the plan-kinds slice, encodes
     to the JAX bytes, decodes to the JAX dict and runs as the JAX node
-    over the same rows; a kind still unported (parquet_sink, ROADMAP
-    item 16) raises both ways."""
+    over the same rows; a kind still unported (rss_shuffle_writer,
+    ROADMAP item 16) raises both ways."""
     import pyarrow as pa
     from blaze_tpu.bridge.resource import put_resource as j_put
     from blaze_tpu.plan.planner import create_plan as j_create
@@ -102,8 +102,10 @@ def test_out_of_slice_nodes_raise():
     assert [b.num_rows for b in got] == [b.num_rows for b in want] == \
         [1600, 2005]
     assert all(g.equals(w) for g, w in zip(got, want))
-    sink = {"plan": {"kind": "parquet_sink", "fs_resource_id": "fs",
-                     "num_dyn_parts": 0, "props": {}, "input": inp}}
+    sink = {"plan": {"kind": "rss_shuffle_writer", "rss_resource_id": "rss",
+                     "partitioning": {"kind": "single",
+                                      "num_partitions": 1},
+                     "input": inp}}
     with pytest.raises(NotImplementedError, match="later slice"):
         TP.task_definition_to_bytes(sink)
     with pytest.raises(NotImplementedError, match="later slice"):

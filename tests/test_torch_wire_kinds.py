@@ -163,8 +163,9 @@ def test_new_kinds_round_trip_to_the_jax_dict(name):
 
 
 def test_a_kind_still_unported_raises_on_the_wire():
-    td = {"plan": {"kind": "parquet_sink", "fs_resource_id": "fs",
-                   "num_dyn_parts": 0, "props": {}, "input": _ffi()}}
+    td = {"plan": {"kind": "rss_shuffle_writer", "rss_resource_id": "rss",
+                   "partitioning": {"kind": "single", "num_partitions": 1},
+                   "input": _ffi()}}
     with pytest.raises(NotImplementedError, match="later slice"):
         TP.task_definition_to_bytes(td)
     with pytest.raises(NotImplementedError, match="later slice"):
